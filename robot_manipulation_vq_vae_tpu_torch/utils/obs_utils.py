@@ -1,0 +1,75 @@
+"""Observation-modality and encoder-core registries (counterpart of the JAX
+package's ``utils/obs_utils.py``).
+
+The port keeps its own registries: observation key -> modality, encoder core
+and randomizer class name -> class, and the default per-modality encoder
+kwargs from ``config.observation.encoder``. Images are channels-last
+([..., H, W, C]) at every public function, as in the JAX package.
+"""
+
+from copy import deepcopy
+
+# obs key (e.g. "robot0_eye_in_hand_image") -> modality name (e.g. "rgb")
+OBS_KEYS_TO_MODALITIES = None
+# encoder core / randomizer class registries (name -> class)
+OBS_ENCODER_CORES = {}
+OBS_RANDOMIZERS = {}
+# default per-modality encoder kwargs (set from config)
+DEFAULT_ENCODER_KWARGS = None
+
+LANG_EMB_KEY = "lang_emb"
+
+
+def register_encoder_core(cls):
+    assert cls.__name__ not in OBS_ENCODER_CORES
+    OBS_ENCODER_CORES[cls.__name__] = cls
+    return cls
+
+
+def register_randomizer(cls):
+    assert cls.__name__ not in OBS_RANDOMIZERS
+    OBS_RANDOMIZERS[cls.__name__] = cls
+    return cls
+
+
+def initialize_obs_utils_with_obs_specs(obs_modality_specs):
+    """obs_modality_specs: (list of) dict of dicts {group: {modality: [keys]}}."""
+    global OBS_KEYS_TO_MODALITIES
+    OBS_KEYS_TO_MODALITIES = {}
+    if isinstance(obs_modality_specs, dict):
+        obs_modality_specs = [obs_modality_specs]
+    for spec in obs_modality_specs:
+        for modalities in spec.values():
+            for modality, keys in modalities.items():
+                for k in keys:
+                    prev = OBS_KEYS_TO_MODALITIES.get(k)
+                    if prev is not None and prev != modality:
+                        raise ValueError(
+                            f"obs key {k} registered with conflicting "
+                            f"modalities {prev} vs {modality}"
+                        )
+                    OBS_KEYS_TO_MODALITIES[k] = modality
+
+
+def initialize_default_obs_encoder(obs_encoder_config):
+    """Store per-modality encoder kwargs from ``config.observation.encoder``."""
+    global DEFAULT_ENCODER_KWARGS
+    DEFAULT_ENCODER_KWARGS = {
+        modality: deepcopy(cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg))
+        for modality, cfg in obs_encoder_config.items()
+    }
+
+
+def initialize_obs_utils_with_config(config):
+    """Parse the observation section of a full config."""
+    initialize_obs_utils_with_obs_specs([config.observation.modalities.to_dict()])
+    initialize_default_obs_encoder(config.observation.encoder)
+
+
+def obs_encoder_kwargs_from_config(obs_encoder_config):
+    """Flatten the observation.encoder config into plain dicts."""
+    return deepcopy(
+        obs_encoder_config.to_dict()
+        if hasattr(obs_encoder_config, "to_dict")
+        else dict(obs_encoder_config)
+    )
