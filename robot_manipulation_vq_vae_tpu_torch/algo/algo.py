@@ -1,9 +1,11 @@
 """Algorithm base class and registry (counterpart of the JAX package's
 ``algo/algo.py``): ``register_algo_factory_func`` / ``algo_factory`` and a
-minimal ``Algo`` that owns its networks as ``nn.Module``s on one device.
+minimal ``Algo`` that owns its networks as ``nn.Module``s on one device, and
+their optimizers.
 
-Only serving is ported: the networks are built in eval mode, and
-``train_on_batch`` comes with the training slice.
+The networks rest in eval mode, which serving uses; ``train_on_batch``
+switches them to train mode for one step (or keeps eval mode under
+``no_grad`` when validating) and back.
 """
 
 from collections import OrderedDict
@@ -11,7 +13,9 @@ from collections import OrderedDict
 import torch
 
 from robot_manipulation_vq_vae_tpu_torch import resolve_device
+from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
 
 # algo_name -> factory func (algo_config -> (cls, kwargs))
 REGISTERED_ALGOS = {}
@@ -31,7 +35,9 @@ def algo_factory(algo_name, config, obs_key_shapes, ac_dim, device=None,
                  use_kernels=True):
     """Instantiate the algo class for @algo_name on @device (``cuda`` unless
     given; raises when there is no card and no device). ``use_kernels=False``
-    runs the plain PyTorch versions of the CUDA kernels instead."""
+    runs the plain PyTorch versions of the CUDA kernels instead. The stem
+    pool's kernels run only where ``config.train.pallas_pool`` asks for the
+    recorded-argmax pool."""
     if algo_name not in REGISTERED_ALGOS:
         raise ValueError(
             f"algo '{algo_name}' not registered; have {sorted(REGISTERED_ALGOS)}"
@@ -60,7 +66,10 @@ def device_process_obs(obs_dict, device):
 
 class Algo:
     """Base algorithm: networks in ``self.nets`` (an ``nn.ModuleDict``) on
-    ``self.device``, seeded from ``config.train.seed``."""
+    ``self.device``, seeded from ``config.train.seed``; an optimizer and a
+    learning-rate schedule per ``optim_params`` entry that names a network;
+    ``self.generator`` (on the device) draws the training randomness the
+    networks take explicitly (the random crops)."""
 
     def __init__(self, algo_config, obs_config, global_config, obs_key_shapes,
                  ac_dim, device=None, use_kernels=True):
@@ -79,8 +88,14 @@ class Algo:
         with torch.random.fork_rng(devices=[]):
             torch.random.default_generator.manual_seed(seed)
             self._create_networks()
+        BaseNets.set_stem_pool(
+            self.nets, global_config.train.get("pallas_pool", False), use_kernels
+        )
         self.nets.to(self.device).eval()
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.max_grad_norm = global_config.train.get("max_grad_norm", None)
+        self.optimizers, self.lr_schedulers = {}, {}
+        self._create_optimizers()
 
     def _create_shapes(self, obs_keys, obs_key_shapes):
         """Split obs_key_shapes into obs / goal dicts by the modality config."""
@@ -100,9 +115,44 @@ class Algo:
     def _create_networks(self):
         raise NotImplementedError
 
+    def _create_optimizers(self):
+        """An optimizer and its schedule for each ``optim_params`` entry whose
+        key is a network."""
+        for k, optim_params in self.algo_config.optim_params.items():
+            if k in self.nets:
+                self.optimizers[k], self.lr_schedulers[k] = (
+                    OptimUtils.optimizer_from_optim_params(
+                        self.nets[k].parameters(), optim_params
+                    )
+                )
+
+    def _step(self, name, params, grads):
+        """One step of optimizer @name with @grads on @params, then one step
+        of its schedule, if it has one."""
+        for p, g in zip(params, grads):
+            p.grad = g
+        self.optimizers[name].step()
+        if name in self.lr_schedulers:
+            self.lr_schedulers[name].step()
+
     def train_on_batch(self, batch, epoch, validate=False):
-        raise NotImplementedError(
-            "training is not ported yet: ROADMAP.md queues 'LipVQ backward and "
-            "the paper-path training step' as the next slice"
-        )
+        """One training step on @batch, the networks in train mode; with
+        @validate, the same losses in eval mode under ``no_grad``, and
+        nothing updated. The networks end in eval mode either way. Returns
+        {"losses": {name: 0-d tensor}}."""
+        if validate:
+            self.nets.eval()
+            with torch.no_grad():
+                return {"losses": self._validate_step(batch)}
+        self.nets.train()
+        try:
+            return {"losses": self._train_step(batch)}
+        finally:
+            self.nets.eval()
+
+    def _train_step(self, batch):
+        raise NotImplementedError
+
+    def _validate_step(self, batch):
+        raise NotImplementedError
 

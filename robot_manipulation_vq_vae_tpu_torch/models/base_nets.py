@@ -2,7 +2,11 @@
 :153-221, 293-335, 720-785): the FiLM ResNet-18 trunk and SpatialSoftmax.
 
 Images reach the port channels-last ([B, H, W, C]) as in the JAX package;
-``VisualCore`` permutes them to NCHW once, and everything here runs NCHW.
+``VisualCore`` permutes them to contiguous NCHW once, and everything here
+runs NCHW. BatchNorm follows Flax's ``nn.BatchNorm`` in training (momentum
+0.99, the biased batch variance in the running update), not torch's
+defaults. The stem's max pool is ``F.max_pool2d`` unless
+``set_stem_pool`` selects the recorded-argmax kernels (``train.pallas_pool``).
 Parameters keep the reference torch layout and key names
 (``_base_block``, ``_conv_blocks``, ``_film_layers``, torchvision's
 ``conv1``/``bn1``/``downsample``), so reference checkpoints map one to one.
@@ -18,8 +22,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from robot_manipulation_vq_vae_tpu_torch.ops.stem_pool import max_pool_3x3_s2
+
 # Flax's BatchNorm epsilon, the same as torch's default.
 BN_EPS = 1e-5
+# Flax's BatchNorm momentum: running = 0.99 running + 0.01 batch. (The torch
+# reference robomimic keeps torch's 0.1; the JAX package, and so the port,
+# follows Flax.)
+FLAX_BN_MOMENTUM = 0.99
 
 
 def transformer_args_from_config(transformer_config):
@@ -49,6 +59,25 @@ def _conv(cin, cout, k, stride=1, padding=0, bias=False):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax's training semantics: the batch is
+    normalized by its own mean and biased variance, as in torch, but the
+    running statistics move by 1 - 0.99 towards the batch mean and the
+    biased batch variance (torch would use the unbiased one)."""
+
+    def __init__(self, num_features):
+        super().__init__(num_features, eps=BN_EPS, momentum=1.0 - FLAX_BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class BasicBlock(nn.Module):
     """torchvision BasicBlock: 3x3-BN-ReLU-3x3-BN + skip, final ReLU."""
 
@@ -58,14 +87,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin, features, stride=1):
         super().__init__()
         self.conv1 = _conv(cin, features, 3, stride, 1)
-        self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = _conv(features, features, 3, 1, 1)
-        self.bn2 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(features)
         self.downsample = None
         if stride != 1 or cin != features:
             self.downsample = nn.Sequential(
                 _conv(cin, features, 1, stride),
-                nn.BatchNorm2d(features, eps=BN_EPS),
+                BatchNorm2d(features),
             )
 
     def jax_names(self):
@@ -81,6 +110,34 @@ class BasicBlock(nn.Module):
         return F.relu(h + identity)
 
 
+class StemMaxPool(nn.Module):
+    """The stem's 3x3 / stride-2 / pad-1 max pool. ``recorded_argmax`` False
+    (the default, as the JAX stem's ``nn.max_pool``): ``F.max_pool2d``. True
+    (``train.pallas_pool``): the recorded-argmax pair of
+    ``ops/stem_pool.py``, kernels 3 and 4 when ``use_kernel``, else their
+    plain versions; the same values, and on ties the gradient goes to the
+    same cell."""
+
+    def __init__(self):
+        super().__init__()
+        self.recorded_argmax = False
+        self.use_kernel = True
+
+    def forward(self, x):
+        if self.recorded_argmax:
+            return max_pool_3x3_s2(x, self.use_kernel)
+        return F.max_pool2d(x, 3, 2, 1)
+
+
+def set_stem_pool(module, recorded_argmax, use_kernel=True):
+    """Select the pool of every ResNet stem under @module (see
+    ``StemMaxPool``)."""
+    for m in module.modules():
+        if isinstance(m, StemMaxPool):
+            m.recorded_argmax = bool(recorded_argmax)
+            m.use_kernel = bool(use_kernel)
+
+
 class _ResNet18Stem(nn.Sequential):
     """conv7x7/2 + BN + ReLU + maxpool3x3/2 (torchvision stem); the reference
     names it ``_base_block``."""
@@ -90,9 +147,9 @@ class _ResNet18Stem(nn.Sequential):
     def __init__(self, cin=3):
         super().__init__(
             _conv(cin, 64, 7, 2, 3),
-            nn.BatchNorm2d(64, eps=BN_EPS),
+            BatchNorm2d(64),
             nn.ReLU(),
-            nn.MaxPool2d(3, 2, 1),
+            StemMaxPool(),
         )
 
 

@@ -1,10 +1,12 @@
 """GMM over actions (counterpart of the JAX package's ``models/distributions.py``
-:19-60): a mixture of diagonal Gaussians with explicit tensor math. Only
-sampling is ported; ``log_prob`` comes with the training slice."""
+:19-75): a mixture of diagonal Gaussians with explicit tensor math."""
 
+import math
 from dataclasses import dataclass
 
 import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 @dataclass
@@ -20,6 +22,24 @@ class GMMActionDistribution:
     means: torch.Tensor
     scales: torch.Tensor
     logits: torch.Tensor
+
+    def log_prob(self, actions):
+        """actions [..., A] -> log prob [...], as
+        MixtureSameFamily(Categorical(logits), Independent(Normal, 1))."""
+        x = actions[..., None, :]  # [..., 1, A]
+        comp_lp = -0.5 * (
+            (x - self.means) ** 2 / self.scales ** 2
+            + 2.0 * torch.log(self.scales) + _LOG_2PI
+        ).sum(-1)  # [..., M]
+        mix_lp = torch.log_softmax(self.logits, dim=-1)
+        return torch.logsumexp(comp_lp + mix_lp, dim=-1)
+
+    def index_time(self, t):
+        """The distribution at time step @t of a [B, T] batch."""
+        return GMMActionDistribution(
+            means=self.means[:, t], scales=self.scales[:, t],
+            logits=self.logits[:, t],
+        )
 
     def sample(self, generator=None, mode=None, eps=None):
         """One action per batch element. ``mode`` (the mixture component,

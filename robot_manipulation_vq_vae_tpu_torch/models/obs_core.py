@@ -1,9 +1,11 @@
 """Encoder cores and observation randomizers (counterpart of the JAX package's
-``models/obs_core.py``:57-143, 249-286): ``VisualCore``,
-``VisualCoreLanguageConditioned`` and the eval center crop of
-``CropRandomizer``. Images are channels-last at the public functions.
+``models/obs_core.py``:57-143, 233-286): ``VisualCore``,
+``VisualCoreLanguageConditioned`` and ``CropRandomizer`` (random crops in
+training, the center crop in eval). Images are channels-last at the public
+functions.
 """
 
+import torch
 import torch.nn as nn
 
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
@@ -53,7 +55,8 @@ class VisualCore(nn.Module):
         self.proj = nn.Linear(pooled[0] * pooled[1], feature_dimension)
 
     def forward(self, x, lang_emb=None):
-        x = self.backbone(x.permute(0, 3, 1, 2), lang_emb)
+        # contiguous NCHW: the trunk, and the stem pool's kernel, run NCHW
+        x = self.backbone(x.permute(0, 3, 1, 2).contiguous(), lang_emb)
         x = self.pool(x)
         return self.proj(x.flatten(1))
 
@@ -66,11 +69,24 @@ class VisualCoreLanguageConditioned(VisualCore):
         super().__init__(input_shape, backbone_class=backbone_class, **kwargs)
 
 
+def crop_at(images, hy, wx, crop_h, crop_w):
+    """Crops of @images [B, H, W, C] at the top-left corners (@hy, @wx), each
+    [B, N] int: [B, N, crop_h, crop_w, C], one batched gather. The offsets
+    are an argument so that a test can give the JAX package's
+    ``random_crop_hwc`` the same ones."""
+    b = images.shape[0]
+    rows = hy[..., None] + torch.arange(crop_h, device=images.device)   # [B, N, h]
+    cols = wx[..., None] + torch.arange(crop_w, device=images.device)   # [B, N, w]
+    batch = torch.arange(b, device=images.device)[:, None, None, None]
+    return images[batch, rows[..., :, None], cols[..., None, :]]
+
+
 @ObsUtils.register_randomizer
 class CropRandomizer:
-    """Crops of the image, pooled back after the core. Only the eval path, a
-    center crop, is ported: the random crops of training come with the
-    training slice. input_shape is (H, W, C)."""
+    """Crops of the image, pooled back after the core: in training @num_crops
+    random crops per image, their top-left corners drawn uniformly from
+    [0, H - crop_h] x [0, W - crop_w] with the caller's ``torch.Generator``;
+    in eval the center crop. input_shape is (H, W, C)."""
 
     def __init__(self, input_shape, crop_height=76, crop_width=76, num_crops=1,
                  pos_enc=False):
@@ -89,7 +105,21 @@ class CropRandomizer:
     def output_shape_in(self, input_shape=None):
         return [self.crop_height, self.crop_width, self.input_shape[2]]
 
-    def forward_in(self, x):
+    def forward_in(self, x, generator=None, train=False):
+        """[B, H, W, C] -> [B * num_crops, crop_h, crop_w, C] in training
+        (@generator required), [B, crop_h, crop_w, C] in eval."""
+        if train:
+            if generator is None:
+                raise ValueError("CropRandomizer needs a generator in training")
+            b, h, w = x.shape[:3]
+            shape = (b, self.num_crops)
+            hy = torch.randint(0, h - self.crop_height + 1, shape,
+                               generator=generator, device=generator.device)
+            wx = torch.randint(0, w - self.crop_width + 1, shape,
+                               generator=generator, device=generator.device)
+            out = crop_at(x, hy.to(x.device), wx.to(x.device),
+                          self.crop_height, self.crop_width)
+            return out.reshape((-1,) + tuple(out.shape[2:]))
         ch = (x.shape[-3] - self.crop_height) // 2
         cw = (x.shape[-2] - self.crop_width) // 2
         return x[..., ch:ch + self.crop_height, cw:cw + self.crop_width, :]

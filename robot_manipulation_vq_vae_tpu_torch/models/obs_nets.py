@@ -5,7 +5,10 @@
 Per-key encoder cores and randomizers are built from the same config-shaped
 dicts as in the JAX package (``observation.encoder.*``); features are
 concatenated in the order of the observation spec. Images are channels-last
-at the public functions. Only the eval forward is ported.
+at the public functions. In training, the randomizers draw from the
+``torch.Generator`` passed down from the algo, key by key in spec order, the
+query groups before the context group, as the JAX package draws its
+``randomizer`` rng; the order also fixes the order of BatchNorm's updates.
 """
 
 import numpy as np
@@ -88,12 +91,12 @@ class ObservationEncoder(nn.Module):
     def jax_names(self):
         return {f"core_{key}": f"obs_nets.{key}" for key in self.obs_nets}
 
-    def forward(self, obs_dict):
+    def forward(self, obs_dict, generator=None):
         feats = []
         for key, _ in self.spec:
             x = obs_dict[key]
             for rand in self.randomizers[key]:
-                x = rand.forward_in(x)
+                x = rand.forward_in(x, generator, self.training)
             if key in self.obs_nets:
                 core = self.obs_nets[key]
                 lang = isinstance(core, obs_core.VisualCoreLanguageConditioned)
@@ -132,7 +135,8 @@ class ICLObservationGroupEncoder(nn.Module):
     modalities only LipVQ (``vq_vae_enabled``) is ported; the others raise.
 
     forward returns (obs, context_obs, context_actions, vq_vae_loss); every
-    input is time-folded ([B*T, ...]) by the caller.
+    input is time-folded ([B*T, ...]) by the caller. The query groups are
+    encoded before the context group.
     """
 
     def __init__(self, observation_group_shapes, action_input_shape=12,
@@ -162,9 +166,10 @@ class ICLObservationGroupEncoder(nn.Module):
         names["action_network"] = "action_network"
         return names
 
-    def forward(self, inputs):
-        obs = torch.cat([self.nets[g](inputs[g]) for g in self.groups], dim=-1)
-        context_obs = self.nets["obs"](inputs["prompt"]["obs"])
+    def forward(self, inputs, generator=None):
+        obs = torch.cat([self.nets[g](inputs[g], generator) for g in self.groups],
+                        dim=-1)
+        context_obs = self.nets["obs"](inputs["prompt"]["obs"], generator)
         context_actions, vq_vae_loss = self.action_network(
             inputs["prompt"]["action"]
         )
@@ -265,12 +270,13 @@ class ICL_MIMO_Transformer(nn.Module):
         )
         self.decoder = ObservationDecoder(output_shapes, transformer_embed_dim)
 
-    def forward(self, **inputs):
+    def forward(self, generator=None, **inputs):
+        """@generator draws the randomizers' crops in training."""
         present = {g: inputs[g] for g in self.group_names
                    if inputs.get(g) is not None}
         present["prompt"] = inputs["prompt"]
         folded, b, t = TensorUtils.fold_time(present)
-        obs, ctx_obs, ctx_act, vq_loss = self.encoder(folded)
+        obs, ctx_obs, ctx_act, vq_loss = self.encoder(folded, generator)
 
         obs_emb = self.embedding(obs.reshape(b, t, -1))
         ctx_obs_emb = self.embedding(ctx_obs.reshape(b, t, -1))

@@ -48,7 +48,8 @@ class ICLTransformerActorNetwork(nn.Module):
     def _output_shapes(self):
         return [("action", (self.ac_dim,))]
 
-    def _forward_raw(self, obs_dict, context_obs, actions, goal_dict=None):
+    def _forward_raw(self, obs_dict, context_obs, actions, goal_dict=None,
+                     generator=None):
         kwargs = {"obs": obs_dict}
         if self.goal_shapes:
             if goal_dict is None:
@@ -56,7 +57,7 @@ class ICLTransformerActorNetwork(nn.Module):
             t = next(iter(obs_dict.values())).shape[1]
             kwargs["goal"] = TensorUtils.unsqueeze_expand_at(goal_dict, size=t, dim=1)
         kwargs["prompt"] = {"obs": context_obs, "action": actions}
-        return self.net(**kwargs)
+        return self.net(generator=generator, **kwargs)
 
 
 class ICLTransformerGMMActorNetwork(ICLTransformerActorNetwork):
@@ -78,17 +79,15 @@ class ICLTransformerGMMActorNetwork(ICLTransformerActorNetwork):
         return [("mean", (m, a)), ("scale", (m, a)), ("logits", (m,))]
 
     def forward_train(self, obs_dict, context_obs, actions=None, goal_dict=None,
-                      low_noise_eval=None):
-        """Returns (GMM distribution over [B, T], vq_vae_loss). Eval mode
-        (``self.training`` False) is the only ported mode."""
-        if self.training:
-            raise NotImplementedError(
-                "the training forward comes with the training slice (see ROADMAP.md)"
-            )
-        out = self._forward_raw(obs_dict, context_obs, actions, goal_dict)
+                      low_noise_eval=None, generator=None):
+        """Returns (GMM distribution over [B, T], vq_vae_loss). In training
+        (``self.training``) the scales are always softplus(scale) + min_std,
+        and @generator draws the random crops."""
+        out = self._forward_raw(obs_dict, context_obs, actions, goal_dict,
+                                generator)
         means = torch.tanh(out["mean"])
         lne = self.low_noise_eval if low_noise_eval is None else low_noise_eval
-        if lne:
+        if lne and not self.training:
             scales = torch.full_like(means, 1e-4)
         else:
             scales = _STD_ACTIVATIONS[self.std_activation](out["scale"]) + self.min_std

@@ -16,8 +16,8 @@ reference torch key names (``encoder.0``, ``to_latent.W``,
 ``quantizer.codebook``, ...).
 
 The nearest-code search runs through the CUDA assign kernel on a card
-(``ops/lipvq_kernel.py``); ``use_kernel=False`` selects the plain version
-explicitly.
+(``ops/lipvq_kernel.py``, differentiated by ``L2Nearest``);
+``use_kernel=False`` selects the plain version explicitly.
 """
 
 import math
@@ -69,9 +69,8 @@ class LFQQuantizer(nn.Module):
         self.use_kernel = use_kernel
 
     def forward(self, z_e):
-        """Returns (z_q, idx int32)."""
-        nearest = K.l2_nearest_cuda if self.use_kernel else K.l2_nearest_plain
-        idx, z_q = nearest(z_e.contiguous(), self.codebook)
+        """Returns (z_q, idx int32); z_q carries the codebook's gradient."""
+        idx, z_q = K.l2_nearest(z_e.contiguous(), self.codebook, self.use_kernel)
         return z_q, idx
 
     def lookup(self, idx):

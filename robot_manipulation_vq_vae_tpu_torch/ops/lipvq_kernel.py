@@ -24,154 +24,26 @@ Counterpart of the JAX package's ``ops/pallas/lipvq_kernel.py``:
   in shared memory and shares the streaming argmin with the assign kernel.
 
 Each wrapper runs its plain version on CPU tensors (the tests) and launches
-its kernel on CUDA tensors; it never falls back from the kernel. The kernels
-are forward only: the backward (a segment sum into the codebook) comes with
-the training slice, so the kernel path raises when a gradient is asked for.
+its kernel on CUDA tensors; it never falls back from the kernel. The raw
+launches are forward only and raise when a gradient is asked of them.
+Models differentiate the assignment through ``L2Nearest``
+(``l2_nearest``), whose backward is the TPU kernel's custom VJP
+(``lipvq_kernel.py:127-132``): no gradient for z, and the cotangent of z_q
+summed into the codebook rows by index (``index_add_``, as the TPU backward
+was plain XLA, ``segment_sum``).
 
-The kernels are compiled with ``nvcc`` at first use into ``build/`` at the
-root of the checkout, one shared library with a plain C interface per
-source, loaded with ``ctypes``. ``build_kernels()`` builds them all at once,
-one ``nvcc`` per source in parallel.
+The kernels are built by ``ops/cuda_build.py``.
 """
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
+    check_cuda_inputs,
+    launch,
+    on_cpu,
+    stream_of,
 )
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# library name -> (source, C entry point, its argument types)
-_KERNELS = {
-    "lipvq_assign": (
-        "lipvq_assign.cu", "lipvq_assign_launch",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    ),
-    "lipvq_roundtrip": (
-        "lipvq_roundtrip.cu", "lipvq_roundtrip_launch",
-        [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,
-         _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
-    ),
-}
-_HEADERS = ("lipvq_assign_core.cuh",)
-
-# Launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else.
-LAUNCHES = {name: 0 for name in _KERNELS}
-_LIBS = {}
-
-
-def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-# ---------------------------------------------------------------------------
-# build
-# ---------------------------------------------------------------------------
-
-def _nvcc():
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).is_file():
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def _library_path(name):
-    """build/lib<name>-<hash>.so, the hash over the sources and the flags, so
-    that an edited source never meets a stale library."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (_KERNELS[name][0],) + _HEADERS:
-        digest.update((CSRC_DIR / src).read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-
-
-def build_kernels(names=None):
-    """Compile (where not built yet) and load the named kernels, all kernels
-    by default, one nvcc per source in parallel. Returns the seconds taken."""
-    t0 = time.perf_counter()
-    names = [n for n in (names or _KERNELS) if n not in _LIBS]
-    pending = []
-    for name in names:
-        path = _library_path(name)
-        if path.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        log = path.with_suffix(".log")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / _KERNELS[name][0])]
-        with open(log, "w") as fh:
-            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
-        pending.append((name, proc, tmp, path, log))
-    failed = []
-    for name, proc, tmp, path, log in pending:
-        if proc.wait() != 0:
-            failed.append(f"{name}:\n{log.read_text()}")
-        else:
-            os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for name in names:
-        lib = ctypes.CDLL(str(_library_path(name)))
-        fn = getattr(lib, _KERNELS[name][1])
-        fn.argtypes = _KERNELS[name][2]
-        fn.restype = ctypes.c_int
-        lib.lipvq_error_string.argtypes = [ctypes.c_int]
-        lib.lipvq_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return time.perf_counter() - t0
-
-
-def build_log(name):
-    """nvcc's output (ptxas registers, shared memory, spills) for @name."""
-    log = _library_path(name).with_suffix(".log")
-    return log.read_text() if log.exists() else ""
-
-
-def _launch(name, *args):
-    if name not in _LIBS:
-        build_kernels([name])
-    lib = _LIBS[name]
-    err = getattr(lib, _KERNELS[name][1])(*args)
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {lib.lipvq_error_string(err).decode()}"
-        )
-    LAUNCHES[name] += 1
-
-
-def _check_cuda_inputs(name, tensors):
-    device = tensors[0].device
-    for t in tensors:
-        if t.device != device:
-            raise ValueError(f"{name}: tensors on {t.device} and {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise RuntimeError(
-                f"{name} is forward only: its backward comes with the "
-                "training slice (see ROADMAP.md)"
-            )
-
-
-def _on_cpu(tensors):
-    return all(t.device.type == "cpu" for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +72,10 @@ def _assign_splits(n, k, device):
 def l2_nearest_cuda(z, codebook):
     """Fused nearest-code assignment + gather. z [N, D], codebook [K, D]
     fp32. Returns (idx [N] int32, z_q [N, D])."""
-    if _on_cpu((z, codebook)):
+    if on_cpu((z, codebook)):
         return l2_nearest_plain(z, codebook)
     name = "lipvq_assign"
-    _check_cuda_inputs(name, (z, codebook))
+    check_cuda_inputs(name, (z, codebook))
     if z.dim() != 2 or codebook.dim() != 2 or z.shape[1] != codebook.shape[1]:
         raise ValueError(
             f"{name}: z {tuple(z.shape)} and codebook {tuple(codebook.shape)}"
@@ -218,12 +90,40 @@ def l2_nearest_cuda(z, codebook):
     if splits > 1:
         part_v = torch.empty(splits, n, dtype=torch.float32, device=z.device)
         part_i = torch.empty(splits, n, dtype=torch.int32, device=z.device)
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    _launch(name, z.data_ptr(), codebook.data_ptr(), c_sq.data_ptr(),
-            n, d, k, splits, per_split, idx.data_ptr(), z_q.data_ptr(),
-            part_v.data_ptr() if part_v is not None else None,
-            part_i.data_ptr() if part_i is not None else None, stream)
+    stream = stream_of(z)
+    launch(name, z.data_ptr(), codebook.data_ptr(), c_sq.data_ptr(),
+           n, d, k, splits, per_split, idx.data_ptr(), z_q.data_ptr(),
+           part_v.data_ptr() if part_v is not None else None,
+           part_i.data_ptr() if part_i is not None else None, stream)
     return idx, z_q
+
+
+class L2Nearest(torch.autograd.Function):
+    """Nearest-code assignment with the codebook's gradient: forward through
+    the assign kernel (or, with ``use_kernel`` False, its plain version);
+    backward d_codebook = segment_sum(g_zq, idx) and no gradient for z."""
+
+    @staticmethod
+    def forward(ctx, z, codebook, use_kernel):
+        nearest = l2_nearest_cuda if use_kernel else l2_nearest_plain
+        idx, z_q = nearest(z, codebook)
+        ctx.save_for_backward(idx)
+        ctx.num_codes = codebook.shape[0]
+        ctx.mark_non_differentiable(idx)
+        return idx, z_q
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_zq):
+        (idx,) = ctx.saved_tensors
+        d_cb = g_zq.new_zeros(ctx.num_codes, g_zq.shape[1])
+        return None, d_cb.index_add_(0, idx.long(), g_zq), None
+
+
+def l2_nearest(z, codebook, use_kernel=True):
+    """Differentiable nearest-code assignment + gather: (idx [N] int32,
+    z_q [N, D]); the kernel on CUDA tensors, the plain version on CPU
+    tensors or when @use_kernel is False."""
+    return L2Nearest.apply(z, codebook, use_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -263,10 +163,10 @@ def lipvq_roundtrip_cuda(x, enc_w, lip_w, codebook, dec_w):
     wl, bl = lip_w
     (w3, b3), (w4, b4), (w5, b5) = dec_w
     tensors = (x, w1, b1, w2, b2, wl, bl, codebook, w3, b3, w4, b4, w5, b5)
-    if _on_cpu(tensors):
+    if on_cpu(tensors):
         return lipvq_roundtrip_plain(x, enc_w, lip_w, codebook, dec_w)
     name = "lipvq_roundtrip"
-    _check_cuda_inputs(name, tensors)
+    check_cuda_inputs(name, tensors)
     n, in_dim = x.shape
     h1, hidden, latent = w1.shape[1], w2.shape[1], wl.shape[1]
     k, out_dim = codebook.shape[0], w5.shape[1]
@@ -290,8 +190,8 @@ def lipvq_roundtrip_cuda(x, enc_w, lip_w, codebook, dec_w):
     c_sq = (codebook * codebook).sum(-1)
     recon = torch.empty(n, out_dim, dtype=torch.float32, device=x.device)
     idx = torch.empty(n, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _launch(
+    stream = stream_of(x)
+    launch(
         name,
         x.data_ptr(), n, in_dim, w1.data_ptr(), b1.data_ptr(), h1,
         w2.data_ptr(), b2.data_ptr(), hidden, wl.data_ptr(), bl.data_ptr(),

@@ -1,6 +1,7 @@
-"""The port's two CUDA kernels against their plain PyTorch versions on the
-card (``cuda`` marker: they skip where there is none), and the wrappers'
-device rule. This file imports neither JAX nor the JAX package, so that it
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(``cuda`` marker: they skip where there is none), and the wrappers' device
+rule: the two LipVQ kernels and the assign's backward (``L2Nearest``), and
+the stem pool's forward and backward. This file imports neither JAX nor the JAX package, so that it
 runs on a machine with only PyTorch:
 
     RMVQ_TESTS_ON_TPU=1 python -m pytest tests/test_torch_kernels_cuda.py
@@ -9,9 +10,12 @@ runs on a machine with only PyTorch:
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.lipvq import LipVQVAE
 from robot_manipulation_vq_vae_tpu_torch.ops import lipvq_kernel as K
+from robot_manipulation_vq_vae_tpu_torch.ops import stem_pool as S
+from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import LAUNCHES
 
 
 @pytest.fixture
@@ -32,10 +36,10 @@ def _near_code_inputs(n, k, d, device):
 
 def test_wrappers_take_the_plain_version_on_cpu_tensors():
     z, cb = _near_code_inputs(20, 32, 8, "cpu")
-    before = dict(K.LAUNCHES)
+    before = dict(LAUNCHES)
     idx, zq = K.l2_nearest_cuda(z, cb)
     idx_p, zq_p = K.l2_nearest_plain(z, cb)
-    assert K.LAUNCHES == before
+    assert LAUNCHES == before
     assert idx.dtype == torch.int32
     torch.testing.assert_close(idx, idx_p, rtol=0, atol=0)
     torch.testing.assert_close(zq, zq_p, rtol=0, atol=0)
@@ -47,10 +51,10 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
                                  (16896, 37)])
 def test_assign_kernel_matches_plain(cuda_device, n, d):
     z, cb = _near_code_inputs(n, 1024, d, cuda_device)
-    before = K.LAUNCHES["lipvq_assign"]
+    before = LAUNCHES["lipvq_assign"]
     idx_k, zq_k = K.l2_nearest_cuda(z, cb)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["lipvq_assign"] == before + 1
+    assert LAUNCHES["lipvq_assign"] == before + 1
     idx_p, _ = K.l2_nearest_plain(z, cb)
     torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
     torch.testing.assert_close(zq_k, cb[idx_k.long()], rtol=0, atol=0)
@@ -72,11 +76,11 @@ def test_roundtrip_kernel_matches_plain(cuda_device):
     model = LipVQVAE(12, 210, num_codes=1024)
     x = torch.randn(1000, 12, generator=gen).to(cuda_device)
     model.to(cuda_device)
-    before = K.LAUNCHES["lipvq_roundtrip"]
+    before = LAUNCHES["lipvq_roundtrip"]
     with torch.no_grad():
         rec_k, idx_k = model.roundtrip_fused(x)
         rec_p, idx_p = K.lipvq_roundtrip_plain(x, **model.fused_weights())
-    assert K.LAUNCHES["lipvq_roundtrip"] == before + 1
+    assert LAUNCHES["lipvq_roundtrip"] == before + 1
     same = idx_k == idx_p
     assert same.float().mean() >= 0.999
     torch.testing.assert_close(rec_k[same], rec_p[same], rtol=0, atol=1e-4)
@@ -84,6 +88,8 @@ def test_roundtrip_kernel_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_path_refuses_gradients_and_bad_inputs(cuda_device):
+    """The raw launches are forward only (autograd goes through L2Nearest and
+    MaxPool3x3S2) and take fp32, contiguous tensors of matching shapes."""
     cb = torch.randn(64, 16, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
         K.l2_nearest_cuda(torch.randn(8, 16, device=cuda_device), cb)
@@ -92,3 +98,76 @@ def test_kernel_path_refuses_gradients_and_bad_inputs(cuda_device):
                           cb.detach().double())
     with pytest.raises(ValueError):
         K.l2_nearest_cuda(torch.randn(8, 15, device=cuda_device), cb.detach())
+    x = torch.randn(2, 4, 9, 9, device=cuda_device)
+    with pytest.raises(RuntimeError, match="forward only"):
+        S.pool_fwd_cuda(x.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="contiguous"):
+        S.pool_fwd_cuda(x.permute(0, 1, 3, 2))
+    with pytest.raises(TypeError):
+        S.pool_fwd_cuda(x.double())
+    _, idx = S.pool_fwd_cuda(x)
+    with pytest.raises(ValueError):
+        S.pool_bwd_cuda(idx, torch.randn(2, 4, 5, 5, device=cuda_device), (11, 11))
+    with pytest.raises(TypeError):
+        S.pool_bwd_cuda(idx.int(), torch.randn(2, 4, 5, 5, device=cuda_device), (9, 9))
+
+
+@pytest.mark.cuda
+def test_l2_nearest_backward_matches_plain_autograd(cuda_device):
+    """The codebook's gradient through L2Nearest (the kernel forward, an
+    index_add_ backward) against autograd through the plain gather; z gets
+    none."""
+    z, cb = _near_code_inputs(512, 1024, 976, cuda_device)
+    w = torch.randn_like(z)
+    zk, cbk = z.clone().requires_grad_(True), cb.clone().requires_grad_(True)
+    before = LAUNCHES["lipvq_assign"]
+    _, zq = K.l2_nearest(zk, cbk)
+    (zq * w).sum().backward()
+    assert LAUNCHES["lipvq_assign"] == before + 1
+    cbp = cb.clone().requires_grad_(True)
+    idx_p, _ = K.l2_nearest_plain(z, cb)
+    (cbp[idx_p.long()] * w).sum().backward()
+    assert zk.grad is None
+    torch.testing.assert_close(cbk.grad, cbp.grad, rtol=0, atol=1e-5)
+
+
+def _relu_input(shape, device, seed):
+    """~60 % zeros after the ReLU: whole windows tie at 0."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.relu(torch.randn(shape, generator=gen) - 0.25).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 58, 58), (2, 64, 57, 59), (3, 5, 1, 2),
+                                   (2, 3, 40, 130)])
+def test_stem_pool_kernels_match_plain(cuda_device, shape):
+    """Maxima and offsets bit-equal, ties included; dx bit-equal too (the
+    kernel adds a cell's routed gradients in the plain version's order)."""
+    x = _relu_input(shape, cuda_device, 1)
+    before = dict(LAUNCHES)
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["stem_pool_fwd"] == before["stem_pool_fwd"] + 1
+    out_p, idx_p = S.pool_fwd_plain(x)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
+    torch.testing.assert_close(out_k, F.max_pool2d(x, 3, 2, 1), rtol=0, atol=0)
+    g = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    dx_k = S.pool_bwd_cuda(idx_k, g, shape[2:])
+    torch.cuda.synchronize()
+    assert LAUNCHES["stem_pool_bwd"] == before["stem_pool_bwd"] + 1
+    torch.testing.assert_close(dx_k, S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_stem_pool_autograd_runs_both_kernels(cuda_device):
+    x = _relu_input((4, 64, 58, 58), cuda_device, 3).requires_grad_(True)
+    before = dict(LAUNCHES)
+    out = S.max_pool_3x3_s2(x)
+    g = torch.randn_like(out)
+    (dx,) = torch.autograd.grad(out, x, g)
+    assert LAUNCHES["stem_pool_fwd"] == before["stem_pool_fwd"] + 1
+    assert LAUNCHES["stem_pool_bwd"] == before["stem_pool_bwd"] + 1
+    out_p = S.max_pool_3x3_s2(x, use_kernel=False)
+    (dx_p,) = torch.autograd.grad(out_p, x, g)
+    torch.testing.assert_close(dx, dx_p, rtol=0, atol=0)

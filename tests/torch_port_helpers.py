@@ -47,3 +47,14 @@ def assert_margin(z, codebook, min_margin):
     margin = (part[:, 1] - part[:, 0]).min()
     assert margin > min_margin, f"inputs too close to a tie: margin {margin}"
 
+
+
+def assert_mostly_close(actual, desired, atol, frac, max_abs, msg=""):
+    """At least @frac of the elements within @atol, and every element within
+    @max_abs: after a few Adam steps a weight whose gradient lies within the
+    two frameworks' rounding of 0 moves by up to the learning rate the other
+    way, while the bulk must agree tightly."""
+    diff = np.abs(np.asarray(actual, np.float64) - np.asarray(desired, np.float64))
+    ok = float((diff <= atol).mean())
+    assert ok >= frac, f"{msg}: {ok:.4f} of the elements within {atol} (need {frac})"
+    assert diff.max() <= max_abs, f"{msg}: max |diff| {diff.max():.3g} > {max_abs}"
