@@ -3,7 +3,7 @@ card and check it.
 
     python3 chip_smoke.py            # what the checks need: one card
     python3 chip_smoke.py --profile  # also device-time breakdowns of get_action
-                                     # and of one training step
+                                     # and of the training steps
 
 Phases, each of which fails the run when it fails:
   1. the card's name and power limit (nvidia-smi);
@@ -18,6 +18,13 @@ Phases, each of which fails the run when it fails:
      at the training path's [512, 64, 58, 58] and at [2, 64, 57, 59], on
      inputs after a ReLU (about 60 % zeros, so windows tie): maxima and
      offsets bit-equal, dx within 1e-6 max|g|;
+  6b. the stem pool's kernels in bf16 at the flagship's [1024, 64, 58, 58]:
+     maxima, offsets and dx bit-equal to the plain versions;
+  6c. kernel 5 (pool_route, the equality-routing pool backward) against its
+     plain version at [3072, 64, 58, 58] in bf16 and fp32, on ReLU'd inputs
+     (ties) and distinct values, bit-equal; the op's path, max_pool_3x3_s2
+     forward and backward, one launch per backward; [2, 64, 57, 59] takes
+     torch's gradient and launches nothing;
   7. the policy path: icl_gmm_paper get_action at full width (6 layers, width
      512, 8 heads, context 16, 3 cameras of 128x128 cropped to 116, FiLM
      ResNet-18, LipVQ with 1024 codes over the 976-d encoder output), random
@@ -29,11 +36,21 @@ Phases, each of which fails the run when it fails:
      train.pallas_pool on, B = 64, T = 16, random 116x116 crops, dropout 0.1:
      one warm-up step and 3 timed steps (launch counts per step asserted),
      then one step of the kernel model and one of the plain model from the
-     same weights, batch and random draws, held together.
+     same weights, batch and random draws, held together;
+  9. flagship serving: ICLTransformerHVQVAE get_action at bench_infer.py's
+     configuration (ResNet-18, no language, center crop, HVQVAE-reconstructed
+     context actions, fp32), 3 requests at B = 1 and 3 at B = 16;
+  10. flagship training at bench_train.py's configuration (6 layers, width
+     512, context 16, FiLM ResNet-18, HVQVAE 1024/512 codes, 2 x 4 layers,
+     B = 64, T = 16, train.pallas_pool), in fp32 (10a) and in bf16 mixed
+     precision (10b): a warm-up step with the k-means init, 3 timed steps
+     (3 + 3 stem pool launches per step in the step's dtype), then a kernel
+     step against a plain step with cuDNN's deterministic algorithms.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run.
 
-The comparisons run in full fp32: TF32 is switched off for matmul and cuDNN.
+TF32 is switched off for matmul and cuDNN: the fp32 comparisons and times are
+full fp32, and the bf16 ones compare in bf16.
 Output: one line per measurement, then a JSON line {"kernels": [...]}, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, without a CUDA device or without the port.
@@ -53,6 +70,7 @@ HBM_RATE = 3.35e12         # H100 SXM device memory (bytes/s)
 SOURCE = "robot_manipulation_vq_vae_tpu_torch/csrc"
 TPU_KERNELS = "robot_manipulation_vq_vae_tpu/ops/pallas/lipvq_kernel.py"
 TPU_POOL = "robot_manipulation_vq_vae_tpu/ops/pallas/stem_pool.py"
+TPU_ROUTE = "robot_manipulation_vq_vae_tpu/ops/pallas/pool_kernel.py"
 TIE_REL = 1e-5             # rows whose two best distances are closer may flip
 MAX_FLIP_SHARE = 1e-3      # ... and at most 0.1% of the rows may
 
@@ -64,6 +82,13 @@ REQUESTS = 3
 # the training path's stem pool input (3 cameras x 2 groups of 32 x 16
 # frames per step, each [512, 64, 58, 58]) and a small odd shape
 POOL_SHAPES = ((512, 64, 58, 58), (2, 64, 57, 59))
+# the flagship's stem pool input: 3 cameras of 64 x 16 frames per step, each
+# [1024, 64, 58, 58]
+FLAGSHIP_POOL = (1024, 64, 58, 58)
+# kernel 5's op at the flagship stem activation as the JAX package drives it
+# (scripts/mfu_campaign.py, [3072, 58, 58, 64] NHWC), and a shape it must
+# leave to torch's own gradient
+ROUTE_SHAPE, ODD_SHAPE = (3072, 64, 58, 58), (2, 64, 57, 59)
 TRAIN_B, TRAIN_STEPS = 64, 3   # bench_train.py's batch; 3 timed steps
 DEVICE = "cuda"
 
@@ -323,11 +348,13 @@ def phase_assign_backward(K, dev):
     check(err <= 1e-5 * max(gmax, 1.0), f"codebook gradients differ by {err}")
 
 
-def relu_input(shape, gen, dev):
-    """randn - 0.25 after a ReLU: about 60 % zeros, so windows tie at 0."""
+def relu_input(shape, gen, dev, relu=True):
+    """randn - 0.25 after a ReLU: about 60 % zeros, so windows tie at 0
+    (with @relu False, plain randn: distinct values)."""
     import torch
 
-    return torch.relu(torch.randn(shape, generator=gen, device=dev) - 0.25)
+    x = torch.randn(shape, generator=gen, device=dev)
+    return torch.relu(x - 0.25) if relu else x
 
 
 def phase_stem_pool(S, dev):
@@ -375,13 +402,7 @@ def phase_stem_pool(S, dev):
                 # offset and g read once, dx written once; one add per output
                 (5 * n_out + 4 * n_in, n_out), bwd_err),
         }
-        for name, (kern, plain, lib, (n_bytes, n_ops), err) in timed.items():
-            ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
-            b, by = bound_ms(n_bytes, n_ops)
-            log(f"  {name} at {tag}: kernel {fmt(ms)}, plain {fmt(plain_ms)}, "
-                f"library {fmt(lib_ms)}, bound {b:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
-            rows[name] = dict(ms=ms[0], plain_ms=plain_ms[0], library_ms=lib_ms[0],
-                              bound_ms=b, bound_by=by, max_abs_err=err)
+        rows.update(time_kernels(timed, tag))
     return rows
 
 
@@ -576,38 +597,360 @@ def phase_training_path(CB, dev, profile):
     return counts
 
 
-def one_step(model, batch):
-    """A training step with the crop and dropout generators seeded: (metrics,
-    every parameter's gradient, the BatchNorm statistics)."""
+def one_step(model, batch, deterministic=False):
+    """A training step with the crop and dropout generators seeded (and, with
+    @deterministic, cuDNN's deterministic algorithms): (metrics, every
+    parameter's gradient, the floating buffers: BatchNorm statistics and, in
+    the flagship, the HVQVAE's codebooks and EMA statistics)."""
     import torch
 
     model.generator.manual_seed(7)
     torch.manual_seed(7)   # dropout draws from the global generator
-    losses = model.train_on_batch(batch, epoch=0)["losses"]
-    torch.cuda.synchronize()
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        losses = model.train_on_batch(batch, epoch=0)["losses"]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = before
     grads = {n: p.grad.clone() for n, p in model.nets.named_parameters()}
-    stats = {k: v.clone() for k, v in model.nets.state_dict().items()
-             if k.endswith(("running_mean", "running_var"))}
-    return {k: float(v) for k, v in losses.items()}, grads, stats
+    buffers = {k: v.clone() for k, v in model.nets.named_buffers()
+               if v.is_floating_point()}
+    return {k: float(v) for k, v in losses.items()}, grads, buffers
 
 
-def compare_steps(res_k, res_p):
+def compare_steps(res_k, res_p, keys=("action_loss", "vq_vae_loss", "policy_grad_norms"),
+                  metric_tol=1e-5, grad_tol=1e-4, buffer_tol=1e-6):
     """The kernel model's step against the plain model's: the two differ only
     where the kernels run, and the rest (cuDNN's backward, index_add_) may add
-    in another order from run to run."""
-    for k in ("action_loss", "vq_vae_loss", "policy_grad_norms"):
+    in another order from run to run. Metrics within @metric_tol relative,
+    gradients within @grad_tol of each tensor's largest, buffers within
+    @buffer_tol."""
+    for k in keys:
         rel = abs(res_k[0][k] - res_p[0][k]) / max(abs(res_p[0][k]), 1e-30)
         log(f"  {k}: kernel {res_k[0][k]!r} plain {res_p[0][k]!r} (rel {rel:.3g})")
-        check(rel <= 1e-5, f"{k} differs by {rel} relative")
+        check(rel <= metric_tol, f"{k} differs by {rel} relative")
     worst = max(((res_k[1][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
                 for n, g in res_p[1].items())
     zero = [n for n, g in res_p[1].items() if not bool(g.abs().max() > 0)]
-    bn = max(float((res_k[2][k] - v).abs().max()) for k, v in res_p[2].items())
+    buf = max(float((res_k[2][k] - v).abs().max()) for k, v in res_p[2].items())
     log(f"  gradients: max over {len(res_p[1])} tensors of max|kernel - plain| / "
-        f"max|plain| {worst:.3g} ({len(zero)} all-zero, the LipVQ's); BatchNorm "
-        f"statistics max|kernel - plain| {bn}")
-    check(worst <= 1e-4, f"gradients differ by {worst} of their max")
-    check(bn <= 1e-6, f"BatchNorm statistics differ by {bn}")
+        f"max|plain| {worst:.3g} ({len(zero)} all-zero); buffers ({len(res_p[2])}: "
+        f"BatchNorm statistics and codebooks) max|kernel - plain| {buf}")
+    check(worst <= grad_tol, f"gradients differ by {worst} of their max")
+    check(buf <= buffer_tol, f"buffers differ by {buf}")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 stem pool, kernel 5, and the flagship ICLTransformerHVQVAE
+# ---------------------------------------------------------------------------
+
+def phase_stem_pool_bf16(S, dev):
+    """Kernels 3 and 4 in bf16 at the flagship's mixed-precision stem
+    activation: maxima, offsets and dx bit-equal to the plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    log(f"phase 6b: stem pool kernels in bf16 vs plain at {FLAGSHIP_POOL} "
+        "(inputs after a ReLU)")
+    gen = torch.Generator(dev).manual_seed(17)
+    x = relu_input(FLAGSHIP_POOL, gen, dev).bfloat16()
+    hw = FLAGSHIP_POOL[2:]
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    out_p, idx_p = S.pool_fwd_plain(x)
+    g = torch.randn(out_k.shape, generator=gen, device=dev).bfloat16()
+    dx_k = S.pool_bwd_cuda(idx_k, g, hw)
+    dx_p = S.pool_bwd_plain(idx_p, g, hw)
+    torch.cuda.synchronize()
+    n_idx = int((idx_k != idx_p).sum())
+    fwd_err = float((out_k.float() - out_p.float()).abs().max())
+    bwd_err = float((dx_k.float() - dx_p.float()).abs().max())
+    log(f"  {float((x == 0).float().mean()):.3f} zeros; max|out err| {fwd_err}, "
+        f"{n_idx} offsets differ; max|dx err| {bwd_err}")
+    check(torch.equal(out_k, out_p) and n_idx == 0, "bf16 maxima or offsets differ")
+    check(torch.equal(dx_k, dx_p), f"bf16 dx differs by {bwd_err}")
+    n_in, n_out = x.numel(), out_k.numel()
+    _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+    timed = {
+        # x read once (2 bytes); max (2) and offset (1) written once
+        "stem_pool_fwd_bf16": (
+            lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
+            lambda: F.max_pool2d(x, 3, 2, 1, return_indices=True),
+            (2 * n_in + 3 * n_out, 8 * n_out), fwd_err),
+        # offset (1) and g (2) read once, dx (2) written once
+        "stem_pool_bwd_bf16": (
+            lambda: S.pool_bwd_cuda(idx_k, g, hw), lambda: S.pool_bwd_plain(idx_p, g, hw),
+            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
+            (3 * n_out + 2 * n_in, n_out), bwd_err),
+    }
+    return time_kernels(timed, "x".join(map(str, FLAGSHIP_POOL)))
+
+
+def time_kernels(timed, tag):
+    """{name: (kernel, plain, library or None, (bytes, operations), err)} ->
+    the kernels-line fields of each, measured now."""
+    rows = {}
+    for name, (kern, plain, lib, (n_bytes, n_ops), err) in timed.items():
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        b, by = bound_ms(n_bytes, n_ops)
+        log(f"  {name} at {tag}: kernel {fmt(ms)}, plain {fmt(plain_ms)}, library "
+            f"{fmt(lib_ms) if lib_ms else 'none'}, bound {b:.4f} ms ({by}, "
+            f"{n_bytes / 1e6:.1f} MB)")
+        rows[name] = dict(ms=ms[0], plain_ms=plain_ms[0],
+                          library_ms=lib_ms[0] if lib_ms else None,
+                          bound_ms=b, bound_by=by, max_abs_err=err)
+    return rows
+
+
+def phase_pool_route(CB, P, dev):
+    """Kernel 5 against its plain version at the flagship stem activation in
+    bf16 and fp32, on ReLU'd inputs (ties) and distinct values; the odd shape
+    takes torch's gradient; then the op's main path: max_pool_3x3_s2's
+    forward and backward through autograd, one launch per backward."""
+    import torch
+    import torch.nn.functional as F
+
+    log(f"phase 6c: pool_route (kernel 5) vs plain at {ROUTE_SHAPE}, bf16 and fp32")
+    gen = torch.Generator(dev).manual_seed(19)
+    rows, counts = {}, {}
+    for dtype, name in ((torch.bfloat16, "pool_route_bf16"), (torch.float32, "pool_route")):
+        for kind in ("relu", "distinct"):
+            x = relu_input(ROUTE_SHAPE, gen, dev, kind == "relu").to(dtype)
+            z = F.max_pool2d(x, 3, 2, 1)
+            dz = torch.randn(z.shape, generator=gen, device=dev).to(dtype)
+            dx_k = P.pool_route_cuda(x, z, dz)
+            dx_p = P.pool_route_plain(x, z, dz)
+            torch.cuda.synchronize()
+            err = float((dx_k.float() - dx_p.float()).abs().max())
+            log(f"  {name} {kind}: {float((x == 0).float().mean()):.3f} zeros, "
+                f"max|dx err| {err}")
+            check(torch.equal(dx_k, dx_p), f"{name} {kind}: dx differs by {err}")
+            del dx_p
+        size = x.element_size()
+        n_in, n_out = x.numel(), z.numel()
+        rows.update(time_kernels({name: (
+            lambda: P.pool_route_cuda(x, z, dz), lambda: P.pool_route_plain(x, z, dz),
+            None,
+            # x read and dx written once, z and dz read once; 4 compares and
+            # 4 adds per input cell
+            (size * (2 * n_in + 2 * n_out), 8 * n_in), err)}, "x".join(map(str, ROUTE_SHAPE))))
+        del x, z, dz, dx_k
+        torch.cuda.empty_cache()
+
+        # the op's main path: forward and backward through autograd
+        x = relu_input(ROUTE_SHAPE, gen, dev).to(dtype).requires_grad_(True)
+        CB.reset_launch_counts()
+        out = P.max_pool_3x3_s2(x)
+        (dx,) = torch.autograd.grad(out, x, torch.ones_like(out))
+        torch.cuda.synchronize()
+        counts[name] = CB.LAUNCHES[name]
+        check(counts[name] == 1, f"max_pool backward launched {name} {counts[name]} times")
+        check(bool(torch.isfinite(dx).all()) and dx.shape == x.shape, "max_pool dx")
+        # every tied cell gets its window's cotangent: more than one per window
+        log(f"  max_pool_3x3_s2 {dtype}: launches {dict(CB.LAUNCHES)}; routed "
+            f"{float(dx.float().sum()):.0f} for {out.numel()} windows")
+        check(float(dx.float().sum()) > out.numel(), "ties were not routed to every cell")
+        del x, out, dx
+        torch.cuda.empty_cache()
+
+    x = relu_input(ODD_SHAPE, gen, dev, relu=False).requires_grad_(True)
+    CB.reset_launch_counts()
+    out = P.max_pool_3x3_s2(x)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    (dx,) = torch.autograd.grad(out, x, g)
+    (dx_t,) = torch.autograd.grad(F.max_pool2d(x, 3, 2, 1), x, g)
+    torch.cuda.synchronize()
+    launched = CB.LAUNCHES["pool_route"] + CB.LAUNCHES["pool_route_bf16"]
+    err = float((dx - dx_t).abs().max())
+    log(f"  {ODD_SHAPE}: {launched} kernel 5 launches, max|dx - torch's| {err}")
+    check(launched == 0 and err == 0.0, "the odd shape must take torch's own gradient")
+    return rows, counts
+
+
+def flagship_config(serving, mixed_precision=False):
+    """bench_train.py's flagship (FiLM ResNet-18, language, random crops,
+    train.pallas_pool) or bench_infer.py's (ResNet-18, no language, center
+    crop): ICLTransformerHVQVAE at full width."""
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+
+    cfg = config_factory("icl")
+    with cfg.values_unlocked():
+        cfg.observation.modalities.obs.low_dim = list(LOW_DIM) + ([] if serving else ["lang_emb"])
+        cfg.observation.modalities.obs.rgb = CAMS
+        cfg.observation.encoder.rgb.core_class = (
+            "VisualCore" if serving else "VisualCoreLanguageConditioned")
+        cfg.observation.encoder.rgb.core_kwargs = {
+            "feature_dimension": 64,
+            "backbone_class": "ResNet18Conv" if serving else "ResNet18ConvFiLM",
+            "backbone_kwargs": {"pretrained": False, "input_coord_conv": False},
+            "pool_class": "SpatialSoftmax",
+            "pool_kwargs": {"num_kp": 32} if serving else {
+                "num_kp": 32, "learnable_temperature": False, "temperature": 1.0,
+                "noise_std": 0.0},
+        }
+        cfg.observation.encoder.rgb.obs_randomizer_class = "CropRandomizer"
+        cfg.observation.encoder.rgb.obs_randomizer_kwargs = {
+            "crop_height": CROP, "crop_width": CROP, "num_crops": 1, "pos_enc": False,
+        }
+        tc = cfg.algo.transformer
+        tc.enabled, tc.context_length, tc.causal = True, 16, False
+        tc.supervise_all_steps = tc.pred_future_acs = True
+        tc.vq_vae_enabled = True
+        if not serving:
+            tc.ln_act_enabled = True
+            cfg.train.batch_size = TRAIN_B
+            cfg.train.max_grad_norm = 100.0
+            cfg.train.mixed_precision = mixed_precision
+            cfg.train.pallas_pool = True
+    return cfg
+
+
+def flagship_shapes(serving):
+    return {k: v for k, v in SHAPES.items() if not (serving and k == "lang_emb")}
+
+
+def phase_flagship_serving(CB, dev, profile):
+    """get_action of the flagship at bench_infer.py's configuration, B = 1
+    and 16, fp32, HVQVAE-reconstructed context actions; no kernel runs."""
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    log("phase 9: flagship serving, ICLTransformerHVQVAE get_action (ResNet-18, "
+        "no language, center crop, fp32)")
+    cfg = flagship_config(serving=True)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl", cfg, flagship_shapes(True), 12, device=dev)
+    tc, vq = cfg.algo.transformer, cfg.algo.transformer.vqvae
+    log(f"  {type(algo).__name__}: {tc.num_layers} layers, width {tc.embed_dim}, "
+        f"context {tc.context_length}; HVQVAE embed {vq.embed_dim}, codes "
+        f"{vq.num_subclusters}/{vq.num_clusters}, {vq.num_stages}x{vq.num_layers_per_stage} "
+        f"layers; {sum(p.numel() for p in algo.nets.parameters())} parameters")
+    rng = np.random.RandomState(2)
+    requests = {}
+    for b in BATCHES:
+        requests[b] = []
+        for _ in range(REQUESTS):
+            obs, ctx = make_request(rng, b, 16)
+            obs.pop("lang_emb")
+            requests[b].append((obs, {"actions": ctx["actions"]}))
+        algo.get_action(*requests[b][0])   # warm: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    CB.reset_launch_counts()
+    for b in BATCHES:
+        times = []
+        for obs, ctx in requests[b]:
+            t0 = time.perf_counter()
+            action = algo.get_action(obs, ctx)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(action.shape == (b, 12) and bool(torch.isfinite(action).all())
+                  and float(action.abs().max()) <= 1.0,
+                  f"B={b}: action {tuple(action.shape)} is not a finite tanh [B, 12]")
+        log(f"  B={b}: get_action median {statistics.median(times):.3f} ms per request "
+            f"(all: {', '.join(f'{v:.3f}' for v in times)})")
+    check(sum(CB.LAUNCHES.values()) == 0, f"serving launched {dict(CB.LAUNCHES)}")
+    # what keeping the HVQVAE forward costs: the policy ignores its output
+    # (XLA drops it from the JAX package's jitted get_action)
+    vqvae = algo.nets["vqvae"]
+    for b in BATCHES:
+        acts = torch.as_tensor(requests[b][0][1]["actions"], device=dev)
+        with torch.inference_mode():
+            t = cuda_ms(lambda: vqvae(acts), iters=10, warmup=2, repeats=3)
+        log(f"  B={b}: the HVQVAE reconstruction of the context actions, which the "
+            f"policy ignores: {fmt(t)} per request (CUDA events over back-to-back "
+            f"calls, host dispatch included)")
+    # eval-mode BatchNorm: each environment's action is its own, whatever
+    # the batch it is served in
+    obs, ctx = requests[BATCHES[-1]][0]
+    one = algo.get_action({k: v[:1] for k, v in obs.items()},
+                          {"actions": ctx["actions"][:1]})
+    err = float((one[0] - algo.get_action(obs, ctx)[0]).abs().max())
+    log(f"  env 0 served alone vs in the B={BATCHES[-1]} batch: max|diff| {err}")
+    check(err <= 1e-4, f"env 0's action depends on its batch: {err}")
+    if profile:
+        obs, ctx = requests[BATCHES[-1]][0]
+        device_profile(f"flagship get_action B={BATCHES[-1]}",
+                       lambda: algo.get_action(obs, ctx))
+
+
+def phase_flagship_training(CB, dev, mixed_precision, profile):
+    """train_on_batch of the flagship at bench_train.py's configuration, B =
+    64, T = 16, train.pallas_pool on: a warm-up step (the k-means init) and 3
+    timed steps, each launching the stem pool's kernels 3 + 3 times in the
+    step's dtype; then a kernel-model step against a plain-model step."""
+    import gc
+
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    mode = "bf16 mixed precision" if mixed_precision else "fp32"
+    log(f"phase 10{'b' if mixed_precision else 'a'}: flagship training, "
+        f"ICLTransformerHVQVAE train_on_batch, {mode}, B={TRAIN_B} T=16, "
+        f"train.pallas_pool on, random {CROP}x{CROP} crops, dropout 0.1")
+    cfg = flagship_config(serving=False, mixed_precision=mixed_precision)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl", cfg, flagship_shapes(False), 12, device=dev)
+    check(algo.mixed_precision == mixed_precision, "mixed_precision not taken")
+    gen = torch.Generator(dev).manual_seed(23)
+    batches = [make_train_batch(gen, dev) for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    algo.train_on_batch(batches[0], epoch=0)   # warm, and the k-means init
+    torch.cuda.synchronize()
+    log(f"  warm-up step with the k-means init: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(algo.nets["vqvae"]._initialized, "the codebooks were not initialized")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    CB.reset_launch_counts()
+    times = []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        losses = algo.train_on_batch(batch, epoch=0)["losses"]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in losses.items()}
+        log(f"  step: {', '.join(f'{k} {v:.6g}' for k, v in vals.items())}")
+        check(all(np.isfinite(v) for v in vals.values()), f"metrics not finite: {vals}")
+    counts = dict(CB.LAUNCHES)
+    suffix = "_bf16" if mixed_precision else ""
+    want = {f"stem_pool_fwd{suffix}": 3, f"stem_pool_bwd{suffix}": 3}
+    log(f"  launches over {TRAIN_STEPS} steps {counts}")
+    for name, n in counts.items():
+        check(n == want.get(name, 0) * TRAIN_STEPS,
+              f"{name}: {n} launches, expected {want.get(name, 0)} per step")
+    med = statistics.median(times)
+    log(f"  median {med:.3f} ms per step ({TRAIN_B / med * 1e3:.1f} samples/s; all: "
+        f"{', '.join(f'{v:.3f}' for v in times)}); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    usage = algo.log_info({"losses": losses})
+    log(f"  codebooks: Z {usage['VQ-VAE/Z_Utilization']} used, "
+        f"{usage['VQ-VAE/Z_Dead_Codes']} dead; Q {usage['VQ-VAE/Q_Utilization']} used")
+    if profile:
+        device_profile(f"flagship train step {mode}",
+                       lambda: algo.train_on_batch(batches[0], epoch=0),
+                       share=("pool_fwd_kernel", "pool_bwd_kernel"))
+
+    state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
+    res_k = one_step(algo, batches[0], deterministic=True)
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = Algo.algo_factory("icl", cfg, flagship_shapes(False), 12, device=dev,
+                              use_kernels=False)
+    plain.nets.load_state_dict(state)
+    res_p = one_step(plain, batches[0], deterministic=True)
+    tol = (1e-3, 1e-2, 1e-4) if mixed_precision else (1e-5, 1e-4, 1e-6)
+    compare_steps(res_k, res_p, ("action_loss", "vqvae_loss", "policy_grad_norms",
+                                 "vqvae_grad_norms"), *tol)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def device_profile(tag, fn, share=()):
@@ -655,6 +998,7 @@ def main():
     try:
         from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
         from robot_manipulation_vq_vae_tpu_torch.ops import lipvq_kernel as K
+        from robot_manipulation_vq_vae_tpu_torch.ops import pool as P
         from robot_manipulation_vq_vae_tpu_torch.ops import stem_pool as S
     except ImportError as err:
         print(f"chip_smoke: the port is not importable here: {err}", file=sys.stderr)
@@ -662,7 +1006,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
-    log("TF32 off for matmul and cuDNN: every comparison and time is full fp32")
+    log("TF32 off for matmul and cuDNN: the fp32 comparisons and times are full fp32")
 
     card = nvidia_smi()
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -683,10 +1027,18 @@ def main():
     tok_counts = phase_tokenizer_path(CB, tok_model, x)
     del tok_model, x
     pool = phase_stem_pool(S, dev)
+    pool.update(phase_stem_pool_bf16(S, dev))
+    torch.cuda.empty_cache()
+    route, route_counts = phase_pool_route(CB, P, dev)
     torch.cuda.empty_cache()
     pol_counts = phase_policy_path(CB, dev, args.profile)
     torch.cuda.empty_cache()
     train_counts = phase_training_path(CB, dev, args.profile)
+    torch.cuda.empty_cache()
+    phase_flagship_serving(CB, dev, args.profile)
+    torch.cuda.empty_cache()
+    flagship = {mp: phase_flagship_training(CB, dev, mp, args.profile)
+                for mp in (False, True)}
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -703,11 +1055,25 @@ def main():
         dict(name="stem_pool_bwd", route="cuda", source=f"{SOURCE}/stem_pool.cu",
              replaces=f"{TPU_POOL}:113", launches=train_counts["stem_pool_bwd"],
              **pool["stem_pool_bwd"]),
+        # the bf16 instances: launches on the flagship's bf16 training path
+        dict(name="stem_pool_fwd_bf16", route="cuda", source=f"{SOURCE}/stem_pool.cu",
+             replaces=f"{TPU_POOL}:60",
+             launches=flagship[True]["stem_pool_fwd_bf16"],
+             **pool["stem_pool_fwd_bf16"]),
+        dict(name="stem_pool_bwd_bf16", route="cuda", source=f"{SOURCE}/stem_pool.cu",
+             replaces=f"{TPU_POOL}:113",
+             launches=flagship[True]["stem_pool_bwd_bf16"],
+             **pool["stem_pool_bwd_bf16"]),
+        # kernel 5: launches on its op's path (max_pool_3x3_s2's backward)
+        *(dict(name=name, route="cuda", source=f"{SOURCE}/pool_route.cu",
+               replaces=f"{TPU_ROUTE}:50", launches=route_counts[name], **route[name])
+          for name in ("pool_route", "pool_route_bf16")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(dev),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

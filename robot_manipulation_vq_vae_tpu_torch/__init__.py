@@ -6,7 +6,8 @@ nor anything of that package. Its layout mirrors the reference's
 (``config/``, ``ops/``, ``models/``, ``models/tokenizers/``, ``algo/``,
 ``utils/``) so each module's counterpart is easy to find. The hand-written
 CUDA kernels live under ``csrc/`` and are built with ``nvcc`` at first use
-(``ops/lipvq_kernel.py``).
+(``ops/cuda_build.py``); their wrappers and plain versions are in
+``ops/lipvq_kernel.py``, ``ops/stem_pool.py`` and ``ops/pool.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit ``cpu`` they raise.

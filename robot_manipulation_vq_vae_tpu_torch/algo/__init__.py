@@ -3,4 +3,8 @@ from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     algo_factory,
     register_algo_factory_func,
 )
-from robot_manipulation_vq_vae_tpu_torch.algo.icl import ICLTransformer_GMM
+from robot_manipulation_vq_vae_tpu_torch.algo.icl import (
+    ICLTransformer,
+    ICLTransformer_GMM,
+    ICLTransformerHVQVAE,
+)

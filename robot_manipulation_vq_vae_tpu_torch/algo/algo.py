@@ -71,8 +71,12 @@ class Algo:
     ``self.generator`` (on the device) draws the training randomness the
     networks take explicitly (the random crops)."""
 
+    # whether the class ports ``train.mixed_precision``
+    MIXED_PRECISION = False
+
     def __init__(self, algo_config, obs_config, global_config, obs_key_shapes,
                  ac_dim, device=None, use_kernels=True):
+        self._check_train_options(global_config.train)
         self.device = resolve_device(device)
         self.algo_config = algo_config
         self.obs_config = obs_config
@@ -96,6 +100,19 @@ class Algo:
         self.max_grad_norm = global_config.train.get("max_grad_norm", None)
         self.optimizers, self.lr_schedulers = {}, {}
         self._create_optimizers()
+
+    def _check_train_options(self, train_config):
+        """Raise for a ``train`` option that changes the step and is not
+        ported, rather than train something else."""
+        options = ["frozen_batch_norm", "pool_free_stem", "packed_rgb_encoders"]
+        if not self.MIXED_PRECISION:
+            options.append("mixed_precision")
+        for option in options:
+            if train_config.get(option, False):
+                raise NotImplementedError(
+                    f"train.{option} is not ported for {type(self).__name__} "
+                    "yet (ROADMAP.md)"
+                )
 
     def _create_shapes(self, obs_keys, obs_key_shapes):
         """Split obs_key_shapes into obs / goal dicts by the modality config."""

@@ -8,4 +8,5 @@ from robot_manipulation_vq_vae_tpu_torch.config.base_config import (
 from robot_manipulation_vq_vae_tpu_torch.config.icl_config import (
     ICLConfig,
     ICLGMMPaperConfig,
+    ICLHVQVAEConfig,
 )

@@ -1,6 +1,5 @@
 """Config templates for the ICL algorithm family (copy of the JAX package's
-``config/icl_config.py``; the ``icl_hvqvae`` template comes with the flagship
-slice of the port).
+``config/icl_config.py``): ``icl``, ``icl_hvqvae`` and ``icl_gmm_paper``.
 """
 
 from robot_manipulation_vq_vae_tpu_torch.config.base_config import BaseConfig
@@ -129,6 +128,12 @@ class ICLConfig(BaseConfig):
         self.algo.transformer.vqvae.do_not_lock_keys()
 
         self.algo.language_conditioned = False
+
+
+class ICLHVQVAEConfig(ICLConfig):
+    """Registered under the ``icl_hvqvae`` algo name (reference icl_hvqvae.py)."""
+
+    ALGO_NAME = "icl_hvqvae"
 
 
 class ICLGMMPaperConfig(ICLConfig):

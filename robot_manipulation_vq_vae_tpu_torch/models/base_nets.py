@@ -1,5 +1,6 @@
 """Base network blocks (counterpart of the JAX package's ``models/base_nets.py``
-:153-221, 293-335, 720-785): the FiLM ResNet-18 trunk and SpatialSoftmax.
+:153-221, 270-335, 720-785): the ResNet-18 trunk, its FiLM variant and
+SpatialSoftmax.
 
 Images reach the port channels-last ([B, H, W, C]) as in the JAX package;
 ``VisualCore`` permutes them to contiguous NCHW once, and everything here
@@ -9,7 +10,10 @@ defaults. The stem's max pool is ``F.max_pool2d`` unless
 ``set_stem_pool`` selects the recorded-argmax kernels (``train.pallas_pool``).
 Parameters keep the reference torch layout and key names
 (``_base_block``, ``_conv_blocks``, ``_film_layers``, torchvision's
-``conv1``/``bn1``/``downsample``), so reference checkpoints map one to one.
+``conv1``/``bn1``/``downsample``; ``nets.0`` ... ``nets.7`` for the plain
+trunk), so reference checkpoints map one to one. Under mixed precision the
+trunks take bf16 activations and bf16 copies of their weights (see
+``BatchNorm2d`` and ``SpatialSoftmax``).
 
 Each module's ``JAX_NAMES`` maps the JAX child names to torch submodule
 paths; ``utils/jax_weights.py`` reads it to carry JAX weights across.
@@ -30,6 +34,8 @@ BN_EPS = 1e-5
 # reference robomimic keeps torch's 0.1; the JAX package, and so the port,
 # follows Flax.)
 FLAX_BN_MOMENTUM = 0.99
+# ... and that momentum as a bf16 value, 0.98828125 (mixed precision)
+FLAX_BN_MOMENTUM_BF16 = float(torch.tensor(FLAX_BN_MOMENTUM, dtype=torch.bfloat16))
 
 
 def transformer_args_from_config(transformer_config):
@@ -63,19 +69,42 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with Flax's training semantics: the batch is
     normalized by its own mean and biased variance, as in torch, but the
     running statistics move by 1 - 0.99 towards the batch mean and the
-    biased batch variance (torch would use the unbiased one)."""
+    biased batch variance (torch would use the unbiased one).
+
+    A bf16 input (mixed precision, where the weights arrive as bf16 copies)
+    is normalized in training as Flax does: statistics and arithmetic in
+    fp32, the output rounded once to bf16. The running statistics stay fp32
+    buffers, but the JAX step casts them to bf16 with the rest of ``aux``
+    before Flax updates them, so the update is reproduced with that
+    rounding: ``bf16(running) * bf16(0.99) + 0.01 * batch_stat`` in fp32,
+    where ``bf16(0.99)`` is 0.98828125 (the weakly typed 0.99 takes bf16).
+    Flax's product is a bf16 one, but inside the jitted step XLA keeps it in
+    fp32 (excess precision; it is exact there), and the port follows the
+    jitted step. In eval a bf16 input is normalized by the fp32 statistics
+    (Flax would use their bf16 casts)."""
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - FLAX_BN_MOMENTUM)
 
     def forward(self, x):
+        half = x.dtype == torch.bfloat16
+        weight, bias = self.weight, self.bias
+        if half:   # fp32 arithmetic on the bf16 values, the output in bf16
+            weight, bias = weight.float(), bias.float()
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var, weight,
+                                bias, False, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            var, mean = torch.var_mean(x.float() if half else x, dim=(0, 2, 3),
+                                       unbiased=False)
+            if half:
+                for running, stat in ((self.running_mean, mean), (self.running_var, var)):
+                    running.copy_(running.bfloat16().float() * FLAX_BN_MOMENTUM_BF16
+                                  + (1.0 - FLAX_BN_MOMENTUM) * stat)
+            else:
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
 
 
 class BasicBlock(nn.Module):
@@ -158,6 +187,42 @@ _RESNET18_PLAN = [(64, 1), (64, 1), (128, 2), (128, 1),
                   (256, 2), (256, 1), (512, 2), (512, 1)]
 
 
+def _resnet18_output_shape(input_shape):
+    h, w, _ = input_shape
+    return [int(math.ceil(h / 32.0)), int(math.ceil(w / 32.0)), 512]
+
+
+class ResNet18Conv(nn.Module):
+    """ResNet-18 trunk with the classifier removed. Input [B, 3, H, W]; output
+    [B, 512, ceil(H/32), ceil(W/32)]. The reference's layout: ``nets`` holds
+    torchvision's children conv1, bn1, relu, maxpool and layer1 to layer4 as
+    ``nets.0`` to ``nets.7``."""
+
+    def __init__(self, input_coord_conv=False, pretrained=False):
+        super().__init__()
+        if input_coord_conv:
+            raise NotImplementedError("input_coord_conv is not ported yet")
+        blocks, cin = [], 64
+        for feat, stride in _RESNET18_PLAN:
+            blocks.append(BasicBlock(cin, feat, stride))
+            cin = feat
+        self.nets = nn.Sequential(
+            *_ResNet18Stem(),
+            *(nn.Sequential(*blocks[i:i + 2]) for i in range(0, 8, 2)),
+        )
+
+    def jax_names(self):
+        names = {"stem": {"conv1": "nets.0", "bn1": "nets.1"}}
+        for i in range(len(_RESNET18_PLAN)):
+            names[f"block{i}"] = f"nets.{4 + i // 2}.{i % 2}"
+        return names
+
+    def forward(self, x):
+        return self.nets(x)
+
+    output_shape = staticmethod(_resnet18_output_shape)
+
+
 class FiLMLayer(nn.Module):
     """Feature-wise linear modulation by a language embedding:
     x -> relu((1 + gamma) x + beta)."""
@@ -203,10 +268,7 @@ class ResNet18ConvFiLM(nn.Module):
             x = film(block(x), lang_emb)
         return x
 
-    @staticmethod
-    def output_shape(input_shape):
-        h, w, _ = input_shape
-        return [int(math.ceil(h / 32.0)), int(math.ceil(w / 32.0)), 512]
+    output_shape = staticmethod(_resnet18_output_shape)
 
 
 class SpatialSoftmax(nn.Module):
@@ -240,7 +302,10 @@ class SpatialSoftmax(nn.Module):
             feature = self.nets(feature)
         b, k, h, w = feature.shape
         attention = torch.softmax(feature.reshape(b * k, h * w) / self.temperature, -1)
-        return (attention @ self.pos).reshape(b, k, 2)
+        # a bf16 attention meets the fp32 keypoint grid as in JAX: the
+        # product promotes, so the keypoints (and what follows) are fp32
+        dtype = torch.promote_types(attention.dtype, self.pos.dtype)
+        return (attention.to(dtype) @ self.pos.to(dtype)).reshape(b, k, 2)
 
     @staticmethod
     def static_output_shape(input_shape, num_kp=32):

@@ -1,8 +1,8 @@
 """Encoder cores and observation randomizers (counterpart of the JAX package's
-``models/obs_core.py``:57-143, 233-286): ``VisualCore``,
-``VisualCoreLanguageConditioned`` and ``CropRandomizer`` (random crops in
-training, the center crop in eval). Images are channels-last at the public
-functions.
+``models/obs_core.py``:57-143, 233-286): ``VisualCore`` (on ``ResNet18Conv``
+or the FiLM ``ResNet18ConvFiLM``), ``VisualCoreLanguageConditioned`` and
+``CropRandomizer`` (random crops in training, the center crop in eval).
+Images are channels-last at the public functions.
 """
 
 import torch
@@ -11,9 +11,10 @@ import torch.nn as nn
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 
-# Only the FiLM trunk is ported: every backbone here takes a language
-# embedding.
-_BACKBONE_CLASSES = {"ResNet18ConvFiLM": BaseNets.ResNet18ConvFiLM}
+_BACKBONE_CLASSES = {"ResNet18Conv": BaseNets.ResNet18Conv,
+                     "ResNet18ConvFiLM": BaseNets.ResNet18ConvFiLM}
+# backbones that take a language embedding
+_FILM_BACKBONES = {"ResNet18ConvFiLM"}
 _POOL_CLASSES = {"SpatialSoftmax": BaseNets.SpatialSoftmax}
 
 
@@ -41,7 +42,9 @@ class VisualCore(nn.Module):
                 "is ported yet"
             )
         bkw = _filter_kwargs({"input_coord_conv", "pretrained"}, backbone_kwargs)
-        bkw["lang_emb_dim"] = lang_emb_dim
+        self.film = backbone_class in _FILM_BACKBONES
+        if self.film:
+            bkw["lang_emb_dim"] = lang_emb_dim
         self.backbone = _BACKBONE_CLASSES[backbone_class](**bkw)
         feat_shape = self.backbone.output_shape(input_shape)
         pkw = _filter_kwargs(
@@ -56,7 +59,13 @@ class VisualCore(nn.Module):
 
     def forward(self, x, lang_emb=None):
         # contiguous NCHW: the trunk, and the stem pool's kernel, run NCHW
-        x = self.backbone(x.permute(0, 3, 1, 2).contiguous(), lang_emb)
+        x = x.permute(0, 3, 1, 2).contiguous()
+        if self.film:
+            if lang_emb is None:
+                raise ValueError("a FiLM backbone needs lang_emb")
+            x = self.backbone(x, lang_emb)
+        else:
+            x = self.backbone(x)
         x = self.pool(x)
         return self.proj(x.flatten(1))
 

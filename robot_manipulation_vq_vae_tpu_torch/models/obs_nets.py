@@ -1,6 +1,7 @@
-"""Observation encoder / decoder and the in-context transformer assembly
-(counterpart of the JAX package's ``models/obs_nets.py``:220-427, 469-578,
-602-637, 697-792).
+"""Observation encoder / decoder and the transformer assemblies (counterpart
+of the JAX package's ``models/obs_nets.py``:220-461, 469-578, 602-694,
+697-792): ``MIMO_Transformer`` over the observation groups, and the in-context
+``ICL_MIMO_Transformer``.
 
 Per-key encoder cores and randomizers are built from the same config-shaped
 dicts as in the JAX package (``observation.encoder.*``); features are
@@ -130,7 +131,28 @@ class ObservationDecoder(nn.Module):
         }
 
 
-class ICLObservationGroupEncoder(nn.Module):
+class ObservationGroupEncoder(nn.Module):
+    """One ObservationEncoder per observation group; concatenates the
+    groups' features in group order."""
+
+    def __init__(self, observation_group_shapes, encoder_kwargs=None):
+        super().__init__()
+        self.groups = [g for g, _ in observation_group_shapes]
+        self.nets = nn.ModuleDict({
+            group: ObservationEncoder(shapes, encoder_kwargs)
+            for group, shapes in observation_group_shapes
+        })
+        self.output_dim = sum(enc.output_dim for enc in self.nets.values())
+
+    def jax_names(self):
+        return {f"enc_{g}": f"nets.{g}" for g in self.nets}
+
+    def forward(self, inputs, generator=None):
+        return torch.cat([self.nets[g](inputs[g], generator) for g in self.groups],
+                         dim=-1)
+
+
+class ICLObservationGroupEncoder(ObservationGroupEncoder):
     """Obs-group encoder + prompt-action tokenizer. Of the four tokenizer
     modalities only LipVQ (``vq_vae_enabled``) is ported; the others raise.
 
@@ -142,7 +164,6 @@ class ICLObservationGroupEncoder(nn.Module):
     def __init__(self, observation_group_shapes, action_input_shape=12,
                  fast_enabled=False, bin_enabled=False, vq_vae_enabled=False,
                  ln_act_enabled=False, encoder_kwargs=None, use_kernels=True):
-        super().__init__()
         if sum([fast_enabled, bin_enabled, vq_vae_enabled, ln_act_enabled]) > 1:
             raise ValueError("at most one tokenizer modality may be enabled")
         if not vq_vae_enabled:
@@ -150,25 +171,17 @@ class ICLObservationGroupEncoder(nn.Module):
                 "only the LipVQ (vq_vae) action tokenizer is ported yet; the "
                 "FAST, bin, LN-act and default modalities are queued in ROADMAP.md"
             )
-        self.groups = [g for g, _ in observation_group_shapes]
-        self.nets = nn.ModuleDict({
-            group: ObservationEncoder(shapes, encoder_kwargs)
-            for group, shapes in observation_group_shapes
-        })
-        self.output_dim = sum(enc.output_dim for enc in self.nets.values())
+        super().__init__(observation_group_shapes, encoder_kwargs)
         self.action_network = LipVQVAE(
             feature_dim=action_input_shape, latent_dim=self.output_dim,
             use_kernel=use_kernels,
         )
 
     def jax_names(self):
-        names = {f"enc_{g}": f"nets.{g}" for g in self.nets}
-        names["action_network"] = "action_network"
-        return names
+        return {**super().jax_names(), "action_network": "action_network"}
 
     def forward(self, inputs, generator=None):
-        obs = torch.cat([self.nets[g](inputs[g], generator) for g in self.groups],
-                        dim=-1)
+        obs = super().forward(inputs, generator)
         context_obs = self.nets["obs"](inputs["prompt"]["obs"], generator)
         context_actions, vq_vae_loss = self.action_network(
             inputs["prompt"]["action"]
@@ -213,6 +226,57 @@ class _TransformerEmbedding(nn.Module):
         else:
             time_emb = self.embed_timestep_table[None, :t]
         return self.embed_drop(self.embed_ln(emb + time_emb))
+
+
+class MIMO_Transformer(nn.Module):
+    """Observation groups -> time-folded encoder -> embedding -> GPT over the
+    T steps -> per-step decoder heads."""
+
+    JAX_NAMES = {"encoder": "encoder", "embedding": "embedding",
+                 "transformer": "transformer", "decoder": "decoder"}
+
+    def __init__(self, input_obs_group_shapes, output_shapes,
+                 transformer_embed_dim, transformer_num_layers,
+                 transformer_num_heads, transformer_context_length,
+                 transformer_causal=True, transformer_emb_dropout=0.1,
+                 transformer_attn_dropout=0.1,
+                 transformer_block_output_dropout=0.1,
+                 transformer_sinusoidal_embedding=False,
+                 transformer_activation="gelu",
+                 transformer_nn_parameter_for_timesteps=False,
+                 encoder_kwargs=None):
+        super().__init__()
+        self.group_names = [g for g, _ in input_obs_group_shapes]
+        self.encoder = ObservationGroupEncoder(input_obs_group_shapes, encoder_kwargs)
+        self.embedding = _TransformerEmbedding(
+            self.encoder.output_dim, transformer_embed_dim,
+            transformer_context_length, transformer_emb_dropout,
+            transformer_sinusoidal_embedding,
+            transformer_nn_parameter_for_timesteps,
+        )
+        self.transformer = GPT_Backbone(
+            embed_dim=transformer_embed_dim,
+            context_length=transformer_context_length,
+            causal=transformer_causal,
+            attn_dropout=transformer_attn_dropout,
+            block_output_dropout=transformer_block_output_dropout,
+            num_layers=transformer_num_layers,
+            num_heads=transformer_num_heads,
+            activation=transformer_activation,
+        )
+        self.decoder = ObservationDecoder(output_shapes, transformer_embed_dim)
+
+    def forward(self, generator=None, **inputs):
+        """Each group's observations [B, T, ...]; @generator draws the
+        randomizers' crops in training."""
+        folded, b, t = TensorUtils.fold_time(
+            {g: inputs[g] for g in self.group_names if inputs.get(g)}
+        )
+        seq = self.encoder(folded, generator).reshape(b, t, -1)
+        hidden = self.transformer(self.embedding(seq))
+        out = self.decoder(hidden)
+        out["transformer_encoder_outputs"] = hidden
+        return out
 
 
 class ICL_MIMO_Transformer(nn.Module):

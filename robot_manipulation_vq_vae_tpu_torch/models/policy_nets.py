@@ -1,6 +1,8 @@
 """Actor networks (counterpart of the JAX package's ``models/policy_nets.py``
-:388-501): the prompt-conditioned ICL transformer actors. The GMM actor is
-the paper's LipVQ path; with ``low_noise_eval`` its eval scales are 1e-4."""
+:300-359, 388-501): the transformer actor of the flagship
+ICLTransformerHVQVAE, and the prompt-conditioned ICL transformer actors. The
+GMM actor is the paper's LipVQ path; with ``low_noise_eval`` its eval scales
+are 1e-4."""
 
 import torch
 import torch.nn as nn
@@ -9,10 +11,53 @@ import torch.nn.functional as F
 from robot_manipulation_vq_vae_tpu_torch.models.distributions import (
     GMMActionDistribution,
 )
-from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import ICL_MIMO_Transformer
+from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import (
+    ICL_MIMO_Transformer,
+    MIMO_Transformer,
+)
 from robot_manipulation_vq_vae_tpu_torch.utils import tensor_utils as TensorUtils
 
 _STD_ACTIVATIONS = {"softplus": F.softplus, "exp": torch.exp}
+
+
+class TransformerActorNetwork(nn.Module):
+    """MIMO_Transformer actor over the observation window: [B, T, ac_dim]
+    actions, tanh-squashed. ``actions`` is accepted and ignored, as in the
+    reference forward that ICLTransformerHVQVAE calls."""
+
+    JAX_NAMES = {"net": "net"}
+
+    def __init__(self, obs_shapes, ac_dim, transformer_embed_dim,
+                 transformer_num_layers, transformer_num_heads,
+                 transformer_context_length, goal_shapes=None,
+                 encoder_kwargs=None, **transformer_kwargs):
+        super().__init__()
+        self.ac_dim = ac_dim
+        self.goal_shapes = goal_shapes
+        groups = [("obs", obs_shapes)]
+        if goal_shapes:
+            groups.append(("goal", goal_shapes))
+        self.net = MIMO_Transformer(
+            input_obs_group_shapes=groups,
+            output_shapes=[("action", (ac_dim,))],
+            transformer_embed_dim=transformer_embed_dim,
+            transformer_num_layers=transformer_num_layers,
+            transformer_num_heads=transformer_num_heads,
+            transformer_context_length=transformer_context_length,
+            encoder_kwargs=encoder_kwargs,
+            **transformer_kwargs,
+        )
+
+    def forward(self, obs_dict, actions=None, goal_dict=None, generator=None):
+        """obs [B, T, ...] -> actions [B, T, ac_dim]; @generator draws the
+        random crops in training."""
+        kwargs = {"obs": obs_dict}
+        if self.goal_shapes:
+            if goal_dict is None:
+                raise ValueError("this policy is goal-conditioned: pass goal_dict")
+            t = next(iter(obs_dict.values())).shape[1]
+            kwargs["goal"] = TensorUtils.unsqueeze_expand_at(goal_dict, size=t, dim=1)
+        return torch.tanh(self.net(generator=generator, **kwargs)["action"])
 
 
 class ICLTransformerActorNetwork(nn.Module):

@@ -3,3 +3,8 @@ from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.lipvq import (
     LipschitzDense,
     LipVQVAE,
 )
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.hvqvae import (
+    HierarchicalVQVAE,
+    compute_vqvae_loss,
+    get_codebook_usage,
+)

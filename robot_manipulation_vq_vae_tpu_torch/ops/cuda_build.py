@@ -9,7 +9,9 @@ source in parallel. Each library exports ``<prefix>_error_string(int)``,
 which names the CUDA error its launch function returned.
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
-launches its kernel (``launch``), and nowhere else.
+launches its kernel (``launch``), and nowhere else. A kernel compiled for two
+element types counts each instance under its own name (``stem_pool_fwd`` and
+``stem_pool_fwd_bf16``); ``kernel_name`` picks the instance for a dtype.
 """
 
 import ctypes
@@ -44,14 +46,24 @@ KERNELS = {
          _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
         "lipvq_error_string", ("lipvq_assign_core.cuh",),
     ),
-    "stem_pool_fwd": (
-        "stem_pool.cu", "stem_pool_fwd_launch", [_P, _L, _I, _I, _P, _P, _P],
-        "stem_pool_error_string", (),
-    ),
-    "stem_pool_bwd": (
-        "stem_pool.cu", "stem_pool_bwd_launch", [_P, _P, _L, _I, _I, _P, _P],
-        "stem_pool_error_string", (),
-    ),
+    # the bf16 instances of kernels 3 to 5 are kernels of their own, with
+    # their own entry points and launch counts
+    **{
+        f"stem_pool_{step}{suffix}": (
+            "stem_pool.cu", f"stem_pool_{step}{suffix}_launch", argtypes,
+            "stem_pool_error_string", (),
+        )
+        for step, argtypes in (("fwd", [_P, _L, _I, _I, _P, _P, _P]),
+                               ("bwd", [_P, _P, _L, _I, _I, _P, _P]))
+        for suffix in ("", "_bf16")
+    },
+    **{
+        f"pool_route{suffix}": (
+            "pool_route.cu", f"pool_route{suffix}_launch",
+            [_P, _P, _P, _L, _I, _I, _P, _P], "pool_route_error_string", (),
+        )
+        for suffix in ("", "_bf16")
+    },
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -165,6 +177,17 @@ def check_cuda_inputs(name, tensors, dtypes=(torch.float32,)):
                 f"{name}: the raw launch is forward only; differentiate "
                 "through its torch.autograd.Function"
             )
+
+
+_DTYPE_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def kernel_name(base, dtype):
+    """The instance of kernel @base for @dtype (fp32 or bf16); raises for any
+    other type."""
+    if dtype not in _DTYPE_SUFFIX:
+        raise TypeError(f"{base}: expected float32 or bfloat16, got {dtype}")
+    return base + _DTYPE_SUFFIX[dtype]
 
 
 def on_cpu(tensors):

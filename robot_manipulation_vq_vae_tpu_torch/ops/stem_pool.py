@@ -13,15 +13,21 @@ Counterpart of the JAX package's ``ops/pallas/stem_pool.py``:
   never reads the forward's input.
 
 Both are bound by device memory on the H100 (about 579 MB moved each at the
-policy path's [512, 64, 58, 58], 0.173 ms at 3.35 TB/s); the kernel source
-says how each reads its input once and writes its output once. Tensors are
-NCHW, the layout of the port's trunk; the TPU kernels' lane packing of two
+fp32 policy path's [512, 64, 58, 58], 0.173 ms at 3.35 TB/s); the kernel
+source says how each reads its input once and writes its output once. Tensors
+are NCHW, the layout of the port's trunk; the TPU kernels' lane packing of two
 columns has no counterpart here. Any H and W are accepted: the output is
 floor((H - 1) / 2) + 1 by floor((W - 1) / 2) + 1, as in ``F.max_pool2d``.
 
+Each kernel has an fp32 and a bf16 instance (mixed-precision training pools
+the bf16 stem activation). The maximum is exact in either type; the backward
+adds a cell's routed gradients in fp32 and rounds once to the gradient's
+type, as the TPU kernel does (``stem_pool.py:115``, ``:140``).
+
 Each wrapper runs its plain version on CPU tensors (the tests) and launches
-its kernel on CUDA tensors, which must be fp32 and NCHW-contiguous; it never
-falls back from the kernel. The kernels are built by ``ops/cuda_build.py``.
+its kernel on CUDA tensors, which must be fp32 or bf16 and NCHW-contiguous;
+any other type raises, and it never falls back from the kernel. The kernels
+are built by ``ops/cuda_build.py``.
 """
 
 import torch
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 
 from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
     check_cuda_inputs,
+    kernel_name,
     launch,
     on_cpu,
     stream_of,
@@ -68,26 +75,29 @@ def pool_fwd_plain(x):
 
 def pool_bwd_plain(idx, g, hw):
     """(offset int8 [N, C, Ho, Wo], g [N, C, Ho, Wo], (H, W)) -> dx
-    [N, C, H, W]: 9 masked strided adds into a padded accumulator."""
+    [N, C, H, W] in g's type: 9 masked strided adds into a padded fp32
+    accumulator (at least fp32: a float64 g stays float64), rounded once at
+    the end, as the TPU kernel adds."""
     h, w = hw
     ho, wo = g.shape[-2:]
-    acc = g.new_zeros(*g.shape[:-2], h + 2, w + 2)
+    acc = g.new_zeros(*g.shape[:-2], h + 2, w + 2,
+                      dtype=torch.promote_types(g.dtype, torch.float32))
     for k, (di, dj) in enumerate(_OFFSETS):
         _window(acc, di, dj, ho, wo).add_(torch.where(idx == k, g, torch.zeros_like(g)))
-    return acc[..., 1:h + 1, 1:w + 1].contiguous()
+    return acc[..., 1:h + 1, 1:w + 1].to(g.dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
-# kernels 3 and 4
+# kernels 3 and 4, each in fp32 and bf16
 # ---------------------------------------------------------------------------
 
 def pool_fwd_cuda(x):
-    """Kernel 3: x [N, C, H, W] fp32, NCHW-contiguous -> (max, offset int8),
-    each [N, C, Ho, Wo]."""
+    """Kernel 3: x [N, C, H, W] fp32 or bf16, NCHW-contiguous -> (max in x's
+    type, offset int8), each [N, C, Ho, Wo]."""
     if on_cpu((x,)):
         return pool_fwd_plain(x)
-    name = "stem_pool_fwd"
-    check_cuda_inputs(name, (x,))
+    name = kernel_name("stem_pool_fwd", x.dtype)
+    check_cuda_inputs(name, (x,), dtypes=(x.dtype,))
     if x.dim() != 4:
         raise ValueError(f"{name}: expected [N, C, H, W], got {tuple(x.shape)}")
     n, c, h, w = x.shape
@@ -100,15 +110,14 @@ def pool_fwd_cuda(x):
 
 
 def pool_bwd_cuda(idx, g, hw):
-    """Kernel 4: (offset int8, g fp32) [N, C, Ho, Wo], contiguous, and the
-    input's (H, W) -> dx [N, C, H, W]."""
+    """Kernel 4: (offset int8, g fp32 or bf16) [N, C, Ho, Wo], contiguous,
+    and the input's (H, W) -> dx [N, C, H, W] in g's type."""
     if on_cpu((idx, g)):
         return pool_bwd_plain(idx, g, hw)
-    name = "stem_pool_bwd"
-    check_cuda_inputs(name, (idx, g), dtypes=(torch.int8, torch.float32))
-    if idx.dtype != torch.int8 or g.dtype != torch.float32:
-        raise TypeError(f"{name}: expected int8 idx and float32 g, got "
-                        f"{idx.dtype} and {g.dtype}")
+    name = kernel_name("stem_pool_bwd", g.dtype)
+    check_cuda_inputs(name, (idx, g), dtypes=(torch.int8, g.dtype))
+    if idx.dtype != torch.int8:
+        raise TypeError(f"{name}: expected int8 idx, got {idx.dtype}")
     h, w = hw
     if g.dim() != 4 or idx.shape != g.shape or tuple(g.shape[-2:]) != pooled_hw(h, w):
         raise ValueError(

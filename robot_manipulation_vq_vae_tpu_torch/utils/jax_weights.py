@@ -6,11 +6,16 @@ format of the JAX package's ``utils/ckpt_conversion.py::flatten_variables``)
 and fills @module, whose classes say how their JAX children are named:
 
 * ``JAX_NAMES`` (or a ``jax_names()`` method): {JAX child name: torch
-  submodule path}, e.g. ``{"enc1": "encoder.0"}``;
-* ``JAX_PARAMS``: raw parameters whose JAX and torch names and layouts agree.
+  submodule path}, e.g. ``{"enc1": "encoder.0"}``, or {JAX child name:
+  {its children: paths}} where the torch module has no counterpart of the
+  JAX child, e.g. ``{"stem": {"conv1": "nets.0", "bn1": "nets.1"}}``;
+* ``JAX_PARAMS``: raw parameters whose JAX and torch names and layouts agree;
+* ``JAX_BUFFERS``: {collection: {JAX name: buffer name}} for variables of
+  other collections kept as buffers, e.g. the HVQVAE's ``vq`` codebooks.
 
 Leaves are converted by type: Linear ``kernel [in, out]`` -> ``weight
 [out, in]``; Conv2d ``kernel [h, w, in, out]`` -> ``weight [out, in, h, w]``;
+Conv1d ``kernel [k, in, out]`` -> ``weight [out, in, k]``;
 BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
 ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
 ``scale``/``bias``. Any key that is missing or left unused raises: there are
@@ -29,6 +34,8 @@ def _leaf_entries(mod):
         out = [("params", "kernel", "weight", lambda a: a.T)]
     elif isinstance(mod, nn.Conv2d):
         out = [("params", "kernel", "weight", lambda a: a.transpose(3, 2, 0, 1))]
+    elif isinstance(mod, nn.Conv1d):
+        out = [("params", "kernel", "weight", lambda a: a.transpose(2, 1, 0))]
     elif isinstance(mod, nn.BatchNorm2d):
         return [("params", "scale", "weight", same), ("params", "bias", "bias", same),
                 ("batch_stats", "mean", "running_mean", same),
@@ -56,7 +63,21 @@ def _entries(mod, jax_path, torch_path):
     for name in getattr(mod, "JAX_PARAMS", ()):
         yield ("/".join(["params", *jax_path, name]),
                ".".join([*torch_path, name]), lambda a: a)
-    for jax_name, torch_rel in _jax_names(mod).items():
+    for coll, names in getattr(mod, "JAX_BUFFERS", {}).items():
+        for jax_name, torch_name in names.items():
+            yield ("/".join([coll, *jax_path, jax_name]),
+                   ".".join([*torch_path, torch_name]), lambda a: a)
+    yield from _child_entries(mod, _jax_names(mod), jax_path, torch_path)
+
+
+def _child_entries(mod, names, jax_path, torch_path):
+    for jax_name, torch_rel in names.items():
+        if isinstance(torch_rel, dict):
+            # a JAX child without a torch module of its own: its children
+            # sit at these paths under @mod
+            yield from _child_entries(mod, torch_rel, jax_path + [jax_name],
+                                      torch_path)
+            continue
         yield from _entries(
             mod.get_submodule(torch_rel),
             jax_path + [jax_name],
@@ -76,13 +97,13 @@ def load_jax_variables(module, flat):
             raise KeyError(f"{type(module).__name__} has no tensor {torch_key}")
         if torch_key in filled:
             raise KeyError(f"{torch_key} is mapped twice")
-        value = np.ascontiguousarray(fn(np.asarray(flat[jax_key])))
+        value = fn(np.asarray(flat[jax_key]))
         if tuple(value.shape) != tuple(state[torch_key].shape):
             raise ValueError(
                 f"{jax_key} {value.shape} does not fit {torch_key} "
                 f"{tuple(state[torch_key].shape)}"
             )
-        new_state[torch_key] = torch.from_numpy(value).to(state[torch_key].dtype)
+        new_state[torch_key] = torch.tensor(value, dtype=state[torch_key].dtype)
         used.add(jax_key)
         filled.add(torch_key)
     unused = sorted(set(flat) - used)

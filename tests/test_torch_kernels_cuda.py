@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (``cuda`` marker: they skip where there is none), and the wrappers' device
-rule: the two LipVQ kernels and the assign's backward (``L2Nearest``), and
-the stem pool's forward and backward. This file imports neither JAX nor the JAX package, so that it
-runs on a machine with only PyTorch:
+rule: the two LipVQ kernels and the assign's backward (``L2Nearest``), the
+stem pool's forward and backward in fp32 and bf16, and the equality-routing
+pool backward (kernel 5) in fp32 and bf16. This file imports neither JAX nor
+the JAX package, so that it runs on a machine with only PyTorch:
 
     RMVQ_TESTS_ON_TPU=1 python -m pytest tests/test_torch_kernels_cuda.py
 
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.lipvq import LipVQVAE
 from robot_manipulation_vq_vae_tpu_torch.ops import lipvq_kernel as K
+from robot_manipulation_vq_vae_tpu_torch.ops import pool as P
 from robot_manipulation_vq_vae_tpu_torch.ops import stem_pool as S
 from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import LAUNCHES
 
@@ -171,3 +173,91 @@ def test_stem_pool_autograd_runs_both_kernels(cuda_device):
     out_p = S.max_pool_3x3_s2(x, use_kernel=False)
     (dx_p,) = torch.autograd.grad(out_p, x, g)
     torch.testing.assert_close(dx, dx_p, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 58, 58), (2, 64, 57, 59), (3, 5, 1, 2)])
+def test_stem_pool_bf16_kernels_match_plain(cuda_device, shape):
+    """bf16: maxima and offsets bit-equal; dx bit-equal (both add in fp32 in
+    the same order and round once)."""
+    x = _relu_input(shape, cuda_device, 4).bfloat16()
+    before = dict(LAUNCHES)
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    g = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(5)).to(
+        cuda_device).bfloat16()
+    dx_k = S.pool_bwd_cuda(idx_k, g, shape[2:])
+    torch.cuda.synchronize()
+    assert LAUNCHES["stem_pool_fwd_bf16"] == before["stem_pool_fwd_bf16"] + 1
+    assert LAUNCHES["stem_pool_bwd_bf16"] == before["stem_pool_bwd_bf16"] + 1
+    assert LAUNCHES["stem_pool_fwd"] == before["stem_pool_fwd"]
+    out_p, idx_p = S.pool_fwd_plain(x)
+    assert out_k.dtype == dx_k.dtype == torch.bfloat16
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
+    torch.testing.assert_close(dx_k, S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)
+
+
+def _route_input(shape, kind, device, dtype):
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=gen)
+    if kind == "relu":
+        x = torch.relu(x - 0.25)
+    elif kind == "neginf":
+        x[:, ::2] = float("-inf")
+    return x.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["distinct", "relu", "neginf"])
+@pytest.mark.parametrize("shape", [(64, 64, 58, 58), (2, 3, 6, 8), (3, 5, 2, 130)])
+def test_pool_route_kernel_matches_plain(cuda_device, dtype, kind, shape):
+    """Kernel 5 bit-equal to its plain version: the same four terms per cell
+    added in the same order, in the gradient's type."""
+    x = _route_input(shape, kind, cuda_device, dtype)
+    z = F.max_pool2d(x, 3, 2, 1)
+    dz = torch.randn(z.shape, generator=torch.Generator().manual_seed(7)).to(
+        cuda_device, dtype)
+    name = "pool_route" if dtype == torch.float32 else "pool_route_bf16"
+    before = LAUNCHES[name]
+    dx_k = P.pool_route_cuda(x, z, dz)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    assert dx_k.dtype == dtype
+    torch.testing.assert_close(dx_k, P.pool_route_plain(x, z, dz), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_pool_autograd_launches_kernel_5_only_where_it_routes(cuda_device):
+    x = _route_input((4, 64, 58, 58), "relu", cuda_device, torch.float32)
+    x.requires_grad_(True)
+    before = LAUNCHES["pool_route"]
+    out = P.max_pool_3x3_s2(x)
+    g = torch.randn_like(out)
+    (dx,) = torch.autograd.grad(out, x, g)
+    assert LAUNCHES["pool_route"] == before + 1
+    (dx_p,) = torch.autograd.grad(P.max_pool_3x3_s2(x, use_kernel=False), x, g)
+    torch.testing.assert_close(dx, dx_p, rtol=0, atol=0)
+    odd = _route_input((2, 64, 57, 59), "distinct", cuda_device, torch.float32)
+    odd.requires_grad_(True)
+    out = P.max_pool_3x3_s2(odd)
+    g = torch.randn_like(out)
+    (dx,) = torch.autograd.grad(out, odd, g)
+    assert LAUNCHES["pool_route"] == before + 1
+    (dx_t,) = torch.autograd.grad(F.max_pool2d(odd, 3, 2, 1), odd, g)
+    torch.testing.assert_close(dx, dx_t, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_pool_kernels_refuse_other_types(cuda_device):
+    x = torch.randn(2, 4, 8, 8, device=cuda_device)
+    z = F.max_pool2d(x, 3, 2, 1)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            P.pool_route_cuda(x.to(dtype), z.to(dtype), z.to(dtype))
+        with pytest.raises(TypeError):
+            S.pool_fwd_cuda(x.to(dtype))
+    with pytest.raises(TypeError):
+        P.pool_route_cuda(x, z.bfloat16(), z)
+    with pytest.raises(ValueError):
+        P.pool_route_cuda(x[..., :7].contiguous(), z, z)

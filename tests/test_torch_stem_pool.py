@@ -143,3 +143,77 @@ def test_lipvq_backward_matches_jax_grad_through_pallas():
     assert not np.asarray(g_z).any()
     assert not idx.requires_grad
     np.testing.assert_allclose(cbt.grad.numpy(), np.asarray(g_cb), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the flagship's mixed-precision stem pools bf16 activations
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    return jnp.asarray(a, jnp.bfloat16)
+
+
+def _nchw_bf16(a):
+    return _nchw(np.asarray(jnp.asarray(a).astype(jnp.float32))).bfloat16()
+
+
+def _f32(t):
+    return _nhwc(t.float())
+
+
+@pytest.mark.parametrize("fill", ["randn", "relu"])
+def test_bf16_forward_matches_pallas_interpret_and_pool_argmax(fill):
+    """The maximum of bf16 values is exact: maxima and offsets bit-equal."""
+    y = _rand((4, 58, 58, 64), 10)
+    if fill == "relu":
+        y = np.maximum(y - 0.25, 0.0)
+    yj = _bf16(y)
+    out_j, idx_j = pallas.pool_fwd_pallas(yj, interpret=True)
+    out_o, idx_o = oracle.pool_argmax_forward(yj)
+    out_t, idx_t = S.pool_fwd_plain(_nchw_bf16(yj))
+    assert out_t.dtype == torch.bfloat16 and idx_t.dtype == torch.int8
+    for out, idx in ((out_j, idx_j), (out_o, idx_o)):
+        np.testing.assert_array_equal(_f32(out_t), np.asarray(out, np.float32))
+        np.testing.assert_array_equal(_nhwc(idx_t).astype(np.int32),
+                                      np.asarray(idx, np.int32))
+
+
+def test_bf16_backward_adds_in_fp32_and_rounds_once():
+    """The plain backward sums a cell's routed gradients in fp32 and rounds
+    once to bf16, as the TPU kernel does (``stem_pool.py:115``, ``:140``):
+    bit-equal to it in interpret mode, and to ``pool_argmax_backward`` run in
+    fp32 and rounded once. ``pool_argmax_backward`` run in bf16 rounds after
+    each of its adds instead; it differs only on cells that four windows
+    cover (odd row and column, the only cells with more than two terms), by
+    the extra roundings of the partial sums: at most 2^-6 max|g|."""
+    y = np.maximum(_rand((4, 58, 58, 64), 11) - 0.25, 0.0)
+    yj = _bf16(y)
+    g = _bf16(_rand((4, 29, 29, 64), 12))
+    _, idx_j = pallas.pool_fwd_pallas(yj, interpret=True)
+    want = pallas.pool_bwd_pallas(idx_j, g, interpret=True)
+    _, idx_o = oracle.pool_argmax_forward(yj)
+    want_f32 = oracle.pool_argmax_backward(idx_o, g.astype(jnp.float32), (58, 58))
+    want_bf16 = np.asarray(oracle.pool_argmax_backward(idx_o, g, (58, 58)), np.float32)
+    _, idx_t = S.pool_fwd_plain(_nchw_bf16(yj))
+    got = S.pool_bwd_plain(idx_t, _nchw_bf16(g), (58, 58))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(got), np.asarray(want, np.float32))
+    np.testing.assert_array_equal(
+        _f32(got), np.asarray(want_f32.astype(jnp.bfloat16), np.float32))
+    differ = _f32(got) != want_bf16
+    assert differ.any() and not differ[:, 0::2].any() and not differ[:, :, 0::2].any()
+    bound = 2.0 ** -6 * float(np.abs(np.asarray(g, np.float32)).max())
+    assert np.abs(_f32(got) - want_bf16).max() <= bound
+
+
+def test_bf16_autograd_pair_matches_max_pool2d():
+    x = torch.from_numpy(np.maximum(_rand((2, 8, 20, 22), 13), 0)).bfloat16()
+    x.requires_grad_(True)
+    out = S.max_pool_3x3_s2(x)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, F.max_pool2d(x, 3, 2, 1), rtol=0, atol=0)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).bfloat16()
+    (dx,) = torch.autograd.grad(out, x, g)
+    _, idx = S.pool_fwd_plain(x.detach())
+    assert dx.dtype == torch.bfloat16
+    torch.testing.assert_close(dx, S.pool_bwd_plain(idx, g, (20, 22)), rtol=0, atol=0)
