@@ -14,10 +14,11 @@ Phases, each of which fails the run when it fails:
   4. the roundtrip kernel against its plain version on 65,536 x 12 chunks
      with weights ~N(0, 0.5^2);
   5. the tokenizer path: LipVQVAE.roundtrip_fused at 65,536 chunks;
-  6. the stem pool's kernels (forward, backward) against their plain versions
-     at the training path's [512, 64, 58, 58] and at [2, 64, 57, 59], on
-     inputs after a ReLU (about 60 % zeros, so windows tie): maxima and
-     offsets bit-equal, dx within 1e-6 max|g|;
+  6. the stem pool's kernels (forward, backward) in fp32 against their plain
+     versions at the paper training path's [512, 64, 58, 58], the flagship
+     fp32 step's [1024, 64, 58, 58] (both timed) and at [2, 64, 57, 59], on
+     inputs after a ReLU (about 60 % zeros, so windows tie): maxima, offsets
+     and dx bit-equal;
   6b. the stem pool's kernels in bf16 at the flagship's [1024, 64, 58, 58]:
      maxima, offsets and dx bit-equal to the plain versions;
   6c. kernel 5 (pool_route, the equality-routing pool backward) against its
@@ -79,12 +80,13 @@ TOKENIZER_CHUNKS = 65536
 IMG, CROP = 128, 116       # camera images, center-cropped at eval
 BATCHES = (1, 16)          # one env, and the 16-env batch
 REQUESTS = 3
-# the training path's stem pool input (3 cameras x 2 groups of 32 x 16
-# frames per step, each [512, 64, 58, 58]) and a small odd shape
-POOL_SHAPES = ((512, 64, 58, 58), (2, 64, 57, 59))
 # the flagship's stem pool input: 3 cameras of 64 x 16 frames per step, each
 # [1024, 64, 58, 58]
 FLAGSHIP_POOL = (1024, 64, 58, 58)
+# the paper training path's stem pool input (3 cameras x 2 groups of 32 x 16
+# frames per step, each [512, 64, 58, 58]), the flagship's in fp32, and a
+# small odd shape; the first two are timed, the first feeds the kernels line
+POOL_SHAPES = ((512, 64, 58, 58), FLAGSHIP_POOL, (2, 64, 57, 59))
 # kernel 5's op at the flagship stem activation as the JAX package drives it
 # (scripts/mfu_campaign.py, [3072, 58, 58, 64] NHWC), and a shape it must
 # leave to torch's own gradient
@@ -383,8 +385,8 @@ def phase_stem_pool(S, dev):
             f"(max|g| {gmax:.3f})")
         check(torch.equal(out_k, out_p), f"{tag}: maxima differ")
         check(n_idx == 0, f"{tag}: {n_idx} offsets differ")
-        check(bwd_err <= 1e-6 * gmax, f"{tag}: dx differs by {bwd_err}")
-        if shape != POOL_SHAPES[0]:
+        check(torch.equal(dx_k, dx_p), f"{tag}: dx differs by {bwd_err}")
+        if shape not in POOL_SHAPES[:2]:
             continue
         n_in, n_out = x.numel(), out_k.numel()
         _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
@@ -402,7 +404,9 @@ def phase_stem_pool(S, dev):
                 # offset and g read once, dx written once; one add per output
                 (5 * n_out + 4 * n_in, n_out), bwd_err),
         }
-        rows.update(time_kernels(timed, tag))
+        timed_rows = time_kernels(timed, tag)
+        if shape == POOL_SHAPES[0]:
+            rows.update(timed_rows)
     return rows
 
 

@@ -23,25 +23,38 @@
 //   with a strict `>`, so the first maximum wins, as in torch's MaxPool2d and
 //   the TPU kernel. It writes the maximum (in the input's type: the max of
 //   bf16 values is exact) and the offset 3 di + dj.
-// * pool_bwd_kernel: a gather with no atomics. A warp walks one input row,
-//   a thread one cell (i, j) at a time, with no 64-bit division in the
-//   index arithmetic (the first version divided a 64-bit flat index per
-//   cell and ran at 5.5x its bound). Row i = 2m lies only in output row m,
-//   row i = 2m + 1 in rows m and m + 1, and the same for columns, so 1, 2
-//   or 4 windows cover a cell;
-//   the thread adds g[p, q] of each covering window whose recorded offset is
-//   this cell's, in fp32 and in ascending offset order (the order of the plain
-//   version's nine masked adds, so the sums agree bit for bit), rounds once to
-//   the gradient's type, as the TPU kernel does, and writes every cell, zeros
-//   included. It never reads x.
+// * pool_bwd_kernel: a gather with no atomics, a thread per window (p, q).
+//   Row i = 2p lies only in window row p, row 2p + 1 in rows p and p + 1,
+//   and the same for columns, so the thread owns the 2x2 input quad at rows
+//   2p, 2p + 1 and columns 2q, 2q + 1 and needs only windows (p, q),
+//   (p, q + 1), (p + 1, q) and (p + 1, q + 1): cell (2p, 2q) takes offset 4
+//   of (p, q); (2p, 2q + 1) offsets 3 and 5 of (p, q + 1) and (p, q);
+//   (2p + 1, 2q) offsets 1 and 7 of (p + 1, q) and (p, q); (2p + 1, 2q + 1)
+//   offsets 0, 2, 6 and 8 of (p + 1, q + 1), (p + 1, q), (p, q + 1), (p, q).
+//   That is 9 compares for 4 cells. Each cell adds the g of its matching
+//   windows in fp32, from 0, in ascending offset order (the order of the
+//   plain version's nine masked adds, so the sums agree bit for bit), rounds
+//   once to the gradient's type, as the TPU kernel does, and every cell is
+//   written, zeros included. It never reads x.
+//   A block takes a tile of the (n, c) plane's windows, the whole plane when
+//   its offsets and gradients fit kBwdStageBytes of shared memory (the stem's
+//   29 x 29 windows: 4.5 KB in fp32), else a band of rows, or of rows and
+//   columns, and stages the tile's offsets and g plus one halo row and column
+//   with coalesced loads (cells past the plane get offset -1, which matches
+//   nothing), so each offset and gradient leaves device memory once. A thread
+//   then writes its quad's two row pairs as one 8-byte float2 (fp32) or one
+//   4-byte __nv_bfloat162 (bf16) each where W is even; scalar stores
+//   otherwise.
 //
 // Any H and W are accepted; the output is floor((H - 1) / 2) + 1 rows by
-// floor((W - 1) / 2) + 1 columns. Element offsets are 64-bit; the number of
-// input rows, N * C * H, must fit an int.
+// floor((W - 1) / 2) + 1 columns. Plane offsets are 64-bit; in the forward
+// the number of input rows, N * C * H, and in the backward the cells of one
+// plane, H * W, must fit an int.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -51,8 +64,8 @@ constexpr int kTileH = 8;                 // output rows per block
 constexpr int kThreads = kTileW * kTileH;
 constexpr int kPatchH = 2 * kTileH + 1;   // input rows of a tile, halo included
 constexpr int kPatchW = 2 * kTileW + 1;
-constexpr int kBwdCols = 32;              // backward: a warp per input row
-constexpr int kBwdRows = 8;               // ... and 8 rows per block
+constexpr int kBwdThreads = 256;          // backward: threads per block
+constexpr int kBwdStageBytes = 16384;     // ... and its staged tile at most
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -108,30 +121,80 @@ __global__ void __launch_bounds__(kThreads)
   idx[o] = static_cast<int8_t>(k_best);
 }
 
+// two neighbouring cells of a row in one store; @p is 2-element aligned
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kBwdCols * kBwdRows)
+__global__ void __launch_bounds__(kBwdThreads)
     pool_bwd_kernel(const int8_t* __restrict__ idx, const T* __restrict__ g,
-                    int rows, int H, int W, int Ho, int Wo,
+                    int H, int W, int Ho, int Wo, int tile_h, int tile_w,
+                    int tiles_w, int tiles_per_plane, bool pair_stores,
                     T* __restrict__ dx) {
-  const int row = blockIdx.x * kBwdRows + threadIdx.y;   // plane * H + i
-  if (row >= rows) return;
-  const int i = row % H;
-  const long long base = static_cast<long long>(row / H) * Ho * Wo;
-  T* dx_row = dx + static_cast<long long>(row) * W;
-  // covering windows: p in [i / 2, (i + 1) / 2], q likewise; walking p and q
-  // downwards walks di = i - 2p + 1 and dj = j - 2q + 1 upwards
-  const int p_lo = i / 2, p_hi = min((i + 1) / 2, Ho - 1);
-  for (int j = threadIdx.x; j < W; j += kBwdCols) {
-    const int q_lo = j / 2, q_hi = min((j + 1) / 2, Wo - 1);
-    float acc = 0.f;
-    for (int p = p_hi; p >= p_lo; --p) {
-      const int di = i - 2 * p + 1;
-      for (int q = q_hi; q >= q_lo; --q) {
-        const long long o = base + static_cast<long long>(p) * Wo + q;
-        if (__ldg(idx + o) == 3 * di + (j - 2 * q + 1)) acc += to_float(g[o]);
+  // the tile's g, then its offsets, each (tile_h + 1) x (tile_w + 1): the
+  // halo row and column hold windows p + 1 and q + 1 of the tile's last
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pitch = tile_w + 1;
+  const int staged = (tile_h + 1) * pitch;
+  T* sg = reinterpret_cast<T*>(smem);
+  int8_t* sk = reinterpret_cast<int8_t*>(sg + staged);
+
+  const long long plane = blockIdx.x / tiles_per_plane;
+  const int tile = blockIdx.x % tiles_per_plane;
+  const int p0 = (tile / tiles_w) * tile_h, q0 = (tile % tiles_w) * tile_w;
+  const int8_t* kp = idx + plane * Ho * Wo;
+  const T* gp = g + plane * Ho * Wo;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < staged; e += kBwdThreads) {
+    const int r = e / pitch, c = e - r * pitch;
+    const int p = p0 + r, q = q0 + c;
+    const bool in = p < Ho && q < Wo;
+    const int o = p * Wo + q;
+    sk[e] = in ? kp[o] : static_cast<int8_t>(-1);   // -1 matches no offset
+    sg[e] = in ? gp[o] : from_float<T>(0.f);
+  }
+  __syncthreads();
+
+  const int rows = min(tile_h, Ho - p0), cols = min(tile_w, Wo - q0);
+  T* dxp = dx + plane * H * W;
+  for (int e = threadIdx.x; e < rows * cols; e += kBwdThreads) {
+    const int r = e / cols, c = e - r * cols;
+    const int s = r * pitch + c;
+    // window (p + a, q + b) is kAB / gAB
+    const int k00 = sk[s], k01 = sk[s + 1];
+    const int k10 = sk[s + pitch], k11 = sk[s + pitch + 1];
+    const float g00 = to_float(sg[s]), g01 = to_float(sg[s + 1]);
+    const float g10 = to_float(sg[s + pitch]), g11 = to_float(sg[s + pitch + 1]);
+    // cell (2p + a, 2q + b) is dAB; each sums in ascending offset order from 0
+    float d00 = 0.f, d01 = 0.f, d10 = 0.f, d11 = 0.f;
+    if (k00 == 4) d00 += g00;
+    if (k01 == 3) d01 += g01;
+    if (k00 == 5) d01 += g00;
+    if (k10 == 1) d10 += g10;
+    if (k00 == 7) d10 += g00;
+    if (k11 == 0) d11 += g11;
+    if (k10 == 2) d11 += g10;
+    if (k01 == 6) d11 += g01;
+    if (k00 == 8) d11 += g00;
+
+    const int i = 2 * (p0 + r), j = 2 * (q0 + c);
+    const bool has_row1 = i + 1 < H, has_col1 = j + 1 < W;
+    T* out = dxp + i * W + j;
+    if (pair_stores) {   // W even, so column j + 1 exists
+      store_pair(out, d00, d01);
+      if (has_row1) store_pair(out + W, d10, d11);
+    } else {
+      out[0] = from_float<T>(d00);
+      if (has_col1) out[1] = from_float<T>(d01);
+      if (has_row1) {
+        out[W] = from_float<T>(d10);
+        if (has_col1) out[W + 1] = from_float<T>(d11);
       }
     }
-    dx_row[j] = from_float<T>(acc);
   }
 }
 
@@ -155,14 +218,26 @@ template <typename T>
 int launch_bwd(const int8_t* idx, const T* g, long long planes, int H, int W,
                T* dx, void* stream) {
   if (planes <= 0) return 0;
-  if (H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (H <= 0 || W <= 0 || static_cast<long long>(H) * W > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  const long long rows = planes * H;
-  if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = static_cast<int>((rows + kBwdRows - 1) / kBwdRows);
-  pool_bwd_kernel<T><<<blocks, dim3(kBwdCols, kBwdRows), 0,
+  // the largest tile whose staged g and offsets, halo included, fit
+  // kBwdStageBytes: whole rows where two of them fit, else column tiles
+  const int stage_max = kBwdStageBytes / static_cast<int>(sizeof(T) + 1);
+  const int tile_w = std::min(Wo, stage_max / 2 - 1);
+  const int tile_h = std::min(Ho, stage_max / (tile_w + 1) - 1);
+  const int tiles_w = (Wo + tile_w - 1) / tile_w;
+  const int tiles_per_plane = tiles_w * ((Ho + tile_h - 1) / tile_h);
+  const long long blocks = planes * tiles_per_plane;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(tile_h + 1) * (tile_w + 1) * (sizeof(T) + 1);
+  const bool pair_stores =
+      W % 2 == 0 && reinterpret_cast<uintptr_t>(dx) % (2 * sizeof(T)) == 0;
+  pool_bwd_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      idx, g, static_cast<int>(rows), H, W, Ho, Wo, dx);
+      idx, g, H, W, Ho, Wo, tile_h, tile_w, tiles_w, tiles_per_plane,
+      pair_stores, dx);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -139,13 +139,29 @@ def _relu_input(shape, device, seed):
     return torch.relu(torch.randn(shape, generator=gen) - 0.25).to(device)
 
 
+# the backward's edges: H or W of 1, 2 and 3; both odd; one odd; planes
+# larger than one staged tile (bands of window rows: [1, 2, 130, 258], 24
+# rows a band in fp32 and 41 in bf16; bands of rows and columns: W = 7001 and
+# 16001); each on ReLU'd inputs and on zeros, where every interior window
+# records offset 0
+_POOL_EDGE_SHAPES = [(64, 64, 58, 58), (2, 64, 57, 59), (3, 5, 1, 2), (2, 3, 1, 1),
+                     (2, 3, 2, 2), (2, 3, 3, 3), (2, 3, 1, 7), (2, 3, 6, 2), (2, 3, 3, 8),
+                     (2, 4, 58, 57), (2, 4, 57, 58), (2, 3, 40, 130), (1, 2, 130, 258),
+                     (1, 2, 131, 259), (1, 1, 5, 7001), (1, 1, 3, 16001)]
+
+
+def _pool_input(shape, kind, device, seed):
+    return torch.zeros(shape, device=device) if kind == "zeros" else _relu_input(
+        shape, device, seed)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64, 58, 58), (2, 64, 57, 59), (3, 5, 1, 2),
-                                   (2, 3, 40, 130)])
-def test_stem_pool_kernels_match_plain(cuda_device, shape):
+@pytest.mark.parametrize("kind", ["relu", "zeros"])
+@pytest.mark.parametrize("shape", _POOL_EDGE_SHAPES)
+def test_stem_pool_kernels_match_plain(cuda_device, shape, kind):
     """Maxima and offsets bit-equal, ties included; dx bit-equal too (the
     kernel adds a cell's routed gradients in the plain version's order)."""
-    x = _relu_input(shape, cuda_device, 1)
+    x = _pool_input(shape, kind, cuda_device, 1)
     before = dict(LAUNCHES)
     out_k, idx_k = S.pool_fwd_cuda(x)
     torch.cuda.synchronize()
@@ -176,11 +192,12 @@ def test_stem_pool_autograd_runs_both_kernels(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64, 58, 58), (2, 64, 57, 59), (3, 5, 1, 2)])
-def test_stem_pool_bf16_kernels_match_plain(cuda_device, shape):
+@pytest.mark.parametrize("kind", ["relu", "zeros"])
+@pytest.mark.parametrize("shape", _POOL_EDGE_SHAPES)
+def test_stem_pool_bf16_kernels_match_plain(cuda_device, shape, kind):
     """bf16: maxima and offsets bit-equal; dx bit-equal (both add in fp32 in
     the same order and round once)."""
-    x = _relu_input(shape, cuda_device, 4).bfloat16()
+    x = _pool_input(shape, kind, cuda_device, 4).bfloat16()
     before = dict(LAUNCHES)
     out_k, idx_k = S.pool_fwd_cuda(x)
     g = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(5)).to(
