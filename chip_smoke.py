@@ -9,10 +9,11 @@ Phases, each of which fails the run when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. the assign kernel against its plain version at D in {976, 210},
-     K = 1024, N in {16, 256, 65536}, and its backward (L2Nearest) against
-     plain autograd at N = 512, D = 976;
+     K = 1024, N in {16, 256, 512, 65536} (each time with its achieved
+     TFLOP/s and the tile width and splits the wrapper chose), and its
+     backward (L2Nearest) against plain autograd at N = 512, D = 976;
   4. the roundtrip kernel against its plain version on 65,536 x 12 chunks
-     with weights ~N(0, 0.5^2);
+     with weights ~N(0, 0.5^2), timed with its achieved TFLOP/s;
   5. the tokenizer path: LipVQVAE.roundtrip_fused at 65,536 chunks;
   6. the stem pool's kernels (forward, backward) in fp32 against their plain
      versions at the paper training path's [512, 64, 58, 58], the flagship
@@ -143,6 +144,13 @@ def bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def tflops(n_ops, ms):
+    """Achieved fp32 rate of @n_ops operations in @ms, and its share of the
+    card's 67 TFLOP/s."""
+    rate = n_ops / ms / 1e9
+    return f"{rate:.2f} TFLOP/s, {rate * 1e12 / FP32_PEAK:.3f} of {FP32_PEAK / 1e12:.0f}"
+
+
 def near_ties(z, codebook):
     """Rows whose best and second-best squared distances (float64) differ by
     at most TIE_REL relative to the best."""
@@ -180,6 +188,7 @@ def phase_assign(K, dev):
     log("phase 3: assign kernel vs plain")
     rows = {}
     gen = torch.Generator(dev).manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for d in ASSIGN_DS:
         cb = (torch.rand(1024, d, generator=gen, device=dev) * 2 - 1) * (6.0 / d) ** 0.5
         for n in ASSIGN_NS:
@@ -192,9 +201,12 @@ def phase_assign(K, dev):
             err = float((zq_k[agree] - zq_p[agree]).abs().max())
             ms = cuda_ms(lambda: K.l2_nearest_cuda(z, cb))
             plain = cuda_ms(lambda: K.l2_nearest_plain(z, cb))
-            b, by = bound_ms((2 * n * d + 1024 * d + 1024 + n) * 4, 2 * n * 1024 * d)
+            flops = 2 * n * 1024 * d
+            b, by = bound_ms((2 * n * d + 1024 * d + 1024 + n) * 4, flops)
+            width, splits, _ = K._assign_splits(n, 1024, sms)
             log(f"  D={d} N={n}: kernel {fmt(ms)}, plain {fmt(plain)}, "
-                f"bound {b:.4f} ms ({by}), max|err| {err}")
+                f"bound {b:.4f} ms ({by}), max|err| {err}; {tflops(flops, ms[0])}; "
+                f"{width}-code tiles, {splits} splits")
             rows[(d, n)] = dict(ms=ms[0], plain_ms=plain[0], bound_ms=b,
                                 bound_by=by, max_abs_err=err)
     return rows
@@ -249,7 +261,9 @@ def phase_roundtrip(K, dev, model, x):
     b, by = bound_ms(n * (12 + 12 + 1) * 4 + weight_bytes + 1024 * 211 * 4,
                      roundtrip_flops(n))
     log(f"  kernel {fmt(ms)} ({n / ms[0] * 1e3:.0f} chunks/s), plain {fmt(plain)}, "
-        f"bound {b:.4f} ms ({by})")
+        f"bound {b:.4f} ms ({by}); {tflops(roundtrip_flops(n), ms[0])}; 64-row tiles, "
+        "dense layers in 64- or 128-column passes, the argmin in 128-code tiles, "
+        "no split")
     return dict(ms=ms[0], plain_ms=plain[0], bound_ms=b, bound_by=by, max_abs_err=err)
 
 
@@ -496,7 +510,8 @@ def phase_policy_path(CB, dev, profile):
     if profile:
         for b in BATCHES:
             obs, ctx = requests[b][0]
-            device_profile(f"get_action B={b}", lambda: algo.get_action(obs, ctx))
+            device_profile(f"get_action B={b}", lambda: algo.get_action(obs, ctx),
+                           share=("assign_kernel", "merge_kernel"))
     del plain
     serve_with_pool_switch(CB, dev, algo, requests[BATCHES[-1]][-1])
     return counts

@@ -4,15 +4,21 @@
 // Replaces the TPU kernel `_assign_kernel` of
 // robot_manipulation_vq_vae_tpu/ops/pallas/lipvq_kernel.py, which kept the
 // whole codebook in VMEM and computed the gather as a one-hot matrix product.
-// Here a block takes kRows rows of z and a contiguous range of whole code
-// tiles, and runs the streaming argmin of lipvq_assign_core.cuh; the gather
-// copies the winning codebook rows, one coalesced row at a time. Only idx and
-// z_q (and, when the codebook is split, one (min, argmin) per row and range)
-// reach device memory: the [N, K] distance matrix never does.
+// On Hopper the search is bound by fp32 FMAs (2 N K D operations); the 4 MB
+// codebook of the policy path cannot stay in one SM's shared memory, so a
+// block takes 64 rows of z and a contiguous range of whole code tiles, and
+// runs the register-tiled tile product of lipvq_assign_core.cuh over each
+// tile, staging its z rows and the codes depth-major, 16 deep, double-buffered
+// from L2; the argmin epilogue keeps a running (min, argmin) per row in
+// registers. The gather copies the winning codebook rows, one coalesced row
+// at a time. Only idx and z_q (and, when the codebook is split, one
+// (min, argmin) per row and range) reach device memory: the [N, K] distance
+// matrix never does.
 //
-// The policy path has few rows (N = 16 per environment), so the row tiles
-// alone would leave most SMs idle: the caller splits the codebook into S
-// ranges (gridDim.y), each block writes its rows' partial (min, argmin), and
+// Tile width: 128 codes where the row tiles give enough blocks (the
+// tokenizer-sized N), else 64. The policy path has few rows (N = 16 per
+// environment), so the caller also splits the codebook into S ranges
+// (gridDim.y), each block writes its rows' partial (min, argmin), and
 // merge_kernel combines the S partials in ascending range order on
 // (value, index), which keeps the first index on a tie, and gathers z_q.
 // With S = 1 assign_kernel writes idx and z_q itself.
@@ -20,28 +26,31 @@
 
 using namespace lipvq;
 
-__global__ void __launch_bounds__(kThreads)
+template <int kCols>
+struct AssignSmem {
+  float a[2 * kChunk * kRows];   // z chunks, depth-major
+  float b[2 * kChunk * kCols];   // code chunks, depth-major
+  Partials red;
+  float best_v[kRows];
+  int best[kRows];
+};
+
+template <int kCols>
+__global__ void __launch_bounds__(kThreads, 2)
     assign_kernel(const float* __restrict__ z, const float* __restrict__ cb,
                   const float* __restrict__ c_sq, int N, int D, int K,
                   int codes_per_split, int* __restrict__ idx,
                   float* __restrict__ z_q, float* __restrict__ part_v,
                   int* __restrict__ part_i) {
-  __shared__ AssignSmem sm;
+  __shared__ __align__(16) AssignSmem<kCols> sm;
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, N - row0);
   const int k_begin = blockIdx.y * codes_per_split;
   const int k_end = min(K, k_begin + codes_per_split);
 
-  auto load_z = [&](int d0, AssignSmem& s) {
-    for (int e = threadIdx.x; e < kRows * kChunk; e += kThreads) {
-      const int m = e / kChunk, d = e % kChunk;
-      const int col = d0 + d;
-      s.zs[d][m] = (m < rows && col < D)
-                       ? __ldg(z + static_cast<size_t>(row0 + m) * D + col)
-                       : 0.f;
-    }
-  };
-  assign_rows(load_z, cb, c_sq, D, k_begin, k_end, sm);
+  TransposeStager<kRows> za{z, D, row0, N, (D & 3) == 0 && aligned16(z), sm.a};
+  assign_rows<kCols>(za, cb, c_sq, D, k_begin, k_end, sm.b, sm.red, sm.best_v,
+                     sm.best);
 
   const int t = threadIdx.x;
   if (gridDim.y == 1) {
@@ -83,25 +92,32 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // z [N, D], cb [K, D], c_sq [K] (= sum of squares of each code), all fp32 and
-// contiguous; writes idx [N] int32 and z_q [N, D]. The codebook is searched
-// in @splits ranges of @codes_per_split codes (a multiple of 64 covering K);
-// with splits > 1, part_v [splits, N] fp32 and part_i [splits, N] int32 are
-// the caller's scratch. Launches on @stream and returns cudaGetLastError().
+// contiguous; writes idx [N] int32 and z_q [N, D]. @width is the code tile
+// (64 or 128); the codebook is searched in @splits ranges of
+// @codes_per_split codes (a multiple of @width covering K); with splits > 1,
+// part_v [splits, N] fp32 and part_i [splits, N] int32 are the caller's
+// scratch. Launches on @stream and returns cudaGetLastError().
 extern "C" int lipvq_assign_launch(const float* z, const float* cb,
                                    const float* c_sq, int N, int D, int K,
-                                   int splits, int codes_per_split, int* idx,
-                                   float* z_q, float* part_v, int* part_i,
-                                   void* stream) {
+                                   int width, int splits, int codes_per_split,
+                                   int* idx, float* z_q, float* part_v,
+                                   int* part_i, void* stream) {
   if (N <= 0) return 0;
-  if (D <= 0 || K <= 0 || splits <= 0 || codes_per_split % kCodes != 0 ||
+  if (D <= 0 || K <= 0 || (width != 64 && width != 128) || splits <= 0 ||
+      codes_per_split % width != 0 ||
       static_cast<long long>(splits) * codes_per_split < K ||
       static_cast<long long>(splits - 1) * codes_per_split >= K ||
       (splits > 1 && (part_v == nullptr || part_i == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int row_tiles = (N + kRows - 1) / kRows;
-  assign_kernel<<<dim3(row_tiles, splits), kThreads, 0, s>>>(
-      z, cb, c_sq, N, D, K, codes_per_split, idx, z_q, part_v, part_i);
+  const dim3 grid(row_tiles, splits);
+  if (width == 128)
+    assign_kernel<128><<<grid, kThreads, 0, s>>>(
+        z, cb, c_sq, N, D, K, codes_per_split, idx, z_q, part_v, part_i);
+  else
+    assign_kernel<64><<<grid, kThreads, 0, s>>>(
+        z, cb, c_sq, N, D, K, codes_per_split, idx, z_q, part_v, part_i);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   merge_kernel<<<row_tiles, kThreads, 0, s>>>(cb, N, D, splits, part_v, part_i,

@@ -37,7 +37,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "lipvq_assign": (
         "lipvq_assign.cu", "lipvq_assign_launch",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "lipvq_error_string", ("lipvq_assign_core.cuh",),
     ),
     "lipvq_roundtrip": (

@@ -6,22 +6,27 @@ Counterpart of the JAX package's ``ops/pallas/lipvq_kernel.py``:
 * ``l2_nearest_cuda`` replaces the TPU kernel ``_assign_kernel`` (reached
   through ``l2_nearest_pallas``): idx = argmin_k ||z - C_k||^2, first index
   on a tie, and z_q = C[idx]. The work is 2 N K D fp32 operations against
-  (2 N D + K D) * 4 bytes, so on the H100 it is bound by fp32 operations at
-  every shape the port runs. The design (``csrc/lipvq_assign.cu``) keeps the
-  [N, K] distance matrix out of device memory: each block streams the
-  codebook from L2 in tiles and keeps a running (min, argmin) per row in
-  registers; the 4 MB codebook of the policy path cannot stay in one SM's
-  shared memory, as it stayed whole in VMEM on the TPU. The policy path has
-  few rows (16 per environment), so the wrapper also splits the codebook
-  across blocks until about two blocks per SM are in flight, and a second
-  small kernel merges the partial minima and gathers.
+  (2 N D + K D) * 4 bytes, so on the H100 it is bound by fp32 FMAs at every
+  shape the port runs. The design (``csrc/lipvq_assign.cu`` on the tile
+  product of ``csrc/lipvq_assign_core.cuh``) keeps the [N, K] distance
+  matrix out of device memory: each block runs a register-tiled fp32 product
+  of 64 rows against tiles of 64 or 128 codes, staged from L2 16 deep and
+  double-buffered, and keeps a running (min, argmin) per row in registers;
+  the 4 MB codebook of the policy path cannot stay in one SM's shared
+  memory, as it stayed whole in VMEM on the TPU. ``_assign_splits`` takes
+  128-code tiles where the row tiles fill the card (the tokenizer-sized N)
+  and 64-code tiles below; the policy path has few rows (16 per
+  environment), so it also splits the codebook across blocks until about
+  two blocks per SM are in flight, and a second small kernel merges the
+  partial minima and gathers.
 * ``lipvq_roundtrip_cuda`` replaces ``_roundtrip_kernel`` (reached through
   ``lipvq_roundtrip_pallas``): the whole tokenize + detokenize of a 64-row
   tile in one kernel, encoder MLP -> Lipschitz latent -> assign -> gather ->
   decoder MLP, with tanh-GELU as in the TPU kernel. It is bound by fp32
   operations (about 0.55 MFLOP per row against 96 bytes of input and
   output); its design (``csrc/lipvq_roundtrip.cu``) keeps every intermediate
-  in shared memory and shares the streaming argmin with the assign kernel.
+  in shared memory and runs the five dense layers and the nearest-code
+  search through the same tile product.
 
 Each wrapper runs its plain version on CPU tensors (the tests) and launches
 its kernel on CUDA tensors; it never falls back from the kernel. The raw
@@ -59,14 +64,18 @@ def l2_nearest_plain(z, codebook):
     return idx.to(torch.int32), codebook[idx]
 
 
-def _assign_splits(n, k, device):
-    """(S, codes per split): split the codebook into S ranges of whole
-    64-code tiles so that row tiles x S gives about two blocks per SM."""
-    row_tiles, code_tiles = -(-n // 64), -(-k // 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _assign_splits(n, k, sms):
+    """(width, S, codes per split) for N = @n rows, K = @k codes and @sms
+    SMs: 128-code tiles where the row tiles x the 128-code tiles give at
+    least two blocks per SM, else 64-code tiles; and a split of the codebook
+    into S ranges of whole tiles so that row tiles x S gives about two
+    blocks per SM."""
+    row_tiles = -(-n // 64)
+    width = 128 if row_tiles * -(-k // 128) >= 2 * sms else 64
+    code_tiles = -(-k // width)
     splits = min(code_tiles, max(1, -(-2 * sms // row_tiles)))
-    per_split = -(-code_tiles // splits) * 64
-    return -(-k // per_split), per_split
+    per_split = -(-code_tiles // splits) * width
+    return width, -(-k // per_split), per_split
 
 
 def l2_nearest_cuda(z, codebook):
@@ -85,14 +94,15 @@ def l2_nearest_cuda(z, codebook):
     c_sq = (codebook * codebook).sum(-1)
     idx = torch.empty(n, dtype=torch.int32, device=z.device)
     z_q = torch.empty_like(z)
-    splits, per_split = _assign_splits(n, k, z.device)
+    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
+    width, splits, per_split = _assign_splits(n, k, sms)
     part_v = part_i = None
     if splits > 1:
         part_v = torch.empty(splits, n, dtype=torch.float32, device=z.device)
         part_i = torch.empty(splits, n, dtype=torch.int32, device=z.device)
     stream = stream_of(z)
     launch(name, z.data_ptr(), codebook.data_ptr(), c_sq.data_ptr(),
-           n, d, k, splits, per_split, idx.data_ptr(), z_q.data_ptr(),
+           n, d, k, width, splits, per_split, idx.data_ptr(), z_q.data_ptr(),
            part_v.data_ptr() if part_v is not None else None,
            part_i.data_ptr() if part_i is not None else None, stream)
     return idx, z_q

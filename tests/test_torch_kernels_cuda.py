@@ -47,12 +47,41 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
     torch.testing.assert_close(zq, zq_p, rtol=0, atol=0)
 
 
+def _exact_inputs(n, k, d, device, seed=5):
+    """Small integers: every distance is exact in fp32 whatever the order of
+    the sums, so codes of equal distance tie exactly and the first index must
+    win, in the kernel as in the plain version."""
+    gen = torch.Generator().manual_seed(seed)
+    cb = torch.randint(-3, 4, (k, d), generator=gen).float()
+    z = torch.randint(-3, 4, (n, d), generator=gen).float()
+    return z.to(device), cb.to(device)
+
+
+# (inputs, N, D, K): the tile width and the codebook splits that
+# _assign_splits takes for each on an H100's 132 SMs are in the comments
+_ASSIGN_CASES = [
+    ("near", 16, 976, 1024),     # 64 codes, 16 splits
+    ("near", 300, 210, 1024),    # 64, 16
+    ("near", 65, 37, 1024),      # 64, 16
+    ("near", 512, 976, 1024),    # 64, 16
+    ("near", 4096, 37, 1024),    # 128, 4
+    ("near", 4224, 37, 1024),    # 128, 4
+    ("near", 16896, 37, 1024),   # 128, 1
+    ("exact", 300, 37, 100),     # 64, 2
+    ("exact", 300, 210, 1030),   # 64, 17
+    ("exact", 20000, 37, 1030),  # 128, 1
+    ("exact", 300, 3, 1024),     # 64, 16
+    ("exact", 4224, 1, 1024),    # 128, 4
+    ("exact", 16896, 3, 100),    # 128, 1
+    ("exact", 1000, 3, 50),      # 64, 1
+]
+
+
 @pytest.mark.cuda
-# the codebook is split over 16, 16, 16, 4 and 1 block ranges on an H100
-@pytest.mark.parametrize("n,d", [(16, 976), (300, 210), (65, 37), (4096, 37),
-                                 (16896, 37)])
-def test_assign_kernel_matches_plain(cuda_device, n, d):
-    z, cb = _near_code_inputs(n, 1024, d, cuda_device)
+@pytest.mark.parametrize("inputs,n,d,k", _ASSIGN_CASES)
+def test_assign_kernel_matches_plain(cuda_device, inputs, n, d, k):
+    make = _near_code_inputs if inputs == "near" else _exact_inputs
+    z, cb = make(n, k, d, cuda_device)
     before = LAUNCHES["lipvq_assign"]
     idx_k, zq_k = K.l2_nearest_cuda(z, cb)
     torch.cuda.synchronize()
@@ -63,29 +92,72 @@ def test_assign_kernel_matches_plain(cuda_device, n, d):
 
 
 @pytest.mark.cuda
-def test_assign_kernel_keeps_the_first_index_on_a_tie(cuda_device):
-    z, base = _near_code_inputs(100, 64, 48, cuda_device)
-    cb = torch.cat([base, base, base])  # codes k, k + 64, k + 128 tie exactly
-    idx, _ = K.l2_nearest_cuda(z, cb)
+@pytest.mark.parametrize("n,width", [(100, 64), (8448, 128)])
+@pytest.mark.parametrize("period", [2, 64])
+def test_assign_kernel_keeps_the_first_index_on_a_tie(cuda_device, n, width, period):
+    """Code k repeats at k + period, k + 2 period, ... over K = 256: exact
+    ties inside one thread's columns (k and k + 2; k and k + 64 at width
+    128), across threads (k + 4), across code tiles and across splits (the
+    codebook is split in 4 ranges at width 64 and 2 at width 128)."""
+    z, base = _exact_inputs(n, period, 48, cuda_device)
+    cb = base.repeat(256 // period, 1)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert K._assign_splits(n, 256, sms)[0] == width
+    idx, zq = K.l2_nearest_cuda(z, cb)
     idx_p, _ = K.l2_nearest_plain(z, cb)
-    assert int(idx.max()) < 64
+    assert int(idx.max()) < period
     torch.testing.assert_close(idx, idx_p, rtol=0, atol=0)
+    torch.testing.assert_close(zq, cb[idx.long()], rtol=0, atol=0)
+
+
+def _check_roundtrip(rec_k, idx_k, rec_p, idx_p):
+    """Codes equal on at least 99.9 % of the rows (near ties may flip); recon
+    within 1e-4 on the rows whose codes agree."""
+    same = idx_k == idx_p
+    assert same.float().mean() >= 0.999
+    torch.testing.assert_close(rec_k[same], rec_p[same], rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
-def test_roundtrip_kernel_matches_plain(cuda_device):
+# the tokenizer's widths at an N that is not a multiple of 64, and the
+# kernel's width limits (h1 64, H 128, L 256, out 16) with K = 1030
+@pytest.mark.parametrize("n,feature,latent,codes", [(1000, 12, 210, 1024),
+                                                    (4097, 16, 256, 1030)])
+def test_roundtrip_kernel_matches_plain(cuda_device, n, feature, latent, codes):
     gen = torch.Generator().manual_seed(1)
-    model = LipVQVAE(12, 210, num_codes=1024)
-    x = torch.randn(1000, 12, generator=gen).to(cuda_device)
+    model = LipVQVAE(feature, latent, num_codes=codes)
+    x = torch.randn(n, feature, generator=gen).to(cuda_device)
     model.to(cuda_device)
     before = LAUNCHES["lipvq_roundtrip"]
     with torch.no_grad():
         rec_k, idx_k = model.roundtrip_fused(x)
         rec_p, idx_p = K.lipvq_roundtrip_plain(x, **model.fused_weights())
     assert LAUNCHES["lipvq_roundtrip"] == before + 1
-    same = idx_k == idx_p
-    assert same.float().mean() >= 0.999
-    torch.testing.assert_close(rec_k[same], rec_p[same], rtol=0, atol=1e-4)
+    _check_roundtrip(rec_k, idx_k, rec_p, idx_p)
+
+
+@pytest.mark.cuda
+def test_roundtrip_kernel_takes_widths_that_are_not_multiples_of_4(cuda_device):
+    """in 7, h1 33, H 100, L 37, K 100, out 7: every staged weight row is
+    ragged and takes the scalar loads."""
+    gen = torch.Generator().manual_seed(2)
+
+    def dense(i, o):
+        return (torch.randn(i, o, generator=gen) / i ** 0.5,
+                0.1 * torch.randn(o, generator=gen))
+
+    w = dict(enc_w=(dense(7, 33), dense(33, 100)), lip_w=dense(100, 37),
+             codebook=torch.rand(100, 37, generator=gen),
+             dec_w=(dense(37, 33), dense(33, 100), dense(100, 7)))
+    x = torch.randn(130, 7, generator=gen)
+    rec_p, idx_p = K.lipvq_roundtrip_plain(x, **w)
+
+    def to_card(v):
+        return tuple(map(to_card, v)) if isinstance(v, tuple) else v.to(cuda_device)
+
+    rec_k, idx_k = K.lipvq_roundtrip_cuda(
+        x.to(cuda_device), **{key: to_card(v) for key, v in w.items()})
+    _check_roundtrip(rec_k.cpu(), idx_k.cpu(), rec_p, idx_p)
 
 
 @pytest.mark.cuda
