@@ -19,7 +19,8 @@ Phases, each of which fails the run when it fails:
      versions at the paper training path's [512, 64, 58, 58], the flagship
      fp32 step's [1024, 64, 58, 58] (both timed) and at [2, 64, 57, 59], on
      inputs after a ReLU (about 60 % zeros, so windows tie): maxima, offsets
-     and dx bit-equal;
+     and dx bit-equal; each timed forward with the path its launcher took
+     (runs of whole planes or tiles, blocks, shared memory);
   6b. the stem pool's kernels in bf16 at the flagship's [1024, 64, 58, 58]:
      maxima, offsets and dx bit-equal to the plain versions;
   6c. kernel 5 (pool_route, the equality-routing pool backward) against its
@@ -373,6 +374,14 @@ def relu_input(shape, gen, dev, relu=True):
     return torch.relu(x - 0.25) if relu else x
 
 
+def fwd_path(S, x):
+    """The path kernel 3's launcher takes for @x, as its log line says it."""
+    per_block, blocks, smem = S.pool_fwd_plan(x.shape, x.dtype)
+    how = (f"runs of {per_block} whole planes a block" if per_block
+           else "8 x 32 output tiles (planes past a block's budget)")
+    return f"{how}, {blocks} blocks of {smem} B of shared memory"
+
+
 def phase_stem_pool(S, dev):
     import torch
     import torch.nn.functional as F
@@ -404,6 +413,7 @@ def phase_stem_pool(S, dev):
             continue
         n_in, n_out = x.numel(), out_k.numel()
         _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+        log(f"  stem_pool_fwd at {tag}: {fwd_path(S, x)}")
         timed = {
             "stem_pool_fwd": (
                 lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
@@ -690,6 +700,7 @@ def phase_stem_pool_bf16(S, dev):
     check(torch.equal(dx_k, dx_p), f"bf16 dx differs by {bwd_err}")
     n_in, n_out = x.numel(), out_k.numel()
     _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+    log(f"  stem_pool_fwd_bf16 at {'x'.join(map(str, FLAGSHIP_POOL))}: {fwd_path(S, x)}")
     timed = {
         # x read once (2 bytes); max (2) and offset (1) written once
         "stem_pool_fwd_bf16": (
@@ -716,7 +727,8 @@ def time_kernels(timed, tag):
         b, by = bound_ms(n_bytes, n_ops)
         log(f"  {name} at {tag}: kernel {fmt(ms)}, plain {fmt(plain_ms)}, library "
             f"{fmt(lib_ms) if lib_ms else 'none'}, bound {b:.4f} ms ({by}, "
-            f"{n_bytes / 1e6:.1f} MB)")
+            f"{n_bytes / 1e6:.1f} MB); kernel {ms[0] / b:.2f} x the bound "
+            f"(bound / kernel {b / ms[0]:.3f})")
         rows[name] = dict(ms=ms[0], plain_ms=plain_ms[0],
                           library_ms=lib_ms[0] if lib_ms else None,
                           bound_ms=b, bound_by=by, max_abs_err=err)

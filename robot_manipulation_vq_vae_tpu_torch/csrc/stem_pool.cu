@@ -11,18 +11,35 @@
 // Both kernels do a handful of compares or adds per element and are bound by
 // device memory on the H100: at the fp32 policy path's [512, 64, 58, 58] the
 // forward reads 440.9 MB and writes 110.2 MB of maxima and 27.6 MB of int8
-// offsets, the backward the mirror image, 578.7 MB each, about 0.173 ms at
-// 3.35 TB/s; in bf16 at the flagship's [1024, 64, 58, 58] about 606 MB each,
-// 0.181 ms. So each input is read once with coalesced loads and each output
-// written once, and nothing else reaches device memory:
+// offsets, 578.7 MB, a bound of 0.1728 ms at 3.35 TB/s, and the backward the
+// mirror image; in bf16 at the flagship's [1024, 64, 58, 58] each moves
+// 606.3 MB, 0.1810 ms. So each input is read once and each output written
+// once, and nothing else reaches device memory:
 //
-// * pool_fwd_kernel: a block takes a tile of kTileH x kTileW outputs of one
-//   (n, c) plane, stages the (2 kTileH + 1) x (2 kTileW + 1) input patch,
-//   halo included, in shared memory (row-contiguous loads; cells outside the
-//   image become -inf), and each thread scans its 9 taps in row-major order
-//   with a strict `>`, so the first maximum wins, as in torch's MaxPool2d and
-//   the TPU kernel. It writes the maximum (in the input's type: the max of
-//   bf16 values is exact) and the offset 3 di + dj.
+// * pool_fwd_kernel: a block takes a run of whole (n, c) planes, as many as
+//   fit kFwdStageBytes of shared memory with their outputs (the stem's
+//   58 x 58: 2 planes in fp32, 4 in bf16), so the block's input is one
+//   contiguous run of x and its outputs one run of `out` and one of `idx`.
+//   A tile per block of a 29 x 29 output plane took four blocks each staging
+//   a 17 x 65 patch with a bounds test per scalar load, and stored a 1-byte
+//   offset per thread in partial sectors; that per-block work, not the bytes,
+//   set its time (bf16 took as long as fp32). Here the input run is copied
+//   flat, in its own type, with 16-byte loads (a scalar head up to the first
+//   16-byte boundary and a scalar tail), into shared memory at the offset
+//   modulo 16 that it has in device memory, so that the vectors land aligned
+//   whatever the view's offset. Each thread then takes up to kRun adjacent
+//   windows of one output row: it reads the 3 input rows' 2 kRun + 1 columns
+//   once into registers (column 2q + 1 is shared by windows q and q + 1;
+//   cells outside the image are -inf, decided by index), and scans each
+//   window's 9 taps in row-major order with a strict `>`, so the first
+//   maximum wins, as in torch's MaxPool2d and the TPU kernel. bf16 becomes
+//   fp32 only to compare: exact, so the compares are bf16's own. The maxima
+//   (in the input's type) and the offsets 3 di + dj go to shared memory,
+//   again at their device address's offset modulo 16, and after one barrier
+//   both runs leave in 16-byte stores with a scalar head and tail.
+//   pool_fwd_tile_kernel keeps the tile design for planes too large for the
+//   budget; the launcher picks the kernel by plane size (no model path
+//   reaches the tile kernel).
 // * pool_bwd_kernel: a gather with no atomics, a thread per window (p, q).
 //   Row i = 2p lies only in window row p, row 2p + 1 in rows p and p + 1,
 //   and the same for columns, so the thread owns the 2x2 input quad at rows
@@ -47,9 +64,8 @@
 //   otherwise.
 //
 // Any H and W are accepted; the output is floor((H - 1) / 2) + 1 rows by
-// floor((W - 1) / 2) + 1 columns. Plane offsets are 64-bit; in the forward
-// the number of input rows, N * C * H, and in the backward the cells of one
-// plane, H * W, must fit an int.
+// floor((W - 1) / 2) + 1 columns. Plane offsets are 64-bit; in the backward
+// the cells of one plane, H * W, must fit an int.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -59,10 +75,14 @@
 
 namespace {
 
-constexpr int kTileW = 32;                // output columns per block: a warp
-constexpr int kTileH = 8;                 // output rows per block
+constexpr int kFwdThreads = 256;          // forward: threads per block
+constexpr int kFwdStageBytes = 40960;     // ... its staged planes and outputs at most
+constexpr int kRun = 3;                   // ... adjacent windows per thread
+constexpr int kLoadBatch = 4;             // ... 16-byte loads in flight per thread
+constexpr int kTileW = 32;                // tile forward: output columns per block
+constexpr int kTileH = 8;                 // ... output rows per block
 constexpr int kThreads = kTileW * kTileH;
-constexpr int kPatchH = 2 * kTileH + 1;   // input rows of a tile, halo included
+constexpr int kPatchH = 2 * kTileH + 1;   // ... input rows of a tile, halo included
 constexpr int kPatchW = 2 * kTileW + 1;
 constexpr int kBwdThreads = 256;          // backward: threads per block
 constexpr int kBwdStageBytes = 16384;     // ... and its staged tile at most
@@ -80,11 +100,124 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+__device__ __forceinline__ int mod16(const void* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// bytes a staged run of @bytes takes in shared memory: whole 16-byte lines,
+// and one more for its offset modulo 16
+__host__ __device__ __forceinline__ int stage_room(long long bytes) {
+  return static_cast<int>((bytes + 15) / 16 * 16 + 16);
+}
+
+// the block copies @n elements from @src to @dst, which lie at the same
+// address modulo 16: scalars up to the first 16-byte boundary, 16-byte
+// vectors (kLoadBatch of them in flight per thread; read through the
+// read-only path where @kFromGlobal), scalars for the tail
+template <bool kFromGlobal, typename T>
+__device__ __forceinline__ void copy_run(const T* __restrict__ src,
+                                         T* __restrict__ dst, int n) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const int head = min(n, ((16 - mod16(src)) & 15) / static_cast<int>(sizeof(T)));
+  const int vecs = (n - head) / kVec;
+  const int tail = head + vecs * kVec;
+  const int t = threadIdx.x;
+  if (t < head) dst[t] = src[t];
+  if (tail + t < n) dst[tail + t] = src[tail + t];
+  const uint4* vs = reinterpret_cast<const uint4*>(src + head);
+  uint4* vd = reinterpret_cast<uint4*>(dst + head);
+  for (int v0 = t; v0 < vecs; v0 += kLoadBatch * kFwdThreads) {
+    uint4 r[kLoadBatch];
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      const int v = v0 + b * kFwdThreads;
+      if (v < vecs) {
+        if constexpr (kFromGlobal) {
+          r[b] = __ldg(vs + v);
+        } else {
+          r[b] = vs[v];
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      const int v = v0 + b * kFwdThreads;
+      if (v < vecs) vd[v] = r[b];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, 4)
+    pool_fwd_kernel(const T* __restrict__ x, long long planes, int H, int W,
+                    int Ho, int Wo, int planes_per_block, T* __restrict__ out,
+                    int8_t* __restrict__ idx) {
+  // the block's input run, its maxima and its offsets, each placed at its
+  // device address's offset modulo 16
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long plane0 = static_cast<long long>(blockIdx.x) * planes_per_block;
+  const long long left = planes - plane0;
+  const int np = left < planes_per_block ? static_cast<int>(left) : planes_per_block;
+  const int hw = H * W, ohw = Ho * Wo;
+  const T* xs = x + plane0 * hw;
+  T* os = out + plane0 * ohw;
+  int8_t* ks = idx + plane0 * ohw;
+  const int in_room = stage_room(static_cast<long long>(planes_per_block) * hw * sizeof(T));
+  const int out_room = stage_room(static_cast<long long>(planes_per_block) * ohw * sizeof(T));
+  T* sx = reinterpret_cast<T*>(smem + mod16(xs));
+  T* so = reinterpret_cast<T*>(smem + in_room + mod16(os));
+  int8_t* sk = reinterpret_cast<int8_t*>(smem + in_room + out_room + mod16(ks));
+
+  copy_run<true>(xs, sx, np * hw);
+  __syncthreads();
+
+  const int runs_w = (Wo + kRun - 1) / kRun;
+  const int runs = Ho * runs_w;
+  for (int e = threadIdx.x; e < np * runs; e += kFwdThreads) {
+    const int p = e / runs, r = e - p * runs;
+    const int oh = r / runs_w, ow0 = (r - oh * runs_w) * kRun;
+    const T* xp = sx + p * hw;
+    // rows 2 oh - 1 .. 2 oh + 1, columns 2 ow0 - 1 .. 2 ow0 + 2 kRun - 1
+    float v[3][2 * kRun + 1];
+#pragma unroll
+    for (int di = 0; di < 3; ++di) {
+      const int i = 2 * oh - 1 + di;
+      const bool row_in = i >= 0 && i < H;
+#pragma unroll
+      for (int c = 0; c < 2 * kRun + 1; ++c) {
+        const int j = 2 * ow0 - 1 + c;
+        v[di][c] = row_in && j >= 0 && j < W ? to_float(xp[i * W + j]) : -CUDART_INF_F;
+      }
+    }
+    const int o = p * ohw + oh * Wo + ow0;
+#pragma unroll
+    for (int q = 0; q < kRun; ++q) {
+      if (ow0 + q < Wo) {
+        float best = v[0][2 * q];
+        int k_best = 0;
+#pragma unroll
+        for (int k = 1; k < 9; ++k) {
+          const float t = v[k / 3][2 * q + k % 3];
+          if (t > best) {  // strict: the first maximum in row-major order wins
+            best = t;
+            k_best = k;
+          }
+        }
+        so[o + q] = from_float<T>(best);
+        sk[o + q] = static_cast<int8_t>(k_best);
+      }
+    }
+  }
+  __syncthreads();
+  copy_run<false>(so, os, np * ohw);
+  copy_run<false>(sk, ks, np * ohw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    pool_fwd_kernel(const T* __restrict__ x, int H, int W, int Ho, int Wo,
-                    int tiles_w, int tiles_per_plane, T* __restrict__ out,
-                    int8_t* __restrict__ idx) {
+    pool_fwd_tile_kernel(const T* __restrict__ x, int H, int W, int Ho, int Wo,
+                         int tiles_w, int tiles_per_plane, T* __restrict__ out,
+                         int8_t* __restrict__ idx) {
   // fp32 in shared memory whatever T is: bf16 -> fp32 is exact, so the
   // compares and the maximum are the input type's own
   __shared__ float patch[kPatchH][kPatchW];
@@ -198,19 +331,53 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
+// How the forward runs on @planes planes of H x W elements of @elem_bytes
+// bytes: planes per block of pool_fwd_kernel (0: pool_fwd_tile_kernel), the
+// blocks, and a block's shared memory in bytes. Returns a cudaError_t.
+int fwd_plan(long long planes, int H, int W, int elem_bytes, long long plan[3]) {
+  if (planes < 0 || H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const long long hw = static_cast<long long>(H) * W, ohw = Ho * Wo;
+  // a plane's input, maxima and offsets, within the budget less the three
+  // runs' alignment slack
+  const long long per_plane =
+      hw > kFwdStageBytes ? kFwdStageBytes : hw * elem_bytes + ohw * (elem_bytes + 1);
+  const long long fit = (kFwdStageBytes - 48) / per_plane;
+  if (fit >= 1) {
+    const long long per_block = std::max(1LL, std::min(fit, planes));
+    plan[0] = per_block;
+    plan[1] = (planes + per_block - 1) / per_block;
+    plan[2] = stage_room(per_block * hw * elem_bytes) +
+              stage_room(per_block * ohw * elem_bytes) + stage_room(per_block * ohw);
+  } else {
+    const long long tiles_w = (Wo + kTileW - 1) / kTileW;
+    plan[0] = 0;
+    plan[1] = planes * tiles_w * ((Ho + kTileH - 1) / kTileH);
+    plan[2] = sizeof(float) * kPatchH * kPatchW;
+  }
+  return plan[1] > 0x7fffffffLL ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
 template <typename T>
 int launch_fwd(const T* x, long long planes, int H, int W, T* out, int8_t* idx,
                void* stream) {
   if (planes <= 0) return 0;
-  if (H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  long long plan[3];
+  const int err = fwd_plan(planes, H, W, sizeof(T), plan);
+  if (err != 0) return err;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  const int tiles_w = (Wo + kTileW - 1) / kTileW;
-  const int tiles_per_plane = tiles_w * ((Ho + kTileH - 1) / kTileH);
-  const long long blocks = planes * tiles_per_plane;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  pool_fwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, H, W, Ho, Wo, tiles_w, tiles_per_plane, out, idx);
+  const unsigned blocks = static_cast<unsigned>(plan[1]);
+  if (plan[0] > 0) {
+    pool_fwd_kernel<T><<<blocks, kFwdThreads, static_cast<size_t>(plan[2]),
+                         static_cast<cudaStream_t>(stream)>>>(
+        x, planes, H, W, Ho, Wo, static_cast<int>(plan[0]), out, idx);
+  } else {
+    const int tiles_w = (Wo + kTileW - 1) / kTileW;
+    const int tiles_per_plane = tiles_w * ((Ho + kTileH - 1) / kTileH);
+    pool_fwd_tile_kernel<T><<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        x, H, W, Ho, Wo, tiles_w, tiles_per_plane, out, idx);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -247,9 +414,19 @@ extern "C" const char* stem_pool_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x [planes, H, W], contiguous (planes = N * C); writes out [planes, Ho, Wo]
-// in x's type and idx [planes, Ho, Wo] int8. Launches on @stream and returns
-// cudaGetLastError().
+// The forward's plan for x [planes, H, W] of @elem_bytes-byte elements (4:
+// fp32, 2: bf16), as stem_pool_fwd*_launch takes it: @plan gets the planes
+// per block (0: the tile kernel of planes past the budget), the blocks, and
+// a block's shared memory in bytes. Returns a cudaError_t; launches nothing.
+extern "C" int stem_pool_fwd_plan(long long planes, int H, int W, int elem_bytes,
+                                  long long* plan) {
+  if (elem_bytes != 4 && elem_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_plan(planes, H, W, elem_bytes, plan);
+}
+
+// x [planes, H, W], contiguous (planes = N * C), at any element offset;
+// writes out [planes, Ho, Wo] in x's type and idx [planes, Ho, Wo] int8.
+// Launches on @stream and returns cudaGetLastError().
 extern "C" int stem_pool_fwd_launch(const float* x, long long planes, int H,
                                     int W, float* out, int8_t* idx,
                                     void* stream) {

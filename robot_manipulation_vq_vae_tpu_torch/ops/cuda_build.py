@@ -145,13 +145,19 @@ def build_log(source):
     return log.read_text() if log.exists() else ""
 
 
+def library(name):
+    """The loaded library of kernel @name's source, built at first use."""
+    src = KERNELS[name][0]
+    if src not in _LIBS:
+        build_kernels([name])
+    return _LIBS[src]
+
+
 def launch(name, *args):
     """Call kernel @name's C entry point (building it at first use), raise on
     the CUDA error it returns, and count the launch."""
-    src, entry, _, err_fn, _ = KERNELS[name]
-    if src not in _LIBS:
-        build_kernels([name])
-    lib = _LIBS[src]
+    _, entry, _, err_fn, _ = KERNELS[name]
+    lib = library(name)
     err = getattr(lib, entry)(*args)
     if err != 0:
         raise RuntimeError(

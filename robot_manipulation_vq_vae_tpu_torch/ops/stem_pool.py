@@ -30,6 +30,8 @@ any other type raises, and it never falls back from the kernel. The kernels
 are built by ``ops/cuda_build.py``.
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +39,7 @@ from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
     check_cuda_inputs,
     kernel_name,
     launch,
+    library,
     on_cpu,
     stream_of,
 )
@@ -107,6 +110,23 @@ def pool_fwd_cuda(x):
     launch(name, x.data_ptr(), n * c, h, w, out.data_ptr(), idx.data_ptr(),
            stream_of(x))
     return out, idx
+
+
+def pool_fwd_plan(shape, dtype):
+    """How kernel 3's launcher runs an input of @shape [N, C, H, W] in @dtype
+    (fp32 or bf16), as ``csrc/stem_pool.cu``'s ``fwd_plan`` decides it:
+    (planes per block, 0 where the tile kernel takes planes too large for a
+    block; blocks; a block's shared memory in bytes). Launches nothing;
+    builds the kernel's library where it is not built yet."""
+    fn = library(kernel_name("stem_pool_fwd", dtype)).stem_pool_fwd_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    plan = (ctypes.c_longlong * 3)()
+    n, c, h, w = shape
+    err = fn(n * c, h, w, torch.empty(0, dtype=dtype).element_size(), plan)
+    if err != 0:
+        raise ValueError(f"stem_pool_fwd: no plan for {tuple(shape)} in {dtype}")
+    return tuple(plan)
 
 
 def pool_bwd_cuda(idx, g, hw):

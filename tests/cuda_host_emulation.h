@@ -1,16 +1,23 @@
-// A host emulation of the CUDA subset that the LipVQ kernels
-// (robot_manipulation_vq_vae_tpu_torch/csrc/lipvq_*.cu) use, so that their
-// own sources compile with g++ and run on the CPU in the tests: each block's
-// threads are std::threads, __syncthreads is a std::barrier, __shared__
-// variables are statics and dynamic shared memory is one array, filled with
-// garbage before every block. Blocks run one after another. Launches are
-// rewritten by the test from `kernel<<<grid, threads, smem, stream>>>(args);`
-// to `emu::launch(grid, threads, smem, stream, [&] { kernel(args); });`.
+// A host emulation of the CUDA subset that the port's kernels
+// (robot_manipulation_vq_vae_tpu_torch/csrc/lipvq_*.cu, stem_pool.cu) use, so
+// that their own sources compile with g++ and run on the CPU in the tests:
+// each block's threads are std::threads, __syncthreads is a std::barrier,
+// __shared__ variables are statics and dynamic shared memory is one array,
+// filled with garbage before every block. Blocks run one after another.
+// Launches are rewritten by the test from
+// `kernel<<<grid, threads, smem, stream>>>(args);` to
+// `emu::launch(grid, threads, smem, stream, [&] { kernel(args); });`.
+// A uint4, float2 or __nv_bfloat162 read or written at an address that the
+// card would refuse (not a multiple of its size) fails the launch with
+// cudaErrorMisalignedAddress. The test's stand-in for <cuda_bf16.h> includes
+// this file: __nv_bfloat16 is 16 bits, converted as the card converts.
 #pragma once
 
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <functional>
 #include <thread>
@@ -39,10 +46,79 @@ struct float4 {
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float __ldg(const float* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
+
+namespace emu {
+inline std::atomic<bool> misaligned{false};
+// true where @p is a multiple of @size, as the card's vector accesses need;
+// else the launch fails (a host build would just read across the boundary)
+inline bool aligned(const void* p, size_t size) {
+  if (reinterpret_cast<uintptr_t>(p) % size == 0) return true;
+  misaligned = true;
+  return false;
+}
+}  // namespace emu
+
+// the base of a vector type: every copy checks both addresses before the
+// members are copied. The types keep their members' alignment, so that g++
+// assumes none and the checks stay.
+template <class V, size_t kSize>
+struct CheckedVector {
+  CheckedVector() = default;
+  CheckedVector(const CheckedVector& o) { emu::aligned(&o, kSize); }
+  CheckedVector& operator=(const CheckedVector& o) {
+    emu::aligned(this, kSize);
+    emu::aligned(&o, kSize);
+    return *this;
+  }
+};
+struct uint4 : CheckedVector<uint4, 16> {
+  unsigned x, y, z, w;
+};
+struct float2 : CheckedVector<float2, 8> {
+  float x, y;
+};
+inline float2 make_float2(float a, float b) {
+  float2 v;
+  v.x = a;
+  v.y = b;
+  return v;
+}
+inline uint4 __ldg(const uint4* p) { return *p; }
+
+// <cuda_bf16.h>: the 16 high bits of an fp32
+struct __nv_bfloat16 {
+  uint16_t bits;
+};
+struct __nv_bfloat162 : CheckedVector<__nv_bfloat162, 4> {
+  __nv_bfloat16 x, y;
+};
+inline float __bfloat162float(__nv_bfloat16 v) {
+  const uint32_t u = static_cast<uint32_t>(v.bits) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {  // round to nearest even
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if (std::isnan(f)) return {static_cast<uint16_t>((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {static_cast<uint16_t>(u >> 16)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  __nv_bfloat162 v;
+  v.x = __float2bfloat16_rn(a);
+  v.y = __float2bfloat16_rn(b);
+  return v;
+}
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline int min(int a, int b) { return a < b ? a : b; }
 
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorMisalignedAddress = 716
+};
 typedef void* cudaStream_t;
 inline cudaError_t emu_last_error = cudaSuccess;
 inline cudaError_t cudaGetLastError() {
@@ -51,7 +127,9 @@ inline cudaError_t cudaGetLastError() {
   return e;
 }
 inline const char* cudaGetErrorString(cudaError_t e) {
-  return e == cudaSuccess ? "no error" : "invalid argument";
+  return e == cudaSuccess                  ? "no error"
+         : e == cudaErrorMisalignedAddress ? "misaligned address"
+                                           : "invalid argument";
 }
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -90,6 +168,7 @@ inline void launch(dim3 grid, int threads, size_t smem, cudaStream_t,
         });
       for (auto& th : ts) th.join();
     }
+  if (misaligned.exchange(false)) emu_last_error = cudaErrorMisalignedAddress;
 }
 }  // namespace emu
 

@@ -286,6 +286,33 @@ def test_stem_pool_bf16_kernels_match_plain(cuda_device, shape, kind):
     torch.testing.assert_close(dx_k, S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 7])
+# 5 and 9 planes of the stem's size (a block takes 2 in fp32 and 4 in bf16,
+# so the last block takes fewer), and a plane too large for a block (the tile
+# kernel)
+@pytest.mark.parametrize("shape", [(1, 5, 58, 58), (3, 3, 57, 59), (1, 1, 100, 160)])
+def test_stem_pool_forward_takes_misaligned_views(cuda_device, shape, offset, dtype):
+    """x a contiguous view @offset elements into its buffer, so that the
+    forward's staged runs start off their 16-byte boundaries (an odd offset
+    in both types): maxima and offsets bit-equal to the plain version's."""
+    n = torch.Size(shape).numel()
+    buf = _relu_input((n + offset,), cuda_device, 8).to(dtype)
+    x = buf[offset:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset * x.element_size() % 16
+    name = "stem_pool_fwd" if dtype == torch.float32 else "stem_pool_fwd_bf16"
+    before = LAUNCHES[name]
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    out_p, idx_p = S.pool_fwd_plain(x)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
+    per_block = S.pool_fwd_plan(shape, dtype)[0]
+    assert (per_block == 0) == (shape[2:] == (100, 160))
+
+
 def _route_input(shape, kind, device, dtype):
     gen = torch.Generator().manual_seed(6)
     x = torch.randn(shape, generator=gen)
