@@ -25,9 +25,10 @@ Phases, each of which fails the run when it fails:
      maxima, offsets and dx bit-equal to the plain versions;
   6c. kernel 5 (pool_route, the equality-routing pool backward) against its
      plain version at [3072, 64, 58, 58] in bf16 and fp32, on ReLU'd inputs
-     (ties) and distinct values, bit-equal; the op's path, max_pool_3x3_s2
-     forward and backward, one launch per backward; [2, 64, 57, 59] takes
-     torch's gradient and launches nothing;
+     (ties) and distinct values, bit-equal, each timed, with the path its
+     launcher took (runs of whole planes or rows); the op's path,
+     max_pool_3x3_s2 forward and backward, one launch per backward;
+     [2, 64, 57, 59] takes torch's gradient and launches nothing;
   7. the policy path: icl_gmm_paper get_action at full width (6 layers, width
      512, 8 heads, context 16, 3 cameras of 128x128 cropped to 116, FiLM
      ResNet-18, LipVQ with 1024 codes over the 976-d encoder output), random
@@ -735,16 +736,27 @@ def time_kernels(timed, tag):
     return rows
 
 
+def route_path(P, x):
+    """The path kernel 5's launcher takes for @x, as its log line says it,
+    and whether it is the plane runs."""
+    per_block, blocks, smem = P.pool_route_plan(x.shape, x.dtype)
+    how = (f"runs of {per_block} whole planes a block" if per_block
+           else "a warp per input row (planes past a block's budget)")
+    return f"{how}, {blocks} blocks of {smem} B of shared memory", per_block > 0
+
+
 def phase_pool_route(CB, P, dev):
     """Kernel 5 against its plain version at the flagship stem activation in
-    bf16 and fp32, on ReLU'd inputs (ties) and distinct values; the odd shape
-    takes torch's gradient; then the op's main path: max_pool_3x3_s2's
-    forward and backward through autograd, one launch per backward."""
+    bf16 and fp32, on ReLU'd inputs (ties; the stem's real input) and
+    distinct values, each timed; the odd shape takes torch's gradient; then
+    the op's main path: max_pool_3x3_s2's forward and backward through
+    autograd, one launch per backward."""
     import torch
     import torch.nn.functional as F
 
     log(f"phase 6c: pool_route (kernel 5) vs plain at {ROUTE_SHAPE}, bf16 and fp32")
     gen = torch.Generator(dev).manual_seed(19)
+    tag = "x".join(map(str, ROUTE_SHAPE))
     rows, counts = {}, {}
     for dtype, name in ((torch.bfloat16, "pool_route_bf16"), (torch.float32, "pool_route")):
         for kind in ("relu", "distinct"):
@@ -758,17 +770,24 @@ def phase_pool_route(CB, P, dev):
             log(f"  {name} {kind}: {float((x == 0).float().mean()):.3f} zeros, "
                 f"max|dx err| {err}")
             check(torch.equal(dx_k, dx_p), f"{name} {kind}: dx differs by {err}")
-            del dx_p
-        size = x.element_size()
-        n_in, n_out = x.numel(), z.numel()
-        rows.update(time_kernels({name: (
-            lambda: P.pool_route_cuda(x, z, dz), lambda: P.pool_route_plain(x, z, dz),
-            None,
-            # x read and dx written once, z and dz read once; 4 compares and
-            # 4 adds per input cell
-            (size * (2 * n_in + 2 * n_out), 8 * n_in), err)}, "x".join(map(str, ROUTE_SHAPE))))
-        del x, z, dz, dx_k
-        torch.cuda.empty_cache()
+            del dx_p, dx_k
+            if kind == "relu":
+                path, runs = route_path(P, x)
+                log(f"  {name} at {tag}: {path}")
+                check(runs, f"{name}: the stem's planes must take the plane runs")
+            size = x.element_size()
+            n_in, n_out = x.numel(), z.numel()
+            timed = time_kernels({name: (
+                lambda: P.pool_route_cuda(x, z, dz), lambda: P.pool_route_plain(x, z, dz),
+                None,
+                # x read and dx written once, z and dz read once; 4 compares and
+                # 4 adds per input cell
+                (size * (2 * n_in + 2 * n_out), 8 * n_in), err)}, f"{tag} {kind}")
+            # the kernels line takes the ReLU'd input, the stem's real one
+            if kind == "relu":
+                rows.update(timed)
+            del x, z, dz
+            torch.cuda.empty_cache()
 
         # the op's main path: forward and backward through autograd
         x = relu_input(ROUTE_SHAPE, gen, dev).to(dtype).requires_grad_(True)

@@ -27,7 +27,8 @@
 //   flat, in its own type, with 16-byte loads (a scalar head up to the first
 //   16-byte boundary and a scalar tail), into shared memory at the offset
 //   modulo 16 that it has in device memory, so that the vectors land aligned
-//   whatever the view's offset. Each thread then takes up to kRun adjacent
+//   whatever the view's offset (the helpers are stage_run.cuh's, shared with
+//   pool_route.cu). Each thread then takes up to kRun adjacent
 //   windows of one output row: it reads the 3 input rows' 2 kRun + 1 columns
 //   once into registers (column 2q + 1 is shared by windows q and q + 1;
 //   cells outside the image are -inf, decided by index), and scans each
@@ -73,12 +74,13 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "stage_run.cuh"
+
 namespace {
 
 constexpr int kFwdThreads = 256;          // forward: threads per block
 constexpr int kFwdStageBytes = 40960;     // ... its staged planes and outputs at most
 constexpr int kRun = 3;                   // ... adjacent windows per thread
-constexpr int kLoadBatch = 4;             // ... 16-byte loads in flight per thread
 constexpr int kTileW = 32;                // tile forward: output columns per block
 constexpr int kTileH = 8;                 // ... output rows per block
 constexpr int kThreads = kTileW * kTileH;
@@ -98,53 +100,6 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ int mod16(const void* p) {
-  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
-}
-
-// bytes a staged run of @bytes takes in shared memory: whole 16-byte lines,
-// and one more for its offset modulo 16
-__host__ __device__ __forceinline__ int stage_room(long long bytes) {
-  return static_cast<int>((bytes + 15) / 16 * 16 + 16);
-}
-
-// the block copies @n elements from @src to @dst, which lie at the same
-// address modulo 16: scalars up to the first 16-byte boundary, 16-byte
-// vectors (kLoadBatch of them in flight per thread; read through the
-// read-only path where @kFromGlobal), scalars for the tail
-template <bool kFromGlobal, typename T>
-__device__ __forceinline__ void copy_run(const T* __restrict__ src,
-                                         T* __restrict__ dst, int n) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  const int head = min(n, ((16 - mod16(src)) & 15) / static_cast<int>(sizeof(T)));
-  const int vecs = (n - head) / kVec;
-  const int tail = head + vecs * kVec;
-  const int t = threadIdx.x;
-  if (t < head) dst[t] = src[t];
-  if (tail + t < n) dst[tail + t] = src[tail + t];
-  const uint4* vs = reinterpret_cast<const uint4*>(src + head);
-  uint4* vd = reinterpret_cast<uint4*>(dst + head);
-  for (int v0 = t; v0 < vecs; v0 += kLoadBatch * kFwdThreads) {
-    uint4 r[kLoadBatch];
-#pragma unroll
-    for (int b = 0; b < kLoadBatch; ++b) {
-      const int v = v0 + b * kFwdThreads;
-      if (v < vecs) {
-        if constexpr (kFromGlobal) {
-          r[b] = __ldg(vs + v);
-        } else {
-          r[b] = vs[v];
-        }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < kLoadBatch; ++b) {
-      const int v = v0 + b * kFwdThreads;
-      if (v < vecs) vd[v] = r[b];
-    }
-  }
 }
 
 template <typename T>
@@ -168,7 +123,7 @@ __global__ void __launch_bounds__(kFwdThreads, 4)
   T* so = reinterpret_cast<T*>(smem + in_room + mod16(os));
   int8_t* sk = reinterpret_cast<int8_t*>(smem + in_room + out_room + mod16(ks));
 
-  copy_run<true>(xs, sx, np * hw);
+  copy_run<kFwdThreads, true>(xs, sx, np * hw);
   __syncthreads();
 
   const int runs_w = (Wo + kRun - 1) / kRun;
@@ -209,8 +164,8 @@ __global__ void __launch_bounds__(kFwdThreads, 4)
     }
   }
   __syncthreads();
-  copy_run<false>(so, os, np * ohw);
-  copy_run<false>(sk, ks, np * ohw);
+  copy_run<kFwdThreads, false>(so, os, np * ohw);
+  copy_run<kFwdThreads, false>(sk, ks, np * ohw);
 }
 
 template <typename T>

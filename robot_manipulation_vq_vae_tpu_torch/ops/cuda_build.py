@@ -51,7 +51,7 @@ KERNELS = {
     **{
         f"stem_pool_{step}{suffix}": (
             "stem_pool.cu", f"stem_pool_{step}{suffix}_launch", argtypes,
-            "stem_pool_error_string", (),
+            "stem_pool_error_string", ("stage_run.cuh",),
         )
         for step, argtypes in (("fwd", [_P, _L, _I, _I, _P, _P, _P]),
                                ("bwd", [_P, _P, _L, _I, _I, _P, _P]))
@@ -60,7 +60,8 @@ KERNELS = {
     **{
         f"pool_route{suffix}": (
             "pool_route.cu", f"pool_route{suffix}_launch",
-            [_P, _P, _P, _L, _I, _I, _P, _P], "pool_route_error_string", (),
+            [_P, _P, _P, _L, _I, _I, _P, _P], "pool_route_error_string",
+            ("stage_run.cuh",),
         )
         for suffix in ("", "_bf16")
     },

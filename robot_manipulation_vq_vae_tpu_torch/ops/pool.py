@@ -22,9 +22,13 @@ The four routed terms of a cell are added in the TPU kernel's order, (p, q),
 sum rounds after each add, as the TPU kernel's bf16 adds do. The wrapper runs
 the plain version on CPU tensors and launches the kernel on CUDA tensors,
 which must be fp32 or bf16 and contiguous; any other type raises, and it never
-falls back from the kernel. The JAX op takes NHWC; this one takes NCHW, the
-layout of the port's trunk.
+falls back from the kernel. ``pool_route_plan`` says how the kernel's
+launcher runs a shape: runs of whole planes a block, or a warp per input row
+for planes too large for a block. The JAX op takes NHWC; this one takes
+NCHW, the layout of the port's trunk.
 """
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +37,7 @@ from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
     check_cuda_inputs,
     kernel_name,
     launch,
+    library,
     on_cpu,
     stream_of,
 )
@@ -102,6 +107,23 @@ def pool_route_cuda(x, z, dz):
     launch(name, x.data_ptr(), z.data_ptr(), dz.data_ptr(), n * c, h, w,
            dx.data_ptr(), stream_of(x))
     return dx
+
+
+def pool_route_plan(shape, dtype):
+    """How kernel 5's launcher runs an input of @shape [N, C, H, W] in @dtype
+    (fp32 or bf16), as ``csrc/pool_route.cu``'s ``route_plan`` decides it:
+    (planes per block, 0 where the row kernel takes planes too large for a
+    block; blocks; a block's shared memory in bytes). Launches nothing;
+    builds the kernel's library where it is not built yet."""
+    fn = library(kernel_name("pool_route", dtype)).pool_route_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    plan = (ctypes.c_longlong * 3)()
+    n, c, h, w = shape
+    err = fn(n * c, h, w, torch.empty(0, dtype=dtype).element_size(), plan)
+    if err != 0:
+        raise ValueError(f"pool_route: no plan for {tuple(shape)} in {dtype}")
+    return tuple(plan)
 
 
 def routes(x, z, window, strides, padding):

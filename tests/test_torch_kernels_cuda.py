@@ -343,6 +343,60 @@ def test_pool_route_kernel_matches_plain(cuda_device, dtype, kind, shape):
     torch.testing.assert_close(dx_k, P.pool_route_plain(x, z, dz), rtol=0, atol=0)
 
 
+def _route_view(t, offset):
+    """@t as a contiguous view @offset elements into a buffer of its own."""
+    buf = torch.full((t.numel() + offset,), float("nan"), dtype=t.dtype, device=t.device)
+    v = buf[offset:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16 == offset * v.element_size() % 16
+    return v
+
+
+def _check_route(x, z, dz, dtype):
+    name = "pool_route" if dtype == torch.float32 else "pool_route_bf16"
+    before = LAUNCHES[name]
+    dx_k = P.pool_route_cuda(x, z, dz)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    torch.testing.assert_close(dx_k, P.pool_route_plain(x, z, dz), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 7])
+# 1, 5 and 9 planes of the stem's size: a block takes 2 in fp32 and 4 in
+# bf16, so the last block takes fewer
+@pytest.mark.parametrize("planes", [1, 5, 9])
+def test_pool_route_kernel_takes_misaligned_views(cuda_device, planes, offset, dtype):
+    """x, z and dz contiguous views @offset elements into their buffers, so
+    that the staged runs start off their 16-byte boundaries and x's offset
+    modulo 16 differs from dx's: dx bit-equal to the plain version's, on the
+    plane runs."""
+    shape = (1, planes, 58, 58)
+    x = _route_input(shape, "relu", cuda_device, dtype)
+    z = F.max_pool2d(x, 3, 2, 1)
+    dz = torch.randn(z.shape, generator=torch.Generator().manual_seed(8)).to(
+        cuda_device, dtype)
+    assert P.pool_route_plan(shape, dtype)[0] > 0
+    _check_route(*(_route_view(t, offset) for t in (x, z, dz)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_route_kernel_takes_the_rows_past_the_budget(cuda_device, dtype):
+    """224 x 224 planes do not fit a block's budget: the row kernel takes
+    them, bit-equal, at a misaligned view too."""
+    shape = (1, 3, 224, 224)
+    per_block, blocks, _ = P.pool_route_plan(shape, dtype)
+    assert per_block == 0 and blocks == 3 * 224 // 8
+    x = _route_input(shape, "relu", cuda_device, dtype)
+    z = F.max_pool2d(x, 3, 2, 1)
+    dz = torch.randn(z.shape, generator=torch.Generator().manual_seed(9)).to(
+        cuda_device, dtype)
+    _check_route(x, z, dz, dtype)
+    _check_route(_route_view(x, 1), _route_view(z, 3), dz, dtype)
+
+
 @pytest.mark.cuda
 def test_pool_autograd_launches_kernel_5_only_where_it_routes(cuda_device):
     x = _route_input((4, 64, 58, 58), "relu", cuda_device, torch.float32)

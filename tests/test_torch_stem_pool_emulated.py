@@ -49,6 +49,8 @@ def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("stem_pool_host")
     for header in ("cuda_runtime.h", "math_constants.h", "cuda_bf16.h"):
         (out / header).write_text(f'#include "{EMULATION}"\n')
+    for header in KERNELS["stem_pool_fwd"][4]:   # the source's own headers
+        shutil.copy(CSRC_DIR / header, out)
     cpp = out / "stem_pool.cpp"
     cpp.write_text(_host_source((CSRC_DIR / "stem_pool.cu").read_text()))
     so = out / "libstem_pool.so"
