@@ -49,7 +49,17 @@ Phases, each of which fails the run when it fails:
      B = 64, T = 16, train.pallas_pool), in fp32 (10a) and in bf16 mixed
      precision (10b): a warm-up step with the k-means init, 3 timed steps
      (3 + 3 stem pool launches per step in the step's dtype), then a kernel
-     step against a plain step with cuDNN's deterministic algorithms.
+     step against a plain step with cuDNN's deterministic algorithms;
+  11. the flagship's first epoch from disk through the port's training entry
+     point, scripts/train.train: 16 synthetic demos of 200 steps with the
+     flagship's observations (3,200 frames, 472 MB of uint8 images) in an
+     HDF5 file, or in a MemoryStore where h5py is missing, windows of 31
+     steps gathered natively, copied through the pinned side-stream
+     prefetcher, one bf16 epoch of 50 steps at B = 64 (3 + 3 bf16 stem pool
+     launches per step), a .pth checkpoint with the optimizers; the epoch's
+     samples/s, Train_Batch median (beside phase 10b's), Data_Loading share,
+     host gather and H2D rates; the checkpoint, loaded into a fresh algo,
+     serves a B = 16 request bit-equal to the trained model's.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run.
 
@@ -61,10 +71,14 @@ non-zero, printing no result, without a CUDA device or without the port.
 """
 
 import argparse
+import contextlib
+import glob
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +109,8 @@ POOL_SHAPES = ((512, 64, 58, 58), FLAGSHIP_POOL, (2, 64, 57, 59))
 # leave to torch's own gradient
 ROUTE_SHAPE, ODD_SHAPE = (3072, 64, 58, 58), (2, 64, 57, 59)
 TRAIN_B, TRAIN_STEPS = 64, 3   # bench_train.py's batch; 3 timed steps
+# phase 11's demos: 16 x 200 steps, 50 steps of B = 64 per epoch
+EPOCH_DEMOS, DEMO_STEPS = 16, 200
 DEVICE = "cuda"
 
 
@@ -1000,6 +1016,186 @@ def phase_flagship_training(CB, dev, mixed_precision, profile):
     del plain
     gc.collect()
     torch.cuda.empty_cache()
+    return counts, med
+
+
+def write_demos(f, rng):
+    """The flagship's observations, actions [T, 12], the environment metadata
+    and a language string per demo, into @f: an h5py File or a MemoryStore."""
+    f.create_group("data").attrs["env_args"] = json.dumps(
+        {"env_name": "Flagship", "type": 1, "env_kwargs": {}})
+    for i in range(EPOCH_DEMOS):
+        ep = f.create_group(f"data/demo_{i}")
+        ep.attrs["num_samples"] = DEMO_STEPS
+        ep.attrs["ep_meta"] = json.dumps({"lang": f"task {i % 4}"})
+        for k, shape in LOW_DIM.items():
+            ep.create_dataset(f"obs/{k}", data=rng.standard_normal(
+                (DEMO_STEPS, *shape), dtype=np.float32))
+        for c in CAMS:
+            ep.create_dataset(f"obs/{c}", data=rng.integers(
+                0, 256, (DEMO_STEPS, IMG, IMG, 3), dtype=np.uint8))
+        ep.create_dataset("actions", data=rng.uniform(
+            -1, 1, (DEMO_STEPS, 12)).astype(np.float32))
+
+
+def epoch_config(data, output_dir):
+    """Phase 10b's flagship (bf16, train.pallas_pool) trained from @data by
+    scripts/train.py: windows of 2 x 16 - 1 steps (the first 16 observations,
+    actions 15..30), one epoch of the loader, a checkpoint with the
+    optimizers, no rollouts."""
+    cfg = flagship_config(serving=False, mixed_precision=True)
+    with cfg.values_unlocked():
+        exp = cfg.experiment
+        exp.name = "chip_smoke_epoch"
+        exp.validate = False
+        exp.logging.terminal_output_to_txt = False
+        exp.logging.log_tb = False
+        exp.rollout.enabled = False
+        exp.epoch_every_n_steps = EPOCH_DEMOS * DEMO_STEPS // TRAIN_B
+        exp.save.enabled = True
+        exp.save.every_n_epochs = 1
+        exp.save.include_optimizer = True
+        cfg.train.data = data
+        cfg.train.output_dir = output_dir
+        cfg.train.num_data_workers = 2
+        cfg.train.hdf5_cache_mode = "all"
+        cfg.train.hdf5_load_next_obs = False
+        cfg.train.dataset_keys = ["actions"]
+        cfg.train.seq_length = 2 * cfg.algo.transformer.context_length - 1
+        cfg.train.frame_stack = 1
+        cfg.train.num_epochs = 1
+    cfg.lock()
+    return cfg
+
+
+def phase_epoch(CB, dev, step_median):
+    """One bf16 epoch of the flagship from a demo store through
+    scripts/train.train, and its checkpoint served from a fresh algo.
+    @step_median is phase 10b's step median (ms). Returns the launch counts."""
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch import native
+    from robot_manipulation_vq_vae_tpu_torch.data import dataset as D
+    from robot_manipulation_vq_vae_tpu_torch.data.memory_store import MemoryStore
+    from robot_manipulation_vq_vae_tpu_torch.scripts import train as Train
+    from robot_manipulation_vq_vae_tpu_torch.utils import file_utils as FileUtils
+
+    steps = EPOCH_DEMOS * DEMO_STEPS // TRAIN_B
+    log(f"phase 11: the flagship's first epoch from disk, scripts/train.train, bf16, "
+        f"B={TRAIN_B}, {EPOCH_DEMOS} demos x {DEMO_STEPS} steps ({steps} steps)")
+    rng = np.random.default_rng(31)
+    opener, trained, step_ms = D.open_hdf5, {}, []
+    cls = Algo.ICLTransformerHVQVAE
+    step = cls.train_on_batch
+
+    def timed_step(self, batch, epoch, validate=False):
+        """The step as run_epoch's Train_Batch times it, kept per step."""
+        trained["algo"] = self
+        t0 = time.perf_counter()
+        out = step(self, batch, epoch, validate)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_epoch_") as tmp:
+        try:
+            import h5py
+        except ImportError:
+            h5py = None
+        t0 = time.perf_counter()
+        if h5py is None:
+            log("h5py absent: in-memory demo store")
+            store = MemoryStore()
+            write_demos(store, rng)
+            D.open_hdf5 = lambda *args, **kwargs: store
+            data = "memory-store"
+        else:
+            data = os.path.join(tmp, "demos.hdf5")
+            with h5py.File(data, "w") as f:
+                write_demos(f, rng)
+            log(f"  HDF5 demo file: {os.path.getsize(data) / 1e6:.1f} MB")
+        log(f"  demos written in {time.perf_counter() - t0:.2f} s")
+        cfg = epoch_config(data, os.path.join(tmp, "out"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cls.train_on_batch = timed_step
+        CB.reset_launch_counts()
+        train_log = os.path.join(tmp, "train.log")
+        try:
+            # train() prints the config and the model; keep them out of the log
+            with open(train_log, "w") as fh, contextlib.redirect_stdout(fh):
+                t0 = time.perf_counter()
+                history = Train.train(cfg)
+                wall = time.perf_counter() - t0
+        finally:
+            del cls.train_on_batch
+            D.open_hdf5 = opener
+        with open(train_log) as fh:
+            lines = fh.read().splitlines()
+        log(f"  train() printed {len(lines)} lines; the last: {lines[-1] if lines else ''}")
+        counts = dict(CB.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        ckpts = glob.glob(os.path.join(tmp, "out", cfg.experiment.name, "*", "models",
+                                       "model_epoch_1.pth"))
+        check(len(ckpts) == 1, f"checkpoints written: {ckpts}")
+        h = history[0]
+        log(f"  launches over the epoch {counts}")
+        for name, n in counts.items():
+            want = 3 * steps if name in ("stem_pool_fwd_bf16", "stem_pool_bwd_bf16") else 0
+            check(n == want, f"{name}: {n} launches, expected {want}")
+        check(len(step_ms) == steps and h["prefetch/batches"] == steps,
+              f"{len(step_ms)} steps timed, {h['prefetch/batches']} batches consumed")
+        check(np.isfinite(h["Loss"]) and np.isfinite(h["VQ-VAE/Total_Loss"]),
+              f"epoch losses not finite: {h}")
+        check(native.is_available(), "the native window gather is not the active path")
+        check(bool(h["prefetch/pinned"]), "the prefetcher did not stage in pinned memory")
+        epoch_s = h["Time_Epoch"] * 60
+        med = statistics.median(step_ms)
+        batches = h["prefetch/batches"]
+        log(f"  epoch {epoch_s:.3f} s (train() {wall:.3f} s with set-up and the "
+            f"checkpoint): {TRAIN_B * steps / epoch_s:.1f} samples/s over the epoch "
+            f"(limit 128), {TRAIN_B * (steps - 1) / (epoch_s - step_ms[0] / 1e3):.1f} "
+            f"without its first step; phase 10b's step: {TRAIN_B / step_median * 1e3:.1f}")
+        log(f"  Train_Batch median {med:.3f} ms (phase 10b {step_median:.3f} ms, "
+            f"{med / step_median:.3f} x); first step (k-means init) {step_ms[0]:.1f} ms; "
+            f"loss {h['Loss']:.6g}")
+        log(f"  Data_Loading (the wait for a batch on the card) "
+            f"{h['Time_Data_Loading'] * 60:.3f} s, {h['Time_Data_Loading'] / h['Time_Epoch']:.4f}"
+            f" of the epoch")
+        log(f"  prefetcher per batch: host gather {h['prefetch/host_load_s'] / batches * 1e3:.3f}"
+            f" ms, prepare {h['prefetch/host_process_s'] / batches * 1e3:.3f} ms, pinned "
+            f"staging {h['prefetch/stage_s'] / batches * 1e3:.3f} ms, H2D "
+            f"{h['prefetch/transfer_mbytes'] / batches:.1f} MB in "
+            f"{h['prefetch/transfer_s'] / batches * 1e3:.3f} ms "
+            f"({h['prefetch/transfer_mbytes_per_sec']:.1f} MB/s, CUDA events)")
+        log(f"  native window gather active: {native.is_available()}; pinned side-stream "
+            f"staging: {bool(h['prefetch/pinned'])}; peak device memory {peak:.2f} GiB")
+
+        # the checkpoint in a fresh algo serves what the trained model serves
+        model = trained.pop("algo")
+        model.set_eval()
+        fresh, ckpt = FileUtils.algo_from_checkpoint(ckpt_path=ckpts[0])
+        log(f"  checkpoint {os.path.getsize(ckpts[0]) / 1e6:.1f} MB, "
+            f"{len(ckpt['model']) - 1} tensors, step {ckpt['model']['training_state']['step']}")
+        obs, ctx = make_request(np.random.RandomState(5), BATCHES[-1],
+                                cfg.algo.transformer.context_length)
+        ctx = {"actions": ctx["actions"]}
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            want = model.get_action(obs, ctx)
+            got = fresh.get_action(obs, ctx)
+        finally:
+            torch.backends.cudnn.deterministic = before
+        check(got.shape == (BATCHES[-1], 12) and bool(torch.isfinite(got).all()),
+              f"get_action {tuple(got.shape)} not a finite [B, 12]")
+        err = float((got - want).abs().max())
+        log(f"  the reloaded checkpoint's get_action at B={BATCHES[-1]} vs the trained "
+            f"model's: equal {torch.equal(got, want)} (max|diff| {err})")
+        check(torch.equal(got, want), f"the reloaded model serves other actions: {err}")
+        del model, fresh, ckpt
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1089,6 +1285,8 @@ def main():
     torch.cuda.empty_cache()
     flagship = {mp: phase_flagship_training(CB, dev, mp, args.profile)
                 for mp in (False, True)}
+    torch.cuda.empty_cache()
+    epoch_counts = phase_epoch(CB, dev, flagship[True][1])
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -1105,14 +1303,12 @@ def main():
         dict(name="stem_pool_bwd", route="cuda", source=f"{SOURCE}/stem_pool.cu",
              replaces=f"{TPU_POOL}:113", launches=train_counts["stem_pool_bwd"],
              **pool["stem_pool_bwd"]),
-        # the bf16 instances: launches on the flagship's bf16 training path
+        # the bf16 instances: launches on the flagship's bf16 epoch from disk
         dict(name="stem_pool_fwd_bf16", route="cuda", source=f"{SOURCE}/stem_pool.cu",
-             replaces=f"{TPU_POOL}:60",
-             launches=flagship[True]["stem_pool_fwd_bf16"],
+             replaces=f"{TPU_POOL}:60", launches=epoch_counts["stem_pool_fwd_bf16"],
              **pool["stem_pool_fwd_bf16"]),
         dict(name="stem_pool_bwd_bf16", route="cuda", source=f"{SOURCE}/stem_pool.cu",
-             replaces=f"{TPU_POOL}:113",
-             launches=flagship[True]["stem_pool_bwd_bf16"],
+             replaces=f"{TPU_POOL}:113", launches=epoch_counts["stem_pool_bwd_bf16"],
              **pool["stem_pool_bwd_bf16"]),
         # kernel 5: launches on its op's path (max_pool_3x3_s2's backward)
         *(dict(name=name, route="cuda", source=f"{SOURCE}/pool_route.cu",

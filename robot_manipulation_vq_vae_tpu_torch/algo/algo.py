@@ -3,11 +3,17 @@
 minimal ``Algo`` that owns its networks as ``nn.Module``s on one device, and
 their optimizers.
 
-The networks rest in eval mode, which serving uses; ``train_on_batch``
-switches them to train mode for one step (or keeps eval mode under
-``no_grad`` when validating) and back.
+The networks rest in eval mode, which serving uses; ``set_train`` /
+``set_eval`` switch them. ``train_on_batch`` runs its step in train mode (or
+in eval mode under ``no_grad`` when validating) and gives the networks back
+in the mode it found them in.
+
+``serialize`` / ``deserialize`` carry the networks' state dict under the
+reference's names (``REFERENCE_NAMES``), which the JAX package's checkpoint
+converter reads, and optionally everything a resumed run needs.
 """
 
+import re
 from collections import OrderedDict
 
 import torch
@@ -21,6 +27,28 @@ from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
 REGISTERED_ALGOS = {}
 
 LANG_EMB_KEY = ObsUtils.LANG_EMB_KEY
+
+# The one table from the port's state-dict names (``Algo.nets``) to the
+# reference's (robomimic's ``ICLTransformerHVQVAE``, as the JAX package's
+# ``ckpt_conversion.convert_transformer_actor`` and ``convert_hvqvae`` read
+# them): the first pattern that matches a name rewrites it; a name that
+# matches none (the HVQVAE's) is the same in both.
+REFERENCE_NAMES = (
+    (r"^policy\.net\.embedding\.embed_timestep$", "policy.params.embed_timestep"),
+    (r"^policy\.net\.embedding\.", "policy.nets."),
+    # an observation core's projection is the third layer of its nets
+    (r"^policy\.net\.encoder\.nets\.(\w+)\.obs_nets\.([^.]+)\.proj\.",
+     r"policy.nets.encoder.nets.\1.obs_nets.\2.nets.2."),
+    (r"^policy\.net\.", "policy.nets."),
+)
+
+
+def reference_name(name):
+    """The reference's name of the port's state-dict entry @name."""
+    for pattern, repl in REFERENCE_NAMES:
+        if re.match(pattern, name):
+            return re.sub(pattern, repl, name)
+    return name
 
 
 def register_algo_factory_func(algo_name):
@@ -100,6 +128,7 @@ class Algo:
         self.max_grad_norm = global_config.train.get("max_grad_norm", None)
         self.optimizers, self.lr_schedulers = {}, {}
         self._create_optimizers()
+        self.global_step = 0   # training steps taken
 
     def _check_train_options(self, train_config):
         """Raise for a ``train`` option that changes the step and is not
@@ -152,20 +181,108 @@ class Algo:
         if name in self.lr_schedulers:
             self.lr_schedulers[name].step()
 
+    def process_batch_for_training(self, batch):
+        return batch
+
+    def postprocess_batch_for_training(self, batch, obs_normalization_stats=None):
+        """Host-side work after ``process_batch_for_training``: the observation
+        normalization, where statistics are given (images become float / 255
+        on the device, in the step)."""
+        if obs_normalization_stats is not None:
+            for group in ("obs", "goal_obs", "next_obs"):
+                if batch.get(group) is not None:
+                    batch[group] = ObsUtils.normalize_dict(batch[group],
+                                                           obs_normalization_stats)
+        return batch
+
+    def set_train(self):
+        self.nets.train()
+
+    def set_eval(self):
+        self.nets.eval()
+
+    def on_epoch_end(self, epoch):
+        pass
+
     def train_on_batch(self, batch, epoch, validate=False):
         """One training step on @batch, the networks in train mode; with
         @validate, the same losses in eval mode under ``no_grad``, and
-        nothing updated. The networks end in eval mode either way. Returns
+        nothing updated. The networks end in the mode they were in. Returns
         {"losses": {name: 0-d tensor}}."""
-        if validate:
-            self.nets.eval()
-            with torch.no_grad():
-                return {"losses": self._validate_step(batch)}
-        self.nets.train()
+        was_training = self.nets.training
         try:
-            return {"losses": self._train_step(batch)}
+            if validate:
+                self.nets.eval()
+                with torch.no_grad():
+                    return {"losses": self._validate_step(batch)}
+            self.nets.train()
+            losses = self._train_step(batch)
+            self.global_step += 1
+            return {"losses": losses}
         finally:
-            self.nets.eval()
+            self.nets.train(was_training)
+
+    # ------------------------------------------------------------ checkpoints
+    def _reference_names(self):
+        """{port state-dict name: reference name} over ``self.nets``."""
+        names = {k: reference_name(k) for k in self.nets.state_dict()}
+        if len(set(names.values())) != len(names):
+            raise RuntimeError("REFERENCE_NAMES maps two entries to one name")
+        return names
+
+    def _rng_state(self):
+        """The state of the global generator that dropout draws from."""
+        if self.device.type == "cuda":
+            return torch.cuda.get_rng_state(self.device)
+        return torch.get_rng_state()
+
+    def serialize(self, include_optimizer=False):
+        """The networks' state dict under the reference's names (BatchNorm
+        statistics and the HVQVAE's EMA buffers included), copied to the CPU.
+        With @include_optimizer, also ``training_state``: each optimizer's and
+        schedule's state dict, the step counter, the algo's generator (crops,
+        k-means, dead codes) and the global generator (dropout), so that a
+        resumed run draws what the uninterrupted run would have drawn."""
+        names = self._reference_names()
+        out = OrderedDict((names[k], v.detach().cpu().clone())
+                          for k, v in self.nets.state_dict().items())
+        if include_optimizer:
+            out["training_state"] = {
+                "optimizers": {n: _to_cpu(o.state_dict())
+                               for n, o in self.optimizers.items()},
+                "lr_schedulers": {n: s.state_dict()
+                                  for n, s in self.lr_schedulers.items()},
+                "step": self.global_step,
+                "generator": self.generator.get_state(),
+                "rng_state": self._rng_state(),
+            }
+        return out
+
+    def deserialize(self, model_dict):
+        """Load what ``serialize`` wrote (strictly: every entry, no other).
+        A ``training_state`` restores the optimizers, schedules, step counter
+        and generators too."""
+        port_name = {ref: k for k, ref in self._reference_names().items()}
+        weights = {k: v for k, v in model_dict.items() if k != "training_state"}
+        unknown = sorted(set(weights) - set(port_name))
+        if unknown:
+            raise KeyError(f"checkpoint entries this algo does not have: {unknown[:5]}")
+        self.nets.load_state_dict({port_name[k]: torch.as_tensor(v)
+                                   for k, v in weights.items()})
+        state = model_dict.get("training_state")
+        if state is None:
+            return
+        for n, sd in state["optimizers"].items():
+            self.optimizers[n].load_state_dict(sd)
+        for n, sd in state["lr_schedulers"].items():
+            self.lr_schedulers[n].load_state_dict(sd)
+        self.global_step = int(state["step"])
+        self.generator.set_state(torch.as_tensor(state["generator"]))
+        rng = torch.as_tensor(state["rng_state"])
+        if self.device.type == "cuda":
+            torch.cuda.set_rng_state(rng, self.device)
+        else:
+            torch.set_rng_state(rng)
 
     def _train_step(self, batch):
         raise NotImplementedError
@@ -173,3 +290,13 @@ class Algo:
     def _validate_step(self, batch):
         raise NotImplementedError
 
+
+def _to_cpu(tree):
+    """A copy of @tree (dicts, lists, tensors) with every tensor on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree

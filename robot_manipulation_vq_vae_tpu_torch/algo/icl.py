@@ -348,6 +348,7 @@ class ICLTransformer_GMM(Algo):
         if not (self.algo_config.gmm.enabled and self.algo_config.transformer.enabled):
             raise ValueError("icl_gmm_paper needs algo.gmm and algo.transformer enabled")
         tc = self.algo_config.transformer
+        self.context_length = tc.context_length
         self.supervise_all_steps = tc.supervise_all_steps
         self.pred_future_acs = tc.pred_future_acs
         self.nets["policy"] = PolicyNets.ICLTransformerGMMActorNetwork(
@@ -365,6 +366,9 @@ class ICLTransformer_GMM(Algo):
             use_kernels=self.use_kernels,
             **BaseNets.transformer_args_from_config(tc),
         )
+
+    # the training window, as the JAX package's ICLTransformer_GMM inherits it
+    process_batch_for_training = ICLTransformer.process_batch_for_training
 
     def _create_optimizers(self):
         super()._create_optimizers()

@@ -9,6 +9,8 @@ kwargs from ``config.observation.encoder``. Images are channels-last
 
 from copy import deepcopy
 
+import numpy as np
+
 # obs key (e.g. "robot0_eye_in_hand_image") -> modality name (e.g. "rgb")
 OBS_KEYS_TO_MODALITIES = None
 # encoder core / randomizer class registries (name -> class)
@@ -73,3 +75,50 @@ def obs_encoder_kwargs_from_config(obs_encoder_config):
         if hasattr(obs_encoder_config, "to_dict")
         else dict(obs_encoder_config)
     )
+
+
+def key_is_obs_modality(key, obs_modality):
+    """Whether observation @key belongs to @obs_modality (e.g. "low_dim")."""
+    if OBS_KEYS_TO_MODALITIES is None:
+        raise RuntimeError("call initialize_obs_utils_with_config first")
+    return OBS_KEYS_TO_MODALITIES[key] == obs_modality
+
+
+def get_processed_shape(obs_modality, input_shape):
+    """The shape after processing: images stay channels-last [H, W, C], so
+    every modality keeps its shape."""
+    return list(input_shape)
+
+
+def _offset_scale(stats):
+    """(offset, scale) of one key's statistics, each [1, ...] -> [...]: the
+    action statistics name them ``offset`` / ``scale``, the observation
+    statistics of ``SequenceDataset.normalize_obs`` ``mean`` / ``std``."""
+    if "offset" in stats:
+        return np.asarray(stats["offset"])[0], np.asarray(stats["scale"])[0]
+    return np.asarray(stats["mean"])[0], np.asarray(stats["std"])[0]
+
+
+def normalize_dict(dict_to_norm, normalization_stats):
+    """x -> (x - offset) / scale for each key that has statistics; the
+    statistics broadcast over the leading dims of the values."""
+    out = {}
+    for k, v in dict_to_norm.items():
+        if k in normalization_stats:
+            offset, scale = _offset_scale(normalization_stats[k])
+            out[k] = (v - offset) / scale
+        else:
+            out[k] = v
+    return out
+
+
+def unnormalize_dict(dict_to_unnorm, normalization_stats):
+    """The inverse of ``normalize_dict``: x -> x * scale + offset."""
+    out = {}
+    for k, v in dict_to_unnorm.items():
+        if k in normalization_stats:
+            offset, scale = _offset_scale(normalization_stats[k])
+            out[k] = v * scale + offset
+        else:
+            out[k] = v
+    return out

@@ -1,5 +1,7 @@
 """Nested-structure tensor helpers (counterpart of the JAX package's
-``utils/tensor_utils.py``): only what the serving path uses."""
+``utils/tensor_utils.py``): what the serving path and the data path use."""
+
+import numpy as np
 
 
 def map_tensor(x, fn):
@@ -47,3 +49,26 @@ def unsqueeze_expand_at(x, size, dim):
         return a.repeat(*reps)
 
     return map_tensor(x, f)
+
+
+def to_numpy(x):
+    """Every leaf as a numpy array (tensors leave the device first)."""
+
+    def f(a):
+        if hasattr(a, "detach"):
+            return a.detach().cpu().numpy()
+        return np.asarray(a)
+
+    return map_tensor(x, f)
+
+
+def pad_sequence_single(seq, padding, batched=False, pad_same=True,
+                        pad_values=None):
+    """Pad a sequence array on its time axis (0, or 1 when @batched) by
+    @padding = (left, right): ``pad_same`` repeats the edge rows, else the
+    rows are @pad_values (0 by default)."""
+    pads = [(0, 0)] * np.ndim(seq)
+    pads[1 if batched else 0] = tuple(padding)
+    if pad_same:
+        return np.pad(np.asarray(seq), pads, mode="edge")
+    return np.pad(np.asarray(seq), pads, constant_values=pad_values or 0)

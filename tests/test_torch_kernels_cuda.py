@@ -431,3 +431,86 @@ def test_pool_kernels_refuse_other_types(cuda_device):
         P.pool_route_cuda(x, z.bfloat16(), z)
     with pytest.raises(ValueError):
         P.pool_route_cuda(x[..., :7].contiguous(), z, z)
+
+
+def _demo_store(n_demos=3, length=37, img=48, seed=0):
+    """Demos in a MemoryStore (this file needs no h5py): two low-dim keys, a
+    camera, actions and a language string per demo."""
+    import json
+
+    import numpy as np
+
+    from robot_manipulation_vq_vae_tpu_torch.data.memory_store import MemoryStore
+
+    rng = np.random.default_rng(seed)
+    store = MemoryStore()
+    store.create_group("data").attrs["env_args"] = json.dumps({"env_name": "Fake"})
+    for i in range(n_demos):
+        ep = store.create_group(f"data/demo_{i}")
+        ep.attrs.update(num_samples=length, ep_meta=json.dumps({"lang": f"task {i}"}))
+        ep.create_dataset("obs/eef_pos", data=rng.standard_normal((length, 3), np.float32))
+        ep.create_dataset("obs/cam_image", data=rng.integers(
+            0, 256, (length, img, img, 3), dtype=np.uint8))
+        ep.create_dataset("actions", data=rng.uniform(-1, 1, (length, 7)).astype(np.float32))
+    return store
+
+
+@pytest.mark.cuda
+def test_prefetcher_on_the_card_yields_the_synchronous_stream(cuda_device, monkeypatch):
+    """DataLoader(reuse_buffers=True) at depth 2, 20 batches over two passes,
+    a preparation that returns strided views: every batch the card receives
+    equals the synchronous stream's to the bit, while the consumer keeps the
+    card busy with other work on its own stream. Without the copy-event wait
+    the loader's ring would be refilled under a copy in flight."""
+    import numpy as np
+
+    from robot_manipulation_vq_vae_tpu_torch import native
+    from robot_manipulation_vq_vae_tpu_torch.data import dataset as D
+    from robot_manipulation_vq_vae_tpu_torch.data.loader import DataLoader
+    from robot_manipulation_vq_vae_tpu_torch.data.prefetch import DevicePrefetcher
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+    from robot_manipulation_vq_vae_tpu_torch.utils.lang_utils import LangEncoder
+
+    ObsUtils.initialize_obs_utils_with_obs_specs(
+        {"obs": {"low_dim": ["eef_pos"], "rgb": ["cam_image"]}})
+    store = _demo_store()
+    monkeypatch.setattr(D, "open_hdf5", lambda *a, **k: store)
+    ds = D.SequenceDataset("store", obs_keys=["eef_pos", "cam_image"],
+                           action_keys=["actions"], dataset_keys=["actions"],
+                           action_config={}, seq_length=7, hdf5_cache_mode="all",
+                           load_next_obs=False, lang_encoder=LangEncoder())
+    assert native.is_available() and ds.getitem_cache is None
+
+    def prepare(batch):
+        return {"obs": {k: v[:, :4] for k, v in batch["obs"].items()},
+                "actions": batch["actions"][:, 3:7], "goal_obs": None}
+
+    def copy(tree):
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        return None if tree is None else np.array(tree)
+
+    kw = dict(batch_size=11, seed=3, num_workers=2, reuse_buffers=True)
+    sync = DataLoader(ds, **kw)
+    want = [copy(prepare(b)) for _ in range(2) for b in sync][:20]
+    assert len(want) == 20
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    pf = DevicePrefetcher(DataLoader(ds, **kw), prepare=prepare, depth=2,
+                          device=cuda_device)
+    try:
+        for w in want:
+            got = pf.get()
+            for _ in range(4):
+                busy = torch.tanh(busy @ busy / 2048)
+            assert got["goal_obs"] is None
+            for key in ("eef_pos", "cam_image", "lang_emb"):
+                t = got["obs"][key]
+                assert t.device.type == "cuda" and t.is_contiguous()
+                assert torch.equal(t.cpu(), torch.from_numpy(w["obs"][key])), key
+            assert torch.equal(got["actions"].cpu(), torch.from_numpy(w["actions"]))
+        summary = pf.transfer_summary()
+    finally:
+        pf.close()
+    assert not pf._thread.is_alive()
+    assert summary["pinned"] and summary["batches"] == 20
+    assert summary["transfer_mbytes_per_sec"] > 0

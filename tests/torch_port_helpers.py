@@ -58,3 +58,58 @@ def assert_mostly_close(actual, desired, atol, frac, max_abs, msg=""):
     ok = float((diff <= atol).mean())
     assert ok >= frac, f"{msg}: {ok:.4f} of the elements within {atol} (need {frac})"
     assert diff.max() <= max_abs, f"{msg}: max |diff| {diff.max():.3g} > {max_abs}"
+
+
+def write_demo_file(path, demo_lengths, with_images=True, seed=0, a=3):
+    """A robomimic-format HDF5 demo file (a copy of tests/test_dataset.py's
+    writer): demo i holds eef_pos[t] = [i, t, 0], seeded 8 x 8 uint8 images,
+    actions arange(T * a) + 100 i, the language "task i", and the filter key
+    ``first_only`` naming demo_0."""
+    import json
+
+    import h5py
+
+    rng = np.random.RandomState(seed)
+    with h5py.File(path, "w") as f:
+        data = f.create_group("data")
+        total = 0
+        for i, t in enumerate(demo_lengths):
+            ep = data.create_group(f"demo_{i}")
+            ep.attrs["num_samples"] = t
+            ep.attrs["ep_meta"] = json.dumps({"lang": f"task {i}"})
+            obs = ep.create_group("obs")
+            obs.create_dataset("eef_pos", data=np.stack(
+                [np.full(t, i), np.arange(t), np.zeros(t)], axis=1).astype(np.float32))
+            if with_images:
+                obs.create_dataset("cam_image", data=rng.randint(
+                    0, 255, size=(t, 8, 8, 3), dtype=np.uint8))
+            ep.create_dataset("actions", data=np.arange(t * a).reshape(t, a).astype(
+                np.float32) + 100 * i)
+            total += t
+        f.create_group("mask").create_dataset("first_only", data=np.array([b"demo_0"]))
+        data.attrs["total"] = total
+    return path
+
+
+def assert_trees_equal(got, want, path=""):
+    """Two nested dicts of arrays (numpy, torch or JAX) are equal to the bit,
+    with the same keys, shapes and dtypes; None leaves match None."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict), path
+        assert set(got) == set(want), f"{path}: keys {sorted(got)} vs {sorted(want)}"
+        for k in want:
+            assert_trees_equal(got[k], want[k], f"{path}/{k}")
+        return
+    if want is None:
+        assert got is None, path
+        return
+    got, want = _np(got), _np(want)
+    assert got.dtype == want.dtype, f"{path}: dtype {got.dtype} vs {want.dtype}"
+    assert got.shape == want.shape, f"{path}: shape {got.shape} vs {want.shape}"
+    np.testing.assert_array_equal(got, want, err_msg=path)
+
+
+def _np(a):
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
