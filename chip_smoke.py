@@ -2,8 +2,8 @@
 card and check it.
 
     python3 chip_smoke.py            # what the checks need: one card
-    python3 chip_smoke.py --profile  # also device-time breakdowns of get_action
-                                     # and of the training steps
+    python3 chip_smoke.py --profile  # also device-time breakdowns of get_action,
+                                     # the training steps and a rollout lockstep
 
 Phases, each of which fails the run when it fails:
   1. the card's name and power limit (nvidia-smi);
@@ -59,7 +59,20 @@ Phases, each of which fails the run when it fails:
      launches per step), a .pth checkpoint with the optimizers; the epoch's
      samples/s, Train_Batch median (beside phase 10b's), Data_Loading share,
      host gather and H2D rates; the checkpoint, loaded into a fresh algo,
-     serves a B = 16 request bit-equal to the trained model's.
+     serves a B = 16 request bit-equal to the trained model's;
+  12. rollouts over a spawn-context pool of 16 fake envs (one frame a step:
+     3 cameras of 128x128x3 uint8, 5 low-dim keys, a language string; the
+     port's FrameStackWrapper stacks 16) with shared-memory observations:
+     12a, icl_gmm_paper at phase 7's width with train.pallas_pool through
+     ICLRolloutPolicy (observation and action statistics, a context window
+     tiled to the envs) and run_batched_rollout, a warm-up of 2 steps and a
+     timed pass of 25: actions/s, the lockstep median beside phase 7's B = 16
+     get_action, the lockstep's split, 1 assign and 6 stem-pool launches per
+     lockstep, the first and last lockstep replayed bit-equal to the echoed
+     actions; 12b, phase 11's checkpoint through policy_from_checkpoint and
+     rollout_with_stats (horizon 10; 3 fp32 stem-pool launches per lockstep),
+     every echoed action bit-equal to the in-memory trained algo's on the
+     recorded observations.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run.
 
@@ -111,6 +124,10 @@ ROUTE_SHAPE, ODD_SHAPE = (3072, 64, 58, 58), (2, 64, 57, 59)
 TRAIN_B, TRAIN_STEPS = 64, 3   # bench_train.py's batch; 3 timed steps
 # phase 11's demos: 16 x 200 steps, 50 steps of B = 64 per epoch
 EPOCH_DEMOS, DEMO_STEPS = 16, 200
+# phase 12: 16 envs of 16 stacked frames (bench_infer.py's rollout leg),
+# horizons 25 (12a) and 10 (12b)
+ROLLOUT_ENVS, ROLLOUT_T, ROLLOUT_HORIZON, ROLLOUT_HORIZON_12B = 16, 16, 25, 10
+ROLLOUT_LANG = "put the cup in the cabinet"
 DEVICE = "cuda"
 
 
@@ -541,7 +558,7 @@ def phase_policy_path(CB, dev, profile):
                            share=("assign_kernel", "merge_kernel"))
     del plain
     serve_with_pool_switch(CB, dev, algo, requests[BATCHES[-1]][-1])
-    return counts
+    return counts, statistics.median(times[BATCHES[-1]]["kernel"])
 
 
 def serve_with_pool_switch(CB, dev, algo, request):
@@ -1071,7 +1088,8 @@ def epoch_config(data, output_dir):
 def phase_epoch(CB, dev, step_median):
     """One bf16 epoch of the flagship from a demo store through
     scripts/train.train, and its checkpoint served from a fresh algo.
-    @step_median is phase 10b's step median (ms). Returns the launch counts."""
+    @step_median is phase 10b's step median (ms). Returns the launch counts,
+    the trained algo (eval mode) and the checkpoint's dict."""
     import torch
 
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
@@ -1194,9 +1212,300 @@ def phase_epoch(CB, dev, step_median):
         log(f"  the reloaded checkpoint's get_action at B={BATCHES[-1]} vs the trained "
             f"model's: equal {torch.equal(got, want)} (max|diff| {err})")
         check(torch.equal(got, want), f"the reloaded model serves other actions: {err}")
-        del model, fresh, ckpt
+        del fresh
     torch.cuda.empty_cache()
-    return counts
+    return counts, model, ckpt
+
+
+# ---------------------------------------------------------------------------
+# phase 12: rollouts
+# ---------------------------------------------------------------------------
+
+class SmokeEnv:
+    """A fake env for the rollout phases, at module level so that a spawned
+    worker imports it (as ``__mp_main__`` when this file runs as a script).
+    One frame a step: the 3 cameras of IMG x IMG x 3 uint8 (a frame of a
+    seeded ring of 4, rolled by the step), the LOW_DIM keys (seeded, moved
+    by the step); the language string in ``env_lang``; ``info`` echoes the
+    action. The port's FrameStackWrapper stacks the frames, as for users.
+    It never succeeds and never ends."""
+
+    def __init__(self, env_name="SmokeEnv", render=False, render_offscreen=False,
+                 use_image_obs=False, use_depth_obs=False, seed=0, img=IMG,
+                 env_lang=ROLLOUT_LANG, **kwargs):
+        rng = np.random.default_rng(seed)
+        self._imgs = {c: rng.integers(0, 256, (4, img, img, 3), dtype=np.uint8)
+                      for c in CAMS}
+        self._low = {k: rng.standard_normal(s, dtype=np.float32)
+                     for k, s in LOW_DIM.items()}
+        self.env_lang, self.name, self._t = env_lang, env_name, 0
+
+    def _obs(self):
+        obs = {c: np.roll(v[self._t % 4], self._t, axis=0) for c, v in self._imgs.items()}
+        obs.update({k: v + np.float32(0.01 * self._t) for k, v in self._low.items()})
+        return obs
+
+    def reset(self):
+        self._t = 0
+        return self._obs()
+
+    def step(self, action):
+        self._t += 1
+        return self._obs(), 1.0, False, {"action": np.array(action)}
+
+    def is_success(self):
+        return {"task": False}
+
+    @property
+    def action_dimension(self):
+        return 12
+
+
+def rollout_pool(n, frame_stack, obs_specs):
+    """A spawn-context pool of @n SmokeEnvs with shared-memory observations,
+    each stacking @frame_stack frames; the pool's echoed actions and the time
+    of each step_batched are kept."""
+    from robot_manipulation_vq_vae_tpu_torch.envs.vector_env import SubprocVectorEnv
+    from robot_manipulation_vq_vae_tpu_torch.utils.env_utils import EnvFactory
+
+    class EchoPool(SubprocVectorEnv):
+        def step_batched(self, actions):
+            t0 = time.perf_counter()
+            out = super().step_batched(actions)
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.echoed.append(np.stack([info["action"] for info in out[3]]))
+            return out
+
+    factories = [EnvFactory({"env_name": "SmokeEnv", "type": -1,
+                             "env_kwargs": {"seed": i, "img": IMG}},
+                            obs_specs, frame_stack=frame_stack, env_class=SmokeEnv)
+                 for i in range(n)]
+    pool = EchoPool(factories, shared_obs=True)
+    pool.echoed, pool.step_ms = [], []
+    return pool
+
+
+class Recorder:
+    """A rollout policy that times each query and the algo's get_action in
+    it (ending in a synchronize, as the action's copy to the host does), and
+    keeps copies of the observation batch and the algo's generator state of
+    the queries @keep names (indices into the queries), timing the copies
+    (the smoke test's work, not the path's)."""
+
+    def __init__(self, policy, keep=()):
+        import torch
+
+        self.policy, self.algo, self.keep = policy, policy.policy, set(keep)
+        self.kept, self.starts, self.call_ms, self.get_action_ms = {}, [], [], []
+        self.copy_ms = []
+        get_action = self.algo.get_action
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = get_action(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.get_action_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.algo.get_action = timed
+
+    def start_episode(self, lang=None):
+        self.policy.start_episode(lang)
+
+    def __call__(self, ob, context_batch=None, batched=False):
+        i = len(self.starts)
+        t0 = time.perf_counter()
+        if i in self.keep:   # the pool's shared block: copied before the next step
+            self.kept[i] = ({k: np.array(v) for k, v in ob.items()},
+                            self.algo.generator.get_state())
+        self.copy_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        self.starts.append(t0)
+        ac = self.policy(ob, context_batch=context_batch, batched=batched)
+        self.call_ms.append((time.perf_counter() - t0) * 1e3)
+        return ac
+
+    def close(self):
+        del self.algo.get_action
+
+
+def rollout_report(tag, rec, step_ms, end, n_envs):
+    """Log the lockstep's time split (@step_ms: the pass's step_batched
+    times; the recorder's copies, which fall between two locksteps, are
+    taken out); returns (lockstep median ms, actions/s, share of the
+    lockstep outside get_action)."""
+    lockstep = np.diff(np.array(rec.starts + [end])) * 1e3
+    lockstep -= np.array(rec.copy_ms[1:] + [0.0])
+    total = float(lockstep.sum())
+    get_action, call = float(np.sum(rec.get_action_ms)), float(np.sum(rec.call_ms))
+    step = float(np.sum(step_ms))
+    outside = 1 - get_action / total
+    fps = n_envs * len(lockstep) / (total / 1e3)
+    med = float(np.median(lockstep))
+    log(f"  {tag}: {len(lockstep)} locksteps of {n_envs} envs in {total:.3f} ms: "
+        f"{fps:.1f} actions/s (rollout_fps); lockstep median {med:.3f} ms "
+        f"(min {lockstep.min():.3f}, max {lockstep.max():.3f}); get_action median "
+        f"{np.median(rec.get_action_ms):.3f} ms; the recorder's copies, not counted: "
+        f"{sum(rec.copy_ms):.3f} ms")
+    log(f"  {tag} split of the lockstep: get_action {get_action / total:.4f} (H2D, the "
+        f"model, the action to the host); the rest of the policy query (normalization, "
+        f"language and context tiling, unnormalization) {(call - get_action) / total:.4f}; "
+        f"step_batched (the workers' step and frame stacking, the shared block, the "
+        f"pipes) {step / total:.4f}; is_success and the loop {(total - call - step) / total:.4f}"
+        f"; outside get_action {outside:.4f}")
+    return med, fps, outside
+
+
+def phase_rollout_paper(CB, dev, get_action_b16_ms, profile):
+    """12a: the paper policy's batched rollout: icl_gmm_paper at phase 7's
+    width with train.pallas_pool and 16 stacked frames, ICLRolloutPolicy
+    with observation and action statistics and a context of one window
+    tiled to the envs, run_batched_rollout over a spawned pool of 16 envs
+    with shared memory: a warm-up pass of 2 steps, a timed pass of 25.
+    Launches: 1 assign and 6 stem-pool forwards per lockstep. The first and
+    last lockstep replayed from their recorded observations and generator
+    states give the actions the envs echoed, bit for bit. With @profile,
+    the device time of one lockstep (the query and the pool's step)."""
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import lang_utils as LangUtils
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+    from robot_manipulation_vq_vae_tpu_torch.utils import train_utils as TrainUtils
+
+    log(f"phase 12a: paper policy, batched rollout: {ROLLOUT_ENVS} spawned envs with "
+        f"shared-memory observations, {ROLLOUT_T} stacked frames, horizon "
+        f"{ROLLOUT_HORIZON} after a warm-up of 2")
+    shm = os.statvfs("/dev/shm")
+    log(f"  /dev/shm: {shm.f_blocks * shm.f_frsize / 2**20:.0f} MiB")
+    cfg = paper_config(pallas_pool=True)
+    with cfg.values_unlocked():
+        cfg.train.frame_stack = ROLLOUT_T
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev)
+    rng = np.random.default_rng(41)
+    obs_stats = {k: {"offset": rng.standard_normal((1, *s), dtype=np.float32),
+                     "scale": rng.uniform(0.5, 2.0, (1, *s)).astype(np.float32)}
+                 for k, s in LOW_DIM.items()}
+    action_stats = {"actions": {"offset": rng.uniform(-0.1, 0.1, (1, 12)).astype(np.float32),
+                                "scale": rng.uniform(0.5, 1.5, (1, 12)).astype(np.float32)}}
+    policy = Algo.ICLRolloutPolicy(algo, obs_normalization_stats=obs_stats,
+                                   action_normalization_stats=action_stats,
+                                   lang_encoder=LangUtils.LangEncoder())
+    _, ctx = make_request(np.random.RandomState(43), 1, ROLLOUT_T)
+    t0 = time.perf_counter()
+    pool = rollout_pool(ROLLOUT_ENVS, ROLLOUT_T, [cfg.observation.modalities.to_dict()])
+    try:
+        first = pool.reset_batched()
+        start_s = time.perf_counter() - t0
+        log(f"  pool start-up (spawn {ROLLOUT_ENVS} workers, first reset, shared block "
+            f"of {sum(v.nbytes for v in first.values()) / 1e6:.1f} MB): {start_s:.3f} s")
+        check(first[CAMS[0]].shape == (ROLLOUT_ENVS, ROLLOUT_T, IMG, IMG, 3),
+              f"stacked images {first[CAMS[0]].shape}")
+        del first
+        TrainUtils.run_batched_rollout(policy, pool, horizon=2, context_batch=ctx)
+        torch.cuda.synchronize()
+        rec = Recorder(policy, keep=(0, ROLLOUT_HORIZON - 1))
+        CB.reset_launch_counts()
+        infos = TrainUtils.run_batched_rollout(rec, pool, horizon=ROLLOUT_HORIZON,
+                                               context_batch=ctx)
+        end = time.perf_counter()
+        counts = dict(CB.LAUNCHES)
+        rec.close()
+        echoed = pool.echoed[-ROLLOUT_HORIZON:]
+        step_ms = pool.step_ms[-ROLLOUT_HORIZON:]
+        if profile:
+            ob = pool.reset_batched()
+            device_profile(f"rollout lockstep, {ROLLOUT_ENVS} envs (query and step)",
+                           lambda: pool.step_batched(policy(ob, context_batch=ctx,
+                                                            batched=True)),
+                           share=("assign_kernel", "merge_kernel", "pool_fwd_kernel"))
+    finally:
+        pool.close()
+    log(f"  launches over {ROLLOUT_HORIZON} locksteps {counts}")
+    want = {"lipvq_assign": 1, "stem_pool_fwd": 6}
+    for name, n in counts.items():
+        check(n == want.get(name, 0) * ROLLOUT_HORIZON,
+              f"{name}: {n} launches, expected {want.get(name, 0)} per lockstep")
+    check(len(infos) == ROLLOUT_ENVS and all(i["Horizon"] == ROLLOUT_HORIZON
+                                              and i["Return"] == ROLLOUT_HORIZON
+                                              for i in infos), f"rollout results {infos[:2]}")
+    check(len(echoed) == ROLLOUT_HORIZON and all(
+        a.shape == (ROLLOUT_ENVS, 12) and np.isfinite(a).all() for a in echoed),
+        "echoed actions are not finite [16, 12]")
+    med, fps, outside = rollout_report("12a", rec, step_ms, end, ROLLOUT_ENVS)
+    log(f"  lockstep median / phase 7's B={BATCHES[-1]} get_action median "
+        f"{get_action_b16_ms:.3f} ms: {med / get_action_b16_ms:.3f} x (expected <= 1.3); "
+        f"/ the rollout's own get_action median: {med / np.median(rec.get_action_ms):.3f} x")
+    for i, (ob, state) in sorted(rec.kept.items()):
+        algo.generator.set_state(state)
+        replay = policy(ob, context_batch=ctx, batched=True)
+        err = float(np.abs(replay - echoed[i]).max())
+        log(f"  lockstep {i}: replayed actions vs the echoed: equal "
+            f"{np.array_equal(replay, echoed[i])} (max|diff| {err})")
+        check(np.array_equal(replay, echoed[i]), f"lockstep {i}: replay differs by {err}")
+    del algo, policy
+    return med, fps, outside
+
+
+def phase_rollout_checkpoint(CB, dev, trained, ckpt):
+    """12b: phase 11's checkpoint through policy_from_checkpoint to an
+    ICLRolloutPolicy (fp32 get_action with the stem pool's fp32 kernel: 3
+    launches per lockstep), rollout_with_stats over a spawned pool of 16
+    envs of horizon 10; every echoed action equals, bit for bit, the action
+    of phase 11's in-memory trained algo in the same rollout policy on the
+    recorded observations."""
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import file_utils as FileUtils
+    from robot_manipulation_vq_vae_tpu_torch.utils import train_utils as TrainUtils
+
+    horizon = ROLLOUT_HORIZON_12B
+    log(f"phase 12b: the flagship from phase 11's checkpoint, policy_from_checkpoint, "
+        f"rollout_with_stats over {ROLLOUT_ENVS} spawned envs, horizon {horizon}")
+    policy, _ = FileUtils.policy_from_checkpoint(ckpt_dict=ckpt)
+    check(isinstance(policy, Algo.ICLRolloutPolicy), f"{type(policy).__name__}")
+    cfg = policy.policy.global_config
+    t = cfg.algo.transformer.context_length
+    _, ctx = make_request(np.random.RandomState(47), 1, t)
+    pool = rollout_pool(ROLLOUT_ENVS, t, [cfg.observation.modalities.to_dict()])
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rec = Recorder(policy, keep=range(horizon))
+        CB.reset_launch_counts()
+        logs, _ = TrainUtils.rollout_with_stats(rec, {"SmokeEnv": pool}, horizon=horizon,
+                                                context_batch=ctx,
+                                                num_episodes=ROLLOUT_ENVS)
+        end = time.perf_counter()
+        counts = dict(CB.LAUNCHES)
+        rec.close()
+        echoed = pool.echoed[-horizon:]
+        log(f"  logs {json.dumps(logs['SmokeEnv'], sort_keys=True)}")
+        check("Return" in logs["SmokeEnv"] and logs["SmokeEnv"]["Return"] == horizon,
+              "an episode failed inside rollout_with_stats")
+        log(f"  launches over {horizon} locksteps {counts}")
+        for name, n in counts.items():
+            want = 3 * horizon if name == "stem_pool_fwd" else 0
+            check(n == want, f"{name}: {n} launches, expected {want}")
+        rollout_report("12b", rec, pool.step_ms[-horizon:], end, ROLLOUT_ENVS)
+        # the in-memory trained algo in the same rollout policy
+        same = Algo.ICLRolloutPolicy(
+            trained, obs_normalization_stats=policy.obs_normalization_stats,
+            action_normalization_stats=policy.action_normalization_stats,
+            lang_encoder=policy.lang_encoder)
+        same.start_episode(lang=ROLLOUT_LANG)
+        for i in range(horizon):
+            want = same(rec.kept[i][0], context_batch=ctx, batched=True)
+            check(want.shape == (ROLLOUT_ENVS, 12) and np.array_equal(want, echoed[i]),
+                  f"lockstep {i}: the trained algo's actions differ by "
+                  f"{float(np.abs(want - echoed[i]).max())}")
+        log(f"  the trained in-memory algo's actions on the {horizon} recorded observation "
+            f"batches equal the echoed ones, bit for bit")
+    finally:
+        torch.backends.cudnn.deterministic = before
+        pool.close()
 
 
 def device_profile(tag, fn, share=()):
@@ -1232,8 +1541,8 @@ def device_profile(tag, fn, share=()):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also print device-time breakdowns of get_action and "
-                             "of one training step")
+                        help="also print device-time breakdowns of get_action, "
+                             "of one training step and of one rollout lockstep")
     args = parser.parse_args()
 
     import torch
@@ -1277,7 +1586,7 @@ def main():
     torch.cuda.empty_cache()
     route, route_counts = phase_pool_route(CB, P, dev)
     torch.cuda.empty_cache()
-    pol_counts = phase_policy_path(CB, dev, args.profile)
+    pol_counts, paper_b16_ms = phase_policy_path(CB, dev, args.profile)
     torch.cuda.empty_cache()
     train_counts = phase_training_path(CB, dev, args.profile)
     torch.cuda.empty_cache()
@@ -1286,7 +1595,12 @@ def main():
     flagship = {mp: phase_flagship_training(CB, dev, mp, args.profile)
                 for mp in (False, True)}
     torch.cuda.empty_cache()
-    epoch_counts = phase_epoch(CB, dev, flagship[True][1])
+    epoch_counts, trained, ckpt = phase_epoch(CB, dev, flagship[True][1])
+    torch.cuda.empty_cache()
+    phase_rollout_paper(CB, dev, paper_b16_ms, args.profile)
+    torch.cuda.empty_cache()
+    phase_rollout_checkpoint(CB, dev, trained, ckpt)
+    del trained, ckpt
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]

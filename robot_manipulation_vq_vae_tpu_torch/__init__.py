@@ -11,9 +11,10 @@ CUDA kernels live under ``csrc/`` and are built with ``nvcc`` at first use
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit ``cpu`` they raise.
-"""
 
-import torch
+Importing the package does not import torch: the environment workers of
+``envs/vector_env.py`` start by ``spawn`` and import only numpy modules.
+"""
 
 __version__ = "0.1.0"
 
@@ -21,6 +22,8 @@ __version__ = "0.1.0"
 def resolve_device(device=None):
     """The device an entry point runs on: ``cuda`` unless @device says
     otherwise. Raises when no card is present and no device was given."""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

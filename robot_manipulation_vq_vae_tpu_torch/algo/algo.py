@@ -11,17 +11,27 @@ in the mode it found them in.
 ``serialize`` / ``deserialize`` carry the networks' state dict under the
 reference's names (``REFERENCE_NAMES``), which the JAX package's checkpoint
 converter reads, and optionally everything a resumed run needs.
+
+``PolicyAlgo`` adds the action-MSE evaluation, and ``RolloutPolicy`` /
+``ICLRolloutPolicy`` wrap an algo for stepping environments: observation
+normalization, the language embedding and the context batch on the host in
+numpy, one ``get_action`` on the device, the action back on the host once
+per query, then unnormalization and the runtime rot_6d conversion.
 """
 
 import re
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from robot_manipulation_vq_vae_tpu_torch import resolve_device
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
+from robot_manipulation_vq_vae_tpu_torch.utils import action_utils as AcUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
+from robot_manipulation_vq_vae_tpu_torch.utils import rotation_utils as RotUtils
+from robot_manipulation_vq_vae_tpu_torch.utils import tensor_utils as TensorUtils
 
 # algo_name -> factory func (algo_config -> (cls, kwargs))
 REGISTERED_ALGOS = {}
@@ -204,6 +214,9 @@ class Algo:
     def on_epoch_end(self, epoch):
         pass
 
+    def reset(self):
+        """Called at the start of each rollout episode."""
+
     def train_on_batch(self, batch, epoch, validate=False):
         """One training step on @batch, the networks in train mode; with
         @validate, the same losses in eval mode under ``no_grad``, and
@@ -300,3 +313,174 @@ def _to_cpu(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().clone()
     return tree
+
+
+def to_host(action):
+    """An action batch as numpy: a tensor leaves its device once."""
+    if isinstance(action, torch.Tensor):
+        return action.detach().cpu().numpy()
+    return np.asarray(action)
+
+
+class PolicyAlgo(Algo):
+    """Base of the policy algorithms (the port's are the ICL policies, whose
+    ``get_action`` takes a context batch and whose ``_select_output`` picks
+    the predicted step of a window): the action-MSE evaluation."""
+
+    def _predict_actions_for_mse(self, batch):
+        """Predicted actions (numpy) for an MSE batch: ``get_action`` over the
+        batch's observations, with the batch as its own context."""
+        ctx = {"actions": batch["actions"], "obs": batch["obs"]}
+        return to_host(self.get_action(batch["obs"], context_batch=ctx))
+
+    def compute_mse_visualize(self, trainset, validset, num_samples, savedir=None):
+        """Action-prediction MSE and accuracy@{1e-3, 1e-4, 1e-5} over
+        @num_samples windows of each dataset (drawn with RandomState(0)), and
+        with @savedir a plot of actual against predicted actions per dataset.
+        A window of actions is held at the step ``get_action`` predicts (the
+        JAX package reshapes the window to the prediction's shape, which
+        raises for a window of more than one step). Returns (mse_log,
+        {plot name: path})."""
+        from robot_manipulation_vq_vae_tpu_torch.data.loader import collate
+        from robot_manipulation_vq_vae_tpu_torch.utils import vis_utils as VisUtils
+
+        self.set_eval()
+        random_state = np.random.RandomState(0)
+        mapping = {"Train": trainset}
+        if validset is not None:
+            mapping["Valid"] = validset
+        mse_log, vis_log = {}, {}
+        for key, dataset in mapping.items():
+            idx = random_state.choice(len(dataset), min(len(dataset), num_samples),
+                                      replace=False)
+            batch = self.process_batch_for_training(
+                collate([dataset[int(i)] for i in idx]))
+            actual = np.asarray(batch["actions"])
+            pred = self._predict_actions_for_mse(batch)
+            if pred.shape != actual.shape:
+                actual = self._select_output(actual)
+            mse = (pred - actual) ** 2
+            mse_log[f"{key}/action_mse_error"] = float(np.mean(mse))
+            for thr in np.logspace(-3, -5, num=3).tolist():
+                mse_log[f"{key}/action_accuracy@{thr}"] = float(np.mean(mse < thr))
+            if savedir is not None:
+                flat_actual = actual.reshape(-1, actual.shape[-1])
+                save_path = f"{savedir}/{key.lower()}_pred.png"
+                VisUtils.make_model_prediction_plot(
+                    hdf5_path=getattr(dataset, "hdf5_path", ""), save_path=save_path,
+                    action_names=[f"a{i}" for i in range(flat_actual.shape[-1])],
+                    actual_actions=flat_actual,
+                    predicted_actions=pred.reshape(-1, pred.shape[-1]))
+                vis_log[f"{key.lower()}_pred"] = save_path
+        return mse_log, vis_log
+
+
+# ---------------------------------------------------------------------------
+# rollout wrappers
+# ---------------------------------------------------------------------------
+
+class RolloutPolicy:
+    """Wraps an algo for env stepping: normalize the observations, add the
+    episode's language embedding, query ``get_action`` (on the algo's
+    device), bring the actions to the host, unnormalize them and convert
+    rot_6d at runtime. All but the query is numpy on the host.
+
+    The language embedding is tiled over the observations' leading
+    dimensions, which come from an observation whose per-frame shape the
+    algo knows (``algo.obs_shapes``): [N] for a batch of envs, then [T] when
+    frames are stacked. (The JAX package takes them from whichever key comes
+    first, and so from an image's rows when that key is an image and frames
+    are not stacked.)
+    """
+
+    def __init__(self, policy, obs_normalization_stats=None,
+                 action_normalization_stats=None, lang_encoder=None):
+        self.policy = policy
+        self.obs_normalization_stats = obs_normalization_stats
+        self.action_normalization_stats = action_normalization_stats
+        self.lang_encoder = lang_encoder
+        self._ep_lang_emb = None
+
+    def start_episode(self, lang=None):
+        if self.lang_encoder is not None and lang is not None:
+            self._ep_lang_emb = np.asarray(self.lang_encoder.get_lang_emb(lang))
+        self.policy.set_eval()
+        self.policy.reset()
+
+    def _lead_shape(self, ob):
+        """The leading dimensions of @ob's values past each key's frame."""
+        shapes = getattr(self.policy, "obs_shapes", None) or {}
+        for k, v in ob.items():
+            if k in shapes and k != LANG_EMB_KEY:
+                return np.shape(v)[:np.ndim(v) - len(shapes[k])]
+        raise ValueError(f"no observation of a shape the policy knows among {sorted(ob)}")
+
+    def _prepare_observation(self, ob, batched=False):
+        """@ob as the algo takes it: normalized, with the language embedding,
+        and with a batch dimension added unless @batched ([N, ...] across a
+        vector env)."""
+        ob = dict(ob)
+        if self.obs_normalization_stats is not None:
+            ob = ObsUtils.normalize_dict(ob, self.obs_normalization_stats)
+        if self._ep_lang_emb is not None:
+            emb = self._ep_lang_emb
+            ob[LANG_EMB_KEY] = np.ascontiguousarray(
+                np.broadcast_to(emb, self._lead_shape(ob) + emb.shape))
+        if not batched:
+            return {k: np.asarray(v)[None] for k, v in ob.items()}
+        return {k: np.asarray(v) for k, v in ob.items()}
+
+    def _unnormalize_action(self, ac):
+        if self.action_normalization_stats is None:
+            return ac
+        train = self.policy.global_config.train
+        action_shapes = {
+            k: np.asarray(self.action_normalization_stats[k]["offset"]).shape[1:]
+            for k in self.action_normalization_stats
+        }
+        ac_dict = AcUtils.vector_to_action_dict(ac, action_shapes=action_shapes,
+                                                action_keys=train.action_keys)
+        ac_dict = ObsUtils.unnormalize_dict(ac_dict, self.action_normalization_stats)
+        for key, value in ac_dict.items():
+            if train.action_config.get(key, {}).get("format", None) != "rot_6d":
+                continue
+            conv = train.action_config[key].get("convert_at_runtime", "rot_axis_angle")
+            if conv == "rot_axis_angle":
+                ac_dict[key] = RotUtils.rot_6d_to_axis_angle(value).astype(value.dtype)
+            elif conv == "rot_euler":
+                ac_dict[key] = RotUtils.rot_6d_to_euler_angles(value, "XYZ").astype(
+                    value.dtype)
+            else:
+                raise ValueError(conv)
+        return AcUtils.action_dict_to_vector(ac_dict, action_keys=train.action_keys)
+
+    def _finish(self, ac, batched):
+        ac = to_host(ac)
+        return self._unnormalize_action(ac if batched else ac[0])
+
+    def __call__(self, ob, goal=None, batched=False):
+        ob = self._prepare_observation(ob, batched=batched)
+        if goal is not None:
+            goal = self._prepare_observation(goal, batched=batched)
+        return self._finish(self.policy.get_action(obs_dict=ob, goal_dict=goal), batched)
+
+
+class ICLRolloutPolicy(RolloutPolicy):
+    """Adds the in-context batch to every action query. In a batched query
+    a context of one demo ([1, ...]) serves every env: it is tiled to the
+    batch."""
+
+    def __call__(self, ob, context_batch, goal=None, batched=False):
+        ob = self._prepare_observation(ob, batched=batched)
+        if goal is not None:
+            goal = self._prepare_observation(goal, batched=batched)
+        if batched and context_batch is not None:
+            n = len(next(iter(ob.values())))
+
+            def tile(v):
+                v = np.asarray(v)
+                return np.repeat(v, n, axis=0) if v.shape[0] == 1 else v
+
+            context_batch = TensorUtils.map_tensor(context_batch, tile)
+        return self._finish(self.policy.get_action(
+            obs_dict=ob, context_batch=context_batch, goal_dict=goal), batched)

@@ -35,7 +35,7 @@ from collections import OrderedDict
 import torch
 
 from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
-    Algo,
+    PolicyAlgo,
     device_process_obs,
     register_algo_factory_func,
 )
@@ -101,7 +101,7 @@ def algo_config_to_class_gmm_paper(algo_config):
     return ICLTransformer_GMM, {}
 
 
-class ICLTransformer(Algo):
+class ICLTransformer(PolicyAlgo):
     """Transformer-policy ICL: the TransformerActorNetwork over the
     observation window, trained on sequence prediction losses, with the
     HVQVAE's loss added where a subclass has one (JAX ``:736-866``)."""
@@ -340,7 +340,7 @@ class ICLTransformerHVQVAE(ICLTransformer):
         return log
 
 
-class ICLTransformer_GMM(Algo):
+class ICLTransformer_GMM(PolicyAlgo):
     """Prompt-conditioned GMM transformer with the in-encoder LipVQ action
     tokenizer."""
 

@@ -177,8 +177,9 @@ def config_from_checkpoint(algo_name=None, ckpt_path=None, ckpt_dict=None,
 
 
 def algo_from_checkpoint(device=None, ckpt_path=None, ckpt_dict=None, verbose=False):
-    """Rebuild the trained algo from a checkpoint: (algo in eval mode,
-    ckpt_dict). Rollout policies are not ported yet (ROADMAP.md Queue 1)."""
+    """Rebuild the trained algo from a checkpoint on @device (``cuda`` unless
+    given): (algo in eval mode, ckpt_dict). ``policy_from_checkpoint`` wraps
+    it for rollouts."""
     ckpt_dict = maybe_dict_from_checkpoint(ckpt_path, ckpt_dict)
     config, _ = config_from_checkpoint(ckpt_dict=ckpt_dict, verbose=verbose)
     ObsUtils.initialize_obs_utils_with_config(config)
@@ -190,3 +191,37 @@ def algo_from_checkpoint(device=None, ckpt_path=None, ckpt_dict=None, verbose=Fa
     algo.deserialize(ckpt_dict["model"])
     algo.set_eval()
     return algo, ckpt_dict
+
+
+def policy_from_checkpoint(device=None, ckpt_path=None, ckpt_dict=None, verbose=False):
+    """A rollout policy from a checkpoint: (``ICLRolloutPolicy`` for an ICL
+    algo, else ``RolloutPolicy``, with the checkpoint's normalization
+    statistics and, where the algo takes ``lang_emb``, a ``LangEncoder``;
+    ckpt_dict). The algo runs on @device (``cuda`` unless given)."""
+    algo, ckpt_dict = algo_from_checkpoint(device=device, ckpt_path=ckpt_path,
+                                           ckpt_dict=ckpt_dict, verbose=verbose)
+    lang_encoder = None
+    if LangUtils.LANG_EMB_KEY in algo.obs_shapes:
+        lang_encoder = LangUtils.LangEncoder()
+    wrapper = (Algo.ICLRolloutPolicy if ckpt_dict["algo_name"].startswith("icl")
+               else Algo.RolloutPolicy)
+    policy = wrapper(algo,
+                     obs_normalization_stats=ckpt_dict.get("obs_normalization_stats"),
+                     action_normalization_stats=ckpt_dict.get("action_normalization_stats"),
+                     lang_encoder=lang_encoder)
+    return policy, ckpt_dict
+
+
+def env_from_checkpoint(ckpt_path=None, ckpt_dict=None, env_name=None, render=False,
+                        render_offscreen=False):
+    """The checkpoint's eval env (named @env_name where given), unwrapped:
+    (env, ckpt_dict)."""
+    from robot_manipulation_vq_vae_tpu_torch.utils import env_utils as EnvUtils
+
+    ckpt_dict = maybe_dict_from_checkpoint(ckpt_path, ckpt_dict)
+    env_meta = dict(ckpt_dict["env_metadata"])
+    if env_name is not None:
+        env_meta["env_name"] = env_name
+    env = EnvUtils.create_env_from_metadata(env_meta=env_meta, render=render,
+                                            render_offscreen=render_offscreen)
+    return env, ckpt_dict

@@ -84,6 +84,36 @@ def key_is_obs_modality(key, obs_modality):
     return OBS_KEYS_TO_MODALITIES[key] == obs_modality
 
 
+def process_frame(frame, channel_dim, scale):
+    """uint8 [0, scale] HWC -> float32 [0, 1] HWC (channels-last)."""
+    if frame.shape[-1] != channel_dim:
+        raise ValueError(f"expected {channel_dim} channels, got {frame.shape}")
+    return np.clip(np.asarray(frame, dtype=np.float32) / scale, 0.0, 1.0)
+
+
+# modality -> processor of a raw environment observation (the JAX package's
+# Modality classes' defaults)
+OBS_PROCESSORS = {
+    "rgb": lambda obs: process_frame(obs, channel_dim=3, scale=255.0),
+    "depth": lambda obs: process_frame(obs, channel_dim=1, scale=1.0),
+}
+
+
+def process_obs(obs, obs_modality=None, obs_key=None):
+    """A raw observation as the networks take it: images float [0, 1],
+    everything else float32."""
+    if obs_key is not None:
+        obs_modality = OBS_KEYS_TO_MODALITIES[obs_key]
+    if obs_modality is None:
+        raise ValueError("pass obs_modality or obs_key")
+    processor = OBS_PROCESSORS.get(obs_modality)
+    return processor(obs) if processor else np.asarray(obs, dtype=np.float32)
+
+
+def process_obs_dict(obs_dict):
+    return {k: process_obs(obs, obs_key=k) for k, obs in obs_dict.items()}
+
+
 def get_processed_shape(obs_modality, input_shape):
     """The shape after processing: images stay channels-last [H, W, C], so
     every modality keeps its shape."""

@@ -1,12 +1,14 @@
 """Training harness utilities (the port's counterpart of the JAX package's
 ``utils/train_utils.py``): experiment directories, the dataset factory, the
-epoch loop with its timing buckets, and checkpoint saving. Rollouts are not
-ported yet (ROADMAP.md Queue 1 item 2).
+epoch loop with its timing buckets, rollouts (one env, or a vector env in
+lockstep) with their statistics and the best-checkpoint rule, and
+checkpoint saving.
 """
 
 import datetime
 import os
 import time
+from collections import OrderedDict
 from copy import deepcopy
 
 import numpy as np
@@ -87,6 +89,11 @@ def dataset_factory(config, obs_keys, filter_by_attribute=None, dataset_path=Non
     if len(datasets) == 1:
         return datasets[0]
     return MetaDataset(datasets, weights, normalize_weights_by_ds_size=False)
+
+
+def batchify_obs(obs_list):
+    """A list of observation dicts -> one batched dict."""
+    return {k: np.stack([obs[k] for obs in obs_list]) for k in obs_list[0]}
 
 
 def make_batch_preparer(model, obs_normalization_stats=None):
@@ -173,6 +180,224 @@ def run_epoch(model, data_loader, epoch, validate=False, num_steps=None,
         for k, v in prefetcher.transfer_summary().items():
             out[f"prefetch/{k}"] = v
     return out
+
+
+def is_every_n_steps(interval, current_step, skip_zero=False):
+    if interval is None:
+        return False
+    if not (isinstance(interval, int) and interval > 0):
+        raise ValueError(f"interval must be a positive int, not {interval!r}")
+    if not (isinstance(current_step, int) and current_step >= 0):
+        raise ValueError(f"current_step must be an int >= 0, not {current_step!r}")
+    if skip_zero and current_step == 0:
+        return False
+    return current_step % interval == 0
+
+
+# ---------------------------------------------------------------------------
+# rollouts
+# ---------------------------------------------------------------------------
+
+def run_batched_rollout(policy, venv, horizon, context_batch=None,
+                        terminate_on_success=False):
+    """One episode in each env of @venv, stepped in lockstep: one batched
+    policy query per step serves every env. With the pool's batched API
+    (``step_batched``) the observations come as one dict, with a
+    shared-memory pool the shared block itself. Returns one result dict per
+    env: Return, Horizon, Success_Rate, Exception_Rate, time."""
+    langs = venv.get_env_attr("env_lang")
+    policy.start_episode(lang=langs[0] if langs else None)
+    use_batched_api = hasattr(venv, "step_batched")
+    if use_batched_api:
+        ob_batch = venv.reset_batched()
+    else:
+        ob_list = venv.reset()
+    n = len(venv)
+
+    returns = np.zeros(n)
+    success = np.zeros(n, bool)
+    horizons = np.full(n, horizon)
+    active = np.ones(n, bool)
+    t0 = time.time()
+    for step_i in range(horizon):
+        if not use_batched_api:
+            ob_batch = batchify_obs(ob_list)
+        if context_batch is not None:
+            acs = policy(ob=ob_batch, context_batch=context_batch, batched=True)
+        else:
+            acs = policy(ob=ob_batch, batched=True)
+        if use_batched_api:
+            ob_batch, rews, dones, _ = venv.step_batched(np.asarray(acs))
+        else:
+            ob_list, rews, dones, _ = venv.step(np.asarray(acs))
+        returns += np.asarray(rews) * active
+        succ_now = np.asarray([s["task"] for s in venv.is_success()])
+        success |= active & succ_now
+        finished = np.asarray(dones, bool) | (succ_now if terminate_on_success else False)
+        horizons[active & finished] = step_i + 1
+        active &= ~finished
+        if not active.any():
+            break
+    dt = (time.time() - t0) / n
+    return [dict(Return=float(returns[i]), Horizon=int(horizons[i]),
+                 Success_Rate=float(success[i]), Exception_Rate=0.0, time=dt)
+            for i in range(n)]
+
+
+def run_rollout(policy, env, horizon, context_batch=None, use_goals=False,
+                render=False, video_writer=None, video_skip=5,
+                terminate_on_success=False):
+    """One episode of @env (with @context_batch, an ICL policy's). An
+    exception the env names in ``rollout_exceptions`` ends the episode and
+    counts in Exception_Rate."""
+    policy.start_episode(lang=getattr(env, "env_lang", None))
+    ob_dict = env.reset()
+    goal_dict = env.get_goal() if use_goals else None
+
+    results = {}
+    video_count = 0
+    total_reward = 0.0
+    success = {"task": False}
+    got_exception = False
+    rollout_timestamp = time.time()
+    try:
+        for step_i in range(horizon):
+            if context_batch is not None:
+                ac = policy(ob=ob_dict, context_batch=context_batch, goal=goal_dict)
+            else:
+                ac = policy(ob=ob_dict, goal=goal_dict)
+            ob_dict, r, done, _ = env.step(ac)
+            total_reward += r
+            cur_success_metrics = env.is_success()
+            for k in success:
+                success[k] = success[k] or cur_success_metrics[k]
+            if render:
+                env.render(mode="human")
+            if video_writer is not None:
+                if video_count % video_skip == 0:
+                    video_writer.append_data(env.render(mode="rgb_array", height=512,
+                                                        width=512))
+                video_count += 1
+            if done or (terminate_on_success and success["task"]):
+                break
+    except tuple(getattr(env, "rollout_exceptions", ()) or ()) as e:
+        got_exception = True
+        print(f"WARNING: rollout exception {e}")
+
+    results["Return"] = total_reward
+    results["Horizon"] = step_i + 1
+    results["Success_Rate"] = float(success["task"])
+    results["Exception_Rate"] = float(got_exception)
+    results["time"] = time.time() - rollout_timestamp
+    for k in success:
+        if k != "task":
+            results[f"{k}_Success_Rate"] = float(success[k])
+    return results
+
+
+def rollout_with_stats(policy, envs, horizon, context_batch=None, use_goals=False,
+                       num_episodes=None, render=False, video_dir=None,
+                       video_path=None, epoch=None, video_skip=5,
+                       terminate_on_success=False, verbose=False):
+    """@num_episodes episodes in each env of @envs ({name: env or vector
+    env}; a vector env runs them in passes of len(env) in lockstep), and the
+    mean of each result per env, with ``Time_Episode`` (minutes). Videos go
+    to @video_dir or @video_path where imageio can write them.
+
+    As in the JAX package, an exception in an episode is printed and ends
+    that env's episodes; an env none of whose episodes finished gets only
+    ``{"Success_Rate": 0.0}``, with no ``Return``. Returns (logs, None)."""
+    try:
+        import imageio
+    except ImportError:
+        imageio = None
+    from robot_manipulation_vq_vae_tpu_torch.envs.vector_env import SubprocVectorEnv
+
+    all_rollout_logs = OrderedDict()
+    write_video = (video_dir is not None) or (video_path is not None)
+    for env_name, env in envs.items():
+        video_writer = None
+        if write_video and imageio is not None:
+            if video_dir is not None:
+                video_str = f"_epoch_{epoch}.mp4" if epoch is not None else ".mp4"
+                this_video_path = os.path.join(video_dir, f"{env_name}{video_str}")
+            else:
+                this_video_path = video_path
+            try:
+                video_writer = imageio.get_writer(this_video_path, fps=20)
+            except Exception as e:  # no ffmpeg plugin, for one
+                LogUtils.log_warning(f"video writing disabled: {e}")
+                video_writer = None
+
+        rollout_logs = []
+        num_success = 0
+        if isinstance(env, SubprocVectorEnv):
+            n_passes = (num_episodes + len(env) - 1) // len(env)
+            for pass_i in LogUtils.custom_tqdm(range(n_passes)):
+                try:
+                    infos = run_batched_rollout(
+                        policy=policy, venv=env, horizon=horizon,
+                        context_batch=context_batch,
+                        terminate_on_success=terminate_on_success)
+                except Exception as e:
+                    print(f"Batched rollout exception at pass {pass_i}: {e}")
+                    break
+                rollout_logs.extend(infos)
+                num_success += sum(i["Success_Rate"] for i in infos)
+            rollout_logs = rollout_logs[:num_episodes]
+        else:
+            for ep_i in LogUtils.custom_tqdm(range(num_episodes)):
+                try:
+                    rollout_info = run_rollout(
+                        policy=policy, env=env, horizon=horizon,
+                        context_batch=context_batch, use_goals=use_goals,
+                        render=render, video_writer=video_writer,
+                        video_skip=video_skip,
+                        terminate_on_success=terminate_on_success)
+                except Exception as e:
+                    print(f"Rollout exception at episode {ep_i}: {e}")
+                    break
+                rollout_logs.append(rollout_info)
+                num_success += rollout_info["Success_Rate"]
+                if verbose:
+                    print(f"Episode {ep_i + 1}, horizon={horizon}, "
+                          f"num_success={num_success}")
+        if video_writer is not None:
+            video_writer.close()
+
+        if rollout_logs:
+            rollout_logs_mean = {k: float(np.mean([rl[k] for rl in rollout_logs]))
+                                 for k in rollout_logs[0]}
+            rollout_logs_mean["Time_Episode"] = (
+                np.sum([rl["time"] for rl in rollout_logs]) / 60.0)
+            all_rollout_logs[env_name] = rollout_logs_mean
+        else:
+            all_rollout_logs[env_name] = {"Success_Rate": 0.0}
+    return all_rollout_logs, None
+
+
+def should_save_from_rollout_logs(all_rollout_logs, best_return, best_success_rate,
+                                  epoch_ckpt_name, save_on_best_rollout_return,
+                                  save_on_best_rollout_success_rate):
+    """Track the best return and success rate per env, and whether (and
+    under which name) the epoch's checkpoint is saved for beating one."""
+    should_save = False
+    for env_name, rollout_logs in all_rollout_logs.items():
+        if "Return" not in rollout_logs:
+            # every episode of this env failed (rollout_with_stats' fallback)
+            continue
+        if rollout_logs["Return"] > best_return[env_name]:
+            best_return[env_name] = rollout_logs["Return"]
+            if save_on_best_rollout_return:
+                epoch_ckpt_name += f"_{env_name}_return_{rollout_logs['Return']}"
+                should_save = True
+        if rollout_logs["Success_Rate"] > best_success_rate[env_name]:
+            best_success_rate[env_name] = rollout_logs["Success_Rate"]
+            if save_on_best_rollout_success_rate:
+                epoch_ckpt_name += f"_{env_name}_success_{rollout_logs['Success_Rate']}"
+                should_save = True
+    return dict(best_return=best_return, best_success_rate=best_success_rate,
+                epoch_ckpt_name=epoch_ckpt_name, should_save_ckpt=should_save)
 
 
 def save_model(model, config, env_meta, shape_meta, ckpt_path,

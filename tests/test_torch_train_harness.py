@@ -16,7 +16,8 @@ shared CPU runs these small steps many times faster than a thread per core):
   then 3 steps, equals 6 uninterrupted steps, to the bit, with random crops
   and dropout on, for the flagship and the paper policy;
 * ``scripts/train.py --auto_resume`` continues past the newest checkpoint;
-* the options that are not ported raise.
+* the options that are not ported raise (rollouts, additional envs and the
+  action MSE are ported: tests/test_torch_rollout.py).
 """
 
 import argparse
@@ -459,19 +460,13 @@ def test_auto_resume(demo_path, tmp_path):
     assert ckpt["model"]["training_state"]["step"] == 4
 
 
-@pytest.mark.parametrize("option", ["rollout", "additional_envs", "mse", "orbax", "r2d2"])
+@pytest.mark.parametrize("option", ["orbax", "r2d2"])
 def test_unported_options_raise(demo_path, tmp_path, option):
     cfg = _configure(config_factory("icl"))
     with cfg.values_unlocked():
         cfg.train.data = demo_path
         cfg.train.output_dir = str(tmp_path)
-        if option == "rollout":
-            cfg.experiment.rollout.enabled = True
-        elif option == "additional_envs":
-            cfg.experiment.additional_envs = ["Other"]
-        elif option == "mse":
-            cfg.experiment.mse.enabled = True
-        elif option == "orbax":
+        if option == "orbax":
             cfg.experiment.save.format = "orbax"
         else:
             cfg.train.data_format = "r2d2"
