@@ -72,7 +72,17 @@ Phases, each of which fails the run when it fails:
      actions; 12b, phase 11's checkpoint through policy_from_checkpoint and
      rollout_with_stats (horizon 10; 3 fp32 stem-pool launches per lockstep),
      every echoed action bit-equal to the in-memory trained algo's on the
-     recorded observations.
+     recorded observations;
+  13. the paper's other action tokenizers: icl_gmm_paper at phase 8's width
+     with bin, LN-act, the default encoder and FAST (a deterministic stand-in
+     for its processor and CLIP), LipVQ off, train.pallas_pool on: for each,
+     a warm-up and 3 timed training steps at B = 64 (6 + 6 stem pool
+     launches a step, no assign), the host syncs of one more step (torch's
+     sync debug mode), a kernel step against a plain step (the
+     bin statistics and spectral vectors within 1e-6), 3 requests at B = 1
+     and 3 at B = 16, the B = 16 GMM bit-equal to the F.max_pool2d model's;
+     the step and request medians beside phases 8 and 7, and FAST's host
+     encoding share of a request.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run.
 
@@ -86,6 +96,7 @@ non-zero, printing no result, without a CUDA device or without the port.
 import argparse
 import contextlib
 import glob
+import hashlib
 import json
 import os
 import statistics
@@ -558,20 +569,21 @@ def phase_policy_path(CB, dev, profile):
                            share=("assign_kernel", "merge_kernel"))
     del plain
     serve_with_pool_switch(CB, dev, algo, requests[BATCHES[-1]][-1])
-    return counts, statistics.median(times[BATCHES[-1]]["kernel"])
+    return counts, {b: statistics.median(times[b]["kernel"]) for b in BATCHES}
 
 
-def serve_with_pool_switch(CB, dev, algo, request):
-    """One B = 16 request through a model with train.pallas_pool on and the
-    weights of @algo (F.max_pool2d): the pool is exact, so the GMMs must be
-    equal bit for bit, and kernel 3 must run once per stem: 3 cameras x the
-    query and the context group."""
+def serve_with_pool_switch(CB, dev, algo, request, switch=None):
+    """One B = 16 request through a model with train.pallas_pool on
+    (@switch, or a new paper model) and the weights of @algo (F.max_pool2d):
+    the pool is exact, so the GMMs must be equal bit for bit, and kernel 3
+    must run once per stem: 3 cameras x the query and the context group."""
     import torch
 
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
 
-    switch = Algo.algo_factory("icl_gmm_paper", paper_config(pallas_pool=True),
-                               SHAPES, 12, device=dev)
+    if switch is None:
+        switch = Algo.algo_factory("icl_gmm_paper", paper_config(pallas_pool=True),
+                                   SHAPES, 12, device=dev)
     switch.nets.load_state_dict(algo.nets.state_dict())
     CB.reset_launch_counts()
     dist_s, _ = switch.action_distribution(*request)
@@ -657,7 +669,7 @@ def phase_training_path(CB, dev, profile):
                               use_kernels=False)
     plain.nets.load_state_dict(state)
     compare_steps(res_k, one_step(plain, batches[0]))
-    return counts
+    return counts, med
 
 
 def one_step(model, batch, deterministic=False):
@@ -1508,6 +1520,214 @@ def phase_rollout_checkpoint(CB, dev, trained, ckpt):
         pool.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's other action tokenizers
+# ---------------------------------------------------------------------------
+
+MODALITIES = {"bin": "bin_enabled", "ln_act": "ln_act_enabled", "default": None,
+              "fast": "fast_enabled"}
+
+
+class SmokeFastProcessor:
+    """A deterministic stand-in for the FAST processor (not in the
+    repository, never downloaded): [1, T, A] actions -> [[2..13 token ids]]
+    from a hash of the chunk, so both of resample_latents' branches run. The
+    tests inject it too, into both packages' FastHostEncoder."""
+
+    def __call__(self, actions_batch):
+        chunk = np.asarray(actions_batch)[0]
+        h = hashlib.sha256(np.round(chunk, 4).tobytes()).digest()
+        return [[int.from_bytes(h[i:i + 2], "big") for i in range(2 + h[0] % 12)]]
+
+
+def smoke_clip_encode(texts):
+    """A deterministic stand-in for the CLIP text encoder: each text -> a
+    vector in R^512 seeded by its hash."""
+    out = np.zeros((len(texts), 512), np.float32)
+    for i, text in enumerate(texts):
+        seed = int.from_bytes(hashlib.sha256(text.encode()).digest()[:4], "big")
+        out[i] = np.random.RandomState(seed).randn(512)
+    return out
+
+
+def host_syncs(fn):
+    """How many times @fn makes the host wait for the card, as
+    torch.cuda.set_sync_debug_mode sees it (a prototype: it may miss some)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def modality_algo(modality, dev, pallas_pool=True, use_kernels=True):
+    """icl_gmm_paper at phase 8's width with @modality's tokenizer, LipVQ
+    off; FAST gets the stand-in host stage."""
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import (
+        FastHostEncoder,
+    )
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = paper_config(pallas_pool=pallas_pool)
+    with cfg.values_unlocked():
+        tc = cfg.algo.transformer
+        tc.vq_vae_enabled = False
+        for name, flag in MODALITIES.items():
+            if flag:
+                tc[flag] = name == modality
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev,
+                             use_kernels=use_kernels)
+    if modality == "fast":
+        algo.set_fast_tokenizer(FastHostEncoder.from_components(
+            SmokeFastProcessor(), smoke_clip_encode))
+    return algo
+
+
+def phase_modality(CB, dev, modality, profile):
+    """One tokenizer of phase 13: train, kernel against plain, serve.
+    Returns (step median, {B: request median}, FAST's host share or None)."""
+    import gc
+
+    import torch
+
+    algo = modality_algo(modality, dev)
+    tokenizer = algo.nets["policy"].net.encoder.action_network
+    log(f"phase 13 {modality}: {type(tokenizer).__name__}, "
+        f"{sum(p.numel() for p in tokenizer.parameters())} tokenizer parameters, "
+        f"{sum(p.numel() for p in algo.nets.parameters())} in all; optimizers "
+        f"{sorted(algo.optimizers)}")
+    check(algo.nets["policy"].net.encoder.output_dim == 976, "the feature is not 976-d")
+    check(set(algo.optimizers) == {"policy"}, f"optimizers {sorted(algo.optimizers)}")
+
+    gen = torch.Generator(dev).manual_seed(21)
+    batches = [make_train_batch(gen, dev) for _ in range(TRAIN_STEPS + 1)]
+    algo.train_on_batch(batches[0], epoch=0)   # warm: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    CB.reset_launch_counts()
+    times = []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        losses = algo.train_on_batch(batch, epoch=0)["losses"]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in losses.items()}
+        check(set(vals) == {"log_probs", "action_loss", "policy_grad_norms"},
+              f"metrics {sorted(vals)}")
+        check(all(np.isfinite(v) for v in vals.values()), f"metrics not finite: {vals}")
+    counts = dict(CB.LAUNCHES)
+    log(f"  launches over {TRAIN_STEPS} steps {counts}")
+    want = {"stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 0, "lipvq_roundtrip": 0}
+    for name, n in want.items():
+        check(counts[name] == n * TRAIN_STEPS, f"{modality} {name}: {counts[name]} "
+              f"launches, expected {n} per step")
+    step_ms = statistics.median(times)
+    log(f"  train step median {step_ms:.3f} ms ({TRAIN_B / step_ms * 1e3:.1f} samples/s; "
+        f"all: {', '.join(f'{v:.3f}' for v in times)}); last {vals}")
+    # the batch is on the card: only FAST's host stage needs it back
+    log(f"  host syncs in a training step: "
+        f"{host_syncs(lambda: algo.train_on_batch(batches[0], epoch=0))}")
+    if profile:
+        device_profile(f"{modality} train step",
+                       lambda: algo.train_on_batch(batches[0], epoch=0),
+                       share=("pool_fwd_kernel", "pool_bwd_kernel"))
+    buffers = {k: v for k, v in tokenizer.state_dict().items()
+               if k.endswith(("running_min", "running_max", "num_step", ".u"))}
+    for k, v in buffers.items():
+        log(f"  {k}: {v.flatten()[:4].tolist()}")
+
+    rng = np.random.RandomState(13)
+    t = algo.context_length
+    requests = {b: [make_request(rng, b, t) for _ in range(REQUESTS)] for b in BATCHES}
+    for b in BATCHES:
+        algo.get_action(*requests[b][0])
+    torch.cuda.synchronize()
+    request_ms, host_share = {}, None
+    for b in BATCHES:
+        ts = []
+        for obs, ctx in requests[b]:
+            CB.reset_launch_counts()
+            t0 = time.perf_counter()
+            action = algo.get_action(obs, ctx)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            check(action.shape == (b, 12) and bool(torch.isfinite(action).all()),
+                  f"B={b}: action {tuple(action.shape)} is not a finite [B, 12]")
+            check(CB.LAUNCHES["stem_pool_fwd"] == 6 and CB.LAUNCHES["stem_pool_bwd"] == 0,
+                  f"request launches {dict(CB.LAUNCHES)}")
+        request_ms[b] = statistics.median(ts)
+        line = (f"  B={b}: get_action median {request_ms[b]:.3f} ms "
+                f"(all: {', '.join(f'{v:.3f}' for v in ts)})")
+        if modality == "fast":
+            host = []
+            for _, ctx in requests[b]:
+                t0 = time.perf_counter()
+                algo._get_fast_tokenizer().encode_batch(ctx["actions"], seq_len=t)
+                host.append((time.perf_counter() - t0) * 1e3)
+            host_share = statistics.median(host) / request_ms[b]
+            line += (f"; host FAST encode median {statistics.median(host):.3f} ms, "
+                     f"{host_share:.3f} of the request")
+        log(line)
+
+    # the same weights with F.max_pool2d: the served GMM bit for bit
+    twin = modality_algo(modality, dev, pallas_pool=False)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    serve_with_pool_switch(CB, dev, twin, requests[BATCHES[-1]][-1], switch=algo)
+    del twin
+
+    # one step of the kernel model and one of the plain model from the same
+    # weights, batch and random draws; the tokenizer's buffers held as well
+    state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
+    res_k = one_step(algo, batches[0])
+    del algo, tokenizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = modality_algo(modality, dev, use_kernels=False)
+    plain.nets.load_state_dict(state)
+    res_p = one_step(plain, batches[0])
+    for k in buffers:
+        key = f"policy.net.encoder.action_network.{k}"
+        if res_p[2].get(key) is not None:
+            err = float((res_k[2][key] - res_p[2][key]).abs().max())
+            log(f"  {k} after the step: max|kernel - plain| {err}")
+            check(err <= 1e-6, f"{k} differs by {err}")
+    compare_steps(res_k, res_p, keys=("action_loss", "policy_grad_norms"))
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step_ms, request_ms, host_share
+
+
+def phase_modalities(CB, dev, paper_step_ms, paper_request_ms, profile):
+    """13: icl_gmm_paper at full width with each of the paper's other action
+    tokenizers (bin, LN-act, the default encoder, FAST with a stand-in host
+    stage), LipVQ off, train.pallas_pool on: a warm-up step and 3 timed
+    steps at B = 64 (6 + 6 stem pool launches a step, no assign), the host
+    syncs of a step, a kernel step against a plain step (tokenizer buffers
+    within 1e-6), 3 requests
+    at B = 1 and 3 at B = 16 (6 pool launches each), the B = 16 GMM bit-equal
+    to the F.max_pool2d model's; each beside phases 7 and 8 (LipVQ)."""
+    log(f"phase 13: the other action tokenizers in icl_gmm_paper at full width, "
+        f"train.pallas_pool on, B={TRAIN_B} training, B in {BATCHES} serving")
+    rows = {m: phase_modality(CB, dev, m, profile) for m in MODALITIES}
+    log(f"  {'tokenizer':10s} {'step ms':>10s}"
+        + "".join(f" {f'B={b} ms':>10s}" for b in BATCHES))
+    rows = {"lipvq": (paper_step_ms, paper_request_ms, None), **rows}
+    for m, (step_ms, req, host) in rows.items():
+        extra = ("  (phases 8 and 7)" if m == "lipvq" else "" if host is None
+                 else f"  (host FAST encode {host:.3f} of B={BATCHES[-1]})")
+        log(f"  {m:10s} {step_ms:10.3f}" + "".join(f" {req[b]:10.3f}" for b in BATCHES)
+            + extra)
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -1586,9 +1806,9 @@ def main():
     torch.cuda.empty_cache()
     route, route_counts = phase_pool_route(CB, P, dev)
     torch.cuda.empty_cache()
-    pol_counts, paper_b16_ms = phase_policy_path(CB, dev, args.profile)
+    pol_counts, paper_request_ms = phase_policy_path(CB, dev, args.profile)
     torch.cuda.empty_cache()
-    train_counts = phase_training_path(CB, dev, args.profile)
+    train_counts, paper_step_ms = phase_training_path(CB, dev, args.profile)
     torch.cuda.empty_cache()
     phase_flagship_serving(CB, dev, args.profile)
     torch.cuda.empty_cache()
@@ -1597,10 +1817,12 @@ def main():
     torch.cuda.empty_cache()
     epoch_counts, trained, ckpt = phase_epoch(CB, dev, flagship[True][1])
     torch.cuda.empty_cache()
-    phase_rollout_paper(CB, dev, paper_b16_ms, args.profile)
+    phase_rollout_paper(CB, dev, paper_request_ms[BATCHES[-1]], args.profile)
     torch.cuda.empty_cache()
     phase_rollout_checkpoint(CB, dev, trained, ckpt)
     del trained, ckpt
+    torch.cuda.empty_cache()
+    phase_modalities(CB, dev, paper_step_ms, paper_request_ms, args.profile)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]

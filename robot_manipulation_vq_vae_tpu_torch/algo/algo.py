@@ -42,7 +42,11 @@ LANG_EMB_KEY = ObsUtils.LANG_EMB_KEY
 # reference's (robomimic's ``ICLTransformerHVQVAE``, as the JAX package's
 # ``ckpt_conversion.convert_transformer_actor`` and ``convert_hvqvae`` read
 # them): the first pattern that matches a name rewrites it; a name that
-# matches none (the HVQVAE's) is the same in both.
+# matches none (the HVQVAE's) is the same in both. The in-encoder action
+# tokenizer's state, parameters and buffers alike (the bin statistics, the
+# spectral-norm vectors), goes under ``policy.nets.encoder.action_network.``
+# with the names its module's docstring states; the JAX package converts
+# only LipVQ's.
 REFERENCE_NAMES = (
     (r"^policy\.net\.embedding\.embed_timestep$", "policy.params.embed_timestep"),
     (r"^policy\.net\.embedding\.", "policy.nets."),

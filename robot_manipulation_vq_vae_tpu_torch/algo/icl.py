@@ -20,28 +20,39 @@ policy the HVQVAE-reconstructed context actions, which the policy ignores
 port runs it).
 
 ``ICLTransformer_GMM.get_action`` embeds the query observations, the context
-observations and the context actions (tokenized by LipVQ-VAE inside the
-encoder; the tokens are the detached quantized codes), runs the GPT over the
-3T interleaved tokens, and samples the GMM of the last step. Its
-``train_on_batch`` (JAX ``algo/icl.py``:1093-1216) splits the batch into a
-context half and a supervised half, runs one training forward, and takes two
-backward passes: the LipVQ loss steps a dedicated AdamW (lr 1e-3, weight
-decay 1e-4) over the tokenizer's parameters, then the GMM's negative log
-likelihood steps the policy optimizer over all policy parameters.
+observations and the context actions (tokenized inside the encoder by the
+configured modality: LipVQ-VAE, whose tokens are the detached quantized
+codes; the adaptive bins; LN-act; FAST; or the default spectral-norm
+encoder), runs the GPT over the 3T interleaved tokens, and samples the GMM
+of the last step. FAST's frozen host stage (``set_fast_tokenizer``, or the
+processor and CLIP directories in ``RMVQ_FAST_PROCESSOR_DIR`` /
+``RMVQ_CLIP_DIR``) turns the context actions into CLIP latents on the host
+before the upload. Its ``train_on_batch`` (JAX ``algo/icl.py``:1093-1216)
+splits the batch into a context half and a supervised half and runs one
+training forward; with LipVQ it takes two backward passes: the LipVQ loss
+steps a dedicated AdamW (lr 1e-3, weight decay 1e-4) over the tokenizer's
+parameters, then the GMM's negative log likelihood steps the policy
+optimizer over all policy parameters. The other modalities have no AdamW of
+their own and no ``vq_vae_loss`` metric: the NLL trains them with the
+policy.
 """
 
+import os
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     PolicyAlgo,
     device_process_obs,
     register_algo_factory_func,
+    to_host,
 )
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.models import policy_nets as PolicyNets
 from robot_manipulation_vq_vae_tpu_torch.models.obs_core import VisualCore
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import FastHostEncoder
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.hvqvae import (
     HierarchicalVQVAE,
     compute_vqvae_loss,
@@ -341,8 +352,8 @@ class ICLTransformerHVQVAE(ICLTransformer):
 
 
 class ICLTransformer_GMM(PolicyAlgo):
-    """Prompt-conditioned GMM transformer with the in-encoder LipVQ action
-    tokenizer."""
+    """Prompt-conditioned GMM transformer with an in-encoder action
+    tokenizer: LipVQ, bin, LN-act, FAST or the default encoder."""
 
     def _create_networks(self):
         if not (self.algo_config.gmm.enabled and self.algo_config.transformer.enabled):
@@ -351,6 +362,9 @@ class ICLTransformer_GMM(PolicyAlgo):
         self.context_length = tc.context_length
         self.supervise_all_steps = tc.supervise_all_steps
         self.pred_future_acs = tc.pred_future_acs
+        self.vq_vae_enabled = tc.get("vq_vae_enabled", False)
+        self.fast_enabled = tc.fast_enabled
+        self._fast_tokenizer = None
         self.nets["policy"] = PolicyNets.ICLTransformerGMMActorNetwork(
             obs_shapes=self.obs_shapes,
             goal_shapes=self.goal_shapes or None,
@@ -372,33 +386,71 @@ class ICLTransformer_GMM(PolicyAlgo):
 
     def _create_optimizers(self):
         super()._create_optimizers()
-        # dedicated AdamW for the in-encoder LipVQ (JAX icl.py:999-1007)
-        self.optimizers["vq_tokenizer"] = torch.optim.AdamW(
-            self._lipvq().parameters(), lr=1e-3, weight_decay=1e-4
-        )
+        if self.vq_vae_enabled:
+            # dedicated AdamW for the in-encoder LipVQ (JAX icl.py:999-1007)
+            self.optimizers["vq_tokenizer"] = torch.optim.AdamW(
+                self._lipvq().parameters(), lr=1e-3, weight_decay=1e-4
+            )
 
     def _lipvq(self):
         return self.nets["policy"].net.encoder.action_network
 
+    # --- the FAST modality's host stage (JAX icl.py:1015-1049) -----------
+    def set_fast_tokenizer(self, host_encoder):
+        """Inject the FAST host stage: a ``FastHostEncoder`` (or anything
+        with its ``encode_batch``)."""
+        self._fast_tokenizer = host_encoder
+
+    def _get_fast_tokenizer(self):
+        if self._fast_tokenizer is None:
+            proc_dir = os.environ.get("RMVQ_FAST_PROCESSOR_DIR")
+            if not proc_dir:
+                raise RuntimeError(
+                    "fast_enabled=True requires a FAST processor: set "
+                    "RMVQ_FAST_PROCESSOR_DIR (and RMVQ_CLIP_DIR) or call "
+                    "set_fast_tokenizer()"
+                )
+            self._fast_tokenizer = FastHostEncoder(
+                proc_dir, os.environ.get("RMVQ_CLIP_DIR"))
+        return self._fast_tokenizer
+
+    def _dtype(self):
+        return next(self.nets.parameters()).dtype
+
+    def _obs(self, obs_dict):
+        """Observations on the device in the networks' dtype (float64 after
+        ``nets.double()``)."""
+        return {k: v.to(self._dtype())
+                for k, v in device_process_obs(obs_dict, self.device).items()}
+
+    def _context_actions(self, ctx_act):
+        """The context actions [B, T, A] (numpy or a tensor) as the encoder
+        takes them, on the device in the networks' dtype: with FAST, their
+        CLIP latents [B, context_length, 512], encoded on the host before the
+        upload."""
+        if self.fast_enabled:
+            ctx_act = self._get_fast_tokenizer().encode_batch(
+                np.asarray(to_host(ctx_act), np.float32), seq_len=self.context_length)
+        return torch.as_tensor(ctx_act).to(
+            self.device, torch.float32, non_blocking=True).to(self._dtype())
+
     def _forward(self, batch, generator=None):
         """The training forward: the first half of the batch is the context
         (its observations and actions), the second half is supervised.
-        Returns (log probs of the supervised actions, the LipVQ loss). The
-        inputs take the networks' dtype, so that ``nets.double()`` runs the
-        step in float64."""
-        dtype = next(self.nets.parameters()).dtype
-        obs = {k: v.to(dtype)
-               for k, v in device_process_obs(batch["obs"], self.device).items()}
-        actions = torch.as_tensor(batch["actions"]).to(
-            self.device, torch.float32, non_blocking=True
-        ).to(dtype)
-        mid = actions.shape[0] // 2
+        Returns (log probs of the supervised actions, the LipVQ loss or
+        None). The inputs take the networks' dtype, so that ``nets.double()``
+        runs the step in float64."""
+        obs = self._obs(batch["obs"])
+        actions = batch["actions"]
+        mid = len(actions) // 2
         dist, vq_loss = self.nets["policy"].forward_train(
             {k: v[mid:] for k, v in obs.items()},
             {k: v[:mid] for k, v in obs.items()},
-            actions[:mid], low_noise_eval=False, generator=generator,
+            self._context_actions(actions[:mid]),
+            low_noise_eval=False, generator=generator,
         )
-        target = actions[mid:]
+        target = torch.as_tensor(actions[mid:]).to(
+            self.device, torch.float32, non_blocking=True).to(self._dtype())
         if not self.supervise_all_steps:
             dist, target = dist.index_time(-1), target[:, -1]
         return dist.log_prob(target), vq_loss
@@ -406,8 +458,9 @@ class ICLTransformer_GMM(PolicyAlgo):
     def _train_step(self, batch):
         lp, vq_loss = self._forward(batch, self.generator)
         action_loss = -lp.mean()
-        lipvq = list(self._lipvq().parameters())
-        vq_grads = torch.autograd.grad(vq_loss, lipvq, retain_graph=True)
+        if self.vq_vae_enabled:
+            lipvq = list(self._lipvq().parameters())
+            vq_grads = torch.autograd.grad(vq_loss, lipvq, retain_graph=True)
         params = list(self.nets["policy"].parameters())
         grads = torch.autograd.grad(action_loss, params, allow_unused=True)
         # the NLL gives LipVQ no gradient (the context tokens are the
@@ -417,11 +470,14 @@ class ICLTransformer_GMM(PolicyAlgo):
                  for p, g in zip(params, grads)]
         metrics = OrderedDict(
             log_probs=-action_loss.detach(), action_loss=action_loss.detach(),
-            policy_grad_norms=global_norm(grads), vq_vae_loss=vq_loss.detach(),
+            policy_grad_norms=global_norm(grads),
         )
-        # (1) the LipVQ loss steps its AdamW; (2) the policy optimizer then
-        # applies the NLL gradients to the parameters AdamW has just moved
-        self._step("vq_tokenizer", lipvq, vq_grads)
+        if self.vq_vae_enabled:
+            metrics["vq_vae_loss"] = vq_loss.detach()
+            # (1) the LipVQ loss steps its AdamW; (2) the policy optimizer
+            # then applies the NLL gradients to the parameters AdamW has just
+            # moved
+            self._step("vq_tokenizer", lipvq, vq_grads)
         if self.max_grad_norm is not None:
             clip_by_global_norm_(grads, self.max_grad_norm)
         self._step("policy", params, grads)
@@ -429,8 +485,10 @@ class ICLTransformer_GMM(PolicyAlgo):
 
     def _validate_step(self, batch):
         lp, vq_loss = self._forward(batch)
-        return OrderedDict(log_probs=lp.mean(), action_loss=-lp.mean(),
-                           vq_vae_loss=vq_loss)
+        metrics = OrderedDict(log_probs=lp.mean(), action_loss=-lp.mean())
+        if self.vq_vae_enabled:
+            metrics["vq_vae_loss"] = vq_loss
+        return metrics
 
     def log_info(self, info):
         losses = info["losses"]
@@ -451,18 +509,15 @@ class ICLTransformer_GMM(PolicyAlgo):
                             low_noise_eval=None):
         """The policy's GMM over [B, T] for a request (obs [B, T, ...],
         context obs [B, T, ...], context actions [B, T, A]), and the LipVQ
-        loss of the context actions."""
+        loss of the context actions (None without LipVQ)."""
         policy = self.nets["policy"]
         goal = None
         if goal_dict is not None:
-            goal = device_process_obs(goal_dict, self.device)
-        actions = torch.as_tensor(context_batch["actions"]).to(
-            self.device, torch.float32, non_blocking=True
-        )
+            goal = self._obs(goal_dict)
         return policy.forward_train(
-            device_process_obs(obs_dict, self.device),
-            device_process_obs(context_batch["obs"], self.device),
-            actions, goal_dict=goal, low_noise_eval=low_noise_eval,
+            self._obs(obs_dict), self._obs(context_batch["obs"]),
+            self._context_actions(context_batch["actions"]), goal_dict=goal,
+            low_noise_eval=low_noise_eval,
         )
 
     def get_action(self, obs_dict, context_batch, goal_dict=None):

@@ -17,7 +17,15 @@ import torch
 import torch.nn as nn
 
 from robot_manipulation_vq_vae_tpu_torch.models import obs_core
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.bin_action import (
+    AdaptiveBinActionEmbedding,
+)
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.default_encoder import (
+    DefaultActionEncoder,
+)
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import FastProjection
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.lipvq import LipVQVAE
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.ln_act import LNActEncoder
 from robot_manipulation_vq_vae_tpu_torch.models.transformers import (
     GPT_Backbone,
     LN_EPS,
@@ -153,29 +161,43 @@ class ObservationGroupEncoder(nn.Module):
 
 
 class ICLObservationGroupEncoder(ObservationGroupEncoder):
-    """Obs-group encoder + prompt-action tokenizer. Of the four tokenizer
-    modalities only LipVQ (``vq_vae_enabled``) is ported; the others raise.
+    """Obs-group encoder + prompt-action tokenizer: at most one of FAST, bin,
+    LipVQ (``vq_vae_enabled``) and LN-act, else the spectral-norm default
+    encoder.
 
-    forward returns (obs, context_obs, context_actions, vq_vae_loss); every
-    input is time-folded ([B*T, ...]) by the caller. The query groups are
-    encoded before the context group.
+    forward returns (obs, context_obs, context_actions, vq_vae_loss);
+    vq_vae_loss is None unless LipVQ is on. Every input is time-folded
+    ([B*T, ...]) by the caller; the context actions are [B*T, A], or the
+    host-encoded CLIP latents [B*T, 512] with FAST. LN-act reshapes them to
+    [B, prompt_seq_len, A]. The query groups are encoded before the context
+    group. A training forward (``self.training``) moves the bin statistics
+    and the spectral-norm vectors and applies the default encoder's dropout.
     """
 
     def __init__(self, observation_group_shapes, action_input_shape=12,
                  fast_enabled=False, bin_enabled=False, vq_vae_enabled=False,
-                 ln_act_enabled=False, encoder_kwargs=None, use_kernels=True):
+                 ln_act_enabled=False, encoder_kwargs=None, prompt_seq_len=10,
+                 use_kernels=True):
         if sum([fast_enabled, bin_enabled, vq_vae_enabled, ln_act_enabled]) > 1:
             raise ValueError("at most one tokenizer modality may be enabled")
-        if not vq_vae_enabled:
-            raise NotImplementedError(
-                "only the LipVQ (vq_vae) action tokenizer is ported yet; the "
-                "FAST, bin, LN-act and default modalities are queued in ROADMAP.md"
-            )
         super().__init__(observation_group_shapes, encoder_kwargs)
-        self.action_network = LipVQVAE(
-            feature_dim=action_input_shape, latent_dim=self.output_dim,
-            use_kernel=use_kernels,
-        )
+        self.vq_vae_enabled = vq_vae_enabled
+        self.ln_act_enabled = ln_act_enabled
+        self.prompt_seq_len = prompt_seq_len
+        out_dim = self.output_dim
+        if fast_enabled:
+            self.action_network = FastProjection(out_dim)
+        elif bin_enabled:
+            self.action_network = AdaptiveBinActionEmbedding(action_input_shape, out_dim)
+        elif vq_vae_enabled:
+            self.action_network = LipVQVAE(
+                feature_dim=action_input_shape, latent_dim=out_dim,
+                use_kernel=use_kernels,
+            )
+        elif ln_act_enabled:
+            self.action_network = LNActEncoder(action_input_shape, out_dim)
+        else:
+            self.action_network = DefaultActionEncoder(action_input_shape, out_dim)
 
     def jax_names(self):
         return {**super().jax_names(), "action_network": "action_network"}
@@ -183,9 +205,15 @@ class ICLObservationGroupEncoder(ObservationGroupEncoder):
     def forward(self, inputs, generator=None):
         obs = super().forward(inputs, generator)
         context_obs = self.nets["obs"](inputs["prompt"]["obs"], generator)
-        context_actions, vq_vae_loss = self.action_network(
-            inputs["prompt"]["action"]
-        )
+        prompt_actions = inputs["prompt"]["action"]
+        vq_vae_loss = None
+        if self.vq_vae_enabled:
+            context_actions, vq_vae_loss = self.action_network(prompt_actions)
+        elif self.ln_act_enabled:
+            context_actions = self.action_network(prompt_actions.reshape(
+                -1, self.prompt_seq_len, prompt_actions.shape[-1]))
+        else:
+            context_actions = self.action_network(prompt_actions)
         return obs, context_obs, context_actions, vq_vae_loss
 
 
@@ -313,6 +341,7 @@ class ICL_MIMO_Transformer(nn.Module):
             vq_vae_enabled=transformer_vq_vae_enabled,
             ln_act_enabled=transformer_ln_act_enabled,
             encoder_kwargs=encoder_kwargs,
+            prompt_seq_len=transformer_context_length,
             use_kernels=use_kernels,
         )
         self.embedding = _TransformerEmbedding(

@@ -514,3 +514,76 @@ def test_prefetcher_on_the_card_yields_the_synchronous_stream(cuda_device, monke
     assert not pf._thread.is_alive()
     assert summary["pinned"] and summary["batches"] == 20
     assert summary["transfer_mbytes_per_sec"] > 0
+
+
+def _modality_algo(modality, device):
+    """icl_gmm_paper, small, with @modality's action tokenizer (LipVQ off)
+    and train.pallas_pool on: one 64x64 camera through ResNet-18, so the stem
+    pool runs once per observation group."""
+    from robot_manipulation_vq_vae_tpu_torch import algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import (
+        FastHostEncoder,
+    )
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+    from chip_smoke import SmokeFastProcessor, smoke_clip_encode
+
+    cfg = config_factory("icl_gmm_paper")
+    with cfg.values_unlocked():
+        cfg.observation.modalities.obs.low_dim = ["eef_pos"]
+        cfg.observation.modalities.obs.rgb = ["cam_image"]
+        cfg.observation.encoder.rgb.core_class = "VisualCore"
+        cfg.observation.encoder.rgb.core_kwargs = {
+            "feature_dimension": 32, "backbone_class": "ResNet18Conv",
+            "backbone_kwargs": {"pretrained": False, "input_coord_conv": False},
+            "pool_class": "SpatialSoftmax",
+            "pool_kwargs": {"num_kp": 16, "learnable_temperature": False,
+                            "temperature": 1.0, "noise_std": 0.0},
+        }
+        cfg.observation.encoder.rgb.obs_randomizer_class = None
+        tc = cfg.algo.transformer
+        tc.context_length, tc.embed_dim, tc.num_layers, tc.num_heads = 4, 32, 1, 4
+        tc.vq_vae_enabled = False
+        for flag in ("bin_enabled", "ln_act_enabled", "fast_enabled"):
+            tc[flag] = flag == f"{modality}_enabled"
+        cfg.train.pallas_pool = True
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl_gmm_paper", cfg, {"eef_pos": (3,), "cam_image": (64, 64, 3)},
+                             7, device=device)
+    if modality == "fast":
+        algo.set_fast_tokenizer(FastHostEncoder.from_components(
+            SmokeFastProcessor(), smoke_clip_encode))
+    return algo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modality", ["bin", "ln_act", "default", "fast"])
+def test_each_tokenizer_trains_and_serves_on_the_card(cuda_device, modality):
+    """A B = 4 training step (2 context sequences, 2 supervised) and a B = 2
+    request: finite, and the stem pool's kernels launched once per group
+    and pass (forward 2, backward 2 a step; forward 2 a request)."""
+    import numpy as np
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+
+    algo = _modality_algo(modality, cuda_device)
+    rng = np.random.RandomState(0)
+
+    def batch(b):
+        return {"obs": {"eef_pos": rng.randn(b, 4, 3).astype(np.float32),
+                        "cam_image": rng.randint(0, 256, (b, 4, 64, 64, 3), dtype=np.uint8)},
+                "actions": rng.uniform(-1, 1, (b, 4, 7)).astype(np.float32)}
+
+    CB.reset_launch_counts()
+    losses = algo.train_on_batch(batch(4), epoch=0)["losses"]
+    torch.cuda.synchronize()
+    assert set(losses) == {"log_probs", "action_loss", "policy_grad_norms"}
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    assert (LAUNCHES["stem_pool_fwd"], LAUNCHES["stem_pool_bwd"]) == (2, 2)
+    assert LAUNCHES["lipvq_assign"] == 0
+    CB.reset_launch_counts()
+    request, ctx = batch(2), batch(2)
+    action = algo.get_action(request["obs"], ctx)
+    assert action.shape == (2, 7) and action.device.type == "cuda"
+    assert bool(torch.isfinite(action).all())
+    assert (LAUNCHES["stem_pool_fwd"], LAUNCHES["stem_pool_bwd"]) == (2, 0)
