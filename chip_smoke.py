@@ -21,8 +21,9 @@ Phases, each of which fails the run when it fails:
      inputs after a ReLU (about 60 % zeros, so windows tie): maxima, offsets
      and dx bit-equal; each timed forward with the path its launcher took
      (runs of whole planes or tiles, blocks, shared memory);
-  6b. the stem pool's kernels in bf16 at the flagship's [1024, 64, 58, 58]:
-     maxima, offsets and dx bit-equal to the plain versions;
+  6b. the stem pool's kernels in bf16 at the paper's [512, 64, 58, 58] and
+     the flagship's [1024, 64, 58, 58]: maxima, offsets and dx bit-equal to
+     the plain versions, each timed;
   6c. kernel 5 (pool_route, the equality-routing pool backward) against its
      plain version at [3072, 64, 58, 58] in bf16 and fp32, on ReLU'd inputs
      (ties) and distinct values, bit-equal, each timed, with the path its
@@ -82,7 +83,22 @@ Phases, each of which fails the run when it fails:
      bin statistics and spectral vectors within 1e-6), 3 requests at B = 1
      and 3 at B = 16, the B = 16 GMM bit-equal to the F.max_pool2d model's;
      the step and request medians beside phases 8 and 7, and FAST's host
-     encoding share of a request.
+     encoding share of a request;
+  14. the opt-in training modes: 14a, the assign kernel's bf16 instance (a
+     bf16 codebook, z in fp32 as the bf16 paper step gives it) against its
+     plain version at D = 976, N in {256, 512, 65536}, timed;
+     14b, icl_gmm_paper's bf16 mixed-precision step at phase 8's width and
+     batch (6 + 6 bf16 stem-pool launches and 1 bf16 assign a step, the
+     median beside phase 8's, a kernel step against a plain step within
+     phase 10b's bf16 tolerances), and two bf16 steps of each other
+     tokenizer; 14c, the flagship with packed_rgb_encoders: an fp32 and a
+     bf16 step under cuDNN's deterministic algorithms against the unpacked
+     model's from one state (phase 10a's and 10b's tolerances; the bf16
+     gradients, as one vector, no further apart than the unpacked bf16
+     step's from its fp32 step's), the bf16 step's median
+     beside phase 10b's, no stem-pool launch; 14d, flagship bf16 steps with
+     frozen_batch_norm (the fresh statistics unchanged to the bit) and with
+     pool_free_stem (no stem-pool launch), each median beside phase 10b's.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run.
 
@@ -345,14 +361,16 @@ LOW_DIM = {"robot0_base_to_eef_pos": (3,), "robot0_base_to_eef_quat": (4,),
 SHAPES = {**LOW_DIM, **{c: (IMG, IMG, 3) for c in CAMS}, "lang_emb": (768,)}
 
 
-def paper_config(pallas_pool=False):
+def paper_config(pallas_pool=False, mixed_precision=False):
     """icl_gmm_paper's own algo settings with the flagship observation spec;
-    @pallas_pool selects the stem pool's recorded-argmax kernels."""
+    @pallas_pool selects the stem pool's recorded-argmax kernels,
+    @mixed_precision the bf16 step."""
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
 
     cfg = config_factory("icl_gmm_paper")
     with cfg.values_unlocked():
         cfg.train.pallas_pool = pallas_pool
+        cfg.train.mixed_precision = mixed_precision
         cfg.observation.modalities.obs.low_dim = list(LOW_DIM) + ["lang_emb"]
         cfg.observation.modalities.obs.rgb = CAMS
         cfg.observation.encoder.rgb.core_class = "VisualCoreLanguageConditioned"
@@ -694,25 +712,43 @@ def one_step(model, batch, deterministic=False):
     return {k: float(v) for k, v in losses.items()}, grads, buffers
 
 
+def grad_gap(res_a, res_b):
+    """||a - b|| / ||b|| over the gradients of two steps as one vector."""
+    diff_sq = sum(float(((res_a[1][n] - g).double() ** 2).sum()) for n, g in res_b[1].items())
+    norm_sq = sum(float((g.double() ** 2).sum()) for g in res_b[1].values())
+    return (diff_sq / max(norm_sq, 1e-300)) ** 0.5
+
+
 def compare_steps(res_k, res_p, keys=("action_loss", "vq_vae_loss", "policy_grad_norms"),
-                  metric_tol=1e-5, grad_tol=1e-4, buffer_tol=1e-6):
+                  metric_tol=1e-5, grad_tol=1e-4, buffer_tol=1e-6, grad_by_norm=False):
     """The kernel model's step against the plain model's: the two differ only
     where the kernels run, and the rest (cuDNN's backward, index_add_) may add
     in another order from run to run. Metrics within @metric_tol relative,
     gradients within @grad_tol of each tensor's largest, buffers within
-    @buffer_tol."""
+    @buffer_tol. With @grad_by_norm the gradients are held as one vector
+    instead, ``grad_gap`` within @grad_tol: for two steps whose convolutions
+    round differently in bf16, where a tensor whose true gradient is 0 or
+    cancels (SpatialSoftmax's keypoint bias: the softmax does not see a
+    constant) holds rounding alone."""
     for k in keys:
         rel = abs(res_k[0][k] - res_p[0][k]) / max(abs(res_p[0][k]), 1e-30)
         log(f"  {k}: kernel {res_k[0][k]!r} plain {res_p[0][k]!r} (rel {rel:.3g})")
         check(rel <= metric_tol, f"{k} differs by {rel} relative")
-    worst = max(((res_k[1][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
-                for n, g in res_p[1].items())
+    rel = sorted((((res_k[1][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item(),
+                  n) for n, g in res_p[1].items())
+    worst = rel[-1][0]
+    whole = grad_gap(res_k, res_p)
     zero = [n for n, g in res_p[1].items() if not bool(g.abs().max() > 0)]
     buf = max(float((res_k[2][k] - v).abs().max()) for k, v in res_p[2].items())
     log(f"  gradients: max over {len(res_p[1])} tensors of max|kernel - plain| / "
-        f"max|plain| {worst:.3g} ({len(zero)} all-zero); buffers ({len(res_p[2])}: "
+        f"max|plain| {worst:.3g} ({len(zero)} all-zero; largest: "
+        f"{', '.join(f'{n} {r:.3g}' for r, n in rel[-3:])}); as one vector "
+        f"||kernel - plain|| / ||plain|| {whole:.3g}; buffers ({len(res_p[2])}: "
         f"BatchNorm statistics and codebooks) max|kernel - plain| {buf}")
-    check(worst <= grad_tol, f"gradients differ by {worst} of their max")
+    if grad_by_norm:
+        check(whole <= grad_tol, f"gradients differ by {whole} of their norm")
+    else:
+        check(worst <= grad_tol, f"gradients differ by {worst} of their max")
     check(buf <= buffer_tol, f"buffers differ by {buf}")
 
 
@@ -720,47 +756,60 @@ def compare_steps(res_k, res_p, keys=("action_loss", "vq_vae_loss", "policy_grad
 # the bf16 stem pool, kernel 5, and the flagship ICLTransformerHVQVAE
 # ---------------------------------------------------------------------------
 
+# kernels 3 and 4 in bf16: the paper's mixed-precision step's stem
+# activation and the flagship's; the flagship's feeds the kernels line
+POOL_SHAPES_BF16 = (POOL_SHAPES[0], FLAGSHIP_POOL)
+
+
 def phase_stem_pool_bf16(S, dev):
-    """Kernels 3 and 4 in bf16 at the flagship's mixed-precision stem
-    activation: maxima, offsets and dx bit-equal to the plain versions."""
+    """Kernels 3 and 4 in bf16 at the stem activations of the paper's and
+    the flagship's mixed-precision steps: maxima, offsets and dx bit-equal
+    to the plain versions, each shape timed with its bound. Returns the
+    flagship shape's kernels-line fields."""
     import torch
     import torch.nn.functional as F
 
-    log(f"phase 6b: stem pool kernels in bf16 vs plain at {FLAGSHIP_POOL} "
+    log(f"phase 6b: stem pool kernels in bf16 vs plain at {POOL_SHAPES_BF16} "
         "(inputs after a ReLU)")
     gen = torch.Generator(dev).manual_seed(17)
-    x = relu_input(FLAGSHIP_POOL, gen, dev).bfloat16()
-    hw = FLAGSHIP_POOL[2:]
-    out_k, idx_k = S.pool_fwd_cuda(x)
-    out_p, idx_p = S.pool_fwd_plain(x)
-    g = torch.randn(out_k.shape, generator=gen, device=dev).bfloat16()
-    dx_k = S.pool_bwd_cuda(idx_k, g, hw)
-    dx_p = S.pool_bwd_plain(idx_p, g, hw)
-    torch.cuda.synchronize()
-    n_idx = int((idx_k != idx_p).sum())
-    fwd_err = float((out_k.float() - out_p.float()).abs().max())
-    bwd_err = float((dx_k.float() - dx_p.float()).abs().max())
-    log(f"  {float((x == 0).float().mean()):.3f} zeros; max|out err| {fwd_err}, "
-        f"{n_idx} offsets differ; max|dx err| {bwd_err}")
-    check(torch.equal(out_k, out_p) and n_idx == 0, "bf16 maxima or offsets differ")
-    check(torch.equal(dx_k, dx_p), f"bf16 dx differs by {bwd_err}")
-    n_in, n_out = x.numel(), out_k.numel()
-    _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
-    log(f"  stem_pool_fwd_bf16 at {'x'.join(map(str, FLAGSHIP_POOL))}: {fwd_path(S, x)}")
-    timed = {
-        # x read once (2 bytes); max (2) and offset (1) written once
-        "stem_pool_fwd_bf16": (
-            lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
-            lambda: F.max_pool2d(x, 3, 2, 1, return_indices=True),
-            (2 * n_in + 3 * n_out, 8 * n_out), fwd_err),
-        # offset (1) and g (2) read once, dx (2) written once
-        "stem_pool_bwd_bf16": (
-            lambda: S.pool_bwd_cuda(idx_k, g, hw), lambda: S.pool_bwd_plain(idx_p, g, hw),
-            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
-            (3 * n_out + 2 * n_in, n_out), bwd_err),
-    }
-    return time_kernels(timed, "x".join(map(str, FLAGSHIP_POOL)))
+    rows = {}
+    for shape in POOL_SHAPES_BF16:
+        tag = "x".join(map(str, shape))
+        x = relu_input(shape, gen, dev).bfloat16()
+        hw = shape[2:]
+        out_k, idx_k = S.pool_fwd_cuda(x)
+        out_p, idx_p = S.pool_fwd_plain(x)
+        g = torch.randn(out_k.shape, generator=gen, device=dev).bfloat16()
+        dx_k = S.pool_bwd_cuda(idx_k, g, hw)
+        dx_p = S.pool_bwd_plain(idx_p, g, hw)
+        torch.cuda.synchronize()
+        n_idx = int((idx_k != idx_p).sum())
+        fwd_err = float((out_k.float() - out_p.float()).abs().max())
+        bwd_err = float((dx_k.float() - dx_p.float()).abs().max())
+        log(f"  {tag}: {float((x == 0).float().mean()):.3f} zeros; max|out err| "
+            f"{fwd_err}, {n_idx} offsets differ; max|dx err| {bwd_err}")
+        check(torch.equal(out_k, out_p) and n_idx == 0,
+              f"{tag}: bf16 maxima or offsets differ")
+        check(torch.equal(dx_k, dx_p), f"{tag}: bf16 dx differs by {bwd_err}")
+        n_in, n_out = x.numel(), out_k.numel()
+        _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+        log(f"  stem_pool_fwd_bf16 at {tag}: {fwd_path(S, x)}")
+        timed = {
+            # x read once (2 bytes); max (2) and offset (1) written once
+            "stem_pool_fwd_bf16": (
+                lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
+                lambda: F.max_pool2d(x, 3, 2, 1, return_indices=True),
+                (2 * n_in + 3 * n_out, 8 * n_out), fwd_err),
+            # offset (1) and g (2) read once, dx (2) written once
+            "stem_pool_bwd_bf16": (
+                lambda: S.pool_bwd_cuda(idx_k, g, hw), lambda: S.pool_bwd_plain(idx_p, g, hw),
+                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
+                (3 * n_out + 2 * n_in, n_out), bwd_err),
+        }
+        rows = time_kernels(timed, tag)
+        del x, out_k, idx_k, out_p, idx_p, g, dx_k, dx_p, lib_idx
+    return rows
 
 
 def time_kernels(timed, tag):
@@ -864,7 +913,7 @@ def phase_pool_route(CB, P, dev):
     return rows, counts
 
 
-def flagship_config(serving, mixed_precision=False):
+def flagship_config(serving, mixed_precision=False, **train):
     """bench_train.py's flagship (FiLM ResNet-18, language, random crops,
     train.pallas_pool) or bench_infer.py's (ResNet-18, no language, center
     crop): ICLTransformerHVQVAE at full width."""
@@ -899,6 +948,8 @@ def flagship_config(serving, mixed_precision=False):
             cfg.train.max_grad_norm = 100.0
             cfg.train.mixed_precision = mixed_precision
             cfg.train.pallas_pool = True
+            for k, v in train.items():
+                cfg.train[k] = v
     return cfg
 
 
@@ -1567,7 +1618,8 @@ def host_syncs(fn):
     return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
-def modality_algo(modality, dev, pallas_pool=True, use_kernels=True):
+def modality_algo(modality, dev, pallas_pool=True, use_kernels=True,
+                  mixed_precision=False):
     """icl_gmm_paper at phase 8's width with @modality's tokenizer, LipVQ
     off; FAST gets the stand-in host stage."""
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
@@ -1576,7 +1628,7 @@ def modality_algo(modality, dev, pallas_pool=True, use_kernels=True):
     )
     from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 
-    cfg = paper_config(pallas_pool=pallas_pool)
+    cfg = paper_config(pallas_pool=pallas_pool, mixed_precision=mixed_precision)
     with cfg.values_unlocked():
         tc = cfg.algo.transformer
         tc.vq_vae_enabled = False
@@ -1728,6 +1780,246 @@ def phase_modalities(CB, dev, paper_step_ms, paper_request_ms, profile):
             + extra)
 
 
+# ---------------------------------------------------------------------------
+# 14: the opt-in training modes
+# ---------------------------------------------------------------------------
+
+PAPER_ASSIGN_N = 512   # the paper step's context half, 32 x 16 rows
+
+
+def phase_assign_bf16(K, dev):
+    """14a: kernel 1's bf16 instance (a bf16 codebook, z in fp32 as the
+    mixed-precision paper step gives it) against its plain version at
+    D = 976, K = 1024, N in ASSIGN_NS[1:]: codes equal off near ties, z_q
+    the code's fp32 value to the bit; timed with its bound."""
+    import torch
+
+    log("phase 14a: the assign kernel's bf16 instance vs plain, D=976 K=1024")
+    rows = {}
+    gen = torch.Generator(dev).manual_seed(14)
+    d = ASSIGN_DS[0]
+    cb = ((torch.rand(1024, d, generator=gen, device=dev) * 2 - 1)
+          * (6.0 / d) ** 0.5).bfloat16()
+    for n in ASSIGN_NS[1:]:
+        z = torch.sigmoid(torch.randn(n, d, generator=gen, device=dev))
+        tag = f"N={n}"
+        idx_k, zq_k = K.l2_nearest_cuda(z, cb)
+        idx_p, zq_p = K.l2_nearest_plain(z, cb)
+        torch.cuda.synchronize()
+        agree = check_assignments(tag, idx_k, idx_p, near_ties(z, cb.float()))
+        check(zq_k.dtype == torch.float32 and torch.equal(zq_k, cb[idx_k.long()].float()),
+              f"{tag}: z_q is not C[idx] in fp32")
+        err = float((zq_k[agree] - zq_p[agree]).abs().max())
+        check(err == 0.0, f"{tag}: z_q differs by {err} where the codes agree")
+        ms = cuda_ms(lambda: K.l2_nearest_cuda(z, cb))
+        plain = cuda_ms(lambda: K.l2_nearest_plain(z, cb))
+        flops = 2 * n * 1024 * d
+        # z and z_q fp32, the codebook bf16, c_sq and idx 4 bytes each
+        b, by = bound_ms(2 * n * d * 4 + 1024 * d * 2 + 1024 * 4 + n * 4, flops)
+        log(f"  N={n}: kernel {fmt(ms)}, plain {fmt(plain)}, bound {b:.4f} ms "
+            f"({by}), max|err| {err}; {tflops(flops, ms[0])}")
+        rows[n] = dict(ms=ms[0], plain_ms=plain[0], bound_ms=b, bound_by=by,
+                       max_abs_err=err)
+    return rows
+
+
+def timed_steps(CB, algo, batches, tag):
+    """A warm-up step, then the launch counts from 0 over len(@batches) - 1
+    timed steps. Returns (counts, median ms, last metrics)."""
+    import torch
+
+    algo.train_on_batch(batches[0], epoch=0)   # warm: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    CB.reset_launch_counts()
+    times = []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        losses = algo.train_on_batch(batch, epoch=0)["losses"]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in losses.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"{tag}: metrics {vals}")
+    counts = dict(CB.LAUNCHES)
+    med = statistics.median(times)
+    log(f"  {tag}: median {med:.3f} ms per step ({TRAIN_B / med * 1e3:.1f} samples/s; "
+        f"all: {', '.join(f'{v:.3f}' for v in times)}); last {vals}; launches over "
+        f"{len(times)} steps { {k: v for k, v in counts.items() if v} }")
+    return counts, med, vals
+
+
+def check_launches(tag, counts, per_step, steps):
+    """Every kernel launched exactly @per_step[name] times a step (0 for the
+    kernels not named)."""
+    for name, n in counts.items():
+        check(n == per_step.get(name, 0) * steps,
+              f"{tag}: {name} launched {n} times, expected {per_step.get(name, 0)} a step")
+
+
+def free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_paper_bf16(CB, dev, fp32_step_ms):
+    """14b: icl_gmm_paper's bf16 mixed-precision step at phase 8's width and
+    batch with LipVQ and train.pallas_pool: 6 + 6 bf16 stem-pool launches and
+    one bf16 assign a step, the median beside phase 8's fp32 step, a kernel
+    step against a plain step within phase 10b's bf16 tolerances; then two
+    bf16 steps of each other tokenizer. Returns (launch counts, median)."""
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    log(f"phase 14b: icl_gmm_paper bf16 mixed precision, B={TRAIN_B} T=16, LipVQ, "
+        f"train.pallas_pool on")
+    cfg = paper_config(pallas_pool=True, mixed_precision=True)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev)
+    check(algo.mixed_precision, "mixed_precision not taken")
+    gen = torch.Generator(dev).manual_seed(21)
+    batches = [make_train_batch(gen, dev) for _ in range(TRAIN_STEPS + 1)]
+    counts, med, vals = timed_steps(CB, algo, batches, "bf16 paper step")
+    check_launches("14b", counts, {"stem_pool_fwd_bf16": 6, "stem_pool_bwd_bf16": 6,
+                                   "lipvq_assign_bf16": 1}, TRAIN_STEPS)
+    check(set(vals) == {"log_probs", "action_loss", "policy_grad_norms", "vq_vae_loss"},
+          f"metrics {sorted(vals)}")
+    check(all(p.dtype == torch.float32 for p in algo.nets.parameters()),
+          "a master parameter is not fp32")
+    log(f"  bf16 {med:.3f} ms against phase 8's fp32 {fp32_step_ms:.3f} ms a step "
+        f"({med / fp32_step_ms:.3f} x)")
+    state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
+    res_k = one_step(algo, batches[0], deterministic=True)
+    del algo
+    free_card()
+    plain = Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev,
+                              use_kernels=False)
+    plain.nets.load_state_dict(state)
+    res_p = one_step(plain, batches[0], deterministic=True)
+    compare_steps(res_k, res_p, ("action_loss", "vq_vae_loss", "policy_grad_norms"),
+                  1e-3, 1e-2, 1e-4)
+    del plain, state
+    free_card()
+    for modality in MODALITIES:
+        algo = modality_algo(modality, dev, mixed_precision=True)
+        m_counts, m_med, m_vals = timed_steps(CB, algo, batches[:3], f"bf16 {modality} step")
+        check_launches(f"14b {modality}", m_counts,
+                       {"stem_pool_fwd_bf16": 6, "stem_pool_bwd_bf16": 6}, 2)
+        check(set(m_vals) == {"log_probs", "action_loss", "policy_grad_norms"},
+              f"{modality} metrics {sorted(m_vals)}")
+        del algo
+        free_card()
+    return counts, med
+
+
+def flagship_algo(dev, use_kernels=True, **train):
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = flagship_config(serving=False, **train)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory("icl", cfg, flagship_shapes(False), 12, device=dev,
+                             use_kernels=use_kernels)
+
+
+def phase_flagship_packed(CB, dev, bf16_step_ms):
+    """14c: the flagship with train.packed_rgb_encoders. From one state (an
+    fp32 warm-up step: the k-means init), one step each of the unpacked and
+    the packed model in fp32 and in bf16, under cuDNN's deterministic
+    algorithms. Packed against unpacked at phase 10a's and 10b's
+    tolerances, but for the bf16 gradients: grouped and separate bf16
+    convolutions round differently, so those two steps are not the same
+    sums, as 10b's kernel and plain steps are; their gradients, as one
+    vector, may differ no more than the unpacked bf16 step's differ from
+    its fp32 step (``compare_steps``). Then the packed bf16 step's median
+    beside phase 10b's. The packed trunks launch no stem-pool kernel."""
+    import torch
+
+    log(f"phase 14c: flagship with packed_rgb_encoders, B={TRAIN_B} T=16")
+    gen = torch.Generator(dev).manual_seed(23)
+    batches = [make_train_batch(gen, dev) for _ in range(TRAIN_STEPS + 1)]
+    warm = flagship_algo(dev)
+    warm.train_on_batch(batches[0], epoch=0)   # the k-means init
+    state = {k: v.clone() for k, v in warm.nets.state_dict().items()}
+    del warm
+    free_card()
+    res = {}
+    for mixed_precision in (False, True):
+        for packed in (False, True):
+            algo = flagship_algo(dev, mixed_precision=mixed_precision,
+                                 packed_rgb_encoders=packed)
+            algo.nets.load_state_dict(state)
+            CB.reset_launch_counts()
+            res[mixed_precision, packed] = one_step(algo, batches[1], deterministic=True)
+            if packed:
+                check(algo.nets["policy"].net.encoder.nets["obs"].packed_keys == CAMS,
+                      "the three cameras were not packed")
+                check(sum(CB.LAUNCHES.values()) == 0,
+                      f"packed step launched {dict(CB.LAUNCHES)}")
+            if not (mixed_precision and packed):
+                del algo
+                free_card()
+    keys = ("action_loss", "vqvae_loss", "policy_grad_norms", "vqvae_grad_norms")
+    log("  packed against unpacked, fp32:")
+    compare_steps(res[False, True], res[False, False], keys, 1e-5, 1e-4, 1e-5)
+    own = grad_gap(res[True, False], res[False, False])
+    log(f"  packed against unpacked, bf16 (the unpacked bf16 step's gradients "
+        f"against its fp32 step's, as one vector: {own:.3g}):")
+    compare_steps(res[True, True], res[True, False], keys, 1e-3, own, 1e-4,
+                  grad_by_norm=True)
+    del res, state
+    counts, med, _ = timed_steps(CB, algo, batches, "bf16 packed flagship step")
+    check_launches("14c", counts, {}, TRAIN_STEPS)
+    log(f"  packed bf16 {med:.3f} ms against phase 10b's {bf16_step_ms:.3f} ms "
+        f"({med / bf16_step_ms:.3f} x)")
+    del algo
+    free_card()
+    return med
+
+
+def phase_flagship_modes(CB, dev, bf16_step_ms):
+    """14d: flagship bf16 steps with train.frozen_batch_norm (the BatchNorm
+    statistics left as their bf16 copies, which for a fresh model's 0 and 1
+    is unchanged to the bit; the stem pool's 3 + 3 bf16 launches a step)
+    and with train.pool_free_stem (no stem-pool launch); each median beside
+    phase 10b's."""
+    import torch
+
+    log(f"phase 14d: flagship bf16 with frozen_batch_norm, and with pool_free_stem, "
+        f"B={TRAIN_B} T=16")
+    gen = torch.Generator(dev).manual_seed(23)
+    batches = [make_train_batch(gen, dev) for _ in range(TRAIN_STEPS + 1)]
+    out = {}
+    for mode, per_step in (("frozen_batch_norm",
+                            {"stem_pool_fwd_bf16": 3, "stem_pool_bwd_bf16": 3}),
+                           ("pool_free_stem", {})):
+        algo = flagship_algo(dev, mixed_precision=True, **{mode: True})
+        stats = lambda: {k: v.clone() for k, v in algo.nets.state_dict().items()  # noqa: E731
+                         if k.endswith(("running_mean", "running_var"))}
+        before = stats()
+        counts, med, _ = timed_steps(CB, algo, batches, f"bf16 {mode} step")
+        check_launches(f"14d {mode}", counts, per_step, TRAIN_STEPS)
+        after = stats()
+        moved = sum(not torch.equal(before[k], v) for k, v in after.items())
+        if mode == "frozen_batch_norm":
+            check(moved == 0 and all(torch.equal(v, v.bfloat16().float())
+                                     for v in before.values()),
+                  f"{moved} BatchNorm statistics moved while frozen")
+        else:
+            check(moved > len(after) // 2, f"only {moved} of {len(after)} statistics moved")
+        log(f"  {mode}: {med:.3f} ms against phase 10b's {bf16_step_ms:.3f} ms "
+            f"({med / bf16_step_ms:.3f} x); {moved} of {len(after)} BatchNorm "
+            f"statistics moved")
+        out[mode] = med
+        del algo
+        free_card()
+    return out
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -1823,6 +2115,11 @@ def main():
     del trained, ckpt
     torch.cuda.empty_cache()
     phase_modalities(CB, dev, paper_step_ms, paper_request_ms, args.profile)
+    torch.cuda.empty_cache()
+    assign_bf16 = phase_assign_bf16(K, dev)
+    bf16_counts, _ = phase_paper_bf16(CB, dev, paper_step_ms)
+    phase_flagship_packed(CB, dev, flagship[True][1])
+    phase_flagship_modes(CB, dev, flagship[True][1])
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -1833,6 +2130,10 @@ def main():
         dict(name="lipvq_roundtrip", route="cuda",
              source=f"{SOURCE}/lipvq_roundtrip.cu", replaces=f"{TPU_KERNELS}:142",
              launches=tok_counts["lipvq_roundtrip"], library_ms=None, **roundtrip),
+        # kernel 1's bf16 instance at the paper's bf16 step (phase 14b)
+        dict(name="lipvq_assign_bf16", route="cuda", source=f"{SOURCE}/lipvq_assign.cu",
+             replaces=f"{TPU_KERNELS}:39", launches=bf16_counts["lipvq_assign_bf16"],
+             library_ms=None, **assign_bf16[PAPER_ASSIGN_N]),
         dict(name="stem_pool_fwd", route="cuda", source=f"{SOURCE}/stem_pool.cu",
              replaces=f"{TPU_POOL}:60", launches=train_counts["stem_pool_fwd"],
              **pool["stem_pool_fwd"]),

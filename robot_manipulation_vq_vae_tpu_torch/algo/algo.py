@@ -27,7 +27,9 @@ import torch
 
 from robot_manipulation_vq_vae_tpu_torch import resolve_device
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
+from robot_manipulation_vq_vae_tpu_torch.models import obs_nets as ObsNets
 from robot_manipulation_vq_vae_tpu_torch.utils import action_utils as AcUtils
+from robot_manipulation_vq_vae_tpu_torch.utils import mixed_precision as MixedPrecision
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import rotation_utils as RotUtils
@@ -119,6 +121,7 @@ class Algo:
     def __init__(self, algo_config, obs_config, global_config, obs_key_shapes,
                  ac_dim, device=None, use_kernels=True):
         self._check_train_options(global_config.train)
+        self.mixed_precision = bool(global_config.train.get("mixed_precision", False))
         self.device = resolve_device(device)
         self.algo_config = algo_config
         self.obs_config = obs_config
@@ -134,9 +137,7 @@ class Algo:
         with torch.random.fork_rng(devices=[]):
             torch.random.default_generator.manual_seed(seed)
             self._create_networks()
-        BaseNets.set_stem_pool(
-            self.nets, global_config.train.get("pallas_pool", False), use_kernels
-        )
+        self._set_train_modes(global_config.train)
         self.nets.to(self.device).eval()
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.max_grad_norm = global_config.train.get("max_grad_norm", None)
@@ -146,16 +147,26 @@ class Algo:
 
     def _check_train_options(self, train_config):
         """Raise for a ``train`` option that changes the step and is not
-        ported, rather than train something else."""
-        options = ["frozen_batch_norm", "pool_free_stem", "packed_rgb_encoders"]
-        if not self.MIXED_PRECISION:
-            options.append("mixed_precision")
-        for option in options:
-            if train_config.get(option, False):
-                raise NotImplementedError(
-                    f"train.{option} is not ported for {type(self).__name__} "
-                    "yet (ROADMAP.md)"
-                )
+        ported for this class, rather than train something else."""
+        if train_config.get("mixed_precision", False) and not self.MIXED_PRECISION:
+            raise NotImplementedError(
+                f"train.mixed_precision is not ported for {type(self).__name__} "
+                "yet (ROADMAP.md)"
+            )
+
+    def _set_train_modes(self, train_config):
+        """Apply the model-level ``train`` options to ``self.nets``, each on
+        this algo's modules only (the JAX package sets them process-wide):
+        the stem pool's recorded-argmax kernels (``pallas_pool``), frozen
+        BatchNorm statistics, the pool-free stride-4 stem, and the packed
+        per-camera FiLM trunks."""
+        BaseNets.set_stem_pool(self.nets, train_config.get("pallas_pool", False),
+                               self.use_kernels)
+        BaseNets.set_frozen_batch_norm(
+            self.nets, train_config.get("frozen_batch_norm", False))
+        BaseNets.set_pool_free_stem(self.nets, train_config.get("pool_free_stem", False))
+        ObsNets.set_packed_rgb_encoders(
+            self.nets, train_config.get("packed_rgb_encoders", False))
 
     def _create_shapes(self, obs_keys, obs_key_shapes):
         """Split obs_key_shapes into obs / goal dicts by the modality config."""
@@ -175,6 +186,15 @@ class Algo:
     def _create_networks(self):
         raise NotImplementedError
 
+    def _num_training_steps(self):
+        """``train.num_epochs * experiment.epoch_every_n_steps`` (the cosine
+        schedule's horizon), or None where either is unset."""
+        try:
+            return int(self.global_config.train.num_epochs
+                       * self.global_config.experiment.epoch_every_n_steps)
+        except (AttributeError, KeyError, TypeError):
+            return None
+
     def _create_optimizers(self):
         """An optimizer and its schedule for each ``optim_params`` entry whose
         key is a network."""
@@ -182,7 +202,8 @@ class Algo:
             if k in self.nets:
                 self.optimizers[k], self.lr_schedulers[k] = (
                     OptimUtils.optimizer_from_optim_params(
-                        self.nets[k].parameters(), optim_params
+                        self.nets[k].parameters(), optim_params,
+                        self._num_training_steps(),
                     )
                 )
 
@@ -329,7 +350,19 @@ def to_host(action):
 class PolicyAlgo(Algo):
     """Base of the policy algorithms (the port's are the ICL policies, whose
     ``get_action`` takes a context batch and whose ``_select_output`` picks
-    the predicted step of a window): the action-MSE evaluation."""
+    the predicted step of a window): the training steps' policy call, in
+    mixed precision where asked, and the action-MSE evaluation."""
+
+    def _policy_call(self, *args, **kwargs):
+        """``self.nets["policy"](*args, **kwargs)`` in a training step. Under
+        ``train.mixed_precision`` the policy runs as the JAX steps run it:
+        on bf16 copies of its parameters and floating inputs, each layer in
+        the type that JAX's promotion gives it, and its outputs cast back
+        to fp32 (``utils/mixed_precision.py``)."""
+        policy = self.nets["policy"]
+        if not self.mixed_precision:
+            return policy(*args, **kwargs)
+        return MixedPrecision.full(MixedPrecision.half_call(policy, args, kwargs))
 
     def _predict_actions_for_mse(self, batch):
         """Predicted actions (numpy) for an MSE batch: ``get_action`` over the

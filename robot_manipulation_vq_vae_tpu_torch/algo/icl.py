@@ -34,7 +34,8 @@ steps a dedicated AdamW (lr 1e-3, weight decay 1e-4) over the tokenizer's
 parameters, then the GMM's negative log likelihood steps the policy
 optimizer over all policy parameters. The other modalities have no AdamW of
 their own and no ``vq_vae_loss`` metric: the NLL trains them with the
-policy.
+policy. With ``train.mixed_precision`` its training step runs in bf16 as
+the JAX paper step does (see ``ICLTransformer_GMM``).
 """
 
 import os
@@ -51,7 +52,6 @@ from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
 )
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.models import policy_nets as PolicyNets
-from robot_manipulation_vq_vae_tpu_torch.models.obs_core import VisualCore
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import FastHostEncoder
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.hvqvae import (
     HierarchicalVQVAE,
@@ -130,14 +130,6 @@ class ICLTransformer(PolicyAlgo):
             **self._policy_transformer_args(),
         )
         self._set_params_from_config()
-        self.mixed_precision = bool(self.global_config.train.get("mixed_precision",
-                                                                 False))
-        # the parameters that meet bf16 activations under mixed precision:
-        # the visual cores' trunks and keypoint convolutions
-        self._bf16_prefixes = tuple(
-            f"{name}.{child}." for name, m in self.nets["policy"].named_modules()
-            if isinstance(m, VisualCore) for child in ("backbone", "pool")
-        )
 
     def _policy_transformer_args(self):
         args = BaseNets.transformer_args_from_config(self.algo_config.transformer)
@@ -210,32 +202,14 @@ class ICLTransformer(PolicyAlgo):
         return obs, actions
 
     def _policy_forward(self, obs, action_inputs):
-        """The policy's actions [B, T, A] (fp32). Under mixed precision the
-        policy is called on bf16 copies of its parameters, as the JAX step
-        casts them, and type promotion decides where each layer computes, as
-        in JAX: the visual trunks and keypoint convolutions take the bf16
-        images, and so compute in bf16 (BatchNorm reduces in fp32 and
-        rounds its output once); the keypoints meet the fp32 keypoint grid
-        and become fp32, so every later layer computes in fp32 with its bf16
-        parameters lifted back to fp32. The copies are differentiable casts,
-        so the gradients reach the fp32 parameters, rounded to bf16 as
-        JAX's are."""
-        policy = self.nets["policy"]
-        generator = self.generator if policy.training else None
-        if not self.mixed_precision:
-            return policy(obs, actions=action_inputs, generator=generator)
-        half = torch.bfloat16
-        params = {
-            name: (p.to(half) if name.startswith(self._bf16_prefixes)
-                   else p.to(half).float())
-            for name, p in policy.named_parameters()
-        }
-        obs = {k: v.to(half) for k, v in obs.items()}
-        if action_inputs is not None:
-            action_inputs = action_inputs.to(half)
-        acts = torch.func.functional_call(
-            policy, params, (obs,), {"actions": action_inputs, "generator": generator})
-        return acts.float()
+        """The policy's actions [B, T, A] (fp32). Under mixed precision
+        (``PolicyAlgo._policy_call``) JAX's type promotion puts the visual
+        trunks and keypoint convolutions in bf16 (they take the bf16 images;
+        BatchNorm reduces in fp32 and rounds its output once); the keypoints
+        meet the fp32 keypoint grid and become fp32, so every later layer
+        computes in fp32 with its bf16 parameters lifted back to fp32."""
+        generator = self.generator if self.nets["policy"].training else None
+        return self._policy_call(obs, actions=action_inputs, generator=generator)
 
     def _losses(self, batch):
         """The step's losses (an OrderedDict of 0-d tensors) and the combined
@@ -322,6 +296,7 @@ class ICLTransformerHVQVAE(ICLTransformer):
                     self.nets["vqvae"].parameters(),
                     self.algo_config.optim_params.get(
                         "vqvae", self.algo_config.optim_params["policy"]),
+                    self._num_training_steps(),
                 )
             )
 
@@ -353,7 +328,39 @@ class ICLTransformerHVQVAE(ICLTransformer):
 
 class ICLTransformer_GMM(PolicyAlgo):
     """Prompt-conditioned GMM transformer with an in-encoder action
-    tokenizer: LipVQ, bin, LN-act, FAST or the default encoder."""
+    tokenizer: LipVQ, bin, LN-act, FAST or the default encoder.
+
+    ``train.mixed_precision`` runs the training forward as the JAX paper
+    step does (its ``algo/icl.py``:1106-1130, through
+    ``PolicyAlgo._policy_call``): bf16 copies of the policy's parameters
+    and state, bf16 context and supervised observations and context
+    actions; the GMM and the LipVQ loss come back in fp32, and the
+    log-probabilities, the losses and both optimizers are fp32. With LipVQ
+    both backward passes (the NLL, and the LipVQ loss into the tokenizer's
+    AdamW) go through that one bf16 forward. ``get_action`` stays fp32.
+
+    Which layers compute in bf16 is JAX's type promotion, read off
+    ``jax.make_jaxpr`` of the JAX bf16 step (each ``dot_general`` and
+    ``conv`` operand's type):
+
+    * bf16: the visual trunks (convolutions, FiLM projections) and the
+      keypoint convolutions; LipVQ's encoder MLP; the bin tokenizer's
+      statistics and MLP, LN-act's Mamba block and MLP, the default
+      encoder's spectral-norm layers (power iteration included), attention
+      layers and output, FAST's projection; the embedding of the context
+      action tokens of those four; and, where the observations are only
+      low-dimensional (bf16 features), the embedding of every token and the
+      GPT's qkv projections;
+    * bf16 operands, fp32 result: LipVQ's latent layer (so z_e is fp32)
+      and the GPT's attention products;
+    * fp32: the LipVQ codebook search (kernel 1's bf16 instance: fp32 z_e,
+      the bf16 codebook upcast, z_q fp32 as the TPU kernel writes z's
+      type; JAX's CPU fallback ``l2_nearest`` would round c_sq and z_q to
+      bf16) and LipVQ's decoder; with image observations (keypoints fp32)
+      the embedding and the whole GPT; the GMM heads.
+    """
+
+    MIXED_PRECISION = True
 
     def _create_networks(self):
         if not (self.algo_config.gmm.enabled and self.algo_config.transformer.enabled):
@@ -443,7 +450,7 @@ class ICLTransformer_GMM(PolicyAlgo):
         obs = self._obs(batch["obs"])
         actions = batch["actions"]
         mid = len(actions) // 2
-        dist, vq_loss = self.nets["policy"].forward_train(
+        dist, vq_loss = self._policy_call(
             {k: v[mid:] for k, v in obs.items()},
             {k: v[:mid] for k, v in obs.items()},
             self._context_actions(actions[:mid]),

@@ -22,6 +22,12 @@
 // merge_kernel combines the S partials in ascending range order on
 // (value, index), which keeps the first index on a tie, and gathers z_q.
 // With S = 1 assign_kernel writes idx and z_q itself.
+//
+// The bf16 instance (lipvq_assign_bf16_launch, the mixed-precision paper
+// step's) reads the bf16 codebook straight from memory, upcasts it exactly as
+// it is staged, and runs the same fp32 search against the step's fp32 z; z_q
+// is the exact fp32 upcast of the code, in z's type, as the TPU kernel's
+// output is. The fp32 instance is the same code at float.
 #include "lipvq_assign_core.cuh"
 
 using namespace lipvq;
@@ -35,9 +41,10 @@ struct AssignSmem {
   int best[kRows];
 };
 
-template <int kCols>
+// Tc: the codebook's element type: float, or uint16_t for bf16 bits.
+template <int kCols, class Tc>
 __global__ void __launch_bounds__(kThreads, 2)
-    assign_kernel(const float* __restrict__ z, const float* __restrict__ cb,
+    assign_kernel(const float* __restrict__ z, const Tc* __restrict__ cb,
                   const float* __restrict__ c_sq, int N, int D, int K,
                   int codes_per_split, int* __restrict__ idx,
                   float* __restrict__ z_q, float* __restrict__ part_v,
@@ -48,7 +55,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int k_begin = blockIdx.y * codes_per_split;
   const int k_end = min(K, k_begin + codes_per_split);
 
-  TransposeStager<kRows> za{z, D, row0, N, (D & 3) == 0 && aligned16(z), sm.a};
+  TransposeStager<kRows> za{z, D, row0, N, vector_rows(z, D), sm.a};
   assign_rows<kCols>(za, cb, c_sq, D, k_begin, k_end, sm.b, sm.red, sm.best_v,
                      sm.best);
 
@@ -63,8 +70,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <class Tc>
 __global__ void __launch_bounds__(kThreads)
-    merge_kernel(const float* __restrict__ cb, int N, int D, int splits,
+    merge_kernel(const Tc* __restrict__ cb, int N, int D, int splits,
                  const float* __restrict__ part_v,
                  const int* __restrict__ part_i, int* __restrict__ idx,
                  float* __restrict__ z_q) {
@@ -91,17 +99,11 @@ __global__ void __launch_bounds__(kThreads)
   gather_rows(cb, best, row0, rows, D, z_q);
 }
 
-// z [N, D], cb [K, D], c_sq [K] (= sum of squares of each code), all fp32 and
-// contiguous; writes idx [N] int32 and z_q [N, D]. @width is the code tile
-// (64 or 128); the codebook is searched in @splits ranges of
-// @codes_per_split codes (a multiple of @width covering K); with splits > 1,
-// part_v [splits, N] fp32 and part_i [splits, N] int32 are the caller's
-// scratch. Launches on @stream and returns cudaGetLastError().
-extern "C" int lipvq_assign_launch(const float* z, const float* cb,
-                                   const float* c_sq, int N, int D, int K,
-                                   int width, int splits, int codes_per_split,
-                                   int* idx, float* z_q, float* part_v,
-                                   int* part_i, void* stream) {
+template <class Tc>
+static int launch_assign(const float* z, const Tc* cb, const float* c_sq,
+                         int N, int D, int K, int width, int splits,
+                         int codes_per_split, int* idx, float* z_q,
+                         float* part_v, int* part_i, void* stream) {
   if (N <= 0) return 0;
   if (D <= 0 || K <= 0 || (width != 64 && width != 128) || splits <= 0 ||
       codes_per_split % width != 0 ||
@@ -113,14 +115,41 @@ extern "C" int lipvq_assign_launch(const float* z, const float* cb,
   const int row_tiles = (N + kRows - 1) / kRows;
   const dim3 grid(row_tiles, splits);
   if (width == 128)
-    assign_kernel<128><<<grid, kThreads, 0, s>>>(
+    assign_kernel<128, Tc><<<grid, kThreads, 0, s>>>(
         z, cb, c_sq, N, D, K, codes_per_split, idx, z_q, part_v, part_i);
   else
-    assign_kernel<64><<<grid, kThreads, 0, s>>>(
+    assign_kernel<64, Tc><<<grid, kThreads, 0, s>>>(
         z, cb, c_sq, N, D, K, codes_per_split, idx, z_q, part_v, part_i);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  merge_kernel<<<row_tiles, kThreads, 0, s>>>(cb, N, D, splits, part_v, part_i,
-                                              idx, z_q);
+  merge_kernel<Tc><<<row_tiles, kThreads, 0, s>>>(cb, N, D, splits, part_v,
+                                                  part_i, idx, z_q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// z [N, D], cb [K, D], c_sq [K] (= sum of squares of each code), all fp32 and
+// contiguous; writes idx [N] int32 and z_q [N, D]. @width is the code tile
+// (64 or 128); the codebook is searched in @splits ranges of
+// @codes_per_split codes (a multiple of @width covering K); with splits > 1,
+// part_v [splits, N] fp32 and part_i [splits, N] int32 are the caller's
+// scratch. Launches on @stream and returns cudaGetLastError().
+extern "C" int lipvq_assign_launch(const float* z, const float* cb,
+                                   const float* c_sq, int N, int D, int K,
+                                   int width, int splits, int codes_per_split,
+                                   int* idx, float* z_q, float* part_v,
+                                   int* part_i, void* stream) {
+  return launch_assign(z, cb, c_sq, N, D, K, width, splits, codes_per_split,
+                       idx, z_q, part_v, part_i, stream);
+}
+
+// The bf16 instance: cb [K, D] bf16; z [N, D] and z_q fp32; c_sq [K] fp32,
+// summed over the upcast codebook. Otherwise as lipvq_assign_launch.
+extern "C" int lipvq_assign_bf16_launch(const float* z, const uint16_t* cb,
+                                        const float* c_sq, int N, int D, int K,
+                                        int width, int splits,
+                                        int codes_per_split, int* idx,
+                                        float* z_q, float* part_v,
+                                        int* part_i, void* stream) {
+  return launch_assign(z, cb, c_sq, N, D, K, width, splits, codes_per_split,
+                       idx, z_q, part_v, part_i, stream);
 }

@@ -21,6 +21,10 @@
 //    z rows) is transposed as it is stored, and a swizzle (swz) spreads those
 //    stores over all 32 banks.
 //
+// Operands: fp32, or bf16 held as its 16 bits (uint16_t) and upcast exactly as
+// it is staged (Elem<T>): kernel 1's bf16 instance reads a bf16 codebook as it
+// lies in memory, and runs the same fp32 product against an fp32 z.
+//
 // Arithmetic: every dot product starts from 0 (the argmin) or from the bias
 // (a dense layer) and adds one fmaf per depth step in ascending depth; the
 // ragged edge is masked with zeros. Distances are ||C_k||^2 - 2 z . C_k
@@ -56,19 +60,54 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// An operand's element type: fp32, or bf16 as its bits (uint16_t), whose
+// upcast is exact (the bits are the high half of the fp32). load4 reads 4
+// consecutive elements in one vector load of kVecBytes.
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int kVecBytes = 16;
+  __device__ static float load(const float* p) { return __ldg(p); }
+  __device__ static void load4(const float* p, float (&r)[4]) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  }
+};
+
+template <>
+struct Elem<uint16_t> {
+  static constexpr int kVecBytes = 8;
+  __device__ static float up(unsigned bits) { return __uint_as_float(bits << 16); }
+  __device__ static float load(const uint16_t* p) { return up(__ldg(p)); }
+  __device__ static void load4(const uint16_t* p, float (&r)[4]) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    r[0] = up(v.x & 0xffffu), r[1] = up(v.x >> 16);
+    r[2] = up(v.y & 0xffffu), r[3] = up(v.y >> 16);
+  }
+};
+
+// Whether 4-element vector loads of T fit rows of @D elements from @p.
+template <class T>
+__device__ __forceinline__ bool vector_rows(const T* p, int D) {
+  return (D & 3) == 0 &&
+         (reinterpret_cast<uintptr_t>(p) & (Elem<T>::kVecBytes - 1)) == 0;
+}
+
 // Column of the tile held in a thread's accumulator j (ascending in j).
 __device__ __forceinline__ int tile_col(int j) {
   return 64 * (j >> 2) + 4 * (threadIdx.x & 15) + (j & 3);
 }
 
-// A row-major source [rows, D] whose rows r0 .. r0 + W - 1 (masked past
-// r_end) are staged depth-major, [16][W], 16 depths at a time: the z rows of
-// the assign kernel (W = 64) and the codebook (W = kCols). A thread moves
-// W / 64 groups of 4 depths of one row.
-template <int W>
+// A row-major source [rows, D] of T whose rows r0 .. r0 + W - 1 (masked past
+// r_end) are staged depth-major in fp32, [16][W], 16 depths at a time: the z
+// rows of the assign kernel (W = 64) and the codebook (W = kCols). A thread
+// moves W / 64 groups of 4 depths of one row.
+template <int W, class T = float>
 struct TransposeStager {
   static constexpr int kSlots = W * 4 / kThreads;
-  const float* src;
+  const T* src;
   int D, r0, r_end;
   bool vec;
   float* smem;  // [2][kChunk * W]
@@ -79,14 +118,13 @@ struct TransposeStager {
     for (int s = 0; s < kSlots; ++s) {
       const int e = threadIdx.x + s * kThreads;
       const int row = r0 + (e >> 2), col = d0 + 4 * (e & 3);
-      const float* p = src + static_cast<size_t>(row) * D + col;
+      const T* p = src + static_cast<size_t>(row) * D + col;
       if (vec && row < r_end && col < D) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-        r[s][0] = v.x, r[s][1] = v.y, r[s][2] = v.z, r[s][3] = v.w;
+        Elem<T>::load4(p, r[s]);
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          r[s][i] = (row < r_end && col + i < D) ? __ldg(p + i) : 0.f;
+          r[s][i] = (row < r_end && col + i < D) ? Elem<T>::load(p + i) : 0.f;
       }
     }
   }
@@ -273,11 +311,12 @@ __device__ inline void merge_rows(const float (&best_v)[kPer],
   __syncthreads();
 }
 
-// Searches the codes [k_begin, k_end) of cb [K, D] for the rows that @za
-// supplies depth-major (a TransposeStager<64> or a Resident), in code tiles
-// of kCols. On return out_v / out_i hold the min and argmin of every row.
-template <int kCols, class OpA>
-__device__ void assign_rows(OpA& za, const float* __restrict__ cb,
+// Searches the codes [k_begin, k_end) of cb [K, D] (fp32 or bf16 bits) for
+// the rows that @za supplies depth-major (a TransposeStager<64> or a
+// Resident), in code tiles of kCols. On return out_v / out_i hold the min and
+// argmin of every row.
+template <int kCols, class OpA, class Tc>
+__device__ void assign_rows(OpA& za, const Tc* __restrict__ cb,
                             const float* __restrict__ c_sq, int D, int k_begin,
                             int k_end, float* bbuf, Partials& red,
                             float* out_v, int* out_i) {
@@ -288,9 +327,9 @@ __device__ void assign_rows(OpA& za, const float* __restrict__ cb,
     best_v[i] = CUDART_INF_F;
     best_i[i] = 0;
   }
-  const bool vec = (D & 3) == 0 && aligned16(cb);
+  const bool vec = vector_rows(cb, D);
   for (int k0 = k_begin; k0 < k_end; k0 += kCols) {
-    TransposeStager<kCols> cs{cb, D, k0, k_end, vec, bbuf};
+    TransposeStager<kCols, Tc> cs{cb, D, k0, k_end, vec, bbuf};
     float acc[kPer][kCols / 16];
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
@@ -302,15 +341,15 @@ __device__ void assign_rows(OpA& za, const float* __restrict__ cb,
   merge_rows(best_v, best_i, red, out_v, out_i);
 }
 
-// z_q[row0 + m] = cb[best[m]] for the first @rows rows, one coalesced row at
-// a time.
-__device__ inline void gather_rows(const float* __restrict__ cb,
-                                   const int* best, int row0, int rows, int D,
-                                   float* __restrict__ z_q) {
+// z_q[row0 + m] = cb[best[m]] (upcast exactly from a bf16 codebook) for the
+// first @rows rows, one coalesced row at a time.
+template <class Tc>
+__device__ void gather_rows(const Tc* __restrict__ cb, const int* best,
+                            int row0, int rows, int D, float* __restrict__ z_q) {
   for (int e = threadIdx.x; e < rows * D; e += kThreads) {
     const int m = e / D, d = e % D;
     z_q[static_cast<size_t>(row0 + m) * D + d] =
-        __ldg(cb + static_cast<size_t>(best[m]) * D + d);
+        Elem<Tc>::load(cb + static_cast<size_t>(best[m]) * D + d);
   }
 }
 

@@ -8,6 +8,9 @@ runs NCHW. BatchNorm follows Flax's ``nn.BatchNorm`` in training (momentum
 0.99, the biased batch variance in the running update), not torch's
 defaults. The stem's max pool is ``F.max_pool2d`` unless
 ``set_stem_pool`` selects the recorded-argmax kernels (``train.pallas_pool``).
+Two opt-in training modes are set per model, never process-wide:
+``set_frozen_batch_norm`` (``train.frozen_batch_norm``) and
+``set_pool_free_stem`` (``train.pool_free_stem``).
 Parameters keep the reference torch layout and key names
 (``_base_block``, ``_conv_blocks``, ``_film_layers``, torchvision's
 ``conv1``/``bn1``/``downsample``; ``nets.0`` ... ``nets.7`` for the plain
@@ -65,6 +68,38 @@ def _conv(cin, cout, k, stride=1, padding=0, bias=False):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
 
 
+def flax_batch_norm(x, running_mean, running_var, weight, bias, use_batch,
+                    eps=BN_EPS):
+    """Flax's BatchNorm over the channels of @x [N, C, H, W] (see
+    ``BatchNorm2d``). With @use_batch, @x is normalized by its own mean and
+    biased variance and @running_mean / @running_var move towards them in
+    place; else by the running statistics, which stay as they are, but for
+    a bf16 @x, where they are rounded to bf16 in place."""
+    half = x.dtype == torch.bfloat16
+    if half:   # fp32 arithmetic on the bf16 values, the output in bf16
+        weight, bias = weight.float(), bias.float()
+    if not use_batch:
+        if half:   # the step's bf16 copies of the statistics, written back
+            mean16, var16 = running_mean.bfloat16().float(), running_var.bfloat16().float()
+            with torch.no_grad():
+                running_mean.copy_(mean16)
+                running_var.copy_(var16)
+            running_mean, running_var = mean16, var16
+        return F.batch_norm(x, running_mean, running_var, weight, bias, False, 0.0,
+                            eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x.float() if half else x, dim=(0, 2, 3),
+                                   unbiased=False)
+        if half:
+            for running, stat in ((running_mean, mean), (running_var, var)):
+                running.copy_(running.bfloat16().float() * FLAX_BN_MOMENTUM_BF16
+                              + (1.0 - FLAX_BN_MOMENTUM) * stat)
+        else:
+            running_mean.lerp_(mean, 1.0 - FLAX_BN_MOMENTUM)
+            running_var.lerp_(var, 1.0 - FLAX_BN_MOMENTUM)
+    return F.batch_norm(x, None, None, weight, bias, True, 0.0, eps)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with Flax's training semantics: the batch is
     normalized by its own mean and biased variance, as in torch, but the
@@ -80,31 +115,31 @@ class BatchNorm2d(nn.BatchNorm2d):
     where ``bf16(0.99)`` is 0.98828125 (the weakly typed 0.99 takes bf16).
     Flax's product is a bf16 one, but inside the jitted step XLA keeps it in
     fp32 (excess precision; it is exact there), and the port follows the
-    jitted step. In eval a bf16 input is normalized by the fp32 statistics
-    (Flax would use their bf16 casts)."""
+    jitted step. Where the running statistics normalize a bf16 input (eval,
+    or frozen in training) they are those bf16 copies too, and the copies
+    are written back: the JAX step returns its whole bf16 ``aux``, cast to
+    fp32, as the new state.
+
+    ``frozen`` (``train.frozen_batch_norm``, set by
+    ``set_frozen_batch_norm``): training normalizes with the running
+    statistics and leaves them unchanged, as the JAX package's ``_bn_train``
+    does (rounded once to bf16 by a mixed-precision step, as above)."""
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - FLAX_BN_MOMENTUM)
+        self.frozen = False
 
     def forward(self, x):
-        half = x.dtype == torch.bfloat16
-        weight, bias = self.weight, self.bias
-        if half:   # fp32 arithmetic on the bf16 values, the output in bf16
-            weight, bias = weight.float(), bias.float()
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, weight,
-                                bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float() if half else x, dim=(0, 2, 3),
-                                       unbiased=False)
-            if half:
-                for running, stat in ((self.running_mean, mean), (self.running_var, var)):
-                    running.copy_(running.bfloat16().float() * FLAX_BN_MOMENTUM_BF16
-                                  + (1.0 - FLAX_BN_MOMENTUM) * stat)
-            else:
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-        return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
+        return flax_batch_norm(x, self.running_mean, self.running_var, self.weight,
+                               self.bias, self.training and not self.frozen, self.eps)
+
+
+def set_frozen_batch_norm(module, frozen):
+    """Freeze (or unfreeze) the statistics of every BatchNorm under
+    @module (see ``BatchNorm2d``)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.frozen = bool(frozen)
 
 
 class BasicBlock(nn.Module):
@@ -139,20 +174,38 @@ class BasicBlock(nn.Module):
         return F.relu(h + identity)
 
 
+class StemConv(nn.Conv2d):
+    """The stem's 7x7 convolution, stride 2, padding 3, no bias; stride 4
+    with ``pool_free`` (``train.pool_free_stem``), which lands on the pooled
+    grid, floor((H - 1) / 4) + 1, with the same parameters."""
+
+    def __init__(self, cin=3):
+        super().__init__(cin, 64, 7, stride=2, padding=3, bias=False)
+        self.pool_free = False
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, None, 4 if self.pool_free else 2, 3)
+
+
 class StemMaxPool(nn.Module):
     """The stem's 3x3 / stride-2 / pad-1 max pool. ``recorded_argmax`` False
     (the default, as the JAX stem's ``nn.max_pool``): ``F.max_pool2d``. True
     (``train.pallas_pool``): the recorded-argmax pair of
     ``ops/stem_pool.py``, kernels 3 and 4 when ``use_kernel``, else their
     plain versions; the same values, and on ties the gradient goes to the
-    same cell."""
+    same cell. With ``pool_free`` (``train.pool_free_stem``) there is no
+    pool: the stride-4 ``StemConv`` already gives the pooled shape, and no
+    kernel launches."""
 
     def __init__(self):
         super().__init__()
         self.recorded_argmax = False
         self.use_kernel = True
+        self.pool_free = False
 
     def forward(self, x):
+        if self.pool_free:
+            return x
         if self.recorded_argmax:
             return max_pool_3x3_s2(x, self.use_kernel)
         return F.max_pool2d(x, 3, 2, 1)
@@ -167,6 +220,14 @@ def set_stem_pool(module, recorded_argmax, use_kernel=True):
             m.use_kernel = bool(use_kernel)
 
 
+def set_pool_free_stem(module, pool_free):
+    """Make every ResNet stem under @module pool-free (a stride-4
+    convolution, no pool) or give it back its pool (see ``StemConv``)."""
+    for m in module.modules():
+        if isinstance(m, (StemConv, StemMaxPool)):
+            m.pool_free = bool(pool_free)
+
+
 class _ResNet18Stem(nn.Sequential):
     """conv7x7/2 + BN + ReLU + maxpool3x3/2 (torchvision stem); the reference
     names it ``_base_block``."""
@@ -175,7 +236,7 @@ class _ResNet18Stem(nn.Sequential):
 
     def __init__(self, cin=3):
         super().__init__(
-            _conv(cin, 64, 7, 2, 3),
+            StemConv(cin),
             BatchNorm2d(64),
             nn.ReLU(),
             StemMaxPool(),

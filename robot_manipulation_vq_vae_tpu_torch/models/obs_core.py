@@ -66,8 +66,12 @@ class VisualCore(nn.Module):
             x = self.backbone(x, lang_emb)
         else:
             x = self.backbone(x)
-        x = self.pool(x)
-        return self.proj(x.flatten(1))
+        return self.head(x)
+
+    def head(self, features):
+        """The core past its backbone: pool -> flatten -> linear, on the
+        trunk's features [B, 512, h, w]."""
+        return self.proj(self.pool(features).flatten(1))
 
 
 @ObsUtils.register_encoder_core

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from robot_manipulation_vq_vae_tpu_torch.models import obs_core
+from robot_manipulation_vq_vae_tpu_torch.models.packed_film import PackedResNet18ConvFiLM
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.bin_action import (
     AdaptiveBinActionEmbedding,
 )
@@ -69,11 +70,19 @@ def _build_randomizers(cfg, shape):
 
 class ObservationEncoder(nn.Module):
     """Per-key core + randomizer encoder; concatenates flat features in spec
-    order. Keys without a core class pass through flattened."""
+    order. Keys without a core class pass through flattened.
+
+    The randomizers run for every key in spec order before any core, so
+    their draws are the same whether or not the cameras' trunks are packed
+    (``set_packed``, ``train.packed_rgb_encoders``): then the eligible
+    cameras (``packed_rgb_keys``) run through one ``PackedResNet18ConvFiLM``
+    over their own trunks, their images concatenated on the channels in
+    spec order, and each camera's features through its own core's head."""
 
     def __init__(self, obs_shapes, encoder_kwargs=None):
         super().__init__()
         self.spec = _spec_items(obs_shapes)
+        self.encoder_kwargs = encoder_kwargs
         shapes = dict(self.spec)
         self.randomizers = {}
         cores = {}
@@ -96,24 +105,80 @@ class ObservationEncoder(nn.Module):
             cores[key] = core
             self.output_dim += core.proj.out_features
         self.obs_nets = nn.ModuleDict(cores)
+        self.packed_keys = []
+        self.packed = None
 
     def jax_names(self):
         return {f"core_{key}": f"obs_nets.{key}" for key in self.obs_nets}
 
+    def packed_rgb_keys(self):
+        """The keys that ``set_packed`` packs, in spec order: at least two
+        rgb keys of one shape with one FiLM-ResNet18
+        ``VisualCoreLanguageConditioned`` configuration, batch norm and no
+        coord-conv (JAX ``_packed_rgb_keys``); else none."""
+        keys, sig = [], None
+        for key, shape in self.spec:
+            if ObsUtils.OBS_KEYS_TO_MODALITIES.get(key) != "rgb":
+                continue
+            cfg = _key_encoder_config(key, self.encoder_kwargs)
+            if cfg.get("core_class") != "VisualCoreLanguageConditioned":
+                return []
+            ckw = dict(cfg.get("core_kwargs") or {})
+            if ckw.get("backbone_class", "ResNet18ConvFiLM") != "ResNet18ConvFiLM":
+                return []
+            bkw = dict(ckw.get("backbone_kwargs") or {})
+            if bkw.get("norm", "batch") != "batch" or bkw.get("input_coord_conv", False):
+                return []
+            this = (tuple(shape), repr(sorted(ckw.items())), repr(sorted(cfg.items())))
+            if sig is None:
+                sig = this
+            elif this != sig:
+                return []
+            keys.append(key)
+        return keys if len(keys) >= 2 else []
+
+    def set_packed(self, enabled):
+        """Pack the eligible cameras' trunks (or unpack them); the packed
+        trunk owns nothing, so the parameters stay where they are."""
+        self.packed_keys = self.packed_rgb_keys() if enabled else []
+        self.packed = (PackedResNet18ConvFiLM(
+            [self.obs_nets[k].backbone for k in self.packed_keys])
+            if self.packed_keys else None)
+
     def forward(self, obs_dict, generator=None):
-        feats = []
+        randomized = {}
         for key, _ in self.spec:
             x = obs_dict[key]
             for rand in self.randomizers[key]:
                 x = rand.forward_in(x, generator, self.training)
-            if key in self.obs_nets:
-                core = self.obs_nets[key]
-                lang = isinstance(core, obs_core.VisualCoreLanguageConditioned)
-                x = core(x, obs_dict[LANG_EMB_KEY]) if lang else core(x)
+            randomized[key] = x
+        feats = {}
+        if self.packed is not None:
+            images = torch.cat([randomized[k] for k in self.packed_keys], dim=-1)
+            trunk = self.packed(images.permute(0, 3, 1, 2).contiguous(),
+                                obs_dict[LANG_EMB_KEY])
+            for key, x in zip(self.packed_keys, trunk.chunk(len(self.packed_keys), 1)):
+                feats[key] = self.obs_nets[key].head(x)
+        out = []
+        for key, _ in self.spec:
+            x = feats.get(key)
+            if x is None:
+                x = randomized[key]
+                if key in self.obs_nets:
+                    core = self.obs_nets[key]
+                    lang = isinstance(core, obs_core.VisualCoreLanguageConditioned)
+                    x = core(x, obs_dict[LANG_EMB_KEY]) if lang else core(x)
             for rand in self.randomizers[key]:
                 x = rand.forward_out(x)
-            feats.append(x.reshape(x.shape[0], -1))
-        return torch.cat(feats, dim=-1)
+            out.append(x.reshape(x.shape[0], -1))
+        return torch.cat(out, dim=-1)
+
+
+def set_packed_rgb_encoders(module, enabled):
+    """Pack (or unpack) the eligible cameras of every ObservationEncoder
+    under @module (``train.packed_rgb_encoders``; see ``ObservationEncoder``)."""
+    for m in [m for m in module.modules() if isinstance(m, ObservationEncoder)]:
+        m.set_packed(enabled)
 
 
 class ObservationDecoder(nn.Module):

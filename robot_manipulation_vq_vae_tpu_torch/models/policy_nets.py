@@ -138,3 +138,5 @@ class ICLTransformerGMMActorNetwork(ICLTransformerActorNetwork):
             scales = _STD_ACTIVATIONS[self.std_activation](out["scale"]) + self.min_std
         dist = GMMActionDistribution(means=means, scales=scales, logits=out["logits"])
         return dist, out["vq_vae_loss"]
+
+    forward = forward_train

@@ -9,7 +9,10 @@ State, under the names the ``.pth`` checkpoint carries
 * ``running_min`` / ``running_max`` [A] and ``num_step`` (int32): buffers,
   the JAX ``bin_stats`` collection. A training forward (``self.training``)
   moves them before the boundaries are computed, until ``num_step`` reaches
-  ``num_step_stop``; eval forwards leave them alone.
+  ``num_step_stop``; eval forwards leave them alone. They are read in the
+  actions' type: under mixed precision the JAX step casts them to bf16
+  with its inputs, so they round-trip through bf16 each step (the
+  boundaries are then fp32 from the bf16 range).
 * ``embedding`` [A, num_bins, E]: the per-dimension tables fused into one
   parameter, so the lookup is one gather.
 * ``out_fc1`` / ``out_fc2``: the projection, exact (erf) GELU after each.
@@ -34,7 +37,10 @@ def bin_index(actions, lo, hi, num_bins):
     NaN (a model that never trained: lo = +inf, hi = -inf); then
     ``clamp(idx - 1, 0, num_bins - 1)``.
     """
-    kw = dict(dtype=lo.dtype, device=lo.device)
+    # a bf16 range (mixed precision) gives fp32 boundaries, as the jitted
+    # JAX step computes them
+    kw = dict(dtype=torch.promote_types(lo.dtype, torch.float32), device=lo.device)
+    lo, hi = lo.to(kw["dtype"]), hi.to(kw["dtype"])
     # built on the device without a host-to-device copy (torch.tensor, or an
     # item assignment, would stall the host until the card drains its queue)
     iota = torch.arange(num_bins + 1, **kw)
@@ -76,17 +82,18 @@ class AdaptiveBinActionEmbedding(nn.Module):
         """Widen the running range to @actions' while num_step is below
         num_step_stop (branch-free: no host sync on a card)."""
         enabled = self.num_step < self.num_step_stop
-        new_min = torch.minimum(self.running_min, actions.min(0).values)
-        new_max = torch.maximum(self.running_max, actions.max(0).values)
-        self.running_min.copy_(torch.where(enabled, new_min, self.running_min))
-        self.running_max.copy_(torch.where(enabled, new_max, self.running_max))
+        lo, hi = self.running_min.to(actions.dtype), self.running_max.to(actions.dtype)
+        new_lo = torch.minimum(lo, actions.min(0).values)
+        new_hi = torch.maximum(hi, actions.max(0).values)
+        self.running_min.copy_(torch.where(enabled, new_lo, lo))
+        self.running_max.copy_(torch.where(enabled, new_hi, hi))
         self.num_step.add_(enabled.to(self.num_step.dtype))
 
     def forward(self, actions):
         if self.training:
             self._update_stats(actions.detach())
-        idx = bin_index(actions.detach(), self.running_min, self.running_max,
-                        self.num_bins)
+        idx = bin_index(actions.detach(), self.running_min.to(actions.dtype),
+                        self.running_max.to(actions.dtype), self.num_bins)
         dims = torch.arange(self.action_dim, device=actions.device)[None]
         flat = self.embedding.reshape(-1, self.embedding.shape[-1])
         emb = flat[(dims * self.num_bins + idx).reshape(-1)]

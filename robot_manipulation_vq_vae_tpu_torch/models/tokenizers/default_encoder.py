@@ -13,7 +13,9 @@ It keeps the JAX package's semantics where they differ from
   sequence of B*T tokens, as the reference feeds it to a
   ``batch_first=False`` encoder unbatched;
 * 8 heads where D is a multiple of 8, else one; LayerNorm epsilon 1e-6;
-  dropout fixed at 0.1 in each layer.
+  dropout fixed at 0.1 in each layer;
+* under mixed precision every layer computes in bf16, and the power
+  iteration runs on a bf16 copy of ``u``, whose result is stored back.
 
 Checkpoint names (``...action_network.<name>``): ``sn{1,2,3}.weight``
 [out, in], ``.bias``, ``.u`` (the JAX ``spectral`` collection, a buffer);
@@ -51,7 +53,8 @@ class SNDense(nn.Linear):
 
     def forward(self, x):
         w = self.weight
-        u = _normalize(self.u)
+        # under mixed precision the JAX step iterates on a bf16 copy of u
+        u = _normalize(self.u.to(w.dtype))
         v = _normalize(u @ w)             # [in]
         u_new = _normalize(w @ v)         # [out]
         sigma = torch.dot(u_new @ w, v)
@@ -86,7 +89,10 @@ class TorchTransformerEncoderLayer(nn.Module):
         nh, dh = self.nh, d // self.nh
         q, k, v = (lin(x).reshape(s, nh, dh).transpose(0, 1)
                    for lin in (self.q, self.k, self.v))
-        att = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(dh), dim=-1)
+        # JAX divides by sqrt(dh) cast to the input's type (bf16 under mixed
+        # precision)
+        scale = float(torch.tensor(math.sqrt(dh), dtype=torch.float64).to(x.dtype))
+        att = torch.softmax((q @ k.transpose(-1, -2)) / scale, dim=-1)
         y = (att @ v).transpose(0, 1).reshape(s, d)
         x = self.ln1(x + self.drop_attn(self.attn_out(y)))
         h = self.drop_ff(F.gelu(self.ff1(x)))

@@ -9,7 +9,11 @@
     loss = MSE(x_recon, x) + 0.25 MSE(sg(z_q), z_e) + 0.25 MSE(z_q, sg(z_e))
 
 GELU is the exact (erf) form everywhere except in the fused roundtrip, whose
-kernel uses tanh-GELU as the TPU kernel did. The decoder reads the raw
+kernel uses tanh-GELU as the TPU kernel did. Under mixed precision
+(``utils/mixed_precision.py``) the encoder MLP runs in bf16, the latent
+layer's product in fp32 (so z_e is fp32), the bf16 codebook is searched by
+kernel 1's bf16 instance, which gives z_q in z_e's type, fp32, as the TPU
+kernel's output takes z's type, and the decoder runs in fp32. The decoder reads the raw
 gathered code (no straight-through estimator), and the training forward
 returns the detached quantized code as the latent. Parameters keep the
 reference torch key names (``encoder.0``, ``to_latent.W``,
@@ -27,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from robot_manipulation_vq_vae_tpu_torch.ops import lipvq_kernel as K
+from robot_manipulation_vq_vae_tpu_torch.utils.mixed_precision import at_least_f32
 
 
 def _lipschitz_weight(W, ci):
@@ -50,7 +55,10 @@ class LipschitzDense(nn.Module):
         return _lipschitz_weight(self.W, self.ci)
 
     def forward(self, x):
-        return torch.sigmoid(x @ self.normalized_weight().t() + self.b)
+        # an fp32 product, as the JAX layer's preferred_element_type asks:
+        # under mixed precision the latent is fp32 from bf16 inputs
+        w = self.normalized_weight()
+        return torch.sigmoid(at_least_f32(x) @ at_least_f32(w).t() + self.b)
 
 
 class LFQQuantizer(nn.Module):
@@ -123,7 +131,7 @@ class LipVQVAE(nn.Module):
         z_e = self._encode(flat)
         z_q, _ = self.quantizer(z_e)
         x_recon = self._decode(z_q)
-        recon_loss = F.mse_loss(x_recon, flat)
+        recon_loss = F.mse_loss(x_recon, flat.to(x_recon.dtype))
         commitment = F.mse_loss(z_e, z_q.detach())
         codebook_l = F.mse_loss(z_q, z_e.detach())
         loss = recon_loss + 0.25 * commitment + 0.25 * codebook_l

@@ -12,6 +12,8 @@ import math
 import torch
 import torch.nn as nn
 
+from robot_manipulation_vq_vae_tpu_torch.utils.mixed_precision import at_least_f32
+
 # Flax nn.LayerNorm's default epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
 
@@ -40,7 +42,9 @@ class SelfAttention(nn.Module):
         nh, dh = self.num_heads, d // self.num_heads
         q, k, v = self.nets["qkv"](x).chunk(3, dim=-1)
         q, k, v = (a.reshape(b, t, nh, dh).transpose(1, 2) for a in (q, k, v))
-        att = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
+        # the JAX products ask for fp32 results (preferred_element_type): a
+        # bf16 q and k (mixed precision) are multiplied in fp32
+        att = (at_least_f32(q) @ at_least_f32(k).transpose(-1, -2)) / math.sqrt(dh)
         if self.causal:
             mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
             att = att.masked_fill(~mask, float("-inf"))

@@ -40,6 +40,12 @@ KERNELS = {
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "lipvq_error_string", ("lipvq_assign_core.cuh",),
     ),
+    # kernel 1's bf16 instance: a bf16 codebook, z fp32
+    "lipvq_assign_bf16": (
+        "lipvq_assign.cu", "lipvq_assign_bf16_launch",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "lipvq_error_string", ("lipvq_assign_core.cuh",),
+    ),
     "lipvq_roundtrip": (
         "lipvq_roundtrip.cu", "lipvq_roundtrip_launch",
         [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,

@@ -35,7 +35,7 @@ Models differentiate the assignment through ``L2Nearest``
 (``l2_nearest``), whose backward is the TPU kernel's custom VJP
 (``lipvq_kernel.py:127-132``): no gradient for z, and the cotangent of z_q
 summed into the codebook rows by index (``index_add_``, as the TPU backward
-was plain XLA, ``segment_sum``).
+was plain XLA, ``segment_sum``), in the cotangent's type.
 
 The kernels are built by ``ops/cuda_build.py``.
 """
@@ -49,6 +49,7 @@ from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
     on_cpu,
     stream_of,
 )
+from robot_manipulation_vq_vae_tpu_torch.utils.mixed_precision import at_least_f32
 
 
 # ---------------------------------------------------------------------------
@@ -58,10 +59,14 @@ from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
 def l2_nearest_plain(z, codebook):
     """Plain version of the assign kernel: argmin_k of
     ||C_k||^2 - 2 z.C_k (first index on a tie) and the gathered codes.
-    Returns (idx [N] int32, z_q [N, D])."""
-    c_sq = (codebook * codebook).sum(-1)
-    idx = (c_sq[None, :] - 2.0 * (z @ codebook.t())).argmin(-1)
-    return idx.to(torch.int32), codebook[idx]
+    Operands narrower than fp32 are upcast first and the distances formed in
+    fp32, as the TPU kernel does (c_sq from the upcast codebook, as
+    ``_assign_pallas_raw`` computes it). Returns (idx [N] int32, z_q [N, D]
+    in z's type)."""
+    z32, cb32 = at_least_f32(z), at_least_f32(codebook)
+    c_sq = (cb32 * cb32).sum(-1)
+    idx = (c_sq[None, :] - 2.0 * (z32 @ cb32.t())).argmin(-1)
+    return idx.to(torch.int32), codebook[idx].to(z.dtype)
 
 
 def _assign_splits(n, k, sms):
@@ -79,19 +84,26 @@ def _assign_splits(n, k, sms):
 
 
 def l2_nearest_cuda(z, codebook):
-    """Fused nearest-code assignment + gather. z [N, D], codebook [K, D]
-    fp32. Returns (idx [N] int32, z_q [N, D])."""
+    """Fused nearest-code assignment + gather. z [N, D] fp32 and codebook
+    [K, D] fp32 (kernel ``lipvq_assign``) or bf16 (``lipvq_assign_bf16``,
+    the instance the mixed-precision paper step runs, whose LipVQ latent
+    stays fp32: it reads the bf16 codebook as it lies, forms the distances
+    in fp32 from c_sq summed over the upcast codebook, and writes z_q in
+    fp32). Returns (idx [N] int32, z_q [N, D] fp32)."""
     if on_cpu((z, codebook)):
         return l2_nearest_plain(z, codebook)
-    name = "lipvq_assign"
-    check_cuda_inputs(name, (z, codebook))
+    name = "lipvq_assign_bf16" if codebook.dtype == torch.bfloat16 else "lipvq_assign"
+    check_cuda_inputs(name, (z, codebook), (torch.float32, torch.bfloat16))
+    if z.dtype != torch.float32:
+        raise TypeError(f"{name}: z must be fp32, got {z.dtype}")
     if z.dim() != 2 or codebook.dim() != 2 or z.shape[1] != codebook.shape[1]:
         raise ValueError(
             f"{name}: z {tuple(z.shape)} and codebook {tuple(codebook.shape)}"
         )
     n, d = z.shape
     k = codebook.shape[0]
-    c_sq = (codebook * codebook).sum(-1)
+    cb32 = at_least_f32(codebook)
+    c_sq = (cb32 * cb32).sum(-1)
     idx = torch.empty(n, dtype=torch.int32, device=z.device)
     z_q = torch.empty_like(z)
     sms = torch.cuda.get_device_properties(z.device).multi_processor_count
@@ -111,7 +123,10 @@ def l2_nearest_cuda(z, codebook):
 class L2Nearest(torch.autograd.Function):
     """Nearest-code assignment with the codebook's gradient: forward through
     the assign kernel (or, with ``use_kernel`` False, its plain version);
-    backward d_codebook = segment_sum(g_zq, idx) and no gradient for z."""
+    backward d_codebook = the rows of g_zq summed by idx (``index_add_``) in
+    g_zq's type, as JAX's ``segment_sum`` sums them, and no gradient for z.
+    The paper step's g_zq is fp32 (its z is): the sum stays fp32 and
+    autograd rounds it once to a bf16 codebook's type."""
 
     @staticmethod
     def forward(ctx, z, codebook, use_kernel):
@@ -132,7 +147,11 @@ class L2Nearest(torch.autograd.Function):
 def l2_nearest(z, codebook, use_kernel=True):
     """Differentiable nearest-code assignment + gather: (idx [N] int32,
     z_q [N, D]); the kernel on CUDA tensors, the plain version on CPU
-    tensors or when @use_kernel is False."""
+    tensors or when @use_kernel is False. z is fp32 (fp64 on the CPU):
+    LipVQ's latent stays fp32 under mixed precision, and a bf16 z would
+    need a bf16 cotangent summed in JAX's row order."""
+    if z.dtype == torch.bfloat16:
+        raise TypeError("l2_nearest: z must not be bf16 (LipVQ's latent is fp32)")
     return L2Nearest.apply(z, codebook, use_kernel)
 
 

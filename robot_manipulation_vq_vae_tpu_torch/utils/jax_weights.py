@@ -20,6 +20,11 @@ BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
 ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
 ``scale``/``bias``. Any key that is missing or left unused raises: there are
 no partial loads.
+
+A JAX tree traced with ``train.packed_rgb_encoders`` holds each group of
+cameras' trunks as one ``packed_backbone``; it is carried across in the
+default per-camera layout (``models/packed_film.py``), the cameras in the
+spec order of the port's ``ObservationEncoder`` that packs them.
 """
 
 import numpy as np
@@ -85,8 +90,47 @@ def _child_entries(mod, names, jax_path, torch_path):
         )
 
 
+def _unflatten(flat):
+    nested = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = nested
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return nested
+
+
+def _flatten(nested, prefix=()):
+    out = {}
+    for k, v in nested.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = v
+    return out
+
+
+def unpack_packed_backbones(module, flat):
+    """@flat with every ``packed_backbone`` of the encoders of @module
+    unpacked into the per-camera ``core_{key}/backbone`` layout."""
+    from robot_manipulation_vq_vae_tpu_torch.models import packed_film as PackedFilm
+    from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import ObservationEncoder
+
+    if not any("/packed_backbone/" in k for k in flat):
+        return flat
+    nested = _unflatten(flat)
+    key_lists = {tuple(m.packed_rgb_keys()) for m in module.modules()
+                 if isinstance(m, ObservationEncoder)}
+    for keys in sorted(k for k in key_lists if k):
+        if PackedFilm.has_packed_site(nested["params"], keys):
+            nested = PackedFilm.convert_variables_packed_to_default(nested, list(keys))
+    return _flatten(nested)
+
+
 def load_jax_variables(module, flat):
     """Fill @module from the flat JAX variables @flat (see module docstring)."""
+    flat = unpack_packed_backbones(module, flat)
     state = module.state_dict()
     wanted = {k for k in state if not k.endswith("num_batches_tracked")}
     used, filled, new_state = set(), set(), {}

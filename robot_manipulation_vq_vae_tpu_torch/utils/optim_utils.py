@@ -9,18 +9,25 @@ which builds them with optax).
 * optional global-norm clipping of the gradients before the step
   (``train.max_grad_norm``), with optax's rule: scale by max / norm when the
   norm reaches max;
-* the ``constant``, ``constant_with_warmup`` and ``linear`` schedules,
-  stepped once per gradient step. As in optax, the rate of update k
-  (k = 0, 1, ...) is the schedule at k, so ``constant_with_warmup`` gives
-  rate 0 to the first update.
+* the ``constant``, ``constant_with_warmup``, ``linear``, ``multistep`` and
+  ``cosine`` schedules, stepped once per gradient step. As in optax, the
+  rate of update k (k = 0, 1, ...) is the schedule at k, so
+  ``constant_with_warmup`` gives rate 0 to the first update. ``multistep``
+  counts its ``epoch_schedule`` milestones in gradient steps too, as the
+  JAX package does; ``cosine`` is optax's ``warmup_cosine_decay_schedule(0,
+  lr, warmup, num_training_steps, end_value=0)``, whose decay horizon
+  includes the warmup, and needs ``num_training_steps``
+  (``train.num_epochs * experiment.epoch_every_n_steps``).
 
-The other schedules raise ``NotImplementedError``.
+Another schedule type raises ``ValueError``.
 """
+
+import math
 
 import torch
 
 
-def lr_factor_from_optim_params(optim_params):
+def lr_factor_from_optim_params(optim_params, num_training_steps=None):
     """The schedule as a factor of the initial rate: step k -> factor."""
     lr_cfg = optim_params["learning_rate"]
     sched_type = lr_cfg.get("scheduler_type", "constant_with_warmup")
@@ -34,14 +41,33 @@ def lr_factor_from_optim_params(optim_params):
     if sched_type == "linear":
         # 1 -> decay_factor over the warmup, then constant
         return lambda k: 1.0 + (decay - 1.0) * min(k / warmup, 1.0)
-    raise NotImplementedError(
-        f"learning-rate schedule {sched_type!r} is not ported yet (ROADMAP.md)"
-    )
+    if sched_type == "multistep":
+        milestones = [int(m) for m in lr_cfg.get("epoch_schedule", [])]
+        if not milestones:
+            raise ValueError("the multistep schedule needs an epoch_schedule")
+        return lambda k: decay ** sum(k >= m for m in milestones)
+    if sched_type == "cosine":
+        if num_training_steps is None:
+            raise ValueError("the cosine schedule needs num_training_steps "
+                             "(train.num_epochs * experiment.epoch_every_n_steps)")
+        horizon = int(num_training_steps) - warmup
+        if horizon <= 0:
+            raise ValueError(f"the cosine schedule's {num_training_steps} steps do "
+                             f"not outlast its {warmup} warmup steps")
+
+        def cosine(k):
+            if k < warmup:
+                return k / warmup
+            return 0.5 * (1.0 + math.cos(math.pi * min(k - warmup, horizon) / horizon))
+
+        return cosine
+    raise ValueError(f"Invalid LR scheduler type: {sched_type}")
 
 
-def optimizer_from_optim_params(params, optim_params):
+def optimizer_from_optim_params(params, optim_params, num_training_steps=None):
     """(optimizer, LambdaLR scheduler) over @params; step the scheduler once
-    after each optimizer step."""
+    after each optimizer step. @num_training_steps is the cosine schedule's
+    horizon."""
     params = list(params)
     opt_type = optim_params.get("optimizer_type", "adam")
     lr = float(optim_params["learning_rate"]["initial"])
@@ -53,7 +79,7 @@ def optimizer_from_optim_params(params, optim_params):
     else:
         raise ValueError(f"unknown optimizer type {opt_type}")
     scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lr_factor_from_optim_params(optim_params)
+        optimizer, lr_factor_from_optim_params(optim_params, num_training_steps)
     )
     return optimizer, scheduler
 

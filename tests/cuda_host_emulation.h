@@ -7,7 +7,7 @@
 // Launches are rewritten by the test from
 // `kernel<<<grid, threads, smem, stream>>>(args);` to
 // `emu::launch(grid, threads, smem, stream, [&] { kernel(args); });`.
-// A uint4, float2 or __nv_bfloat162 read or written at an address that the
+// A uint4, uint2, float2 or __nv_bfloat162 read or written at an address that the
 // card would refuse (not a multiple of its size) fails the launch with
 // cudaErrorMisalignedAddress. The test's stand-in for <cuda_bf16.h> includes
 // this file: __nv_bfloat16 is 16 bits, converted as the card converts.
@@ -84,6 +84,16 @@ inline float2 make_float2(float a, float b) {
   return v;
 }
 inline uint4 __ldg(const uint4* p) { return *p; }
+struct uint2 : CheckedVector<uint2, 8> {
+  unsigned x, y;
+};
+inline uint2 __ldg(const uint2* p) { return *p; }
+inline unsigned short __ldg(const unsigned short* p) { return *p; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 
 // <cuda_bf16.h>: the 16 high bits of an fp32
 struct __nv_bfloat16 {

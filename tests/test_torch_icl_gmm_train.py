@@ -271,6 +271,12 @@ def test_lr_schedule_matches_optax(sched):
 
 
 def test_other_schedules_name_the_roadmap():
+    """An unknown schedule raises as the JAX package's does; the cosine
+    schedule without its horizon raises (JAX asserts). ``multistep`` and
+    ``cosine`` are held against optax in tests/test_torch_train_modes.py."""
+    with pytest.raises(ValueError, match="Invalid LR scheduler type"):
+        PortOptim.lr_factor_from_optim_params(
+            {"learning_rate": {"initial": 1e-4, "scheduler_type": "exponential"}})
     optim_params = {"learning_rate": {"initial": 1e-4, "scheduler_type": "cosine"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="num_training_steps"):
         PortOptim.lr_factor_from_optim_params(optim_params)

@@ -17,9 +17,11 @@ the same carried-over weights and numpy inputs.
   bf16: the HVQVAE's losses (fp32 on both sides) within 1e-5, the action
   losses and the gradient norm within 2 % (bf16 keeps 8 bits; the two sides
   round the convolutions' sums differently), and the BatchNorm running
-  statistics with the bf16 rounding of the JAX update.
+  statistics with the bf16 rounding of the JAX update. ``_mixed_step``
+  also runs it with other ``train`` modes on
+  (tests/test_torch_train_modes.py, tests/test_torch_packed_film.py).
 
-Also: the JAX ``icl`` routing, and the options that are not ported raise."""
+Also: the JAX ``icl`` routing, and the ``train`` speed modes build."""
 
 import copy
 import functools
@@ -34,6 +36,8 @@ import jax.numpy as jnp
 
 import robot_manipulation_vq_vae_tpu.algo as JaxAlgo
 from robot_manipulation_vq_vae_tpu.config import config_factory as jax_config_factory
+from robot_manipulation_vq_vae_tpu.models import base_nets as JaxBaseNets
+from robot_manipulation_vq_vae_tpu.models import obs_nets as JaxObsNets
 from robot_manipulation_vq_vae_tpu.models.base_nets import set_pallas_pool
 from robot_manipulation_vq_vae_tpu.utils import obs_utils as JaxObsUtils
 from robot_manipulation_vq_vae_tpu.utils.ckpt_conversion import flatten_variables
@@ -54,8 +58,9 @@ METRICS = VQ_METRICS + ("l2_loss", "l1_loss", "cos_loss", "action_loss",
                         "policy_grad_norms", "vqvae_grad_norms")
 
 
-def _configure(cfg, film, train=False, mixed_precision=False):
-    """bench_train.py's (@film) or bench_infer.py's configuration, shrunk."""
+def _configure(cfg, film, train=False, mixed_precision=False, **modes):
+    """bench_train.py's (@film) or bench_infer.py's configuration, shrunk,
+    with the ``train`` options @modes."""
     with cfg.values_unlocked():
         cfg.observation.modalities.obs.low_dim = list(LOW_DIM) + (["lang_emb"] if film else [])
         cfg.observation.modalities.obs.rgb = CAMS
@@ -89,6 +94,8 @@ def _configure(cfg, film, train=False, mixed_precision=False):
         cfg.train.max_grad_norm = 1.0
         cfg.train.pallas_pool = True
         cfg.train.mixed_precision = mixed_precision
+        for k, v in modes.items():
+            cfg.train[k] = v
     return cfg
 
 
@@ -134,12 +141,13 @@ def _f32_embed_sums(state):
     return state.replace(aux={**state.aux, "vqvae": {"vq": vq}})
 
 
-def _pair(film, train=False, mixed_precision=False, x64=False):
+def _pair(film, train=False, mixed_precision=False, x64=False, **modes):
     """The JAX algo with perturbed weights and an initialized ``vq`` state,
-    and the port's algo on the CPU with the same weights."""
+    and the port's algo on the CPU with the same weights (the ``train``
+    options @modes on both)."""
     rng = np.random.RandomState(0)
     batch = _batch(rng, film)
-    jax_cfg = _configure(jax_config_factory("icl"), film, train, mixed_precision)
+    jax_cfg = _configure(jax_config_factory("icl"), film, train, mixed_precision, **modes)
     JaxObsUtils.initialize_obs_utils_with_config(jax_cfg)
     jax_algo = JaxAlgo.algo_factory("icl", jax_cfg, _shapes(film), A)
     assert type(jax_algo).__name__ == "ICLTransformerHVQVAE"
@@ -159,7 +167,7 @@ def _pair(film, train=False, mixed_precision=False, x64=False):
             params=params, aux={"policy": pol, "vqvae": vq},
             opt_states={n: jax_algo.optimizers[n].init(params[n]) for n in params}))
 
-    port_cfg = _configure(config_factory("icl"), film, train, mixed_precision)
+    port_cfg = _configure(config_factory("icl"), film, train, mixed_precision, **modes)
     PortObsUtils.initialize_obs_utils_with_config(port_cfg)
     algo = PortAlgo.algo_factory("icl", port_cfg, _shapes(film), A, device="cpu")
     assert type(algo).__name__ == "ICLTransformerHVQVAE"
@@ -289,11 +297,22 @@ def test_validate_updates_nothing_and_logs_telemetry(trained):
     assert log["Loss"] == log["L2_Loss"]
 
 
-@pytest.fixture(scope="module")
-def mixed():
+def reset_jax_modes():
+    """The JAX package's process-wide ``train`` mode flags back to off."""
+    set_pallas_pool(False)
+    JaxBaseNets.set_frozen_batch_norm(False)
+    JaxBaseNets.set_pool_free_stem(False)
+    JaxObsNets.set_packed_rgb_encoders(False)
+
+
+def _mixed_step(**modes):
+    """One ``train.mixed_precision`` step of the FiLM flagship on both sides,
+    with the ``train`` options @modes: (JAX losses, port losses, the port
+    algo, a copy of its policy holding JAX's updated variables, the port's
+    running statistics before the step)."""
     batch = _batch(np.random.RandomState(3), True)
     try:
-        jax_algo, algo = _pair(True, train=True, mixed_precision=True)
+        jax_algo, algo = _pair(True, train=True, mixed_precision=True, **modes)
         stats0 = {k: v.clone() for k, v in algo.nets["policy"].state_dict().items()
                   if k.endswith(("running_mean", "running_var"))}
         want = jax_algo.train_on_batch(batch, epoch=0)["losses"]
@@ -303,12 +322,18 @@ def mixed():
         load_jax_variables(expected, flatten_variables(
             {"params": state.params["policy"], **state.aux["policy"]}))
     finally:
-        set_pallas_pool(False)
+        reset_jax_modes()
     return want, got, algo, expected, stats0
 
 
-def test_mixed_precision_step_matches_jax(mixed):
-    want, got, algo, _, _ = mixed
+@pytest.fixture(scope="module")
+def mixed():
+    return _mixed_step()
+
+
+def assert_mixed_step_matches(want, got, algo):
+    """A mixed-precision step's metrics against JAX's at the tolerances of
+    the module docstring; the masters and their gradients fp32."""
     assert algo.mixed_precision
     for k in VQ_METRICS:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, atol=1e-6,
@@ -318,6 +343,11 @@ def test_mixed_precision_step_matches_jax(mixed):
     # the master weights and their gradients stay fp32
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in algo.nets.parameters())
+
+
+def test_mixed_precision_step_matches_jax(mixed):
+    want, got, algo, _, _ = mixed
+    assert_mixed_step_matches(want, got, algo)
 
 
 def test_mixed_precision_batch_norm_statistics_carry_the_bf16_rounding(mixed):
@@ -377,19 +407,30 @@ def test_batch_norm_bf16_matches_flax_with_bf16_statistics(shape):
 
 
 def test_icl_routing_and_options_not_ported():
+    """The JAX ``icl`` routing; the ``train`` speed modes, ported since,
+    build and are applied to the algo's own modules (see
+    tests/test_torch_train_modes.py and tests/test_torch_packed_film.py)."""
     cfg = _configure(config_factory("icl"), True)
     PortObsUtils.initialize_obs_utils_with_config(cfg)
-    for option in ("frozen_batch_norm", "pool_free_stem", "packed_rgb_encoders"):
-        bad = copy.deepcopy(cfg)
-        with bad.values_unlocked():
-            bad.train[option] = True
-        with pytest.raises(NotImplementedError, match=option):
-            PortAlgo.algo_factory("icl", bad, _shapes(True), A, device="cpu")
+    applied = {
+        "frozen_batch_norm": lambda m: getattr(m, "frozen", False),
+        "pool_free_stem": lambda m: getattr(m, "pool_free", False),
+        "packed_rgb_encoders": lambda m: getattr(m, "packed", None) is not None,
+    }
+    for option, is_set in applied.items():
+        on = copy.deepcopy(cfg)
+        with on.values_unlocked():
+            on.train[option] = True
+        algo = PortAlgo.algo_factory("icl", on, _shapes(True), A, device="cpu")
+        assert any(is_set(m) for m in algo.nets.modules()), option
     gmm = config_factory("icl_gmm_paper")
     with gmm.values_unlocked():
+        gmm.observation.modalities.obs.low_dim = list(LOW_DIM)
+        gmm.observation.modalities.obs.rgb = []
         gmm.train.mixed_precision = True
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
-        PortAlgo.algo_factory("icl_gmm_paper", gmm, _shapes(True), A, device="cpu")
+    PortObsUtils.initialize_obs_utils_with_config(gmm)
+    assert PortAlgo.algo_factory("icl_gmm_paper", gmm, dict(LOW_DIM), A,
+                                 device="cpu").mixed_precision
     routed = copy.deepcopy(cfg)
     with routed.values_unlocked():
         routed.algo.transformer.enabled = False

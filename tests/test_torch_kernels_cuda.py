@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (``cuda`` marker: they skip where there is none), and the wrappers' device
-rule: the two LipVQ kernels and the assign's backward (``L2Nearest``), the
+rule: the two LipVQ kernels (the assign in fp32 and its bf16 instance) and
+the assign's backward (``L2Nearest``), the
 stem pool's forward and backward in fp32 and bf16, and the equality-routing
 pool backward (kernel 5) in fp32 and bf16. This file imports neither JAX nor
 the JAX package, so that it runs on a machine with only PyTorch:
@@ -203,6 +204,84 @@ def test_l2_nearest_backward_matches_plain_autograd(cuda_device):
     (cbp[idx_p.long()] * w).sum().backward()
     assert zk.grad is None
     torch.testing.assert_close(cbk.grad, cbp.grad, rtol=0, atol=1e-5)
+
+
+def _check_bf16_assign(z, cb, idx_k, zq_k):
+    """Kernel 1's bf16 instance against the plain version: the codes equal
+    off near ties (where they differ, the two codes' distances, in float64
+    from the upcast operands, within 1e-5 of each other, relatively), and
+    z_q the code's own value, in fp32, to the bit."""
+    idx_p, _ = K.l2_nearest_plain(z, cb)
+    diff = (idx_k != idx_p).nonzero().squeeze(1)
+    if len(diff):
+        z64, cb64 = z[diff].double(), cb.double()
+        d_k = ((z64 - cb64[idx_k[diff].long()]) ** 2).sum(-1)
+        d_p = ((z64 - cb64[idx_p[diff].long()]) ** 2).sum(-1)
+        gap = (d_k - d_p).abs() / d_p.abs().clamp_min(1e-30)
+        assert float(gap.max()) <= 1e-5, float(gap.max())
+    assert len(diff) <= max(1, len(z) // 1000)
+    assert zq_k.dtype == torch.float32
+    assert torch.equal(zq_k, cb[idx_k.long()].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 512, 65536])
+def test_assign_bf16_kernel_matches_plain(cuda_device, n):
+    """The bf16 codebook and an fp32 z, as the mixed-precision step gives
+    them, at the paper's D = 976, K = 1024: sigmoid-range latents, as
+    LipVQ's z_e is."""
+    gen = torch.Generator().manual_seed(6)
+    cb = (torch.rand(1024, 976, generator=gen) * 1.6 - 0.3).bfloat16().to(cuda_device)
+    z = torch.rand(n, 976, generator=gen).to(cuda_device)
+    before = LAUNCHES["lipvq_assign_bf16"]
+    idx_k, zq_k = K.l2_nearest_cuda(z, cb)
+    torch.cuda.synchronize()
+    assert LAUNCHES["lipvq_assign_bf16"] == before + 1
+    _check_bf16_assign(z, cb, idx_k, zq_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(300, 37, 1030), (8448, 48, 256), (100, 976, 1024)])
+def test_assign_bf16_kernel_exact_inputs_and_ties(cuda_device, n, d, k):
+    """Small integers (exact in bf16 and in every fp32 sum): the codes to
+    the bit, the first index on the ties of a repeating codebook."""
+    z, base = _exact_inputs(n, 64, d, cuda_device)
+    cb = base.repeat(-(-k // 64), 1)[:k].bfloat16()
+    idx, zq = K.l2_nearest_cuda(z, cb)
+    idx_p, zq_p = K.l2_nearest_plain(z, cb)
+    assert int(idx.max()) < 64
+    assert torch.equal(idx, idx_p) and torch.equal(zq, zq_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+def test_assign_bf16_kernel_takes_misaligned_views(cuda_device, offset):
+    z, cb = _exact_inputs(70, 100, 64, cuda_device)
+    zo = torch.cat([torch.zeros(offset, device=cuda_device), z.flatten()])
+    cbb = torch.cat([torch.zeros(offset, device=cuda_device), cb.flatten()]).bfloat16()
+    zo, cbb = zo[offset:].view(70, 64), cbb[offset:].view(100, 64)
+    idx, zq = K.l2_nearest_cuda(zo, cbb)
+    idx_p, zq_p = K.l2_nearest_plain(zo, cbb)
+    assert torch.equal(idx, idx_p) and torch.equal(zq, zq_p)
+
+
+@pytest.mark.cuda
+def test_assign_bf16_backward_on_the_card(cuda_device):
+    """The codebook's gradient through the bf16 instance: the fp32 cotangent
+    (fp32 z, as in the paper step) summed by ``index_add_``, whose fp32
+    atomics add in any order, then rounded once to the codebook's bf16."""
+    gen = torch.Generator().manual_seed(8)
+    cb = torch.rand(1024, 976, generator=gen).bfloat16().to(cuda_device)
+    z = torch.rand(512, 976, generator=gen).to(cuda_device)
+    w = torch.randn(512, 976, generator=gen).to(cuda_device)
+    cbk = cb.clone().requires_grad_(True)
+    before = LAUNCHES["lipvq_assign_bf16"]
+    idx, zq = K.l2_nearest(z, cbk)
+    (zq * w).sum().backward()
+    assert LAUNCHES["lipvq_assign_bf16"] == before + 1
+    want = torch.zeros(1024, 976).index_add_(0, idx.cpu().long(), w.cpu())
+    assert cbk.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(cbk.grad.float().cpu(), want, rtol=2 ** -8, atol=1e-6)
 
 
 def _relu_input(shape, device, seed):

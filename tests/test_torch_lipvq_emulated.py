@@ -35,7 +35,7 @@ def _host_source(src):
     emulation's terms."""
     src = src.replace("extern __shared__ __align__(16) float smem[];",
                       "float* smem = emu::dynamic_smem;")
-    return re.sub(r"(\w+(?:<\d+>)?)<<<(.*?)>>>\((.*?)\);",
+    return re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);",
                   r"emu::launch(\2, [&] { \1(\3); });", src, flags=re.S)
 
 
@@ -48,16 +48,18 @@ def host_kernels(tmp_path_factory):
     for header in ("cuda_runtime.h", "math_constants.h"):
         (out / header).write_text(f'#include "{EMULATION}"\n')
     shutil.copy(CSRC_DIR / "lipvq_assign_core.cuh", out)
-    fns = {}
-    for name in ("lipvq_assign", "lipvq_roundtrip"):
+    fns, libs = {}, {}
+    for name in ("lipvq_assign", "lipvq_assign_bf16", "lipvq_roundtrip"):
         source, entry, argtypes, _, _ = KERNELS[name]
-        cpp = out / f"{name}.cpp"
-        cpp.write_text(_host_source((CSRC_DIR / source).read_text()))
-        lib = out / f"lib{name}.so"
-        subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                        "-Wno-unknown-pragmas", f"-I{out}", "-o", str(lib), str(cpp)],
-                       check=True, capture_output=True)
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        if source not in libs:
+            cpp = out / source.replace(".cu", ".cpp")
+            cpp.write_text(_host_source((CSRC_DIR / source).read_text()))
+            lib = out / f"lib{cpp.stem}.so"
+            subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                            "-Wno-unknown-pragmas", f"-I{out}", "-o", str(lib), str(cpp)],
+                           check=True, capture_output=True)
+            libs[source] = ctypes.CDLL(str(lib))
+        fn = getattr(libs[source], entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns
@@ -120,6 +122,64 @@ def test_host_assign_kernel_keeps_the_first_index_on_a_tie(host_kernels, n, sms,
     idx_p, _ = K.l2_nearest_plain(z, cb)
     assert int(idx.max()) < period
     np.testing.assert_array_equal(idx.numpy(), idx_p.numpy())
+
+
+def _assign_bf16(fn, z, cb, sms):
+    """The bf16 instance's launch as ``l2_nearest_cuda`` makes it: a bf16
+    codebook, z fp32, c_sq over the upcast codebook."""
+    n, d = z.shape
+    k = cb.shape[0]
+    c_sq = (cb.float() * cb.float()).sum(-1)
+    width, splits, per_split = K._assign_splits(n, k, sms)
+    idx = torch.full((n,), -1, dtype=torch.int32)
+    z_q = torch.full_like(z, float("nan"))
+    part_v = torch.empty(splits, n)
+    part_i = torch.empty(splits, n, dtype=torch.int32)
+    err = fn(z.data_ptr(), cb.data_ptr(), c_sq.data_ptr(),
+             n, d, k, width, splits, per_split, idx.data_ptr(), z_q.data_ptr(),
+             part_v.data_ptr() if splits > 1 else None,
+             part_i.data_ptr() if splits > 1 else None, None)
+    assert err == 0
+    return idx, z_q
+
+
+# kernel 1's bf16 instance: the bf16 codebook read as it lies (8-byte vector
+# loads where D is a multiple of 4, else one element at a time) against an
+# fp32 z, on exact inputs (small integers: every distance exact in any order)
+@pytest.mark.parametrize("n,d,k,sms", [
+    (16, 976, 1024, 132),   # 64, 16: the B = 1 request's shape
+    (200, 37, 1024, 3),     # 128, 2, D not a multiple of 4
+    (77, 212, 256, 1),      # 128, 1
+    (300, 210, 1030, 132),  # 64, 17
+    (512, 976, 1024, 132),  # 64, 16: the bf16 paper step's shape
+    (130, 100, 300, 1),     # 128, 1: a ragged last row tile and code tile
+])
+def test_host_assign_bf16_kernel_matches_plain_and_pallas(host_kernels, n, d, k, sms):
+    from robot_manipulation_vq_vae_tpu.ops.pallas.lipvq_kernel import l2_nearest_pallas
+
+    z, cb = _exact_inputs(n, k, d)
+    cb = cb.to(torch.bfloat16)
+    idx, z_q = _assign_bf16(host_kernels["lipvq_assign_bf16"], z, cb, sms)
+    idx_p, zq_p = K.l2_nearest_plain(z, cb)
+    idx_x, zq_x = l2_nearest_pallas(jnp.asarray(z.numpy()),
+                                    jnp.asarray(cb.float().numpy()).astype(jnp.bfloat16),
+                                    512, True)
+    np.testing.assert_array_equal(idx.numpy(), idx_p.numpy())
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_x))
+    assert z_q.dtype == torch.float32 and torch.equal(z_q, zq_p)
+    np.testing.assert_array_equal(z_q.float().numpy(), np.asarray(zq_x, np.float32))
+
+
+def test_host_assign_bf16_kernel_reads_unaligned_views(host_kernels):
+    """z and the codebook one element into their storage: no vector load,
+    and the same codes."""
+    z, cb = _exact_inputs(70, 100, 64)
+    zo = torch.cat([torch.zeros(1), z.flatten()])[1:].view(70, 64)
+    cbb = torch.cat([torch.zeros(1), cb.flatten()]).to(torch.bfloat16)[1:].view(100, 64)
+    idx, z_q = _assign_bf16(host_kernels["lipvq_assign_bf16"], zo, cbb, 3)
+    idx_p, zq_p = K.l2_nearest_plain(zo, cbb)
+    np.testing.assert_array_equal(idx.numpy(), idx_p.numpy())
+    assert torch.equal(z_q, zq_p)
 
 
 def _roundtrip(fn, x, w):
