@@ -9,7 +9,7 @@ Phases, each of which fails the run when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. the assign kernel against its plain version at D in {976, 210},
-     K = 1024, N in {16, 256, 512, 65536} (each time with its achieved
+     K = 1024, N in {10, 16, 160, 256, 320, 512, 65536} (each time with its achieved
      TFLOP/s and the tile width and splits the wrapper chose), and its
      backward (L2Nearest) against plain autograd at N = 512, D = 976;
   4. the roundtrip kernel against its plain version on 65,536 x 12 chunks
@@ -17,7 +17,9 @@ Phases, each of which fails the run when it fails:
   5. the tokenizer path: LipVQVAE.roundtrip_fused at 65,536 chunks;
   6. the stem pool's kernels (forward, backward) in fp32 against their plain
      versions at the paper training path's [512, 64, 58, 58], the flagship
-     fp32 step's [1024, 64, 58, 58] (both timed) and at [2, 64, 57, 59], on
+     fp32 step's [1024, 64, 58, 58], phase 15's training shapes [100 | 1000
+     | 320 | 640, 64, 58, 58] and the requests' [1 | 10 | 16 | 160 | 256, 64,
+     58, 58] (all timed) and at [2, 64, 57, 59], on
      inputs after a ReLU (about 60 % zeros, so windows tie): maxima, offsets
      and dx bit-equal; each timed forward with the path its launcher took
      (runs of whole planes or tiles, blocks, shared memory);
@@ -98,9 +100,25 @@ Phases, each of which fails the run when it fails:
      step's from its fp32 step's), the bf16 step's median
      beside phase 10b's, no stem-pool launch; 14d, flagship bf16 steps with
      frozen_batch_norm (the fresh statistics unchanged to the bit) and with
-     pool_free_stem (no stem-pool launch), each median beside phase 10b's.
+     pool_free_stem (no stem-pool launch), each median beside phase 10b's;
+  15. the rest of the ICL family on phase 8's observations, fp32,
+     train.pallas_pool on: 15a, ICL, ICLGaussian and ICLGMM at
+     exps/templates/icl.json's widths (MLP [1024, 1024], 5 modes), B = 100:
+     a warm-up and 3 timed steps (3 + 3 stem-pool launches a step), a
+     kernel step against a plain step, 3 requests at B = 1 and 3 at B = 16,
+     the B = 16 action bit-equal to the F.max_pool2d model's (the GMM
+     sampled with injected draws); 15b, ICLRNN and ICLRNN_GMM (2-layer
+     LSTM of 400, horizon 10), B = 100 x T = 10, trained as 15a, then 20
+     stepwise get_action calls at B = 16 (the state reset at call 10), each
+     bit-equal to the F.max_pool2d model's; 15c, icl_mamba's ICLMamba_GMM
+     at its template's widths (6 Mamba layers of 512, context 10) with
+     LipVQ, B = 64 (6 + 6 stem-pool launches and 1 assign a step), a kernel
+     step against a plain step, requests, the Mamba backbone's forward and
+     backward alone, then 1 + 2 steps with the template's LN-act tokenizer
+     and with ICLMambaHVQVAE; every median beside phase 8's GPT step.
 Each path runs with the launch counts set to 0 just before it and read just
-after; a kernel of the path that was never launched fails the run.
+after; a kernel of the path that was never launched fails the run. The
+kernels line gives each kernel's launches on every path that ran it.
 
 TF32 is switched off for matmul and cuDNN: the fp32 comparisons and times are
 full fp32, and the bf16 ones compare in bf16.
@@ -132,7 +150,11 @@ TPU_ROUTE = "robot_manipulation_vq_vae_tpu/ops/pallas/pool_kernel.py"
 TIE_REL = 1e-5             # rows whose two best distances are closer may flip
 MAX_FLIP_SHARE = 1e-3      # ... and at most 0.1% of the rows may
 
-ASSIGN_DS, ASSIGN_NS = (976, 210), (16, 256, 512, 65536)
+# N: icl_mamba's B = 1 request (10 rows), a B = 16 paper request's 16 x 16
+# rows, icl_mamba's B = 16 request (160), 256, icl_mamba's step (its context
+# half, 32 x 10 rows), the paper step's 512, and the tokenizer's
+ASSIGN_DS, ASSIGN_NS = (976, 210), (10, 16, 160, 256, 320, 512, 65536)
+ASSIGN_NS_BF16 = (256, 512, 65536)
 TOKENIZER_CHUNKS = 65536
 IMG, CROP = 128, 116       # camera images, center-cropped at eval
 BATCHES = (1, 16)          # one env, and the 16-env batch
@@ -141,9 +163,18 @@ REQUESTS = 3
 # [1024, 64, 58, 58]
 FLAGSHIP_POOL = (1024, 64, 58, 58)
 # the paper training path's stem pool input (3 cameras x 2 groups of 32 x 16
-# frames per step, each [512, 64, 58, 58]), the flagship's in fp32, and a
-# small odd shape; the first two are timed, the first feeds the kernels line
-POOL_SHAPES = ((512, 64, 58, 58), FLAGSHIP_POOL, (2, 64, 57, 59))
+# frames per step, each [512, 64, 58, 58]), the flagship's in fp32, the ICL
+# family's training steps (phase 15: the MLP policies' 100 frames, the RNN
+# policies' 100 x 10, icl_mamba's 32 x 10 a group, ICLMambaHVQVAE's 64 x
+# 10), the requests' (an MLP or RNN policy's B = 1 and 16 frames,
+# icl_mamba's 1 x 10 and 16 x 10 a group, the paper's 16 x 16 at B = 16 and
+# in the rollout), and a small odd shape; all but the odd one are timed, the
+# first feeds the kernels line
+FAMILY_POOL_SHAPES = ((100, 64, 58, 58), (1000, 64, 58, 58), (320, 64, 58, 58),
+                      (640, 64, 58, 58))
+REQUEST_POOL_SHAPES = tuple((n, 64, 58, 58) for n in (1, 10, 16, 160, 256))
+POOL_SHAPES = ((512, 64, 58, 58), FLAGSHIP_POOL, *FAMILY_POOL_SHAPES,
+               *REQUEST_POOL_SHAPES, (2, 64, 57, 59))
 # kernel 5's op at the flagship stem activation as the JAX package drives it
 # (scripts/mfu_campaign.py, [3072, 58, 58, 64] NHWC), and a shape it must
 # leave to torch's own gradient
@@ -166,6 +197,18 @@ def check(ok, msg):
     """Fail the run unless @ok (an assert would vanish under python -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# each main-path run's launches: {path: {kernel: launches}}, for the
+# kernels line's launches_by_path
+PATH_LAUNCHES = {}
+
+
+def record_path(path, counts):
+    """Add @counts, the launches of one run of @path, to PATH_LAUNCHES."""
+    total = PATH_LAUNCHES.setdefault(path, {})
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
 
 
 def nvidia_smi():
@@ -344,6 +387,7 @@ def phase_tokenizer_path(CB, model, x):
         times.append((time.perf_counter() - t0) * 1e3)
     counts = dict(CB.LAUNCHES)
     check(counts["lipvq_roundtrip"] == REQUESTS, f"roundtrip launches {counts}")
+    record_path("phase 5 tokenizer", counts)
     check(recon.shape == x.shape and bool(torch.isfinite(recon).all()),
           "roundtrip_fused: recon is not finite or has the wrong shape")
     check(int(idx.min()) >= 0 and int(idx.max()) < 1024, "roundtrip_fused: codes out of range")
@@ -472,7 +516,7 @@ def phase_stem_pool(S, dev):
         check(torch.equal(out_k, out_p), f"{tag}: maxima differ")
         check(n_idx == 0, f"{tag}: {n_idx} offsets differ")
         check(torch.equal(dx_k, dx_p), f"{tag}: dx differs by {bwd_err}")
-        if shape not in POOL_SHAPES[:2]:
+        if shape == POOL_SHAPES[-1]:
             continue
         n_in, n_out = x.numel(), out_k.numel()
         _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
@@ -528,12 +572,6 @@ def phase_policy_path(CB, dev, profile):
         plain.get_action(*requests[b][0])
     torch.cuda.synchronize()
 
-    def serve(model, obs, ctx):
-        t0 = time.perf_counter()
-        action = model.get_action(obs, ctx)
-        torch.cuda.synchronize()
-        return action, (time.perf_counter() - t0) * 1e3
-
     # the kernel model and the plain-quantizer model serve each request in
     # turns (plain, kernel, kernel, plain, ...); the plain model launches no
     # kernel, so the counts below are the kernel model's alone
@@ -545,7 +583,7 @@ def phase_policy_path(CB, dev, profile):
             order = ("plain", "kernel") if r % 2 == 0 else ("kernel", "plain")
             for which in order:
                 before = CB.LAUNCHES["lipvq_assign"]
-                action, ms = serve(algo if which == "kernel" else plain, obs, ctx)
+                action, ms = served(algo if which == "kernel" else plain, obs, ctx)
                 times[b][which].append(ms)
                 launched = CB.LAUNCHES["lipvq_assign"] - before
                 check(launched == (which == "kernel"),
@@ -555,6 +593,7 @@ def phase_policy_path(CB, dev, profile):
     counts = dict(CB.LAUNCHES)
     check(counts["lipvq_assign"] == REQUESTS * len(BATCHES), f"assign launches {counts}")
     check(counts["stem_pool_fwd"] == 0, "the default stem launched the pool kernel")
+    record_path("phase 7 icl_gmm_paper serving", counts)
     for b in BATCHES:
         for which in ("kernel", "plain"):
             ts = times[b][which]
@@ -586,15 +625,17 @@ def phase_policy_path(CB, dev, profile):
             device_profile(f"get_action B={b}", lambda: algo.get_action(obs, ctx),
                            share=("assign_kernel", "merge_kernel"))
     del plain
-    serve_with_pool_switch(CB, dev, algo, requests[BATCHES[-1]][-1])
+    serve_with_pool_switch(CB, dev, algo, requests[BATCHES[-1]][-1],
+                           path="phase 7 icl_gmm_paper serving, train.pallas_pool")
     return counts, {b: statistics.median(times[b]["kernel"]) for b in BATCHES}
 
 
-def serve_with_pool_switch(CB, dev, algo, request, switch=None):
+def serve_with_pool_switch(CB, dev, algo, request, path, switch=None):
     """One B = 16 request through a model with train.pallas_pool on
     (@switch, or a new paper model) and the weights of @algo (F.max_pool2d):
     the pool is exact, so the GMMs must be equal bit for bit, and kernel 3
-    must run once per stem: 3 cameras x the query and the context group."""
+    must run once per stem: 3 cameras x the query and the context group.
+    The launches go to @path's in the kernels line."""
     import torch
 
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
@@ -609,6 +650,7 @@ def serve_with_pool_switch(CB, dev, algo, request, switch=None):
     counts = dict(CB.LAUNCHES)
     dist_a, _ = algo.action_distribution(*request)
     log(f"  B={request[1]['actions'].shape[0]} with train.pallas_pool on: launches {counts}")
+    record_path(path, counts)
     check(counts["stem_pool_fwd"] == 6 and counts["stem_pool_bwd"] == 0,
           f"stem pool launches {counts}")
     for name in ("means", "scales", "logits"):
@@ -618,19 +660,22 @@ def serve_with_pool_switch(CB, dev, algo, request, switch=None):
               f"{name} differ by {err} with the pool switch on")
 
 
-def make_train_batch(gen, dev):
-    """A seeded synthetic training batch on the card: [64, 16] sequences of
-    uint8 camera images, low-dim states, language embeddings and actions."""
+def make_train_batch(gen, dev, b=None, t=16):
+    """A seeded synthetic training batch on the card: [@b (TRAIN_B), @t]
+    sequences of uint8 camera images, low-dim states, language embeddings
+    and actions."""
     import torch
 
+    b = TRAIN_B if b is None else b
+
     def randn(*shape):
-        return torch.randn((TRAIN_B, 16, *shape), generator=gen, device=dev)
+        return torch.randn((b, t, *shape), generator=gen, device=dev)
 
     obs = {k: randn(*s) for k, s in LOW_DIM.items()}
-    obs.update({c: torch.randint(0, 256, (TRAIN_B, 16, IMG, IMG, 3), generator=gen,
+    obs.update({c: torch.randint(0, 256, (b, t, IMG, IMG, 3), generator=gen,
                                  device=dev, dtype=torch.uint8) for c in CAMS})
     obs["lang_emb"] = randn(768)
-    actions = torch.rand((TRAIN_B, 16, 12), generator=gen, device=dev) * 2 - 1
+    actions = torch.rand((b, t, 12), generator=gen, device=dev) * 2 - 1
     return {"obs": obs, "actions": actions}
 
 
@@ -668,6 +713,7 @@ def phase_training_path(CB, dev, profile):
     for name, n in want.items():
         check(counts[name] == n * TRAIN_STEPS, f"{name}: {counts[name]} launches, "
               f"expected {n} per step")
+    record_path("phase 8 icl_gmm_paper training", counts)
     med = statistics.median(times)
     log(f"  median {med:.3f} ms per step ({TRAIN_B / med * 1e3:.1f} samples/s; all: "
         f"{', '.join(f'{v:.3f}' for v in times)}); peak device memory "
@@ -891,6 +937,7 @@ def phase_pool_route(CB, P, dev):
         torch.cuda.synchronize()
         counts[name] = CB.LAUNCHES[name]
         check(counts[name] == 1, f"max_pool backward launched {name} {counts[name]} times")
+        record_path("phase 6c pool op", dict(CB.LAUNCHES))
         check(bool(torch.isfinite(dx).all()) and dx.shape == x.shape, "max_pool dx")
         # every tied cell gets its window's cotangent: more than one per window
         log(f"  max_pool_3x3_s2 {dtype}: launches {dict(CB.LAUNCHES)}; routed "
@@ -1066,6 +1113,7 @@ def phase_flagship_training(CB, dev, mixed_precision, profile):
     suffix = "_bf16" if mixed_precision else ""
     want = {f"stem_pool_fwd{suffix}": 3, f"stem_pool_bwd{suffix}": 3}
     log(f"  launches over {TRAIN_STEPS} steps {counts}")
+    record_path(f"phase 10{'b' if mixed_precision else 'a'} flagship training", counts)
     for name, n in counts.items():
         check(n == want.get(name, 0) * TRAIN_STEPS,
               f"{name}: {n} launches, expected {want.get(name, 0)} per step")
@@ -1222,6 +1270,7 @@ def phase_epoch(CB, dev, step_median):
         check(len(ckpts) == 1, f"checkpoints written: {ckpts}")
         h = history[0]
         log(f"  launches over the epoch {counts}")
+        record_path("phase 11 flagship bf16 epoch", counts)
         for name, n in counts.items():
             want = 3 * steps if name in ("stem_pool_fwd_bf16", "stem_pool_bwd_bf16") else 0
             check(n == want, f"{name}: {n} launches, expected {want}")
@@ -1486,6 +1535,7 @@ def phase_rollout_paper(CB, dev, get_action_b16_ms, profile):
     finally:
         pool.close()
     log(f"  launches over {ROLLOUT_HORIZON} locksteps {counts}")
+    record_path("phase 12a paper rollout", counts)
     want = {"lipvq_assign": 1, "stem_pool_fwd": 6}
     for name, n in counts.items():
         check(n == want.get(name, 0) * ROLLOUT_HORIZON,
@@ -1549,6 +1599,7 @@ def phase_rollout_checkpoint(CB, dev, trained, ckpt):
         check("Return" in logs["SmokeEnv"] and logs["SmokeEnv"]["Return"] == horizon,
               "an episode failed inside rollout_with_stats")
         log(f"  launches over {horizon} locksteps {counts}")
+        record_path("phase 12b checkpoint rollout", counts)
         for name, n in counts.items():
             want = 3 * horizon if name == "stem_pool_fwd" else 0
             check(n == want, f"{name}: {n} launches, expected {want}")
@@ -1677,6 +1728,7 @@ def phase_modality(CB, dev, modality, profile):
         check(all(np.isfinite(v) for v in vals.values()), f"metrics not finite: {vals}")
     counts = dict(CB.LAUNCHES)
     log(f"  launches over {TRAIN_STEPS} steps {counts}")
+    record_path(f"phase 13 {modality} training", counts)
     want = {"stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 0, "lipvq_roundtrip": 0}
     for name, n in want.items():
         check(counts[name] == n * TRAIN_STEPS, f"{modality} {name}: {counts[name]} "
@@ -1715,6 +1767,7 @@ def phase_modality(CB, dev, modality, profile):
                   f"B={b}: action {tuple(action.shape)} is not a finite [B, 12]")
             check(CB.LAUNCHES["stem_pool_fwd"] == 6 and CB.LAUNCHES["stem_pool_bwd"] == 0,
                   f"request launches {dict(CB.LAUNCHES)}")
+            record_path(f"phase 13 {modality} serving", dict(CB.LAUNCHES))
         request_ms[b] = statistics.median(ts)
         line = (f"  B={b}: get_action median {request_ms[b]:.3f} ms "
                 f"(all: {', '.join(f'{v:.3f}' for v in ts)})")
@@ -1732,7 +1785,8 @@ def phase_modality(CB, dev, modality, profile):
     # the same weights with F.max_pool2d: the served GMM bit for bit
     twin = modality_algo(modality, dev, pallas_pool=False)
     twin.nets.load_state_dict(algo.nets.state_dict())
-    serve_with_pool_switch(CB, dev, twin, requests[BATCHES[-1]][-1], switch=algo)
+    serve_with_pool_switch(CB, dev, twin, requests[BATCHES[-1]][-1],
+                           f"phase 13 {modality} serving", switch=algo)
     del twin
 
     # one step of the kernel model and one of the plain model from the same
@@ -1790,7 +1844,7 @@ PAPER_ASSIGN_N = 512   # the paper step's context half, 32 x 16 rows
 def phase_assign_bf16(K, dev):
     """14a: kernel 1's bf16 instance (a bf16 codebook, z in fp32 as the
     mixed-precision paper step gives it) against its plain version at
-    D = 976, K = 1024, N in ASSIGN_NS[1:]: codes equal off near ties, z_q
+    D = 976, K = 1024, N in ASSIGN_NS_BF16: codes equal off near ties, z_q
     the code's fp32 value to the bit; timed with its bound."""
     import torch
 
@@ -1800,7 +1854,7 @@ def phase_assign_bf16(K, dev):
     d = ASSIGN_DS[0]
     cb = ((torch.rand(1024, d, generator=gen, device=dev) * 2 - 1)
           * (6.0 / d) ** 0.5).bfloat16()
-    for n in ASSIGN_NS[1:]:
+    for n in ASSIGN_NS_BF16:
         z = torch.sigmoid(torch.randn(n, d, generator=gen, device=dev))
         tag = f"N={n}"
         idx_k, zq_k = K.l2_nearest_cuda(z, cb)
@@ -1823,9 +1877,10 @@ def phase_assign_bf16(K, dev):
     return rows
 
 
-def timed_steps(CB, algo, batches, tag):
+def timed_steps(CB, algo, batches, tag, path):
     """A warm-up step, then the launch counts from 0 over len(@batches) - 1
-    timed steps. Returns (counts, median ms, last metrics)."""
+    timed steps, added to @path's in the kernels line. Returns (counts,
+    median ms, last metrics)."""
     import torch
 
     algo.train_on_batch(batches[0], epoch=0)   # warm: cuDNN plans, allocator
@@ -1840,8 +1895,10 @@ def timed_steps(CB, algo, batches, tag):
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"{tag}: metrics {vals}")
     counts = dict(CB.LAUNCHES)
+    record_path(path, counts)
     med = statistics.median(times)
-    log(f"  {tag}: median {med:.3f} ms per step ({TRAIN_B / med * 1e3:.1f} samples/s; "
+    b = len(batches[0]["actions"])
+    log(f"  {tag}: median {med:.3f} ms per step ({b / med * 1e3:.1f} samples/s at B={b}; "
         f"all: {', '.join(f'{v:.3f}' for v in times)}); last {vals}; launches over "
         f"{len(times)} steps { {k: v for k, v in counts.items() if v} }")
     return counts, med, vals
@@ -1883,7 +1940,8 @@ def phase_paper_bf16(CB, dev, fp32_step_ms):
     check(algo.mixed_precision, "mixed_precision not taken")
     gen = torch.Generator(dev).manual_seed(21)
     batches = [make_train_batch(gen, dev) for _ in range(TRAIN_STEPS + 1)]
-    counts, med, vals = timed_steps(CB, algo, batches, "bf16 paper step")
+    counts, med, vals = timed_steps(CB, algo, batches, "bf16 paper step",
+                                    "phase 14b icl_gmm_paper bf16 training")
     check_launches("14b", counts, {"stem_pool_fwd_bf16": 6, "stem_pool_bwd_bf16": 6,
                                    "lipvq_assign_bf16": 1}, TRAIN_STEPS)
     check(set(vals) == {"log_probs", "action_loss", "policy_grad_norms", "vq_vae_loss"},
@@ -1906,7 +1964,8 @@ def phase_paper_bf16(CB, dev, fp32_step_ms):
     free_card()
     for modality in MODALITIES:
         algo = modality_algo(modality, dev, mixed_precision=True)
-        m_counts, m_med, m_vals = timed_steps(CB, algo, batches[:3], f"bf16 {modality} step")
+        m_counts, m_med, m_vals = timed_steps(CB, algo, batches[:3], f"bf16 {modality} step",
+                                              f"phase 14b {modality} bf16 training")
         check_launches(f"14b {modality}", m_counts,
                        {"stem_pool_fwd_bf16": 6, "stem_pool_bwd_bf16": 6}, 2)
         check(set(m_vals) == {"log_probs", "action_loss", "policy_grad_norms"},
@@ -1972,7 +2031,8 @@ def phase_flagship_packed(CB, dev, bf16_step_ms):
     compare_steps(res[True, True], res[True, False], keys, 1e-3, own, 1e-4,
                   grad_by_norm=True)
     del res, state
-    counts, med, _ = timed_steps(CB, algo, batches, "bf16 packed flagship step")
+    counts, med, _ = timed_steps(CB, algo, batches, "bf16 packed flagship step",
+                                 "phase 14c packed flagship bf16 training")
     check_launches("14c", counts, {}, TRAIN_STEPS)
     log(f"  packed bf16 {med:.3f} ms against phase 10b's {bf16_step_ms:.3f} ms "
         f"({med / bf16_step_ms:.3f} x)")
@@ -2001,7 +2061,8 @@ def phase_flagship_modes(CB, dev, bf16_step_ms):
         stats = lambda: {k: v.clone() for k, v in algo.nets.state_dict().items()  # noqa: E731
                          if k.endswith(("running_mean", "running_var"))}
         before = stats()
-        counts, med, _ = timed_steps(CB, algo, batches, f"bf16 {mode} step")
+        counts, med, _ = timed_steps(CB, algo, batches, f"bf16 {mode} step",
+                                     f"phase 14d flagship bf16 {mode}")
         check_launches(f"14d {mode}", counts, per_step, TRAIN_STEPS)
         after = stats()
         moved = sum(not torch.equal(before[k], v) for k, v in after.items())
@@ -2020,10 +2081,352 @@ def phase_flagship_modes(CB, dev, bf16_step_ms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15: the rest of the ICL family
+# ---------------------------------------------------------------------------
+
+FAMILY_B = 100         # exps/templates/icl.json's batch_size
+RNN_T = 10             # the RNN policies' window: rnn.horizon of icl.json
+MAMBA_T = 10           # algo.mamba.context_length of icl_mamba.json
+RNN_CALLS = 20         # stepwise get_action calls: two horizons
+FAMILY_MODES = {"plain": "ICL", "gaussian": "ICLGaussian", "gmm": "ICLGMM",
+                "rnn": "ICLRNN", "rnn_gmm": "ICLRNN_GMM"}
+
+
+def _observations(cfg):
+    """Phase 8's observations on @cfg."""
+    cfg.observation.modalities.obs.low_dim = list(LOW_DIM) + ["lang_emb"]
+    cfg.observation.modalities.obs.rgb = CAMS
+    paper = paper_config().observation.encoder.rgb
+    cfg.observation.encoder.rgb.core_class = paper.core_class
+    cfg.observation.encoder.rgb.core_kwargs = dict(paper.core_kwargs)
+    cfg.observation.encoder.rgb.obs_randomizer_class = paper.obs_randomizer_class
+    cfg.observation.encoder.rgb.obs_randomizer_kwargs = dict(paper.obs_randomizer_kwargs)
+
+
+def family_algo(mode, dev, pallas_pool=True, use_kernels=True):
+    """An ``icl`` policy of @mode at exps/templates/icl.json's widths
+    (``actor_layer_dims`` [1024, 1024], a 5-mode GMM; the RNN policies a
+    2-layer LSTM of 400 over windows of 10, with no MLP as
+    tests/test_icl_variants_parity.py sets them) on phase 8's observations."""
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory("icl")
+    with cfg.values_unlocked():
+        _observations(cfg)
+        cfg.train.pallas_pool = pallas_pool
+        cfg.algo.gaussian.enabled = mode == "gaussian"
+        cfg.algo.gmm.enabled = mode in ("gmm", "rnn_gmm")
+        cfg.algo.rnn.enabled = mode.startswith("rnn")
+        cfg.algo.rnn.horizon = RNN_T
+        if mode.startswith("rnn"):
+            cfg.algo.actor_layer_dims = []
+            cfg.train.seq_length = RNN_T
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl", cfg, SHAPES, 12, device=dev, use_kernels=use_kernels)
+    check(type(algo).__name__ == FAMILY_MODES[mode], f"{mode}: {type(algo).__name__}")
+    return algo
+
+
+def mamba_algo(dev, tokenizer="lipvq", gmm=True, use_kernels=True, pallas_pool=True):
+    """``icl_mamba`` at exps/templates/icl_mamba.json's widths (6 Mamba
+    layers of 512, d_state 16, context 10) on phase 8's observations:
+    ``ICLMamba_GMM`` with LipVQ (1024 codes) or the template's LN-act
+    tokenizer, or (not @gmm) ``ICLMambaHVQVAE`` with the template's HVQVAE;
+    every step supervised (the GMM path folds the window's actions)."""
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory("icl_mamba")
+    with cfg.values_unlocked():
+        _observations(cfg)
+        cfg.train.pallas_pool = pallas_pool
+        cfg.algo.gmm.enabled = gmm
+        mc = cfg.algo.mamba
+        mc.context_length = MAMBA_T
+        mc.supervise_all_steps = True
+        mc.vq_vae_enabled = tokenizer == "lipvq" or not gmm
+        mc.ln_act_enabled = tokenizer == "ln_act" and gmm
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory("icl_mamba", cfg, SHAPES, 12, device=dev,
+                             use_kernels=use_kernels)
+
+
+def request_obs(rng, b, t=None):
+    """Observations of one request: [B, ...] (@t None) or [B, t, ...]."""
+    obs, _ = make_request(rng, b, 1 if t is None else t)
+    return {k: v[:, 0] for k, v in obs.items()} if t is None else obs
+
+
+def served(algo, obs, ctx=None):
+    """(action, host ms) of one request."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = algo.get_action(obs) if ctx is None else algo.get_action(obs, ctx)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def family_requests(CB, algo, rng, per_request, path, ctx_t=None):
+    """3 requests at B = 1 and 3 at B = 16 (a warm one first each): the
+    launch counts of each (@per_request, added to @path's) and the medians.
+    @ctx_t: the context window of a prompt-conditioned policy."""
+    medians = {}
+    for b in BATCHES:
+        reqs = [(request_obs(rng, b, ctx_t), make_request(rng, b, ctx_t)[1] if ctx_t else None)
+                for _ in range(REQUESTS + 1)]
+        served(algo, *reqs[0])
+        times = []
+        for obs, ctx in reqs[1:]:
+            CB.reset_launch_counts()
+            action, ms = served(algo, obs, ctx)
+            times.append(ms)
+            check(action.shape == (b, 12) and bool(action.isfinite().all()),
+                  f"B={b}: action {tuple(action.shape)}")
+            check_launches(f"request B={b}", dict(CB.LAUNCHES), per_request(b), 1)
+            record_path(path, dict(CB.LAUNCHES))
+        medians[b] = statistics.median(times)
+        log(f"  B={b}: get_action median {medians[b]:.3f} ms "
+            f"(all: {', '.join(f'{v:.3f}' for v in times)})")
+    return medians
+
+
+def same_draws(dist_a, dist_b, gen):
+    """Two GMMs sampled with one injected mode and standard-normal draw."""
+    import torch
+
+    probs = torch.softmax(dist_a.logits, -1).reshape(-1, dist_a.logits.shape[-1])
+    mode = torch.multinomial(probs, 1, generator=gen).reshape(dist_a.logits.shape[:-1])
+    eps = torch.randn(dist_a.means.shape[:-2] + dist_a.means.shape[-1:], generator=gen,
+                      device=dist_a.means.device)
+    return dist_a.sample(mode=mode, eps=eps), dist_b.sample(mode=mode, eps=eps)
+
+
+def family_train(CB, algo, batches, per_step, tag, path, keys):
+    """A warm-up and the timed steps, @per_step launches a step and the
+    metrics @keys asserted. Returns the median ms."""
+    counts, med, vals = timed_steps(CB, algo, batches, tag, path)
+    check_launches(tag, counts, per_step, len(batches) - 1)
+    check(set(keys) <= set(vals), f"{tag}: metrics {sorted(vals)}")
+    return med
+
+
+def kernel_against_plain(algo, make_plain, batch, keys):
+    """One step of @algo and one of the plain model (@make_plain: its
+    use_kernels=False twin) from the same state, batch and draws, under
+    cuDNN's deterministic algorithms, within phase 8's tolerances."""
+    state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
+    res_k = one_step(algo, batch, deterministic=True)
+    del algo
+    free_card()
+    plain = make_plain()
+    plain.nets.load_state_dict(state)
+    compare_steps(res_k, one_step(plain, batch, deterministic=True), keys)
+    del plain, state
+    free_card()
+
+
+def phase_family_mlp(CB, dev, gen, mode, card):
+    """15a: one MLP policy: train, kernel against plain, serve, and the B = 16
+    action against the F.max_pool2d model's."""
+    import torch
+
+    algo = family_algo(mode, dev)
+    log(f"phase 15a {FAMILY_MODES[mode]}: actor_layer_dims "
+        f"{list(algo.algo_config.actor_layer_dims)}, "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, B={FAMILY_B}")
+    batches = [make_train_batch(gen, dev, FAMILY_B, 1) for _ in range(TRAIN_STEPS + 1)]
+    batches = [algo.process_batch_for_training(b) for b in batches]
+    keys = (("l2_loss", "action_loss", "policy_grad_norms") if mode == "plain"
+            else ("log_probs", "action_loss", "policy_grad_norms"))
+    name = FAMILY_MODES[mode]
+    step_ms = family_train(CB, algo, batches,
+                                   {"stem_pool_fwd": 3, "stem_pool_bwd": 3},
+                                   f"15a {mode} step ({card})", f"phase 15a {name} training",
+                                   keys)
+    rng = np.random.RandomState(15)
+    req_ms = family_requests(CB, algo, rng, lambda b: {"stem_pool_fwd": 3},
+                             f"phase 15a {name} serving")
+    obs = request_obs(rng, BATCHES[-1])
+    twin = family_algo(mode, dev, pallas_pool=False)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    if mode == "gmm":
+        got, want = same_draws(algo.action_distribution(obs), twin.action_distribution(obs),
+                               torch.Generator(dev).manual_seed(5))
+    else:
+        got, want = algo.get_action(obs), twin.get_action(obs)
+    check(torch.equal(got, want), f"{mode}: B=16 action differs from max_pool2d's by "
+          f"{float((got - want).abs().max())}")
+    log(f"  B={BATCHES[-1]} action bit-equal to the F.max_pool2d model's")
+    del twin
+    kernel_against_plain(algo, lambda: family_algo(mode, dev, use_kernels=False),
+                         batches[0], keys[1:])
+    return step_ms, req_ms
+
+
+def phase_family_rnn(CB, dev, gen, mode, card):
+    """15b: one RNN policy: train on windows of 10, kernel against plain,
+    then 20 stepwise get_action calls at B = 16 (the state carried, and
+    reset at call 10), each bit-equal to the F.max_pool2d model's."""
+    import torch
+
+    algo = family_algo(mode, dev)
+    rnn = algo.algo_config.rnn
+    log(f"phase 15b {FAMILY_MODES[mode]}: {rnn.num_layers}-layer {rnn.rnn_type} of "
+        f"{rnn.hidden_dim}, horizon {rnn.horizon}, "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, "
+        f"B={FAMILY_B} T={RNN_T}")
+    batches = [make_train_batch(gen, dev, FAMILY_B, RNN_T) for _ in range(TRAIN_STEPS + 1)]
+    keys = (("l2_loss", "action_loss", "policy_grad_norms") if mode == "rnn"
+            else ("log_probs", "action_loss", "policy_grad_norms"))
+    name = FAMILY_MODES[mode]
+    step_ms = family_train(CB, algo, batches,
+                                   {"stem_pool_fwd": 3, "stem_pool_bwd": 3},
+                                   f"15b {mode} step ({card})", f"phase 15b {name} training",
+                                   keys)
+    twin = family_algo(mode, dev, pallas_pool=False)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    rng = np.random.RandomState(16)
+    draws = torch.Generator(dev).manual_seed(6)
+    times = []
+    for p in (algo, twin):
+        p.reset()
+    for call in range(RNN_CALLS):
+        obs = request_obs(rng, BATCHES[-1])
+        CB.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = (algo.action_distribution(obs) if mode == "rnn_gmm" else algo.get_action(obs))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check_launches(f"15b call {call}", dict(CB.LAUNCHES), {"stem_pool_fwd": 3}, 1)
+        record_path(f"phase 15b {name} stepwise serving", dict(CB.LAUNCHES))
+        want = (twin.action_distribution(obs) if mode == "rnn_gmm" else twin.get_action(obs))
+        if mode == "rnn_gmm":
+            got, want = same_draws(got, want, draws)
+        check(got.shape == (BATCHES[-1], 12) and torch.equal(got, want),
+              f"{mode} call {call}: differs from max_pool2d's")
+        check(algo._rnn_counter == call + 1 and (algo._rnn_hidden_state is not None),
+              f"{mode}: the state was not carried at call {call}")
+    req_ms = statistics.median(times)
+    log(f"  {RNN_CALLS} stepwise get_action calls at B={BATCHES[-1]} (state reset at call "
+        f"{RNN_T}): median {req_ms:.3f} ms (all: {', '.join(f'{v:.3f}' for v in times)}); "
+        f"each bit-equal to the F.max_pool2d model's")
+    del twin
+    kernel_against_plain(algo, lambda: family_algo(mode, dev, use_kernels=False),
+                         batches[0], keys[1:])
+    return step_ms, {BATCHES[-1]: req_ms}
+
+
+def mamba_backbone_ms(algo, batch_b, dev):
+    """The Mamba backbone's forward and backward alone (CUDA events) on the
+    step's tokens: [B/2, 3T, width]."""
+    import torch
+
+    backbone = algo.nets["policy"].net.transformer
+    width = algo.algo_config.mamba.embed_dim
+    x = torch.randn(batch_b // 2, 3 * MAMBA_T, width, device=dev, requires_grad=True)
+
+    def fwd_bwd():
+        y = backbone(x)
+        torch.autograd.grad(y.sum(), [x, *backbone.parameters()])
+
+    return cuda_ms(fwd_bwd, iters=3, warmup=1, repeats=3)
+
+
+def phase_mamba(CB, dev, gen, card, gpt_step_ms, profile):
+    """15c: icl_mamba's ICLMamba_GMM with LipVQ at the template's widths,
+    B = 64: steps, kernel against plain, requests and the B = 16 GMM against
+    the F.max_pool2d model's; then the template's LN-act tokenizer, and
+    ICLMambaHVQVAE. Returns ({tag: step ms}, {B: request ms})."""
+    import torch
+
+    algo = mamba_algo(dev)
+    mc = algo.algo_config.mamba
+    log(f"phase 15c ICLMamba_GMM: {mc.num_layers} Mamba layers of {mc.embed_dim} "
+        f"(d_state 16), context {mc.context_length} ({3 * mc.context_length} tokens), "
+        f"LipVQ {algo._lipvq().quantizer.codebook.shape[0]} codes; "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, B={TRAIN_B}")
+    batches = [make_train_batch(gen, dev, TRAIN_B, MAMBA_T) for _ in range(TRAIN_STEPS + 1)]
+    keys = ("log_probs", "action_loss", "policy_grad_norms", "vq_vae_loss")
+    step_ms = family_train(
+        CB, algo, batches, {"stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 1},
+        f"15c LipVQ step ({card})", "phase 15c ICLMamba_GMM LipVQ training", keys)
+    mamba_ms = mamba_backbone_ms(algo, TRAIN_B, dev)
+    log(f"  the Mamba backbone's forward + backward alone on [{TRAIN_B // 2}, "
+        f"{3 * MAMBA_T}, {mc.embed_dim}]: {fmt(mamba_ms)} device time, "
+        f"{mamba_ms[0] / step_ms:.3f} of the step's host-clock median")
+    if profile:
+        busy = device_profile("icl_mamba LipVQ train step",
+                              lambda: algo.train_on_batch(batches[0], epoch=0),
+                              share=("pool_fwd_kernel", "pool_bwd_kernel", "assign_kernel"))
+        log(f"  the Mamba backbone alone / the step's device busy time: "
+            f"{mamba_ms[0] / busy:.3f}")
+    rng = np.random.RandomState(17)
+    req_ms = family_requests(CB, algo, rng, lambda b: {"stem_pool_fwd": 6, "lipvq_assign": 1},
+                             "phase 15c ICLMamba_GMM LipVQ serving", ctx_t=MAMBA_T)
+    obs, ctx = make_request(rng, BATCHES[-1], MAMBA_T)
+    twin = mamba_algo(dev, pallas_pool=False)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    got, want = same_draws(algo.action_distribution(obs, ctx)[0],
+                           twin.action_distribution(obs, ctx)[0],
+                           torch.Generator(dev).manual_seed(7))
+    check(torch.equal(got, want), "icl_mamba: B=16 action differs from max_pool2d's")
+    log(f"  B={BATCHES[-1]} action bit-equal to the F.max_pool2d model's")
+    del twin
+    kernel_against_plain(algo, lambda: mamba_algo(dev, use_kernels=False), batches[0],
+                         ("action_loss", "vq_vae_loss", "policy_grad_norms"))
+    steps = {"ICLMamba_GMM LipVQ": step_ms}
+    for tag, make, per_step in (
+            ("ICLMamba_GMM LN-act", lambda: mamba_algo(dev, tokenizer="ln_act"),
+             {"stem_pool_fwd": 6, "stem_pool_bwd": 6}),
+            ("ICLMambaHVQVAE", lambda: mamba_algo(dev, gmm=False),
+             {"stem_pool_fwd": 3, "stem_pool_bwd": 3})):
+        other = make()
+        log(f"phase 15c {tag}: {type(other).__name__}, "
+            f"{sum(p.numel() for p in other.nets.parameters())} parameters")
+        o_counts, steps[tag], _ = timed_steps(CB, other, batches[:3], f"15c {tag} ({card})",
+                                              f"phase 15c {tag} training")
+        check_launches(f"15c {tag}", o_counts, per_step, 2)
+        del other
+        free_card()
+    log(f"  step medians ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in steps.items())
+        + f"; phase 8's GPT step {gpt_step_ms:.3f} ms")
+    return steps, req_ms
+
+
+def phase_family(CB, dev, card, gpt_step_ms, profile):
+    """15: the rest of the ICL family at full width (see the module
+    docstring)."""
+    import torch
+
+    log(f"phase 15: the rest of the ICL family, phase 8's observations, fp32, "
+        f"train.pallas_pool on ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(25)
+    rows = {FAMILY_MODES[mode]: phase_family_mlp(CB, dev, gen, mode, card)
+            for mode in ("plain", "gaussian", "gmm")}
+    rows.update({FAMILY_MODES[mode]: phase_family_rnn(CB, dev, gen, mode, card)
+                 for mode in ("rnn", "rnn_gmm")})
+    steps, req_ms = phase_mamba(CB, dev, gen, card, gpt_step_ms, profile)
+    log(f"  phase 15 medians ({card}), ms: policy, train step, get_action B=1, B=16")
+    for name, (step_ms, req) in rows.items():
+        log(f"  {name:14s} {step_ms:10.3f} {req.get(1, float('nan')):10.3f} "
+            f"{req[BATCHES[-1]]:10.3f}")
+    log(f"  {'ICLMamba_GMM':14s} {steps['ICLMamba_GMM LipVQ']:10.3f} {req_ms[1]:10.3f} "
+        f"{req_ms[BATCHES[-1]]:10.3f}")
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
-    time of kernels whose names contain one of @share."""
+    time of kernels whose names contain one of @share. Returns the busy
+    time (ms)."""
     from collections import defaultdict
 
     import torch
@@ -2048,6 +2451,7 @@ def device_profile(tag, fn, share=()):
         log(f"  {' + '.join(share)}: {part:.3f} ms, {part / max(busy, 1e-9):.4f} of busy")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"  {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    return busy
 
 
 def main():
@@ -2120,6 +2524,8 @@ def main():
     bf16_counts, _ = phase_paper_bf16(CB, dev, paper_step_ms)
     phase_flagship_packed(CB, dev, flagship[True][1])
     phase_flagship_modes(CB, dev, flagship[True][1])
+    free_card()
+    phase_family(CB, dev, card, paper_step_ms, args.profile)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -2152,6 +2558,10 @@ def main():
                replaces=f"{TPU_ROUTE}:50", launches=route_counts[name], **route[name])
           for name in ("pool_route", "pool_route_bf16")),
     ]
+    # each kernel's launches on every path that ran it
+    for row in kernels:
+        row["launches_by_path"] = {path: c[row["name"]] for path, c in PATH_LAUNCHES.items()
+                                   if c.get(row["name"])}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

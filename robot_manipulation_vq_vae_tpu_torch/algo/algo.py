@@ -41,21 +41,30 @@ REGISTERED_ALGOS = {}
 LANG_EMB_KEY = ObsUtils.LANG_EMB_KEY
 
 # The one table from the port's state-dict names (``Algo.nets``) to the
-# reference's (robomimic's ``ICLTransformerHVQVAE``, as the JAX package's
+# reference's (robomimic's ICL policies, as the JAX package's
 # ``ckpt_conversion.convert_transformer_actor`` and ``convert_hvqvae`` read
-# them): the first pattern that matches a name rewrites it; a name that
+# the flagship's, and ``tests/test_icl_variants_parity.py`` the MLP and RNN
+# policies'): the first pattern that matches a name rewrites it; a name that
 # matches none (the HVQVAE's) is the same in both. The in-encoder action
 # tokenizer's state, parameters and buffers alike (the bin statistics, the
 # spectral-norm vectors), goes under ``policy.nets.encoder.action_network.``
 # with the names its module's docstring states; the JAX package converts
-# only LipVQ's.
+# only LipVQ's. The MLP policies' layers sit at ``policy.nets.mlp._model.*``
+# and ``policy.nets.decoder.nets.<head>``; the RNN policies' at
+# ``policy.nets.rnn.nets.{weight,bias}_{ih,hh}_l{k}`` (``nn.LSTM``'s) and
+# ``policy.nets.rnn.per_step_net.*``. The Mamba backbone and the GRU cells
+# keep the port's names under ``policy.nets.`` (the reference builds them
+# from other libraries).
 REFERENCE_NAMES = (
     (r"^policy\.net\.embedding\.embed_timestep$", "policy.params.embed_timestep"),
     (r"^policy\.net\.embedding\.", "policy.nets."),
     # an observation core's projection is the third layer of its nets
-    (r"^policy\.net\.encoder\.nets\.(\w+)\.obs_nets\.([^.]+)\.proj\.",
+    (r"^policy\.(?:net\.)?encoder\.nets\.(\w+)\.obs_nets\.([^.]+)\.proj\.",
      r"policy.nets.encoder.nets.\1.obs_nets.\2.nets.2."),
     (r"^policy\.net\.", "policy.nets."),
+    # the RNN policies: encoder, RNN and per-step head
+    (r"^policy\.(encoder|rnn)\.", r"policy.nets.\1."),
+    (r"^policy\.per_step_net\.", "policy.nets.rnn.per_step_net."),
 )
 
 
@@ -117,6 +126,8 @@ class Algo:
 
     # whether the class ports ``train.mixed_precision``
     MIXED_PRECISION = False
+    # whether get_action takes a context batch (ICLRolloutPolicy wraps it)
+    TAKES_CONTEXT = False
 
     def __init__(self, algo_config, obs_config, global_config, obs_key_shapes,
                  ac_dim, device=None, use_kernels=True):
@@ -348,10 +359,12 @@ def to_host(action):
 
 
 class PolicyAlgo(Algo):
-    """Base of the policy algorithms (the port's are the ICL policies, whose
-    ``get_action`` takes a context batch and whose ``_select_output`` picks
-    the predicted step of a window): the training steps' policy call, in
-    mixed precision where asked, and the action-MSE evaluation."""
+    """Base of the policy algorithms (the port's are the ICL policies: the
+    transformer and Mamba ones take a context batch in ``get_action``
+    (``TAKES_CONTEXT``) and ``_select_output`` picks the predicted step of
+    a window; the MLP and RNN ones take observations alone): the training
+    steps' policy call, in mixed precision where asked, and the action-MSE
+    evaluation."""
 
     def _policy_call(self, *args, **kwargs):
         """``self.nets["policy"](*args, **kwargs)`` in a training step. Under
@@ -366,7 +379,10 @@ class PolicyAlgo(Algo):
 
     def _predict_actions_for_mse(self, batch):
         """Predicted actions (numpy) for an MSE batch: ``get_action`` over the
-        batch's observations, with the batch as its own context."""
+        batch's observations, with the batch as its own context where the
+        policy takes one."""
+        if not self.TAKES_CONTEXT:
+            return to_host(self.get_action(batch["obs"]))
         ctx = {"actions": batch["actions"], "obs": batch["obs"]}
         return to_host(self.get_action(batch["obs"], context_batch=ctx))
 
@@ -521,3 +537,10 @@ class ICLRolloutPolicy(RolloutPolicy):
             context_batch = TensorUtils.map_tensor(context_batch, tile)
         return self._finish(self.policy.get_action(
             obs_dict=ob, context_batch=context_batch, goal_dict=goal), batched)
+
+
+def rollout_policy_class(algo):
+    """The rollout wrapper of @algo: ``ICLRolloutPolicy`` where its
+    ``get_action`` takes a context window (the transformer and Mamba ICL
+    policies), else ``RolloutPolicy`` (the MLP and RNN ICL policies)."""
+    return ICLRolloutPolicy if algo.TAKES_CONTEXT else RolloutPolicy

@@ -1,8 +1,13 @@
 """In-context imitation learning (counterpart of the JAX package's
-``algo/icl.py``:55-104, 645-975, 978-1244): the flagship
+``algo/icl.py``:55-590, 645-975, 978-1244): the flagship
 ``ICLTransformerHVQVAE``, registered as ``icl`` (with the JAX routing) and
-``icl_hvqvae``, and the paper's LipVQ path, ``ICLTransformer_GMM``,
-registered as ``icl_gmm_paper``.
+``icl_hvqvae``; the paper's LipVQ path, ``ICLTransformer_GMM``, registered
+as ``icl_gmm_paper``; and the rest of the family that ``icl`` routes to: the
+MLP policies ``ICL``, ``ICLGaussian`` and ``ICLGMM``, trained on the first
+step of each window, and the RNN policies ``ICLRNN`` and ``ICLRNN_GMM``,
+trained on the whole window and served step by step with a carried hidden
+state. ``ICLVAE`` is not ported: it waits for ``bc``'s BC_VAE, and ``icl``
+never routes to it.
 
 ``ICLTransformerHVQVAE.train_on_batch`` (JAX ``:736-866``) runs the
 hierarchical VQ-VAE over the batch's actions (its training forward updates
@@ -67,10 +72,6 @@ from robot_manipulation_vq_vae_tpu_torch.utils.optim_utils import (
 )
 
 
-def _not_ported(name):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
-
-
 @register_algo_factory_func("icl_hvqvae")
 def algo_config_to_class_hvqvae(algo_config):
     return ICLTransformerHVQVAE, {}
@@ -79,8 +80,8 @@ def algo_config_to_class_hvqvae(algo_config):
 @register_algo_factory_func("icl")
 def algo_config_to_class(algo_config):
     """The JAX package's routing (its ``icl.py:61-93``): every
-    transformer-enabled branch goes to ICLTransformerHVQVAE; the branches to
-    classes that are not ported raise."""
+    transformer-enabled branch goes to ICLTransformerHVQVAE, and so does the
+    VAE branch."""
     gaussian = "gaussian" in algo_config and algo_config.gaussian.enabled
     gmm = "gmm" in algo_config and algo_config.gmm.enabled
     vae = "vae" in algo_config and algo_config.vae.enabled
@@ -89,22 +90,22 @@ def algo_config_to_class(algo_config):
     if gaussian:
         if rnn or transformer:
             raise NotImplementedError("a Gaussian ICL policy has no RNN or transformer")
-        _not_ported("ICLGaussian")
+        return ICLGaussian, {}
     if gmm:
         if rnn:
-            _not_ported("ICLRNN_GMM")
+            return ICLRNN_GMM, {}
         if transformer:
             return ICLTransformerHVQVAE, {}
-        _not_ported("ICLGMM")
+        return ICLGMM, {}
     if vae:
         if rnn and not transformer:
             raise NotImplementedError("a VAE ICL policy has no RNN")
         return ICLTransformerHVQVAE, {}
     if rnn:
-        _not_ported("ICLRNN")
+        return ICLRNN, {}
     if transformer:
         return ICLTransformerHVQVAE, {}
-    _not_ported("ICL")
+    return ICL, {}
 
 
 @register_algo_factory_func("icl_gmm_paper")
@@ -112,27 +113,279 @@ def algo_config_to_class_gmm_paper(algo_config):
     return ICLTransformer_GMM, {}
 
 
-class ICLTransformer(PolicyAlgo):
-    """Transformer-policy ICL: the TransformerActorNetwork over the
-    observation window, trained on sequence prediction losses, with the
-    HVQVAE's loss added where a subclass has one (JAX ``:736-866``)."""
+def _repeat_first_step(v, n):
+    """[B, T, ...] -> the first step repeated @n times: [B, n, ...]."""
+    if isinstance(v, torch.Tensor):
+        return v[:, :1].expand(-1, n, *v.shape[2:]).contiguous()
+    return np.repeat(np.asarray(v)[:, :1], n, axis=1)
 
-    MIXED_PRECISION = True
+
+class ICL(PolicyAlgo):
+    """MLP-actor ICL (JAX ``ICL``, ``:147-288``): the first step of each
+    window (observations [B, ...] -> action [B, A]), the l2, smooth-l1 and
+    cosine losses weighted by ``algo.loss``. Its ``get_action`` takes no
+    context window (``TAKES_CONTEXT``)."""
 
     def _create_networks(self):
+        self.nets["policy"] = PolicyNets.ActorNetwork(
+            obs_shapes=self.obs_shapes,
+            goal_shapes=self.goal_shapes or None,
+            ac_dim=self.ac_dim,
+            mlp_layer_dims=tuple(self.algo_config.actor_layer_dims),
+            encoder_kwargs=self._encoder_kwargs(),
+        )
+
+    def _encoder_kwargs(self):
+        return ObsUtils.obs_encoder_kwargs_from_config(self.obs_config.encoder)
+
+    def process_batch_for_training(self, batch):
+        """The first step of each window."""
+        return {"obs": {k: v[:, 0] for k, v in batch["obs"].items()},
+                "goal_obs": batch.get("goal_obs", None),
+                "actions": batch["actions"][:, 0]}
+
+    def _dtype(self):
+        return next(self.nets.parameters()).dtype
+
+    def _obs(self, obs_dict):
+        """Observations on the device in the networks' dtype (float64 after
+        ``nets.double()``), or None."""
+        if obs_dict is None:
+            return None
+        return {k: v.to(self._dtype())
+                for k, v in device_process_obs(obs_dict, self.device).items()}
+
+    def _device_batch(self, batch):
+        """(observations, actions) on the device, in the networks' dtype
+        (``nets.double()`` runs the step in float64)."""
+        actions = torch.as_tensor(batch["actions"]).to(
+            self.device, torch.float32, non_blocking=True).to(self._dtype())
+        return self._obs(batch["obs"]), actions
+
+    def _action_losses(self, acts, target):
+        """l2, smooth-l1 and (first 3 dims) cosine losses, and their
+        weighted sum ``action_loss``."""
+        loss_cfg = self.algo_config.get("loss", {})
+        weights = (float(loss_cfg.get("l2_weight", 1.0)),
+                   float(loss_cfg.get("l1_weight", 0.0)),
+                   float(loss_cfg.get("cos_weight", 0.0)))
+        losses = OrderedDict()
+        losses["l2_loss"] = ((acts - target) ** 2).mean()
+        losses["l1_loss"] = LossUtils.smooth_l1_loss(acts, target)
+        losses["cos_loss"] = (LossUtils.cosine_loss(acts[..., :3], target[..., :3])
+                              if acts.shape[-1] >= 3 else acts.new_zeros(()))
+        losses["action_loss"] = sum(w * losses[k] for w, k in
+                                    zip(weights, ("l2_loss", "l1_loss", "cos_loss")))
+        return losses
+
+    def _losses(self, batch):
+        """The step's losses; ``action_loss`` is the one the backward takes."""
+        obs, actions = self._device_batch(batch)
+        policy = self.nets["policy"]
+        out = policy(obs, goal_dict=self._obs(batch.get("goal_obs") or None),
+                     generator=self.generator if policy.training else None)
+        return self._head_losses(out, actions)
+
+    def _head_losses(self, acts, actions):
+        return self._action_losses(acts, actions)
+
+    def _train_step(self, batch):
+        losses = self._losses(batch)
+        params = list(self.nets["policy"].parameters())
+        grads = torch.autograd.grad(losses["action_loss"], params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
+        metrics["policy_grad_norms"] = global_norm(grads)
+        if self.max_grad_norm is not None:
+            clip_by_global_norm_(grads, self.max_grad_norm)
+        self._step("policy", params, grads)
+        return metrics
+
+    def _validate_step(self, batch):
+        return self._losses(batch)
+
+    def log_info(self, info):
+        """Every loss as a float, and ``Loss`` (the action loss)."""
+        log = OrderedDict((k, float(v)) for k, v in info["losses"].items())
+        log["Loss"] = float(info["losses"]["action_loss"])
+        return log
+
+    @torch.inference_mode()
+    def get_action(self, obs_dict, goal_dict=None):
+        """The action of one request: observations [B, ...] -> [B, A]."""
+        return self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict))
+
+
+class ICLGaussian(ICL):
+    """Gaussian-head ICL (JAX ``ICLGaussian``, ``:291-377``): trained on the
+    negative log likelihood of the first step's action; ``get_action``
+    serves the mean (in eval the scale is 1e-4 with ``low_noise_eval``)."""
+
+    def _create_networks(self):
+        g = self.algo_config.gaussian
+        self.nets["policy"] = PolicyNets.GaussianActorNetwork(
+            obs_shapes=self.obs_shapes,
+            goal_shapes=self.goal_shapes or None,
+            ac_dim=self.ac_dim,
+            mlp_layer_dims=tuple(self.algo_config.actor_layer_dims),
+            fixed_std=g.fixed_std, init_std=g.init_std, min_std=g.min_std,
+            std_activation=g.std_activation, low_noise_eval=g.low_noise_eval,
+            encoder_kwargs=self._encoder_kwargs(),
+        )
+
+    def _head_losses(self, dist, actions):
+        lp = dist.log_prob(actions)
+        return OrderedDict(log_probs=lp.mean(), action_loss=-lp.mean())
+
+    @torch.inference_mode()
+    def action_distribution(self, obs_dict, goal_dict=None):
+        """The policy's distribution over a request's actions [B, A]."""
+        return self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict))
+
+    def get_action(self, obs_dict, goal_dict=None):
+        return self.action_distribution(obs_dict, goal_dict).mean
+
+
+class ICLGMM(ICLGaussian):
+    """GMM-head ICL (JAX ``ICLGMM``, ``:380-410``): trained as ICLGaussian;
+    ``get_action`` samples the GMM (its scales 1e-4 in eval with
+    ``low_noise_eval``) with the algo's generator."""
+
+    def _create_networks(self):
+        g = self.algo_config.gmm
+        self.nets["policy"] = PolicyNets.GMMActorNetwork(
+            obs_shapes=self.obs_shapes,
+            goal_shapes=self.goal_shapes or None,
+            ac_dim=self.ac_dim,
+            mlp_layer_dims=tuple(self.algo_config.actor_layer_dims),
+            num_modes=g.num_modes, min_std=g.min_std,
+            std_activation=g.std_activation, low_noise_eval=g.low_noise_eval,
+            encoder_kwargs=self._encoder_kwargs(),
+        )
+
+    def get_action(self, obs_dict, goal_dict=None):
+        with torch.inference_mode():
+            return self.action_distribution(obs_dict, goal_dict).sample(self.generator)
+
+
+class ICLRNN(ICL):
+    """RNN ICL (JAX ``ICLRNN``, ``:413-506``): an LSTM or GRU over the
+    observation window [B, T, ...], trained on every step's action with
+    ICL's losses (with ``rnn.open_loop`` every step sees the first step's
+    observations). ``get_action`` is stepwise: it takes observations
+    [B, ...], runs one step from the hidden state it carries across calls,
+    and starts from zeros on the first call, every ``rnn.horizon`` calls and
+    after ``reset()``."""
+
+    def _create_networks(self):
+        rnn = self.algo_config.rnn
+        self.nets["policy"] = PolicyNets.RNNActorNetwork(
+            obs_shapes=self.obs_shapes,
+            goal_shapes=self.goal_shapes or None,
+            ac_dim=self.ac_dim,
+            mlp_layer_dims=tuple(self.algo_config.actor_layer_dims),
+            rnn_hidden_dim=rnn.hidden_dim, rnn_num_layers=rnn.num_layers,
+            rnn_type=rnn.rnn_type, encoder_kwargs=self._encoder_kwargs(),
+        )
+        self._setup_rnn_rollout()
+
+    def _setup_rnn_rollout(self):
+        self._rnn_horizon = self.algo_config.rnn.horizon
+        self._rnn_is_open_loop = self.algo_config.rnn.get("open_loop", False)
+        self.reset()
+
+    def reset(self):
+        """Start a new episode: the next call starts from a zero state."""
+        self._rnn_hidden_state = None
+        self._rnn_counter = 0
+        self._open_loop_obs = None
+
+    def process_batch_for_training(self, batch):
+        obs = batch["obs"]
+        if self._rnn_is_open_loop:
+            n = batch["actions"].shape[1]
+            obs = {k: _repeat_first_step(v, n) for k, v in obs.items()}
+        return {"obs": dict(obs), "goal_obs": batch.get("goal_obs", None),
+                "actions": batch["actions"]}
+
+    @torch.inference_mode()
+    def _rnn_step(self, obs_dict, goal_dict):
+        """The policy's output at one step of an episode (actions [B, A], or
+        the GMM over them), carrying the hidden state."""
+        if self._rnn_hidden_state is None or self._rnn_counter % self._rnn_horizon == 0:
+            self._rnn_hidden_state = None
+            if self._rnn_is_open_loop:
+                self._open_loop_obs = {k: (v.clone() if isinstance(v, torch.Tensor)
+                                           else np.array(v)) for k, v in obs_dict.items()}
+        if self._rnn_is_open_loop:
+            obs_dict = self._open_loop_obs
+        self._rnn_counter += 1
+        obs = {k: v[:, None] for k, v in self._obs(obs_dict).items()}   # T = 1
+        out, self._rnn_hidden_state = self.nets["policy"](
+            obs, goal_dict=self._obs(goal_dict), initial_state=self._rnn_hidden_state,
+            return_state=True)
+        return out
+
+    def get_action(self, obs_dict, goal_dict=None):
+        return self._rnn_step(obs_dict, goal_dict)[:, 0]
+
+
+class ICLRNN_GMM(ICLRNN):
+    """RNN-GMM ICL (JAX ``ICLRNN_GMM``, ``:509-590``): trained on the
+    negative log likelihood of every step's action; ``get_action`` samples
+    the step's GMM."""
+
+    def _create_networks(self):
+        rnn, g = self.algo_config.rnn, self.algo_config.gmm
+        self.nets["policy"] = PolicyNets.RNNGMMActorNetwork(
+            obs_shapes=self.obs_shapes,
+            goal_shapes=self.goal_shapes or None,
+            ac_dim=self.ac_dim,
+            rnn_hidden_dim=rnn.hidden_dim, rnn_num_layers=rnn.num_layers,
+            rnn_type=rnn.rnn_type, num_modes=g.num_modes, min_std=g.min_std,
+            std_activation=g.std_activation, low_noise_eval=g.low_noise_eval,
+            encoder_kwargs=self._encoder_kwargs(),
+        )
+        self._setup_rnn_rollout()
+
+    _head_losses = ICLGaussian._head_losses
+
+    def action_distribution(self, obs_dict, goal_dict=None):
+        """One step of an episode (see ``ICLRNN``): the GMM over its actions
+        [B, A]."""
+        return self._rnn_step(obs_dict, goal_dict).index_time(0)
+
+    def get_action(self, obs_dict, goal_dict=None):
+        with torch.inference_mode():
+            return self.action_distribution(obs_dict, goal_dict).sample(self.generator)
+
+
+class ICLTransformer(ICL):
+    """Transformer-policy ICL: the TransformerActorNetwork over the
+    observation window, trained on sequence prediction losses, with the
+    HVQVAE's loss added where a subclass has one (JAX ``:736-866``). Its
+    hyper-parameters come from ``_tx_cfg()``, ``algo.transformer`` (the
+    Mamba classes point it at ``algo.mamba``)."""
+
+    MIXED_PRECISION = True
+    TAKES_CONTEXT = True
+
+    def _create_networks(self):
+        self._set_params_from_config()
         self.nets["policy"] = PolicyNets.TransformerActorNetwork(
             obs_shapes=self.obs_shapes,
             goal_shapes=self.goal_shapes or None,
             ac_dim=self.ac_dim,
-            encoder_kwargs=ObsUtils.obs_encoder_kwargs_from_config(
-                self.obs_config.encoder
-            ),
+            encoder_kwargs=self._encoder_kwargs(),
             **self._policy_transformer_args(),
         )
-        self._set_params_from_config()
+
+    def _tx_cfg(self):
+        """The config section of the sequence model."""
+        return self.algo_config.transformer
 
     def _policy_transformer_args(self):
-        args = BaseNets.transformer_args_from_config(self.algo_config.transformer)
+        args = BaseNets.transformer_args_from_config(self._tx_cfg())
         # the transformer actor takes no tokenizer flags
         for k in ("transformer_fast_enabled", "transformer_bin_enabled",
                   "transformer_vq_vae_enabled", "transformer_ln_act_enabled"):
@@ -140,13 +393,15 @@ class ICLTransformer(PolicyAlgo):
         return args
 
     def _set_params_from_config(self):
-        tc = self.algo_config.transformer
+        tc = self._tx_cfg()
         if not tc.enabled:
-            raise ValueError(f"{type(self).__name__} needs algo.transformer enabled")
+            raise ValueError(f"{type(self).__name__} needs its sequence model's "
+                             "config section (algo.transformer, algo.mamba) enabled")
         self.context_length = tc.context_length
         self.supervise_all_steps = tc.supervise_all_steps
         self.pred_future_acs = tc.pred_future_acs
         self.vq_vae_enabled = tc.get("vq_vae_enabled", False)
+        self.fast_enabled = tc.get("fast_enabled", False)
         if self.pred_future_acs and not self.supervise_all_steps:
             raise ValueError("pred_future_acs needs supervise_all_steps")
 
@@ -174,32 +429,6 @@ class ICLTransformer(PolicyAlgo):
         if self.supervise_all_steps and self.pred_future_acs:
             return output[:, 0]
         return output[:, -1]
-
-    def _action_losses(self, acts, target):
-        """l2, smooth-l1 and (first 3 dims) cosine losses, and their
-        weighted sum ``action_loss``."""
-        loss_cfg = self.algo_config.get("loss", {})
-        weights = (float(loss_cfg.get("l2_weight", 1.0)),
-                   float(loss_cfg.get("l1_weight", 0.0)),
-                   float(loss_cfg.get("cos_weight", 0.0)))
-        losses = OrderedDict()
-        losses["l2_loss"] = ((acts - target) ** 2).mean()
-        losses["l1_loss"] = LossUtils.smooth_l1_loss(acts, target)
-        losses["cos_loss"] = (LossUtils.cosine_loss(acts[..., :3], target[..., :3])
-                              if acts.shape[-1] >= 3 else acts.new_zeros(()))
-        losses["action_loss"] = sum(w * losses[k] for w, k in
-                                    zip(weights, ("l2_loss", "l1_loss", "cos_loss")))
-        return losses
-
-    def _device_batch(self, batch):
-        """(observations, actions) on the device, in the networks' dtype
-        (``nets.double()`` runs the step in float64)."""
-        dtype = next(self.nets.parameters()).dtype
-        obs = {k: v.to(dtype)
-               for k, v in device_process_obs(batch["obs"], self.device).items()}
-        actions = torch.as_tensor(batch["actions"]).to(
-            self.device, torch.float32, non_blocking=True).to(dtype)
-        return obs, actions
 
     def _policy_forward(self, obs, action_inputs):
         """The policy's actions [B, T, A] (fp32). Under mixed precision
@@ -272,12 +501,12 @@ class ICLTransformerHVQVAE(ICLTransformer):
     def _create_networks(self):
         super()._create_networks()
         if self.vq_vae_enabled:
-            vq_cfg = self.algo_config.transformer.vqvae
+            vq_cfg = self._tx_cfg().vqvae
             self.nets["vqvae"] = HierarchicalVQVAE(
                 action_dim=self.ac_dim,
                 num_subclusters=vq_cfg.get("num_subclusters", 128),
                 num_clusters=vq_cfg.get("num_clusters", 32),
-                embed_dim=vq_cfg.get("embed_dim", self.algo_config.transformer.embed_dim),
+                embed_dim=vq_cfg.get("embed_dim", self._tx_cfg().embed_dim),
                 num_stages=vq_cfg.get("num_stages", 2),
                 num_layers_per_stage=vq_cfg.get("num_layers_per_stage", 10),
                 beta=vq_cfg.get("beta_ema", 0.8),
@@ -326,7 +555,7 @@ class ICLTransformerHVQVAE(ICLTransformer):
         return log
 
 
-class ICLTransformer_GMM(PolicyAlgo):
+class ICLTransformer_GMM(ICLTransformer):
     """Prompt-conditioned GMM transformer with an in-encoder action
     tokenizer: LipVQ, bin, LN-act, FAST or the default encoder.
 
@@ -360,17 +589,12 @@ class ICLTransformer_GMM(PolicyAlgo):
       the embedding and the whole GPT; the GMM heads.
     """
 
-    MIXED_PRECISION = True
+    BACKBONE = "gpt"
 
     def _create_networks(self):
-        if not (self.algo_config.gmm.enabled and self.algo_config.transformer.enabled):
-            raise ValueError("icl_gmm_paper needs algo.gmm and algo.transformer enabled")
-        tc = self.algo_config.transformer
-        self.context_length = tc.context_length
-        self.supervise_all_steps = tc.supervise_all_steps
-        self.pred_future_acs = tc.pred_future_acs
-        self.vq_vae_enabled = tc.get("vq_vae_enabled", False)
-        self.fast_enabled = tc.fast_enabled
+        if not self.algo_config.gmm.enabled:
+            raise ValueError(f"{type(self).__name__} needs algo.gmm enabled")
+        self._set_params_from_config()
         self._fast_tokenizer = None
         self.nets["policy"] = PolicyNets.ICLTransformerGMMActorNetwork(
             obs_shapes=self.obs_shapes,
@@ -380,16 +604,12 @@ class ICLTransformer_GMM(PolicyAlgo):
             min_std=self.algo_config.gmm.min_std,
             std_activation=self.algo_config.gmm.std_activation,
             low_noise_eval=self.algo_config.gmm.low_noise_eval,
-            encoder_kwargs=ObsUtils.obs_encoder_kwargs_from_config(
-                self.obs_config.encoder
-            ),
+            encoder_kwargs=self._encoder_kwargs(),
             action_input_shape=self.ac_dim,
+            backbone_type=self.BACKBONE,
             use_kernels=self.use_kernels,
-            **BaseNets.transformer_args_from_config(tc),
+            **BaseNets.transformer_args_from_config(self._tx_cfg()),
         )
-
-    # the training window, as the JAX package's ICLTransformer_GMM inherits it
-    process_batch_for_training = ICLTransformer.process_batch_for_training
 
     def _create_optimizers(self):
         super()._create_optimizers()
@@ -420,15 +640,6 @@ class ICLTransformer_GMM(PolicyAlgo):
             self._fast_tokenizer = FastHostEncoder(
                 proc_dir, os.environ.get("RMVQ_CLIP_DIR"))
         return self._fast_tokenizer
-
-    def _dtype(self):
-        return next(self.nets.parameters()).dtype
-
-    def _obs(self, obs_dict):
-        """Observations on the device in the networks' dtype (float64 after
-        ``nets.double()``)."""
-        return {k: v.to(self._dtype())
-                for k, v in device_process_obs(obs_dict, self.device).items()}
 
     def _context_actions(self, ctx_act):
         """The context actions [B, T, A] (numpy or a tensor) as the encoder
@@ -504,12 +715,6 @@ class ICLTransformer_GMM(PolicyAlgo):
         if "policy_grad_norms" in losses:
             log["Policy_Grad_Norms"] = float(losses["policy_grad_norms"])
         return log
-
-    def _select_output(self, output):
-        """The rollout action from the predicted sequence."""
-        if self.supervise_all_steps and self.pred_future_acs:
-            return output[:, 0]
-        return output[:, -1]
 
     @torch.inference_mode()
     def action_distribution(self, obs_dict, context_batch, goal_dict=None,

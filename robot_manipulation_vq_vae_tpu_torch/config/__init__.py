@@ -10,3 +10,4 @@ from robot_manipulation_vq_vae_tpu_torch.config.icl_config import (
     ICLGMMPaperConfig,
     ICLHVQVAEConfig,
 )
+from robot_manipulation_vq_vae_tpu_torch.config.icl_mamba_config import ICLMambaConfig

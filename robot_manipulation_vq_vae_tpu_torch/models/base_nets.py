@@ -1,6 +1,6 @@
 """Base network blocks (counterpart of the JAX package's ``models/base_nets.py``
-:153-221, 270-335, 720-785): the ResNet-18 trunk, its FiLM variant and
-SpatialSoftmax.
+:122-150, 153-221, 270-335, 720-785, 802-865): the MLP, the ResNet-18 trunk,
+its FiLM variant, SpatialSoftmax, and the recurrent base of the RNN policies.
 
 Images reach the port channels-last ([B, H, W, C]) as in the JAX package;
 ``VisualCore`` permutes them to contiguous NCHW once, and everything here
@@ -371,3 +371,128 @@ class SpatialSoftmax(nn.Module):
     @staticmethod
     def static_output_shape(input_shape, num_kp=32):
         return [num_kp if num_kp is not None else input_shape[-1], 2]
+
+
+class MLP(nn.Module):
+    """Linear layers of @layer_dims, each followed by @activation (and by
+    dropout where @dropouts gives one), then a Linear to @output_dim and the
+    optional @output_activation (JAX ``MLP``). The layers form the
+    reference's ``_model`` Sequential, so without dropout its Linear layers
+    sit at ``_model.0``, ``_model.2``, ... Biases start at 0, as Flax's."""
+
+    def __init__(self, input_dim, output_dim, layer_dims=(), activation=nn.ReLU,
+                 output_activation=None, dropouts=None):
+        super().__init__()
+        layers, names, dim = [], {}, input_dim
+        for i, width in enumerate(layer_dims):
+            names[f"fc{i}"] = f"_model.{len(layers)}"
+            layers += [nn.Linear(dim, width), activation()]
+            if dropouts is not None and dropouts[i] > 0:
+                layers.append(nn.Dropout(dropouts[i]))
+            dim = width
+        names["out"] = f"_model.{len(layers)}"
+        layers.append(nn.Linear(dim, output_dim))
+        if output_activation is not None:
+            layers.append(output_activation())
+        for layer in layers:
+            if isinstance(layer, nn.Linear):
+                nn.init.zeros_(layer.bias)
+        self._model = nn.Sequential(*layers)
+        self.JAX_NAMES = names
+        self.output_dim = output_dim
+
+    def forward(self, x):
+        return self._model(x)
+
+
+class FlaxGRUCell(nn.Module):
+    """A GRU cell in Flax's ``nn.GRUCell`` layout: input projections ``ir``,
+    ``iz``, ``in`` with biases, hidden projections ``hr``, ``hz`` without and
+    ``hn`` with one. (``nn.GRU`` has all six biases, and Adam would move the
+    two that Flax lacks.)"""
+
+    JAX_NAMES = {n: n for n in ("ir", "iz", "in", "hr", "hz", "hn")}
+
+    def __init__(self, input_dim, hidden_dim):
+        super().__init__()
+        for name in ("ir", "iz", "in"):
+            self.add_module(name, nn.Linear(input_dim, hidden_dim))
+        for name in ("hr", "hz", "hn"):
+            self.add_module(name, nn.Linear(hidden_dim, hidden_dim, bias=name == "hn"))
+
+    def forward(self, x, h):
+        m = self._modules
+        r = torch.sigmoid(m["ir"](x) + m["hr"](h))
+        z = torch.sigmoid(m["iz"](x) + m["hz"](h))
+        n = torch.tanh(m["in"](x) + r * m["hn"](h))
+        return (1.0 - z) * n + z * h
+
+
+class RNNBase(nn.Module):
+    """A multi-layer LSTM or GRU over [B, T, D] sequences (JAX ``RNNBase``):
+    returns the last layer's outputs [B, T, H] and the carries, per layer in
+    JAX's form, (c, h) for the LSTM and h for the GRU; ``initial_state``
+    takes the same form (None: zeros).
+
+    The LSTM is ``nn.LSTM`` (cuDNN on the card). Its stacked
+    ``weight_ih_l{k}`` / ``weight_hh_l{k}`` / ``bias_ih_l{k}`` /
+    ``bias_hh_l{k}``, gates in i, f, g, o order, hold the eight denses of
+    JAX's ``TorchLSTMCell`` (``ii``, ``if``, ``ig``, ``io`` and ``hi``,
+    ``hf``, ``hg``, ``ho``), both biases kept as the JAX cell keeps them, so
+    that Adam moves each as torch's does. The GRU is a loop over T of
+    ``FlaxGRUCell``s (``cells.{k}``)."""
+
+    def __init__(self, input_dim, hidden_dim, num_layers=2, rnn_type="LSTM"):
+        super().__init__()
+        if rnn_type not in ("LSTM", "GRU"):
+            raise ValueError(f"rnn_type {rnn_type} is neither LSTM nor GRU")
+        self.rnn_type = rnn_type
+        self.hidden_dim = hidden_dim
+        self.num_layers = num_layers
+        if rnn_type == "LSTM":
+            self.nets = nn.LSTM(input_dim, hidden_dim, num_layers, batch_first=True)
+        else:
+            self.cells = nn.ModuleList([
+                FlaxGRUCell(input_dim if k == 0 else hidden_dim, hidden_dim)
+                for k in range(num_layers)
+            ])
+
+    def jax_names(self):
+        if self.rnn_type == "GRU":
+            return {f"gru{k}": f"cells.{k}" for k in range(self.num_layers)}
+        return {}
+
+    def jax_stacked(self):
+        """{torch tensor: (JAX leaves, in stacking order; their stacking)}:
+        each of the LSTM's stacked tensors from its four gate denses."""
+        if self.rnn_type != "LSTM":
+            return {}
+        weights = lambda arrays: np.concatenate([a.T for a in arrays], 0)  # noqa: E731
+        biases = lambda arrays: np.concatenate(arrays, 0)  # noqa: E731
+        out = {}
+        for k in range(self.num_layers):
+            for side, name in (("i", "ih"), ("h", "hh")):
+                denses = [f"lstm{k}/{side}{gate}" for gate in "ifgo"]
+                out[f"nets.weight_{name}_l{k}"] = ([f"{d}/kernel" for d in denses], weights)
+                out[f"nets.bias_{name}_l{k}"] = ([f"{d}/bias" for d in denses], biases)
+        return out
+
+    def forward(self, x, initial_state=None):
+        if self.rnn_type == "LSTM":
+            hx = None
+            if initial_state is not None:
+                hx = (torch.stack([h for _, h in initial_state]),
+                      torch.stack([c for c, _ in initial_state]))
+            out, (h_n, c_n) = self.nets(x, hx)
+            return out, [(c_n[k], h_n[k]) for k in range(self.num_layers)]
+        carries = []
+        for k, cell in enumerate(self.cells):
+            h = (x.new_zeros(x.shape[0], self.hidden_dim) if initial_state is None
+                 else initial_state[k])
+            steps = []
+            for t in range(x.shape[1]):
+                h = cell(x[:, t], h)
+                steps.append(h)
+            x = torch.stack(steps, dim=1)
+            carries.append(h)
+        return x, carries

@@ -1,5 +1,6 @@
-"""GMM over actions (counterpart of the JAX package's ``models/distributions.py``
-:19-75): a mixture of diagonal Gaussians with explicit tensor math."""
+"""Action distributions (counterpart of the JAX package's
+``models/distributions.py``:19-75, 159-173): a mixture of diagonal Gaussians
+and a diagonal Gaussian, with explicit tensor math."""
 
 import math
 from dataclasses import dataclass
@@ -62,3 +63,28 @@ class GMMActionDistribution:
                               device=mean.device, dtype=mean.dtype)
         return mean + scale * eps
 
+
+
+@dataclass
+class DiagGaussian:
+    """Independent Normal over actions (the Gaussian policy heads).
+
+    mean, scale: [..., A]; batch shape [...], event shape [A].
+    """
+
+    mean: torch.Tensor
+    scale: torch.Tensor
+
+    def log_prob(self, actions):
+        """actions [..., A] -> log prob [...], summed over the action."""
+        return (-0.5 * ((actions - self.mean) ** 2 / self.scale ** 2
+                        + 2.0 * torch.log(self.scale) + _LOG_2PI)).sum(-1)
+
+    def sample(self, generator=None, eps=None):
+        """mean + scale * eps; the standard-normal ``eps`` [..., A] may be
+        injected (as ``GMMActionDistribution.sample``'s), else it is drawn
+        from @generator."""
+        if eps is None:
+            eps = torch.randn(self.mean.shape, generator=generator,
+                              device=self.mean.device, dtype=self.mean.dtype)
+        return self.mean + self.scale * eps

@@ -1,7 +1,8 @@
-"""Observation encoder / decoder and the transformer assemblies (counterpart
-of the JAX package's ``models/obs_nets.py``:220-461, 469-578, 602-694,
-697-792): ``MIMO_Transformer`` over the observation groups, and the in-context
-``ICL_MIMO_Transformer``.
+"""Observation encoder / decoder and the sequence assemblies (counterpart
+of the JAX package's ``models/obs_nets.py``:220-461, 469-599, 602-694,
+697-825): ``MIMO_Transformer`` over the observation groups, the in-context
+``ICL_MIMO_Transformer`` with a GPT or a Mamba backbone (``Mamba_Backbone``),
+and ``MIMO_MLP``.
 
 Per-key encoder cores and randomizers are built from the same config-shaped
 dicts as in the JAX package (``observation.encoder.*``); features are
@@ -15,7 +16,9 @@ query groups before the context group, as the JAX package draws its
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.models import obs_core
 from robot_manipulation_vq_vae_tpu_torch.models.packed_film import PackedResNet18ConvFiLM
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.bin_action import (
@@ -26,10 +29,14 @@ from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.default_encoder impor
 )
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import FastProjection
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.lipvq import LipVQVAE
-from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.ln_act import LNActEncoder
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.ln_act import (
+    LNActEncoder,
+    MambaBlock,
+)
 from robot_manipulation_vq_vae_tpu_torch.models.transformers import (
     GPT_Backbone,
     LN_EPS,
+    sinusoidal_positional_encoding,
 )
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import tensor_utils as TensorUtils
@@ -77,12 +84,17 @@ class ObservationEncoder(nn.Module):
     (``set_packed``, ``train.packed_rgb_encoders``): then the eligible
     cameras (``packed_rgb_keys``) run through one ``PackedResNet18ConvFiLM``
     over their own trunks, their images concatenated on the channels in
-    spec order, and each camera's features through its own core's head."""
+    spec order, and each camera's features through its own core's head.
+    With ``feature_activation="relu"`` (the MLP and RNN policies') each
+    core's features pass through a ReLU; keys without a core do not."""
 
-    def __init__(self, obs_shapes, encoder_kwargs=None):
+    def __init__(self, obs_shapes, encoder_kwargs=None, feature_activation=None):
         super().__init__()
+        if feature_activation not in (None, "relu"):
+            raise ValueError(f"feature_activation {feature_activation} is not relu or None")
         self.spec = _spec_items(obs_shapes)
         self.encoder_kwargs = encoder_kwargs
+        self.feature_activation = feature_activation
         shapes = dict(self.spec)
         self.randomizers = {}
         cores = {}
@@ -162,12 +174,15 @@ class ObservationEncoder(nn.Module):
         out = []
         for key, _ in self.spec:
             x = feats.get(key)
+            if x is None and key in self.obs_nets:
+                core = self.obs_nets[key]
+                lang = isinstance(core, obs_core.VisualCoreLanguageConditioned)
+                x = core(randomized[key], obs_dict[LANG_EMB_KEY]) if lang else core(
+                    randomized[key])
             if x is None:
                 x = randomized[key]
-                if key in self.obs_nets:
-                    core = self.obs_nets[key]
-                    lang = isinstance(core, obs_core.VisualCoreLanguageConditioned)
-                    x = core(x, obs_dict[LANG_EMB_KEY]) if lang else core(x)
+            elif self.feature_activation == "relu":
+                x = F.relu(x)
             for rand in self.randomizers[key]:
                 x = rand.forward_out(x)
             out.append(x.reshape(x.shape[0], -1))
@@ -208,11 +223,12 @@ class ObservationGroupEncoder(nn.Module):
     """One ObservationEncoder per observation group; concatenates the
     groups' features in group order."""
 
-    def __init__(self, observation_group_shapes, encoder_kwargs=None):
+    def __init__(self, observation_group_shapes, encoder_kwargs=None,
+                 feature_activation=None):
         super().__init__()
         self.groups = [g for g, _ in observation_group_shapes]
         self.nets = nn.ModuleDict({
-            group: ObservationEncoder(shapes, encoder_kwargs)
+            group: ObservationEncoder(shapes, encoder_kwargs, feature_activation)
             for group, shapes in observation_group_shapes
         })
         self.output_dim = sum(enc.output_dim for enc in self.nets.values())
@@ -282,39 +298,74 @@ class ICLObservationGroupEncoder(ObservationGroupEncoder):
         return obs, context_obs, context_actions, vq_vae_loss
 
 
+class Mamba_Backbone(nn.Module):
+    """Mamba blocks (d_state 16, d_conv 4, expand 2) as pre-LN residual
+    layers, ``x + mamba_i(ln_i(x))``, then an output LayerNorm: the
+    state-space twin of ``GPT_Backbone`` (JAX ``Mamba_Backbone``), causal by
+    construction. Each block's selective scan is ``ln_act.selective_scan``,
+    a loop over the T tokens in plain PyTorch: the JAX package computes it
+    with ``lax.associative_scan``, outside any Pallas kernel."""
+
+    D_STATE = 16
+
+    def __init__(self, embed_dim, num_layers=6):
+        super().__init__()
+        self.ln = nn.ModuleList([nn.LayerNorm(embed_dim, eps=LN_EPS)
+                                 for _ in range(num_layers)])
+        self.mamba = nn.ModuleList([MambaBlock(embed_dim, d_state=self.D_STATE)
+                                    for _ in range(num_layers)])
+        self.output_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
+
+    def jax_names(self):
+        names = {"output_ln": "output_ln"}
+        for i in range(len(self.ln)):
+            names[f"ln{i}"] = f"ln.{i}"
+            names[f"mamba{i}"] = f"mamba.{i}"
+        return names
+
+    def forward(self, x):
+        for ln, mamba in zip(self.ln, self.mamba):
+            x = x + mamba(ln(x))
+        return self.output_ln(x)
+
+
 class _TransformerEmbedding(nn.Module):
-    """Shared input embedding: Linear + timestep embedding + LayerNorm +
-    dropout."""
+    """Shared input embedding: Linear + timestep embedding (a learned table,
+    a zero-initialized parameter, or the fixed sinusoidal encoding) +
+    LayerNorm + dropout."""
 
     JAX_NAMES = {"embed_encoder": "embed_encoder", "embed_ln": "embed_ln"}
 
     def __init__(self, input_dim, embed_dim, context_length, emb_dropout=0.1,
                  sinusoidal=False, nn_parameter_for_timesteps=False):
         super().__init__()
-        if sinusoidal:
-            raise NotImplementedError("sinusoidal embeddings are not ported yet")
+        self.sinusoidal = sinusoidal
         self.nn_parameter_for_timesteps = nn_parameter_for_timesteps
         self.embed_encoder = nn.Linear(input_dim, embed_dim)
         nn.init.zeros_(self.embed_encoder.bias)
-        if nn_parameter_for_timesteps:
+        self.JAX_PARAMS = ()   # the sinusoidal encoding has no parameter
+        if sinusoidal:
+            pass
+        elif nn_parameter_for_timesteps:
             self.embed_timestep = nn.Parameter(
                 torch.zeros(1, context_length, embed_dim)
             )
+            self.JAX_PARAMS = ("embed_timestep",)
         else:
             self.embed_timestep_table = nn.Parameter(
                 0.02 * torch.randn(context_length, embed_dim)
             )
+            self.JAX_PARAMS = ("embed_timestep_table",)
         self.embed_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.embed_drop = nn.Dropout(emb_dropout)
-        self.JAX_PARAMS = (
-            ("embed_timestep",) if nn_parameter_for_timesteps
-            else ("embed_timestep_table",)
-        )
 
     def forward(self, x):
         emb = self.embed_encoder(x)
         t = emb.shape[1]
-        if self.nn_parameter_for_timesteps:
+        if self.sinusoidal:
+            time_emb = sinusoidal_positional_encoding(
+                t, emb.shape[-1], emb.device)[None].to(emb.dtype)
+        elif self.nn_parameter_for_timesteps:
             time_emb = self.embed_timestep[:, :t]
         else:
             time_emb = self.embed_timestep_table[None, :t]
@@ -374,8 +425,10 @@ class MIMO_Transformer(nn.Module):
 
 class ICL_MIMO_Transformer(nn.Module):
     """In-context assembly: interleave [ctx_obs_t, ctx_act_t] pairs, append
-    the T query obs -> 3T tokens -> GPT (context 3T) -> decode the last T.
-    One embedding, with shared weights, embeds all three token kinds."""
+    the T query obs -> 3T tokens -> GPT (context 3T), or with
+    ``backbone_type="mamba"`` a ``Mamba_Backbone`` of as many layers ->
+    decode the last T. One embedding, with shared weights, embeds all three
+    token kinds."""
 
     JAX_NAMES = {"encoder": "encoder", "embedding": "embedding",
                  "transformer": "transformer", "decoder": "decoder"}
@@ -395,8 +448,8 @@ class ICL_MIMO_Transformer(nn.Module):
                  action_input_shape=12, backbone_type="gpt",
                  encoder_kwargs=None, use_kernels=True):
         super().__init__()
-        if backbone_type != "gpt":
-            raise NotImplementedError(f"backbone {backbone_type} is not ported yet")
+        if backbone_type not in ("gpt", "mamba"):
+            raise ValueError(f"backbone {backbone_type} is neither gpt nor mamba")
         self.group_names = [g for g, _ in input_obs_group_shapes]
         self.encoder = ICLObservationGroupEncoder(
             input_obs_group_shapes,
@@ -415,17 +468,21 @@ class ICL_MIMO_Transformer(nn.Module):
             transformer_sinusoidal_embedding,
             transformer_nn_parameter_for_timesteps,
         )
-        self.transformer = GPT_Backbone(
-            embed_dim=transformer_embed_dim,
-            # x3: interleaved [ctx_obs, ctx_act] pairs + query obs
-            context_length=transformer_context_length * 3,
-            causal=transformer_causal,
-            attn_dropout=transformer_attn_dropout,
-            block_output_dropout=transformer_block_output_dropout,
-            num_layers=transformer_num_layers,
-            num_heads=transformer_num_heads,
-            activation=transformer_activation,
-        )
+        if backbone_type == "mamba":
+            self.transformer = Mamba_Backbone(transformer_embed_dim,
+                                              transformer_num_layers)
+        else:
+            self.transformer = GPT_Backbone(
+                embed_dim=transformer_embed_dim,
+                # x3: interleaved [ctx_obs, ctx_act] pairs + query obs
+                context_length=transformer_context_length * 3,
+                causal=transformer_causal,
+                attn_dropout=transformer_attn_dropout,
+                block_output_dropout=transformer_block_output_dropout,
+                num_layers=transformer_num_layers,
+                num_heads=transformer_num_heads,
+                activation=transformer_activation,
+            )
         self.decoder = ObservationDecoder(output_shapes, transformer_embed_dim)
 
     def forward(self, generator=None, **inputs):
@@ -448,3 +505,36 @@ class ICL_MIMO_Transformer(nn.Module):
         out["transformer_encoder_outputs"] = hidden
         out["vq_vae_loss"] = vq_loss
         return out
+
+
+class MIMO_MLP(nn.Module):
+    """Observation groups -> flat features (each core's through a ReLU) ->
+    MLP (ReLU after every layer, the last included) -> per-key linear heads
+    (JAX ``MIMO_MLP``). With no @layer_dims the heads read the features."""
+
+    def __init__(self, input_obs_group_shapes, output_shapes, layer_dims,
+                 encoder_kwargs=None):
+        super().__init__()
+        self.encoder = ObservationGroupEncoder(input_obs_group_shapes, encoder_kwargs,
+                                               feature_activation="relu")
+        dim = self.encoder.output_dim
+        self.mlp = None
+        if layer_dims:
+            self.mlp = BaseNets.MLP(dim, layer_dims[-1], layer_dims[:-1],
+                                    output_activation=nn.ReLU)
+            dim = layer_dims[-1]
+        self.decoder = ObservationDecoder(output_shapes, dim)
+
+    def jax_names(self):
+        names = {"encoder": "encoder", "decoder": "decoder"}
+        if self.mlp is not None:
+            names["mlp"] = "mlp"
+        return names
+
+    def forward(self, inputs, generator=None):
+        """@inputs: {group: observations [B, ...]}; @generator draws the
+        randomizers' crops in training."""
+        flat = self.encoder(inputs, generator)
+        if self.mlp is not None:
+            flat = self.mlp(flat)
+        return self.decoder(flat)

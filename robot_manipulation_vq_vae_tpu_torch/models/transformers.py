@@ -1,6 +1,7 @@
 """GPT backbone, pre-LN minGPT style (counterpart of the JAX package's
 ``models/transformers.py``): multi-head self-attention with an optional causal
-mask, exact (erf) GELU 4x MLP, pre-LN residual blocks and a final LayerNorm.
+mask, a 4x MLP with exact (erf) GELU or GEGLU, pre-LN residual blocks and a
+final LayerNorm; and the sinusoidal positional encoding.
 
 LayerNorms use Flax's epsilon, 1e-6, not torch's default 1e-5. Parameters
 keep the reference torch key names (``nets.transformer.{i}.nets.*``,
@@ -11,11 +12,35 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from robot_manipulation_vq_vae_tpu_torch.utils.mixed_precision import at_least_f32
 
 # Flax nn.LayerNorm's default epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
+
+
+def sinusoidal_positional_encoding(t, embed_dim, device=None):
+    """The sin / cos encoding of positions 0 .. @t - 1: [t, embed_dim], sines
+    in the even columns and cosines in the odd ones. It is a constant, and is
+    computed in float32 whatever the model's dtype, as the JAX package
+    computes it."""
+    half_ids = torch.arange(0, embed_dim, 2, dtype=torch.float32, device=device)
+    div_term = torch.exp(half_ids * (-math.log(10000.0) / embed_dim))
+    ang = torch.arange(t, dtype=torch.float32, device=device)[:, None] * div_term
+    pe = torch.zeros(t, embed_dim, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+class GEGLU(nn.Module):
+    """The GLU variant: the first half of the features times the exact GELU
+    of the second half ([..., 2n] -> [..., n])."""
+
+    def forward(self, x):
+        a, b = x.chunk(2, dim=-1)
+        return a * F.gelu(b)
 
 
 class SelfAttention(nn.Module):
@@ -54,7 +79,9 @@ class SelfAttention(nn.Module):
 
 
 class SelfAttentionBlock(nn.Module):
-    """Pre-LN residual block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+    """Pre-LN residual block: x + attn(ln1(x)); x + mlp(ln2(x)). With
+    ``activation="geglu"`` the MLP's first layer is twice as wide and GEGLU
+    halves it; any other activation but ``"gelu"`` raises."""
 
     JAX_NAMES = {"attention": "nets.attention", "ln1": "nets.ln1",
                  "ln2": "nets.ln2", "mlp_fc": "nets.mlp.0", "mlp_proj": "nets.mlp.2"}
@@ -62,16 +89,17 @@ class SelfAttentionBlock(nn.Module):
     def __init__(self, embed_dim, num_heads, causal=True, attn_dropout=0.1,
                  output_dropout=0.1, activation="gelu"):
         super().__init__()
-        if activation != "gelu":
-            raise NotImplementedError(f"activation {activation} is not ported yet")
+        if activation not in ("gelu", "geglu"):
+            raise NotImplementedError(f"activation {activation} is not ported")
+        geglu = activation == "geglu"
         self.nets = nn.ModuleDict({
             "attention": SelfAttention(embed_dim, num_heads, causal,
                                        attn_dropout, output_dropout),
             "ln1": nn.LayerNorm(embed_dim, eps=LN_EPS),
             "ln2": nn.LayerNorm(embed_dim, eps=LN_EPS),
             "mlp": nn.Sequential(
-                nn.Linear(embed_dim, 4 * embed_dim),
-                nn.GELU(),
+                nn.Linear(embed_dim, (8 if geglu else 4) * embed_dim),
+                GEGLU() if geglu else nn.GELU(),
                 nn.Linear(4 * embed_dim, embed_dim),
                 nn.Dropout(output_dropout),
             ),

@@ -46,7 +46,7 @@ def main(args):
     config, _ = FileUtils.config_from_checkpoint(ckpt_dict=ckpt_dict)
     env = EnvUtils.wrap_env_from_config(env, config=config)
     context_batch = None
-    if ckpt_dict["algo_name"].startswith("icl"):
+    if policy.policy.TAKES_CONTEXT:
         context_batch = context_from_dataset(policy.policy, config, args.dataset, args.seed)
     logs, _ = TrainUtils.rollout_with_stats(
         policy=policy, envs={env.name: env}, horizon=args.horizon,

@@ -318,13 +318,11 @@ def run_rollouts(config, model, envs, context_loader, epoch, video_dir,
                  data_logger):
     """The epoch's rollouts in every env, logged as ``Rollout/<key>/<env>``
     (and ``Timing_Stats/Rollout_<env>_<key>``); returns the logs per env."""
-    is_icl = config.algo_name.startswith("icl")
-    wrapper = Algo.ICLRolloutPolicy if is_icl else Algo.RolloutPolicy
-    policy = wrapper(model, obs_normalization_stats=obs_normalization_stats,
-                     action_normalization_stats=action_normalization_stats,
-                     lang_encoder=lang_encoder)
+    policy = Algo.rollout_policy_class(model)(
+        model, obs_normalization_stats=obs_normalization_stats,
+        action_normalization_stats=action_normalization_stats, lang_encoder=lang_encoder)
     context_batch = None
-    if is_icl:
+    if model.TAKES_CONTEXT:
         context_batch = model.process_batch_for_training(next(context_loader))
     rollout = config.experiment.rollout
     all_rollout_logs, _ = TrainUtils.rollout_with_stats(

@@ -194,18 +194,19 @@ def algo_from_checkpoint(device=None, ckpt_path=None, ckpt_dict=None, verbose=Fa
 
 
 def policy_from_checkpoint(device=None, ckpt_path=None, ckpt_dict=None, verbose=False):
-    """A rollout policy from a checkpoint: (``ICLRolloutPolicy`` for an ICL
-    algo, else ``RolloutPolicy``, with the checkpoint's normalization
-    statistics and, where the algo takes ``lang_emb``, a ``LangEncoder``;
-    ckpt_dict). The algo runs on @device (``cuda`` unless given)."""
+    """A rollout policy from a checkpoint: (``ICLRolloutPolicy`` for an algo
+    whose ``get_action`` takes a context window, else ``RolloutPolicy``;
+    with the checkpoint's normalization statistics and, where the algo
+    takes ``lang_emb``, a ``LangEncoder``; ckpt_dict). The algo runs on
+    @device (``cuda`` unless given). (The JAX package picks the wrapper by
+    the algo's name, and so gives the MLP and RNN ICL policies a wrapper
+    that passes them a context they do not take.)"""
     algo, ckpt_dict = algo_from_checkpoint(device=device, ckpt_path=ckpt_path,
                                            ckpt_dict=ckpt_dict, verbose=verbose)
     lang_encoder = None
     if LangUtils.LANG_EMB_KEY in algo.obs_shapes:
         lang_encoder = LangUtils.LangEncoder()
-    wrapper = (Algo.ICLRolloutPolicy if ckpt_dict["algo_name"].startswith("icl")
-               else Algo.RolloutPolicy)
-    policy = wrapper(algo,
+    policy = Algo.rollout_policy_class(algo)(algo,
                      obs_normalization_stats=ckpt_dict.get("obs_normalization_stats"),
                      action_normalization_stats=ckpt_dict.get("action_normalization_stats"),
                      lang_encoder=lang_encoder)

@@ -11,7 +11,11 @@ and fills @module, whose classes say how their JAX children are named:
   JAX child, e.g. ``{"stem": {"conv1": "nets.0", "bn1": "nets.1"}}``;
 * ``JAX_PARAMS``: raw parameters whose JAX and torch names and layouts agree;
 * ``JAX_BUFFERS``: {collection: {JAX name: buffer name}} for variables of
-  other collections kept as buffers, e.g. the HVQVAE's ``vq`` codebooks.
+  other collections kept as buffers, e.g. the HVQVAE's ``vq`` codebooks;
+* ``jax_stacked()``: {torch tensor name: ([JAX parameter paths], stack)}
+  for a torch tensor that holds several JAX parameters, e.g. ``nn.LSTM``'s
+  ``weight_ih_l0`` from four gate denses' kernels: ``stack`` takes their
+  arrays in the order given and returns the torch tensor's.
 
 Leaves are converted by type: Linear ``kernel [in, out]`` -> ``weight
 [out, in]``; Conv2d ``kernel [h, w, in, out]`` -> ``weight [out, in, h, w]``;
@@ -72,6 +76,10 @@ def _entries(mod, jax_path, torch_path):
         for jax_name, torch_name in names.items():
             yield ("/".join([coll, *jax_path, jax_name]),
                    ".".join([*torch_path, torch_name]), lambda a: a)
+    stacked = mod.jax_stacked() if hasattr(mod, "jax_stacked") else {}
+    for torch_name, (jax_names, stack) in stacked.items():
+        yield (tuple("/".join(["params", *jax_path, n]) for n in jax_names),
+               ".".join([*torch_path, torch_name]), stack)
     yield from _child_entries(mod, _jax_names(mod), jax_path, torch_path)
 
 
@@ -135,20 +143,24 @@ def load_jax_variables(module, flat):
     wanted = {k for k in state if not k.endswith("num_batches_tracked")}
     used, filled, new_state = set(), set(), {}
     for jax_key, torch_key, fn in _entries(module, [], []):
-        if jax_key not in flat:
-            raise KeyError(f"JAX variable {jax_key} (for {torch_key}) is missing")
+        # a tuple of keys: a torch tensor stacked from several JAX leaves
+        jax_keys = jax_key if isinstance(jax_key, tuple) else (jax_key,)
+        for key in jax_keys:
+            if key not in flat:
+                raise KeyError(f"JAX variable {key} (for {torch_key}) is missing")
         if torch_key not in state:
             raise KeyError(f"{type(module).__name__} has no tensor {torch_key}")
         if torch_key in filled:
             raise KeyError(f"{torch_key} is mapped twice")
-        value = fn(np.asarray(flat[jax_key]))
+        arrays = [np.asarray(flat[key]) for key in jax_keys]
+        value = fn(arrays if isinstance(jax_key, tuple) else arrays[0])
         if tuple(value.shape) != tuple(state[torch_key].shape):
             raise ValueError(
                 f"{jax_key} {value.shape} does not fit {torch_key} "
                 f"{tuple(state[torch_key].shape)}"
             )
         new_state[torch_key] = torch.tensor(value, dtype=state[torch_key].dtype)
-        used.add(jax_key)
+        used.update(jax_keys)
         filled.add(torch_key)
     unused = sorted(set(flat) - used)
     if unused:

@@ -407,9 +407,11 @@ def test_batch_norm_bf16_matches_flax_with_bf16_statistics(shape):
 
 
 def test_icl_routing_and_options_not_ported():
-    """The JAX ``icl`` routing; the ``train`` speed modes, ported since,
-    build and are applied to the algo's own modules (see
-    tests/test_torch_train_modes.py and tests/test_torch_packed_film.py)."""
+    """The JAX ``icl`` routing (the transformer off routes to the MLP policy
+    ``ICL``, ported since: tests/test_torch_icl_variants.py); the ``train``
+    speed modes, ported since, build and are applied to the algo's own
+    modules (see tests/test_torch_train_modes.py and
+    tests/test_torch_packed_film.py)."""
     cfg = _configure(config_factory("icl"), True)
     PortObsUtils.initialize_obs_utils_with_config(cfg)
     applied = {
@@ -434,8 +436,9 @@ def test_icl_routing_and_options_not_ported():
     routed = copy.deepcopy(cfg)
     with routed.values_unlocked():
         routed.algo.transformer.enabled = False
-    with pytest.raises(NotImplementedError, match="ICL is not ported"):
-        PortAlgo.algo_factory("icl", routed, _shapes(True), A, device="cpu")
+    PortObsUtils.initialize_obs_utils_with_config(routed)
+    assert type(PortAlgo.algo_factory("icl", routed, _shapes(True), A,
+                                      device="cpu")).__name__ == "ICL"
     assert PortAlgo.REGISTERED_ALGOS["icl_hvqvae"](cfg.algo)[0].__name__ == \
         "ICLTransformerHVQVAE"
 

@@ -666,3 +666,116 @@ def test_each_tokenizer_trains_and_serves_on_the_card(cuda_device, modality):
     assert action.shape == (2, 7) and action.device.type == "cuda"
     assert bool(torch.isfinite(action).all())
     assert (LAUNCHES["stem_pool_fwd"], LAUNCHES["stem_pool_bwd"]) == (2, 0)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the ICL family (the MLP, RNN and Mamba policies)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100, 64, 58, 58), (1000, 64, 58, 58), (320, 64, 58, 58),
+                                   (640, 64, 58, 58)],
+                         ids=["mlp_b100", "rnn_b100xt10", "mamba_32xt10", "mamba_hvqvae_64xt10"])
+def test_stem_pool_kernels_at_the_icl_family_shapes(cuda_device, shape, capsys):
+    """Kernels 3 and 4 in fp32 at the stem activations of the MLP policies
+    (100 frames), the RNN policies (100 x 10), icl_mamba's groups (32 x 10)
+    and ICLMambaHVQVAE's batch (64 x 10): maxima, offsets and dx bit-equal to the plain versions; each
+    timed (CUDA events) beside the plain version and its bound (bytes over
+    the card's memory rate), and faster than the plain version."""
+    from chip_smoke import bound_ms, cuda_ms
+
+    x = _relu_input(shape, cuda_device, 4)
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    out_p, idx_p = S.pool_fwd_plain(x)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
+    g = torch.randn(out_k.shape, generator=torch.Generator(cuda_device).manual_seed(3),
+                    device=cuda_device)
+    torch.testing.assert_close(S.pool_bwd_cuda(idx_k, g, shape[2:]),
+                               S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)
+    n_in, n_out = x.numel(), out_k.numel()
+    rows = {"fwd": (lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
+                    bound_ms(4 * n_in + 5 * n_out, 8 * n_out)[0]),
+            "bwd": (lambda: S.pool_bwd_cuda(idx_k, g, shape[2:]),
+                    lambda: S.pool_bwd_plain(idx_p, g, shape[2:]),
+                    bound_ms(5 * n_out + 4 * n_in, n_out)[0])}
+    for name, (kern, plain, bound) in rows.items():
+        ms, plain_ms = cuda_ms(kern)[0], cuda_ms(plain)[0]
+        with capsys.disabled():
+            print(f"\nstem_pool_{name} {list(shape)} fp32 ({torch.cuda.get_device_name()}): "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+        assert ms < plain_ms
+
+
+def _family_algo(name, device, use_kernels=True):
+    """A small ICLGMM (MLP [32, 32]) or ICLMamba_GMM (one Mamba layer of 32,
+    context 4, LipVQ), one 64x64 camera through ResNet-18 (2x2 features:
+    the trunk's gradient is not 0) and train.pallas_pool."""
+    from robot_manipulation_vq_vae_tpu_torch import algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory(name)
+    with cfg.values_unlocked():
+        cfg.observation.modalities.obs.low_dim = ["eef_pos"]
+        cfg.observation.modalities.obs.rgb = ["cam_image"]
+        cfg.observation.encoder.rgb.core_class = "VisualCore"
+        cfg.observation.encoder.rgb.core_kwargs = {
+            "feature_dimension": 32, "backbone_class": "ResNet18Conv",
+            "backbone_kwargs": {"pretrained": False, "input_coord_conv": False},
+            "pool_class": "SpatialSoftmax",
+            "pool_kwargs": {"num_kp": 16, "learnable_temperature": False,
+                            "temperature": 1.0, "noise_std": 0.0},
+        }
+        cfg.observation.encoder.rgb.obs_randomizer_class = None
+        cfg.algo.gmm.enabled = True
+        cfg.algo.actor_layer_dims = [32, 32]
+        if name == "icl_mamba":
+            mc = cfg.algo.mamba
+            mc.context_length, mc.embed_dim, mc.num_layers = 4, 32, 1
+            mc.supervise_all_steps, mc.vq_vae_enabled, mc.ln_act_enabled = True, True, False
+            mc.emb_dropout = 0.0
+        cfg.train.pallas_pool = True
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory(name, cfg, {"eef_pos": (3,), "cam_image": (64, 64, 3)}, 7,
+                             device=device, use_kernels=use_kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["icl", "icl_mamba"])
+def test_family_step_with_kernels_matches_plain(cuda_device, name):
+    """One training step of ICLGMM (B = 4) and of ICLMamba_GMM (B = 4: 2
+    context and 2 supervised sequences of 4) with the kernels, against one
+    step of the same weights with their plain versions, batch and draws
+    alike, under cuDNN's deterministic algorithms (without them the two
+    steps' gradients were seen 6.2e-4 and 4.9e-4 of their largest apart on
+    an H100; with them they are equal to the bit): chip_smoke's tolerances (metrics 1e-5
+    relative, gradients 1e-4 of each tensor's largest, statistics 1e-6).
+    The kernel step launches the stem pool once per camera and group pass
+    (and the assign once)."""
+    import numpy as np
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from chip_smoke import compare_steps, one_step
+
+    rng = np.random.RandomState(0)
+    batch = {"obs": {"eef_pos": rng.randn(4, 4, 3).astype(np.float32),
+                     "cam_image": rng.randint(0, 256, (4, 4, 64, 64, 3), dtype=np.uint8)},
+             "actions": rng.uniform(-1, 1, (4, 4, 7)).astype(np.float32)}
+    algo = _family_algo(name, cuda_device)
+    assert type(algo).__name__ == ("ICLGMM" if name == "icl" else "ICLMamba_GMM")
+    batch = algo.process_batch_for_training(batch)
+    state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
+    CB.reset_launch_counts()
+    res_k = one_step(algo, batch, deterministic=True)
+    groups = 1 if name == "icl" else 2
+    assert (LAUNCHES["stem_pool_fwd"], LAUNCHES["stem_pool_bwd"]) == (groups, groups)
+    assert LAUNCHES["lipvq_assign"] == groups - 1
+    plain = _family_algo(name, cuda_device, use_kernels=False)
+    plain.nets.load_state_dict(state)
+    CB.reset_launch_counts()
+    res_p = one_step(plain, batch, deterministic=True)
+    assert sum(LAUNCHES.values()) == 0
+    assert any(float(g.abs().max()) > 0 for n, g in res_p[1].items() if "backbone" in n)
+    keys = ("action_loss", "policy_grad_norms") + (("vq_vae_loss",) if groups == 2 else ())
+    compare_steps(res_k, res_p, keys)

@@ -113,3 +113,48 @@ def _np(a):
     if hasattr(a, "detach"):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def float64_tree(tree):
+    """Every float32 leaf of @tree as a float64 JAX array (call under
+    ``jax.enable_x64``); other leaves as JAX arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    return jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float64) if np.asarray(a).dtype == np.float32
+        else jnp.asarray(a), tree)
+
+
+def jax_algo_jit_init(name, cfg, shapes, ac_dim):
+    """The JAX package's algo @name, its variables initialized under
+    ``jax.jit`` (the same computation; eagerly each op of a Mamba scan
+    compiles on its own, which takes tens of seconds)."""
+    import jax
+
+    import robot_manipulation_vq_vae_tpu.algo as JaxAlgo
+    from robot_manipulation_vq_vae_tpu.utils import obs_utils as JaxObsUtils
+
+    JaxObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = JaxAlgo.algo_factory(name, cfg, shapes, ac_dim)
+    algo._init_variables = jax.jit(algo._init_variables)
+    return algo
+
+
+def check_step_metrics(metrics, keys, rtol):
+    """[(JAX metrics, port metrics)] per step: @keys within @rtol relative."""
+    for want, got in metrics:
+        for k in keys:
+            np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=1e-12, err_msg=k)
+
+
+def check_parameters(got_module, want_module, tol, loose=(), loose_tol=None):
+    """Each parameter of @got_module within @tol of the largest element of
+    @want_module's; those whose names contain one of @loose within
+    @loose_tol."""
+    want = dict(want_module.named_parameters())
+    assert set(want) == {n for n, _ in got_module.named_parameters()}
+    for n, p in got_module.named_parameters():
+        bound = loose_tol if any(s in n for s in loose) else tol
+        err = float((p - want[n]).detach().abs().max()) / float(want[n].detach().abs().max())
+        assert err <= bound, f"{n}: {err} of its largest"
