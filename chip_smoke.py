@@ -115,7 +115,27 @@ Phases, each of which fails the run when it fails:
      LipVQ, B = 64 (6 + 6 stem-pool launches and 1 assign a step), a kernel
      step against a plain step, requests, the Mamba backbone's forward and
      backward alone, then 1 + 2 steps with the template's LN-act tokenizer
-     and with ICLMambaHVQVAE; every median beside phase 8's GPT step.
+     and with ICLMambaHVQVAE; every median beside phase 8's GPT step;
+  16. the other vision cores and observation options, fp32,
+     train.pallas_pool on: 16a, icl_gmm_paper at phase 8's width,
+     observations and batch on ResNet-34 FiLM trunks with the crop and
+     ColorRandomizer's defaults (6 + 6 stem-pool launches and 1 assign a
+     step, the median beside phase 8's, the peak device memory, a kernel
+     step against a plain step, 3 requests at B = 1 and 16, the B = 16 GMM
+     bit-equal to the F.max_pool2d model's); 16b, the same on ResNet-50 FiLM
+     trunks at B = 32 (R50_TRAIN_B says why); 16c, phase 15a's ICL policy on
+     a frozen R3M ResNet-50 per camera (random trunk weights; 3 stem-pool
+     forwards a step on [100, 64, 112, 112] and a request on [1 or 16, 64,
+     112, 112], kernel 3's tile path, no backward; the trunk unchanged to
+     the bit; the B = 16 action bit-equal to the F.max_pool2d model's), and
+     kernel 3 alone at each of those three shapes against its plain
+     version, timed (row 3g); 16d, the same policy on MVP's ViT-B
+     (no kernel on that path); 16e, one step and one B = 16 request each
+     with ResNet-18 (group norm, coord-conv, SpatialSoftmax with a learnable
+     temperature and keypoint noise), ShallowConv + SpatialMeanPool,
+     ResNet-18 FiLM with the cross-attention, ResNet-34, ResNet-50, Gaussian
+     noise on the low-dim keys, and a ScanCore on a synthetic scan key, each
+     with its stem-pool launches checked.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -405,10 +425,12 @@ LOW_DIM = {"robot0_base_to_eef_pos": (3,), "robot0_base_to_eef_quat": (4,),
 SHAPES = {**LOW_DIM, **{c: (IMG, IMG, 3) for c in CAMS}, "lang_emb": (768,)}
 
 
-def paper_config(pallas_pool=False, mixed_precision=False):
+def paper_config(pallas_pool=False, mixed_precision=False, backbone="ResNet18ConvFiLM",
+                 color=False):
     """icl_gmm_paper's own algo settings with the flagship observation spec;
     @pallas_pool selects the stem pool's recorded-argmax kernels,
-    @mixed_precision the bf16 step."""
+    @mixed_precision the bf16 step, @backbone the cameras' FiLM trunk, and
+    @color adds ColorRandomizer (its defaults) after the crop."""
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
 
     cfg = config_factory("icl_gmm_paper")
@@ -419,16 +441,16 @@ def paper_config(pallas_pool=False, mixed_precision=False):
         cfg.observation.modalities.obs.rgb = CAMS
         cfg.observation.encoder.rgb.core_class = "VisualCoreLanguageConditioned"
         cfg.observation.encoder.rgb.core_kwargs = {
-            "feature_dimension": 64, "backbone_class": "ResNet18ConvFiLM",
+            "feature_dimension": 64, "backbone_class": backbone,
             "backbone_kwargs": {"pretrained": False, "input_coord_conv": False},
             "pool_class": "SpatialSoftmax",
             "pool_kwargs": {"num_kp": 32, "learnable_temperature": False,
                             "temperature": 1.0, "noise_std": 0.0},
         }
-        cfg.observation.encoder.rgb.obs_randomizer_class = "CropRandomizer"
-        cfg.observation.encoder.rgb.obs_randomizer_kwargs = {
-            "crop_height": CROP, "crop_width": CROP, "num_crops": 1, "pos_enc": False,
-        }
+        crop = {"crop_height": CROP, "crop_width": CROP, "num_crops": 1, "pos_enc": False}
+        cfg.observation.encoder.rgb.obs_randomizer_class = (
+            ["CropRandomizer", "ColorRandomizer"] if color else "CropRandomizer")
+        cfg.observation.encoder.rgb.obs_randomizer_kwargs = [crop, {}] if color else crop
     return cfg
 
 
@@ -2104,11 +2126,14 @@ def _observations(cfg):
     cfg.observation.encoder.rgb.obs_randomizer_kwargs = dict(paper.obs_randomizer_kwargs)
 
 
-def family_algo(mode, dev, pallas_pool=True, use_kernels=True):
+def family_algo(mode, dev, pallas_pool=True, use_kernels=True, configure=None,
+                shapes=None):
     """An ``icl`` policy of @mode at exps/templates/icl.json's widths
     (``actor_layer_dims`` [1024, 1024], a 5-mode GMM; the RNN policies a
     2-layer LSTM of 400 over windows of 10, with no MLP as
-    tests/test_icl_variants_parity.py sets them) on phase 8's observations."""
+    tests/test_icl_variants_parity.py sets them) on phase 8's observations,
+    or on those that @configure (a function of the config) makes of them,
+    of @shapes (SHAPES)."""
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
     from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
@@ -2124,8 +2149,11 @@ def family_algo(mode, dev, pallas_pool=True, use_kernels=True):
         if mode.startswith("rnn"):
             cfg.algo.actor_layer_dims = []
             cfg.train.seq_length = RNN_T
+        if configure is not None:
+            configure(cfg)
     ObsUtils.initialize_obs_utils_with_config(cfg)
-    algo = Algo.algo_factory("icl", cfg, SHAPES, 12, device=dev, use_kernels=use_kernels)
+    algo = Algo.algo_factory("icl", cfg, SHAPES if shapes is None else shapes, 12,
+                             device=dev, use_kernels=use_kernels)
     check(type(algo).__name__ == FAMILY_MODES[mode], f"{mode}: {type(algo).__name__}")
     return algo
 
@@ -2422,6 +2450,319 @@ def phase_family(CB, dev, card, gpt_step_ms, profile):
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 16: the other vision cores and observation options
+# ---------------------------------------------------------------------------
+
+# 16b's batch: ResNet-50 FiLM keeps about 29.3 MiB of activations for the
+# backward per 116 x 116 fp32 image (autograd's saved tensors, counted on the
+# CPU), 90 GiB for B = 64's 3,072 images, over the card's 80 GB; B = 32
+# keeps half of that. (ResNet-34 FiLM: 9.9 MiB, 30 GiB at B = 64.)
+R50_TRAIN_B = 32
+# 16c: R3M resizes the 116 x 116 crop to 256 and takes the center 224, so its
+# stem pools [N, 64, 112, 112]: planes past a block's staging budget, which
+# kernel 3's launcher gives to its tile kernel. N is a request's B (1, 16)
+# or the training step's B = 100
+R3M_POOL_SHAPES = tuple((n, 64, 112, 112) for n in (*BATCHES, FAMILY_B))
+SCAN_KEY, SCAN_LEN = "robot0_lidar_scan", 360   # 16e's synthetic scan, one beam a degree
+CORE_STEPS = 2   # 16b-16d: a warm-up and 2 timed steps
+
+
+def trunk_of(algo):
+    """The first camera's backbone in @algo's policy."""
+    return next(m.backbone for m in algo.nets["policy"].modules()
+                if hasattr(m, "backbone") and hasattr(m, "head"))
+
+
+def phase_paper_core(CB, dev, card, backbone, b, steps, paper_step_ms, profile):
+    """16a / 16b: icl_gmm_paper at phase 8's width and observations on
+    @backbone FiLM trunks with the crop and ColorRandomizer's defaults, B =
+    @b, T = 16, LipVQ, train.pallas_pool: a warm-up and @steps timed steps
+    (6 + 6 stem-pool launches and one assign a step) with the peak device
+    memory, 3 requests at B = 1 and 16 (6 stem-pool launches and one assign
+    each), the B = 16 GMM bit-equal to the F.max_pool2d model's, and a
+    kernel step against a plain step within phase 8's tolerances (cuDNN's
+    deterministic algorithms). Returns (step median, peak GiB)."""
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    tag = "16a" if backbone == "ResNet34ConvFiLM" else "16b"
+    path = f"phase {tag} icl_gmm_paper {backbone}"
+    cfg = paper_config(pallas_pool=True, backbone=backbone, color=True)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    algo = Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev)
+    check(type(trunk_of(algo)).__name__ == backbone, f"{tag}: trunk {type(trunk_of(algo))}")
+    log(f"phase {tag}: icl_gmm_paper on {backbone} trunks, crop + ColorRandomizer "
+        f"(0.3 / 0.3 / 0.3 / 0.3), B={b} T=16, LipVQ, train.pallas_pool on; "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters")
+    gen = torch.Generator(dev).manual_seed(21)
+    batches = [make_train_batch(gen, dev, b) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts, med, _ = timed_steps(CB, algo, batches, f"{tag} step ({card})", f"{path} training")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check_launches(tag, counts, {"stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 1},
+                   steps)
+    log(f"  {tag}: median {med:.3f} ms a step at B={b} ({card}); phase 8's ResNet-18 step "
+        f"{paper_step_ms:.3f} ms at B={TRAIN_B}; peak device memory {peak:.2f} GiB")
+    if profile:
+        device_profile(f"{tag} train step", lambda: algo.train_on_batch(batches[0], epoch=0),
+                       share=("pool_fwd_kernel", "pool_bwd_kernel", "assign_kernel"))
+    rng = np.random.RandomState(16)
+    family_requests(CB, algo, rng, lambda n: {"stem_pool_fwd": 6, "lipvq_assign": 1},
+                    f"{path} serving", ctx_t=16)
+    twin = Algo.algo_factory("icl_gmm_paper", paper_config(backbone=backbone, color=True),
+                             SHAPES, 12, device=dev)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    serve_with_pool_switch(CB, dev, twin, make_request(rng, BATCHES[-1], 16),
+                           f"{path} serving, B=16 against F.max_pool2d", switch=algo)
+    del twin
+    free_card()
+    kernel_against_plain(
+        algo, lambda: Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev,
+                                        use_kernels=False),
+        batches[0], ("action_loss", "vq_vae_loss", "policy_grad_norms"))
+    return med, peak
+
+
+def core_config(core_class, **core_kwargs):
+    """A @configure for family_algo: the cameras' core and its kwargs."""
+    def configure(cfg):
+        cfg.observation.encoder.rgb.core_class = core_class
+        cfg.observation.encoder.rgb.core_kwargs = core_kwargs
+    return configure
+
+
+def stem_inputs(algo):
+    """Hooks recording the input shapes of @algo's stem pools; returns the
+    list they fill and the hooks' handles."""
+    from robot_manipulation_vq_vae_tpu_torch.models.base_nets import StemMaxPool
+
+    shapes = []
+    handles = [m.register_forward_pre_hook(lambda mod, args: shapes.append(
+        tuple(args[0].shape))) for m in algo.nets.modules() if isinstance(m, StemMaxPool)]
+    return shapes, handles
+
+
+def frozen_state(algo):
+    return {k: v.clone() for k, v in algo.nets.state_dict().items() if ".trunk." in k}
+
+
+def phase_frozen_core(CB, dev, gen, card, name, configure, per_step, profile):
+    """16c / 16d: phase 15a's ICL policy on a frozen pretrained core (random
+    trunk weights from the seed): a warm-up and CORE_STEPS timed steps with
+    @per_step launches, the trunk's parameters and BatchNorm statistics
+    unchanged to the bit, 3 requests at B = 1 and 16, and the B = 16 action
+    bit-equal to the F.max_pool2d model's. Returns (step median, the stem
+    pools' input shapes over the steps and requests)."""
+    import torch
+
+    tag = "16c" if name == "R3MConv" else "16d"
+    algo = family_algo("plain", dev, configure=configure)
+    cores = [m for m in algo.nets.modules() if type(m).__name__ == name]
+    check(len(cores) == len(CAMS) and all(c.freeze for c in cores), f"{tag}: {cores}")
+    log(f"phase {tag}: ICL (MLP) on a frozen {name} "
+        f"({getattr(cores[0], 'r3m_model_class', None) or cores[0].mvp_model_class}) per "
+        f"camera, B={FAMILY_B}; {sum(p.numel() for p in algo.nets.parameters())} parameters")
+    batches = [algo.process_batch_for_training(make_train_batch(gen, dev, FAMILY_B, 1))
+               for _ in range(CORE_STEPS + 1)]
+    before = frozen_state(algo)
+    check(before, f"{tag}: no trunk state")
+    shapes, handles = stem_inputs(algo)
+    step_ms = family_train(CB, algo, batches, per_step, f"{tag} {name} step ({card})",
+                           f"phase {tag} ICL {name} training",
+                           ("l2_loss", "action_loss", "policy_grad_norms"))
+    after = frozen_state(algo)
+    moved = [k for k, v in before.items() if not torch.equal(v, after[k])]
+    check(not moved, f"{tag}: {len(moved)} frozen trunk tensors moved, e.g. {moved[:3]}")
+    log(f"  {tag}: {len(before)} trunk tensors (parameters and buffers) "
+        f"unchanged to the bit by {CORE_STEPS + 1} steps")
+    if profile:
+        device_profile(f"{tag} train step", lambda: algo.train_on_batch(batches[0], epoch=0),
+                       share=("pool_fwd_tile_kernel",))
+    rng = np.random.RandomState(18)
+    family_requests(CB, algo, rng, lambda b: per_step_serving(per_step),
+                    f"phase {tag} ICL {name} serving")
+    twin = family_algo("plain", dev, pallas_pool=False, configure=configure)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    obs = request_obs(rng, BATCHES[-1])
+    got, want = algo.get_action(obs), twin.get_action(obs)
+    check(torch.equal(got, want), f"{tag}: B=16 action differs from max_pool2d's by "
+          f"{float((got - want).abs().max())}")
+    log(f"  B={BATCHES[-1]} action bit-equal to the F.max_pool2d model's")
+    for h in handles:
+        h.remove()
+    del twin, algo
+    free_card()
+    return step_ms, sorted(set(shapes))
+
+
+def per_step_serving(per_step):
+    """A training step's forward launches are a request's."""
+    return {k: v for k, v in per_step.items() if k == "stem_pool_fwd"}
+
+
+def phase_r3m_pool(S, dev, gen):
+    """Row 3g: kernel 3 alone at each of 16c's stem shapes (R3M_POOL_SHAPES:
+    its requests' and its training step's), fp32, on ReLU'd inputs (ties):
+    maxima and offsets bit-equal to the plain version, the launcher's path
+    asserted (the tile kernel), each timed beside its bound, the plain
+    version and F.max_pool2d. Returns a row for each shape."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for shape in R3M_POOL_SHAPES:
+        x = relu_input(shape, gen, dev)
+        out_k, idx_k = S.pool_fwd_cuda(x)
+        out_p, idx_p = S.pool_fwd_plain(x)
+        torch.cuda.synchronize()
+        n_idx = int((idx_k != idx_p).sum())
+        err = float((out_k - out_p).abs().max())
+        tag = "x".join(map(str, shape))
+        check(torch.equal(out_k, out_p) and n_idx == 0,
+              f"{tag}: kernel 3 differs (max|err| {err}, {n_idx} offsets)")
+        plan = S.pool_fwd_plan(x.shape, x.dtype)
+        check(plan[0] == 0, f"{tag}: kernel 3 took whole planes {plan}, not the tile kernel")
+        log(f"  kernel 3 at {tag} fp32 ({float((x == 0).float().mean()):.3f} zeros): maxima "
+            f"and offsets bit-equal; {fwd_path(S, x)}")
+        n_in, n_out = x.numel(), out_k.numel()
+        timed = time_kernels({"stem_pool_fwd": (
+            lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
+            lambda: F.max_pool2d(x, 3, 2, 1, return_indices=True),
+            (4 * n_in + 5 * n_out, 8 * n_out), err)}, tag)
+        rows.append(dict(timed["stem_pool_fwd"], shape=list(shape)))
+        del x, out_k, idx_k, out_p, idx_p
+    return rows
+
+
+def with_scan(obs, gen, dev):
+    """@obs with SCAN_KEY added: [..., SCAN_LEN] ranges in [0, 10) m."""
+    import torch
+
+    b = obs[CAMS[0]].shape[:-3]
+    obs = dict(obs)
+    obs[SCAN_KEY] = 10 * torch.rand((*b, SCAN_LEN), generator=gen, device=dev)
+    return obs
+
+
+def phase_core_options(CB, dev, gen, card):
+    """16e: one training step and one B = 16 request of phase 15a's ICL policy
+    with each of the other cores and observation options; the stem-pool
+    launches of each (3 + 3 a step and 3 a request where the cameras have a
+    ResNet stem)."""
+    import torch
+
+    film = dict(paper_config().observation.encoder.rgb.core_kwargs)
+    kp = {"num_kp": 32, "learnable_temperature": False, "temperature": 1.0, "noise_std": 0.0}
+
+    def plain_core(backbone, **backbone_kwargs):
+        return core_config("VisualCore", backbone_class=backbone,
+                           backbone_kwargs=backbone_kwargs, pool_class="SpatialSoftmax",
+                           pool_kwargs=kp, feature_dimension=64)
+
+    def low_dim_noise(cfg):
+        cfg.observation.encoder.low_dim.obs_randomizer_class = "GaussianNoiseRandomizer"
+        cfg.observation.encoder.low_dim.obs_randomizer_kwargs = {"noise_std": 0.1}
+
+    def scan(cfg):
+        cfg.observation.modalities.obs.scan = [SCAN_KEY]
+        cfg.observation.encoder.scan.core_kwargs = {"feature_dimension": 64}
+
+    pooled = {"stem_pool_fwd": 3, "stem_pool_bwd": 3}
+    variants = [
+        ("ResNet18Conv, group norm, coord-conv, SpatialSoftmax with a learnable "
+         "temperature and noise 0.1",
+         core_config("VisualCore", backbone_class="ResNet18Conv",
+                     backbone_kwargs={"norm": "group", "input_coord_conv": True},
+                     pool_class="SpatialSoftmax",
+                     pool_kwargs={**kp, "learnable_temperature": True, "noise_std": 0.1},
+                     feature_dimension=64), pooled, False),
+        ("ShallowConv + SpatialMeanPool",
+         core_config("VisualCore", backbone_class="ShallowConv",
+                     pool_class="SpatialMeanPool", feature_dimension=64), {}, False),
+        ("ResNet18ConvFiLMCrossAttn",
+         core_config("VisualCoreLanguageConditioned",
+                     **{**film, "backbone_class": "ResNet18ConvFiLMCrossAttn"}), pooled, False),
+        ("ResNet34Conv", plain_core("ResNet34Conv"), pooled, False),
+        ("ResNet50Conv (mcr's core)", plain_core("ResNet50Conv"), pooled, False),
+        ("GaussianNoiseRandomizer on the low-dim keys", low_dim_noise, pooled, False),
+        (f"ScanCore on {SCAN_KEY} [{SCAN_LEN}]", scan, pooled, True),
+    ]
+    rng = np.random.RandomState(19)
+    for name, configure, per_step, scanned in variants:
+        shapes = {**SHAPES, SCAN_KEY: (SCAN_LEN,)} if scanned else None
+        algo = family_algo("plain", dev, configure=configure, shapes=shapes)
+        batch = make_train_batch(gen, dev, FAMILY_B, 1)
+        if scanned:
+            batch["obs"] = with_scan(batch["obs"], gen, dev)
+        batch = algo.process_batch_for_training(batch)
+        CB.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = algo.train_on_batch(batch, epoch=0)["losses"]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(CB.LAUNCHES)
+        check(all(np.isfinite(float(v)) for v in losses.values()), f"16e {name}: {losses}")
+        check_launches(f"16e {name} step", counts, per_step, 1)
+        record_path(f"phase 16e {name} training", counts)
+        obs = request_obs(rng, BATCHES[-1])
+        if scanned:
+            obs = with_scan(obs, gen, dev)
+        CB.reset_launch_counts()
+        action, req_ms = served(algo, obs)
+        check(action.shape == (BATCHES[-1], 12) and bool(action.isfinite().all()),
+              f"16e {name}: action {tuple(action.shape)}")
+        check_launches(f"16e {name} request", dict(CB.LAUNCHES), per_step_serving(per_step), 1)
+        record_path(f"phase 16e {name} serving", dict(CB.LAUNCHES))
+        log(f"phase 16e {name}: {sum(p.numel() for p in algo.nets.parameters())} parameters; "
+            f"one step {step_ms:.3f} ms (cold), one B={BATCHES[-1]} request {req_ms:.3f} ms "
+            f"(cold), launches {({k: v for k, v in counts.items() if v})} a step ({card})")
+        del algo
+        free_card()
+
+
+def phase_cores(CB, S, dev, card, paper_step_ms, profile):
+    """16: the other vision cores and observation options (see the module
+    docstring). Returns row 3g's rows, one a shape."""
+    import torch
+
+    log(f"phase 16: the other vision cores and observation options, fp32, "
+        f"train.pallas_pool on ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(26)
+    a_ms, a_peak = phase_paper_core(CB, dev, card, "ResNet34ConvFiLM", TRAIN_B,
+                                    TRAIN_STEPS, paper_step_ms, profile)
+    free_card()
+    b_ms, b_peak = phase_paper_core(CB, dev, card, "ResNet50ConvFiLM", R50_TRAIN_B,
+                                    CORE_STEPS, paper_step_ms, profile)
+    free_card()
+    r3m = core_config("VisualCore", backbone_class="R3MConv",
+                      backbone_kwargs={"r3m_model_class": "resnet50"}, pool_class=None,
+                      feature_dimension=64)
+    c_ms, c_shapes = phase_frozen_core(CB, dev, gen, card, "R3MConv", r3m,
+                                       {"stem_pool_fwd": 3}, profile)
+    check(c_shapes == sorted(R3M_POOL_SHAPES),
+          f"16c: the stems pooled {c_shapes}, not {sorted(R3M_POOL_SHAPES)}")
+    row_3g = phase_r3m_pool(S, dev, gen)
+    mvp = core_config("VisualCore", backbone_class="MVPConv",
+                      backbone_kwargs={"mvp_model_class": "vitb-mae-egosoup"},
+                      pool_class=None, feature_dimension=64)
+    d_ms, d_shapes = phase_frozen_core(CB, dev, gen, card, "MVPConv", mvp, {}, profile)
+    check(d_shapes == [], f"16d: a stem pooled {d_shapes}")
+    log("  16d: no kernel on this path: the cameras' cores are ViTs (no stem, no "
+        "pool), whose attention is plain matrix products, as JAX's einsums are")
+    phase_core_options(CB, dev, gen, card)
+    log(f"  phase 16 medians ({card}), ms a step: 16a ResNet-34 FiLM {a_ms:.3f} at "
+        f"B={TRAIN_B} (phase 8's ResNet-18 {paper_step_ms:.3f}), 16b ResNet-50 FiLM "
+        f"{b_ms:.3f} at B={R50_TRAIN_B}, 16c R3M {c_ms:.3f} and 16d MVP {d_ms:.3f} at "
+        f"B={FAMILY_B}; peak device memory 16a {a_peak:.2f} GiB, 16b {b_peak:.2f} GiB")
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    return row_3g
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -2526,6 +2867,8 @@ def main():
     phase_flagship_modes(CB, dev, flagship[True][1])
     free_card()
     phase_family(CB, dev, card, paper_step_ms, args.profile)
+    free_card()
+    row_3g = phase_cores(CB, S, dev, card, paper_step_ms, args.profile)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -2540,9 +2883,11 @@ def main():
         dict(name="lipvq_assign_bf16", route="cuda", source=f"{SOURCE}/lipvq_assign.cu",
              replaces=f"{TPU_KERNELS}:39", launches=bf16_counts["lipvq_assign_bf16"],
              library_ms=None, **assign_bf16[PAPER_ASSIGN_N]),
+        # tile_path: the launcher's tile kernel at each of R3M's stem shapes
+        # (phase 16c's requests and training step)
         dict(name="stem_pool_fwd", route="cuda", source=f"{SOURCE}/stem_pool.cu",
              replaces=f"{TPU_POOL}:60", launches=train_counts["stem_pool_fwd"],
-             **pool["stem_pool_fwd"]),
+             **pool["stem_pool_fwd"], tile_path=row_3g),
         dict(name="stem_pool_bwd", route="cuda", source=f"{SOURCE}/stem_pool.cu",
              replaces=f"{TPU_POOL}:113", launches=train_counts["stem_pool_bwd"],
              **pool["stem_pool_bwd"]),

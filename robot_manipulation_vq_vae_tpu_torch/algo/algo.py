@@ -170,7 +170,13 @@ class Algo:
         this algo's modules only (the JAX package sets them process-wide):
         the stem pool's recorded-argmax kernels (``pallas_pool``), frozen
         BatchNorm statistics, the pool-free stride-4 stem, and the packed
-        per-camera FiLM trunks."""
+        per-camera FiLM trunks. ``train.mixed_precision`` is refused for the
+        cores and randomizers it has not been held against JAX with."""
+        unported = self.mixed_precision and ObsNets.unported_in_mixed_precision(self.nets)
+        if unported:
+            raise NotImplementedError(
+                f"train.mixed_precision is not ported for {', '.join(unported)} yet "
+                "(ROADMAP.md)")
         BaseNets.set_stem_pool(self.nets, train_config.get("pallas_pool", False),
                                self.use_kernels)
         BaseNets.set_frozen_batch_norm(

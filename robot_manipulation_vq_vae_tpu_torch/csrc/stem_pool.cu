@@ -39,8 +39,9 @@
 //   again at their device address's offset modulo 16, and after one barrier
 //   both runs leave in 16-byte stores with a scalar head and tail.
 //   pool_fwd_tile_kernel keeps the tile design for planes too large for the
-//   budget; the launcher picks the kernel by plane size (no model path
-//   reaches the tile kernel).
+//   budget; the launcher picks the kernel by plane size. R3M's stem reaches
+//   it: its 224 x 224 input pools [N, 64, 112, 112], planes of 50,176 B of
+//   input in fp32 (chip_smoke.py phase 16c).
 // * pool_bwd_kernel: a gather with no atomics, a thread per window (p, q).
 //   Row i = 2p lies only in window row p, row 2p + 1 in rows p and p + 1,
 //   and the same for columns, so the thread owns the 2x2 input quad at rows

@@ -1,6 +1,11 @@
 """Base network blocks (counterpart of the JAX package's ``models/base_nets.py``
-:122-150, 153-221, 270-335, 720-785, 802-865): the MLP, the ResNet-18 trunk,
-its FiLM variant, SpatialSoftmax, and the recurrent base of the RNN policies.
+:46-64, 122-500, 703-797, 802-865): the MLP, the ResNet trunks (18, 34 and
+50, each plain or with FiLM after every block, and ResNet-18 FiLM with the
+language cross-attention) with batch or group norm and optional
+coord-conv, ShallowConv, SpatialSoftmax (and its learnable temperature,
+keypoint noise and variance), SpatialMeanPool, and the recurrent base of
+the RNN policies. The pretrained cores (R3M, MVP's ViT) are in
+``pretrained_nets.py``.
 
 Images reach the port channels-last ([B, H, W, C]) as in the JAX package;
 ``VisualCore`` permutes them to contiguous NCHW once, and everything here
@@ -10,13 +15,16 @@ defaults. The stem's max pool is ``F.max_pool2d`` unless
 ``set_stem_pool`` selects the recorded-argmax kernels (``train.pallas_pool``).
 Two opt-in training modes are set per model, never process-wide:
 ``set_frozen_batch_norm`` (``train.frozen_batch_norm``) and
-``set_pool_free_stem`` (``train.pool_free_stem``).
+``set_pool_free_stem`` (``train.pool_free_stem``); each reaches every stem
+and BatchNorm under the model, in every trunk.
 Parameters keep the reference torch layout and key names
 (``_base_block``, ``_conv_blocks``, ``_film_layers``, torchvision's
 ``conv1``/``bn1``/``downsample``; ``nets.0`` ... ``nets.7`` for the plain
 trunk), so reference checkpoints map one to one. Under mixed precision the
-trunks take bf16 activations and bf16 copies of their weights (see
-``BatchNorm2d`` and ``SpatialSoftmax``).
+ResNet-18 trunks take bf16 activations and bf16 copies of their weights (see
+``BatchNorm2d`` and ``SpatialSoftmax``); a module whose ``MIXED_PRECISION``
+is False has not been held against the JAX bf16 step, and the algo refuses
+``train.mixed_precision`` with it.
 
 Each module's ``JAX_NAMES`` maps the JAX child names to torch submodule
 paths; ``utils/jax_weights.py`` reads it to carry JAX weights across.
@@ -142,30 +150,66 @@ def set_frozen_batch_norm(module, frozen):
             m.frozen = bool(frozen)
 
 
-class BasicBlock(nn.Module):
-    """torchvision BasicBlock: 3x3-BN-ReLU-3x3-BN + skip, final ReLU."""
+class GroupNorm(nn.GroupNorm):
+    """The trunks' ``norm="group"`` (JAX ``_trunk_norm``): GroupNorm of
+    C // 16 groups, eps 1e-5, as the reference diffusion policy's
+    ``replace_bn_with_gn``. Stateless, so ``set_frozen_batch_norm`` leaves
+    it alone. (Flax takes the variance as E[x^2] - E[x]^2, torch as the mean
+    of squared deviations: equal in float64, a rounding apart in float32.)"""
+
+    MIXED_PRECISION = False
+
+    def __init__(self, channels):
+        super().__init__(channels // 16, channels, eps=BN_EPS)
+
+
+def trunk_norm(channels, norm):
+    """The normalization layer of a trunk: ``"batch"`` (Flax-semantics
+    BatchNorm) or ``"group"``."""
+    if norm == "group":
+        return GroupNorm(channels)
+    if norm != "batch":
+        raise ValueError(f"norm {norm} is neither batch nor group")
+    return BatchNorm2d(channels)
+
+
+def add_coord_channels(x):
+    """CoordConv (JAX ``add_coord_channels``): NCHW @x with two channels
+    appended after its own, y then x, each a ``linspace(-1, 1)`` over its
+    axis."""
+    n, _, h, w = x.shape
+    ys = torch.linspace(-1.0, 1.0, h, dtype=x.dtype, device=x.device)
+    xs = torch.linspace(-1.0, 1.0, w, dtype=x.dtype, device=x.device)
+    coords = torch.stack([ys[:, None].expand(h, w), xs[None, :].expand(h, w)])
+    return torch.cat([x, coords.expand(n, 2, h, w)], dim=1)
+
+
+class _Block(nn.Module):
+    """A residual block in torchvision's layout (``conv1``, ``bn1``, ...,
+    ``downsample.0`` / ``.1`` where the skip needs a projection)."""
 
     JAX_NAMES = {"conv1": "conv1", "bn1": "bn1", "conv2": "conv2", "bn2": "bn2",
                  "down_conv": "downsample.0", "down_bn": "downsample.1"}
-
-    def __init__(self, cin, features, stride=1):
-        super().__init__()
-        self.conv1 = _conv(cin, features, 3, stride, 1)
-        self.bn1 = BatchNorm2d(features)
-        self.conv2 = _conv(features, features, 3, 1, 1)
-        self.bn2 = BatchNorm2d(features)
-        self.downsample = None
-        if stride != 1 or cin != features:
-            self.downsample = nn.Sequential(
-                _conv(cin, features, 1, stride),
-                BatchNorm2d(features),
-            )
 
     def jax_names(self):
         if self.downsample is None:
             return {k: v for k, v in self.JAX_NAMES.items()
                     if not v.startswith("downsample")}
         return self.JAX_NAMES
+
+
+class BasicBlock(_Block):
+    """torchvision BasicBlock: 3x3-norm-ReLU-3x3-norm + skip, final ReLU."""
+
+    expansion = 1
+
+    def __init__(self, cin, features, stride=1, norm="batch"):
+        super().__init__()
+        self.conv1 = _conv(cin, features, 3, stride, 1)
+        self.bn1 = trunk_norm(features, norm)
+        self.conv2 = _conv(features, features, 3, 1, 1)
+        self.bn2 = trunk_norm(features, norm)
+        self.downsample = _downsample(cin, features, stride, norm)
 
     def forward(self, x):
         h = F.relu(self.bn1(self.conv1(x)))
@@ -174,16 +218,55 @@ class BasicBlock(nn.Module):
         return F.relu(h + identity)
 
 
+class Bottleneck(_Block):
+    """torchvision Bottleneck (JAX ``Bottleneck``): 1x1 -> 3x3 (the stride)
+    -> 1x1 to 4 x @features, each normalized, + skip, final ReLU."""
+
+    JAX_NAMES = {**_Block.JAX_NAMES, "conv3": "conv3", "bn3": "bn3"}
+    expansion = 4
+
+    def __init__(self, cin, features, stride=1, norm="batch"):
+        super().__init__()
+        out = features * self.expansion
+        self.conv1 = _conv(cin, features, 1)
+        self.bn1 = trunk_norm(features, norm)
+        self.conv2 = _conv(features, features, 3, stride, 1)
+        self.bn2 = trunk_norm(features, norm)
+        self.conv3 = _conv(features, out, 1)
+        self.bn3 = trunk_norm(out, norm)
+        self.downsample = _downsample(cin, out, stride, norm)
+
+    def forward(self, x):
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.relu(self.bn2(self.conv2(h)))
+        h = self.bn3(self.conv3(h))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(h + identity)
+
+
+def _downsample(cin, cout, stride, norm):
+    if stride == 1 and cin == cout:
+        return None
+    return nn.Sequential(_conv(cin, cout, 1, stride), trunk_norm(cout, norm))
+
+
 class StemConv(nn.Conv2d):
     """The stem's 7x7 convolution, stride 2, padding 3, no bias; stride 4
     with ``pool_free`` (``train.pool_free_stem``), which lands on the pooled
-    grid, floor((H - 1) / 4) + 1, with the same parameters."""
+    grid, floor((H - 1) / 4) + 1, with the same parameters. With
+    @coord_conv (``input_coord_conv``) it takes the image's channels and
+    the two of ``add_coord_channels``."""
 
-    def __init__(self, cin=3):
-        super().__init__(cin, 64, 7, stride=2, padding=3, bias=False)
+    def __init__(self, cin=3, coord_conv=False):
+        super().__init__(cin + 2 * coord_conv, 64, 7, stride=2, padding=3, bias=False)
+        self.coord_conv = coord_conv
         self.pool_free = False
+        # the coordinate channels are not held against the JAX step in bf16
+        self.MIXED_PRECISION = not coord_conv
 
     def forward(self, x):
+        if self.coord_conv:
+            x = add_coord_channels(x)
         return F.conv2d(x, self.weight, None, 4 if self.pool_free else 2, 3)
 
 
@@ -229,59 +312,101 @@ def set_pool_free_stem(module, pool_free):
 
 
 class _ResNet18Stem(nn.Sequential):
-    """conv7x7/2 + BN + ReLU + maxpool3x3/2 (torchvision stem); the reference
-    names it ``_base_block``."""
+    """conv7x7/2 + norm + ReLU + maxpool3x3/2 (torchvision stem), the stem of
+    every ResNet trunk; the reference names it ``_base_block``."""
 
     JAX_NAMES = {"conv1": "0", "bn1": "1"}
 
-    def __init__(self, cin=3):
+    def __init__(self, cin=3, coord_conv=False, norm="batch"):
         super().__init__(
-            StemConv(cin),
-            BatchNorm2d(64),
+            StemConv(cin, coord_conv),
+            trunk_norm(64, norm),
             nn.ReLU(),
             StemMaxPool(),
         )
 
 
-# (features, stride) of the eight BasicBlocks of ResNet-18
-_RESNET18_PLAN = [(64, 1), (64, 1), (128, 2), (128, 1),
-                  (256, 2), (256, 1), (512, 2), (512, 1)]
+def _resnet_plan(blocks_per_stage):
+    """(features, stride) of each block, stage by stage (JAX
+    ``_resnet_plan``): the first block of stages 2-4 strides 2."""
+    return [(feat, 2 if stage > 0 and b == 0 else 1)
+            for stage, (feat, n) in enumerate(zip((64, 128, 256, 512), blocks_per_stage))
+            for b in range(n)]
 
 
-def _resnet18_output_shape(input_shape):
-    h, w, _ = input_shape
-    return [int(math.ceil(h / 32.0)), int(math.ceil(w / 32.0)), 512]
+_RESNET18_STAGES, _RESNET34_STAGES = (2, 2, 2, 2), (3, 4, 6, 3)
 
 
-class ResNet18Conv(nn.Module):
-    """ResNet-18 trunk with the classifier removed. Input [B, 3, H, W]; output
-    [B, 512, ceil(H/32), ceil(W/32)]. The reference's layout: ``nets`` holds
-    torchvision's children conv1, bn1, relu, maxpool and layer1 to layer4 as
-    ``nets.0`` to ``nets.7``."""
+class _ResNetTrunk(nn.Module):
+    """A ResNet trunk with the classifier removed: the stem, then the
+    ``STAGES`` blocks of class ``BLOCK``. Input [B, 3, H, W]; output
+    [B, 512 x expansion, ceil(H/32), ceil(W/32)]. ``norm`` "group" puts
+    ``GroupNorm`` where BatchNorm was; ``input_coord_conv`` appends the
+    coordinate channels before the stem's convolution. Subclasses lay the
+    layers out (see ``_ResNetConv`` and ``_ResNetConvFiLM``)."""
 
-    def __init__(self, input_coord_conv=False, pretrained=False):
-        super().__init__()
-        if input_coord_conv:
-            raise NotImplementedError("input_coord_conv is not ported yet")
+    STAGES = _RESNET18_STAGES
+    BLOCK = BasicBlock
+    MIXED_PRECISION = False
+
+    def _blocks(self, norm):
         blocks, cin = [], 64
-        for feat, stride in _RESNET18_PLAN:
-            blocks.append(BasicBlock(cin, feat, stride))
-            cin = feat
+        for feat, stride in _resnet_plan(self.STAGES):
+            blocks.append(self.BLOCK(cin, feat, stride, norm))
+            cin = feat * self.BLOCK.expansion
+        return blocks
+
+    @classmethod
+    def output_shape(cls, input_shape):
+        h, w, _ = input_shape
+        return [int(math.ceil(h / 32.0)), int(math.ceil(w / 32.0)),
+                512 * cls.BLOCK.expansion]
+
+
+class _ResNetConv(_ResNetTrunk):
+    """The reference's layout: ``nets`` holds torchvision's children conv1,
+    bn1, relu, maxpool and layer1 to layer4 as ``nets.0`` to ``nets.7``."""
+
+    def __init__(self, input_coord_conv=False, pretrained=False, norm="batch"):
+        super().__init__()
+        blocks, layers, i = self._blocks(norm), [], 0
+        for n in self.STAGES:
+            layers.append(nn.Sequential(*blocks[i:i + n]))
+            i += n
         self.nets = nn.Sequential(
-            *_ResNet18Stem(),
-            *(nn.Sequential(*blocks[i:i + 2]) for i in range(0, 8, 2)),
-        )
+            *_ResNet18Stem(coord_conv=input_coord_conv, norm=norm), *layers)
 
     def jax_names(self):
         names = {"stem": {"conv1": "nets.0", "bn1": "nets.1"}}
-        for i in range(len(_RESNET18_PLAN)):
-            names[f"block{i}"] = f"nets.{4 + i // 2}.{i % 2}"
+        i = 0
+        for stage, n in enumerate(self.STAGES):
+            for j in range(n):
+                names[f"block{i}"] = f"nets.{4 + stage}.{j}"
+                i += 1
         return names
 
     def forward(self, x):
         return self.nets(x)
 
-    output_shape = staticmethod(_resnet18_output_shape)
+
+class ResNet18Conv(_ResNetConv):
+    """ResNet-18 trunk (JAX ``ResNet18Conv``)."""
+
+    MIXED_PRECISION = True
+
+
+class ResNet34Conv(_ResNetConv):
+    """ResNet-34 trunk (JAX ``ResNet34Conv``)."""
+
+    STAGES = _RESNET34_STAGES
+
+
+class ResNet50Conv(_ResNetConv):
+    """ResNet-50 trunk of Bottlenecks, 2048 output channels (JAX
+    ``ResNet50Conv``; also MCR's encoder)."""
+
+    STAGES = _RESNET34_STAGES
+    BLOCK = Bottleneck
 
 
 class FiLMLayer(nn.Module):
@@ -299,22 +424,19 @@ class FiLMLayer(nn.Module):
         return F.relu((1.0 + gamma[:, :, None, None]) * x + beta[:, :, None, None])
 
 
-class ResNet18ConvFiLM(nn.Module):
-    """ResNet-18 trunk with a FiLM layer after every BasicBlock. Input
-    [B, 3, H, W]; output [B, 512, ceil(H/32), ceil(W/32)]."""
+class _ResNetConvFiLM(_ResNetTrunk):
+    """A trunk with a FiLM layer after every block, each as wide as its
+    block's output; the reference's layout ``_base_block`` (the stem),
+    ``_conv_blocks``, ``_film_layers``."""
 
-    def __init__(self, lang_emb_dim=768, input_coord_conv=False, pretrained=False):
+    def __init__(self, lang_emb_dim=768, input_coord_conv=False, pretrained=False,
+                 norm="batch"):
         super().__init__()
-        if input_coord_conv:
-            raise NotImplementedError("input_coord_conv is not ported yet")
-        self._base_block = _ResNet18Stem()
-        blocks, films, cin = [], [], 64
-        for feat, stride in _RESNET18_PLAN:
-            blocks.append(BasicBlock(cin, feat, stride))
-            films.append(FiLMLayer(feat, lang_emb_dim))
-            cin = feat
-        self._conv_blocks = nn.ModuleList(blocks)
-        self._film_layers = nn.ModuleList(films)
+        self._base_block = _ResNet18Stem(coord_conv=input_coord_conv, norm=norm)
+        self._conv_blocks = nn.ModuleList(self._blocks(norm))
+        self._film_layers = nn.ModuleList([
+            FiLMLayer(feat * self.BLOCK.expansion, lang_emb_dim)
+            for feat, _ in _resnet_plan(self.STAGES)])
 
     def jax_names(self):
         names = {"stem": "_base_block"}
@@ -329,13 +451,96 @@ class ResNet18ConvFiLM(nn.Module):
             x = film(block(x), lang_emb)
         return x
 
-    output_shape = staticmethod(_resnet18_output_shape)
+
+class ResNet18ConvFiLM(_ResNetConvFiLM):
+    """ResNet-18 with FiLM after every BasicBlock (JAX ``ResNet18ConvFiLM``)."""
+
+    MIXED_PRECISION = True
+
+
+class ResNet34ConvFiLM(_ResNetConvFiLM):
+    """ResNet-34 with FiLM after every BasicBlock (JAX ``ResNet34ConvFiLM``)."""
+
+    STAGES = _RESNET34_STAGES
+
+
+class ResNet50ConvFiLM(_ResNetConvFiLM):
+    """ResNet-50 with FiLM after every Bottleneck, 4 x the block's width
+    (JAX ``ResNet50ConvFiLM``)."""
+
+    STAGES = _RESNET34_STAGES
+    BLOCK = Bottleneck
+
+
+class ResNet18ConvFiLMCrossAttn(_ResNetConvFiLM):
+    """ResNet-18 FiLM trunk, then the spatial tokens attend to the language
+    embedding (JAX ``ResNet18ConvFiLMCrossAttn``): tokens + attn_out(softmax(
+    q k^T / sqrt(C)) v), with k and v from the one token lang_kv(lang). A
+    softmax over one key is exactly 1, so the attended value is v for every
+    token and computed so; ``q`` and ``k`` are kept (and carried from JAX)
+    but get zero gradients, as they do in JAX (@num_heads is unused there
+    too)."""
+
+    JAX_NAMES = {n: n for n in ("lang_kv", "q", "k", "v", "attn_out")}
+
+    def __init__(self, lang_emb_dim=768, input_coord_conv=False, pretrained=False,
+                 num_heads=8, norm="batch"):
+        super().__init__(lang_emb_dim, input_coord_conv, pretrained, norm)
+        c = 512
+        self.lang_kv = nn.Linear(lang_emb_dim, c)
+        for name in ("q", "k", "v", "attn_out"):
+            self.add_module(name, nn.Linear(c, c))
+
+    def jax_names(self):
+        return {**super().jax_names(), **self.JAX_NAMES}
+
+    def forward(self, x, lang_emb):
+        x = super().forward(x, lang_emb)
+        attended = self.attn_out(self.v(self.lang_kv(lang_emb)))
+        return x + attended[:, :, None, None]
+
+
+class ShallowConv(nn.Module):
+    """The DSAE paper's shallow encoder (JAX ``ShallowConv``): conv 7x7/2 (64)
+    - ReLU - conv 1x1 (32) - ReLU - conv 3x3 (32) - ReLU - conv 3x3
+    (@output_channel), all with biases, in the reference's ``nets.0`` ...
+    ``nets.6`` (Flax's ``Conv_0`` ... ``Conv_3``). Output [B, C, H/2, W/2]."""
+
+    JAX_NAMES = {f"Conv_{i}": f"nets.{2 * i}" for i in range(4)}
+    MIXED_PRECISION = False
+
+    def __init__(self, input_channel=3, output_channel=32):
+        super().__init__()
+        self.input_channel, self.output_channel = input_channel, output_channel
+        self.nets = nn.Sequential(
+            _conv(input_channel, 64, 7, 2, 3, bias=True), nn.ReLU(),
+            _conv(64, 32, 1, bias=True), nn.ReLU(),
+            _conv(32, 32, 3, 1, 1, bias=True), nn.ReLU(),
+            _conv(32, output_channel, 3, 1, 1, bias=True),
+        )
+
+    def forward(self, x):
+        if x.shape[1] != self.input_channel:
+            raise ValueError(f"ShallowConv takes {self.input_channel} channels, "
+                             f"got {x.shape[1]}")
+        return self.nets(x)
+
+    def output_shape(self, input_shape):
+        if len(input_shape) != 3 or input_shape[-1] != self.input_channel:
+            raise ValueError(f"ShallowConv cannot take {input_shape}")
+        return [input_shape[0] // 2, input_shape[1] // 2, self.output_channel]
 
 
 class SpatialSoftmax(nn.Module):
     """Spatial-softmax keypoint pooling: [B, C, H, W] -> keypoints [B, K, 2].
     The softmax runs over the h-major flattened H*W positions, the order of
-    the JAX package's [B, H, W, K] -> [B, K, H*W] transpose."""
+    the JAX package's [B, H, W, K] -> [B, K, H*W] transpose.
+
+    ``learnable_temperature``: the temperature is a parameter of shape (1,).
+    ``noise_std`` > 0: in training, ``noise_std`` x N(0, 1) is added to the
+    keypoints, drawn from the caller's @generator (JAX draws it from its
+    ``dropout`` stream), or given as @noise; never in eval.
+    ``output_variance``: returns (keypoints, cov [B, K, 2, 2])."""
 
     JAX_NAMES = {"kp_conv": "nets"}
 
@@ -343,14 +548,19 @@ class SpatialSoftmax(nn.Module):
                  learnable_temperature=False, output_variance=False,
                  noise_std=0.0):
         super().__init__()
-        if learnable_temperature or output_variance:
-            raise NotImplementedError(
-                "learnable_temperature / output_variance are not ported yet"
-            )
         h, w, c = input_shape
         self.num_kp = num_kp if num_kp is not None else c
         self.nets = nn.Conv2d(c, num_kp, 1) if num_kp is not None else None
-        self.temperature = temperature
+        if learnable_temperature:
+            self.temperature = nn.Parameter(torch.full((1,), float(temperature)))
+            self.JAX_PARAMS = ("temperature",)
+        else:
+            self.temperature = temperature
+        self.output_variance = output_variance
+        self.noise_std = noise_std
+        # the options are not held against the JAX step in bf16 yet
+        self.MIXED_PRECISION = not (learnable_temperature or output_variance
+                                    or noise_std > 0)
         pos_x, pos_y = np.meshgrid(np.linspace(-1.0, 1.0, w), np.linspace(-1.0, 1.0, h))
         self.register_buffer(
             "pos", torch.tensor(np.stack([pos_x.reshape(-1), pos_y.reshape(-1)], -1),
@@ -358,7 +568,7 @@ class SpatialSoftmax(nn.Module):
             persistent=False,
         )
 
-    def forward(self, feature):
+    def forward(self, feature, generator=None, noise=None):
         if self.nets is not None:
             feature = self.nets(feature)
         b, k, h, w = feature.shape
@@ -366,11 +576,47 @@ class SpatialSoftmax(nn.Module):
         # a bf16 attention meets the fp32 keypoint grid as in JAX: the
         # product promotes, so the keypoints (and what follows) are fp32
         dtype = torch.promote_types(attention.dtype, self.pos.dtype)
-        return (attention.to(dtype) @ self.pos.to(dtype)).reshape(b, k, 2)
+        attention, pos = attention.to(dtype), self.pos.to(dtype)
+        mean = attention @ pos                                   # [B*K, 2]
+        keypoints = mean.reshape(b, k, 2)
+        if self.training and self.noise_std > 0:
+            if noise is None:
+                if generator is None:
+                    raise ValueError("SpatialSoftmax's noise needs a generator in training")
+                noise = torch.randn(keypoints.shape, generator=generator,
+                                    device=generator.device, dtype=dtype)
+            keypoints = keypoints + self.noise_std * noise.to(keypoints.device, dtype)
+        if not self.output_variance:
+            return keypoints
+        # the squares and product of the fp32 grid are fp32, as JAX's are
+        px, py = self.pos.float().unbind(-1)
+        second = attention @ torch.stack([px * px, px * py, py * py], -1).to(dtype)
+        ex, ey = mean[:, 0], mean[:, 1]
+        var_x, var_xy, var_y = (second[:, 0] - ex * ex, second[:, 1] - ex * ey,
+                                second[:, 2] - ey * ey)
+        cov = torch.stack([var_x, var_xy, var_xy, var_y], -1).reshape(b, k, 2, 2)
+        return keypoints, cov
 
     @staticmethod
     def static_output_shape(input_shape, num_kp=32):
         return [num_kp if num_kp is not None else input_shape[-1], 2]
+
+
+class SpatialMeanPool(nn.Module):
+    """The mean over the spatial dims (JAX ``SpatialMeanPool``):
+    [B, C, H, W] -> [B, C]."""
+
+    MIXED_PRECISION = False
+
+    def __init__(self, input_shape=None):
+        super().__init__()
+
+    def forward(self, x, generator=None):
+        return x.mean(dim=(-2, -1))
+
+    @staticmethod
+    def static_output_shape(input_shape):
+        return [input_shape[-1]]
 
 
 class MLP(nn.Module):

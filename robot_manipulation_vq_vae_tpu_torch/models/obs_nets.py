@@ -86,7 +86,9 @@ class ObservationEncoder(nn.Module):
     over their own trunks, their images concatenated on the channels in
     spec order, and each camera's features through its own core's head.
     With ``feature_activation="relu"`` (the MLP and RNN policies') each
-    core's features pass through a ReLU; keys without a core do not."""
+    core's features pass through a ReLU; keys without a core do not. The
+    randomizers' ``forward_out`` run in list order, as JAX's. @generator
+    also draws the cores' SpatialSoftmax keypoint noise in training."""
 
     def __init__(self, obs_shapes, encoder_kwargs=None, feature_activation=None):
         super().__init__()
@@ -110,12 +112,18 @@ class ObservationEncoder(nn.Module):
             in_shape = shape
             for rand in rands:
                 in_shape = tuple(rand.output_shape_in(in_shape))
-            kwargs = dict(cfg.get("core_kwargs") or {})
+            core_cls = ObsUtils.OBS_ENCODER_CORES[core_class]
+            # the kwargs the core takes, as JAX keeps its module's fields
+            kwargs = obs_core._filter_kwargs(core_cls, cfg.get("core_kwargs"))
+            kwargs.pop("input_shape", None)
             if core_class == "VisualCoreLanguageConditioned":
                 kwargs["lang_emb_dim"] = shapes[LANG_EMB_KEY][0]
-            core = ObsUtils.OBS_ENCODER_CORES[core_class](in_shape, **kwargs)
+            core = core_cls(in_shape, **kwargs)
             cores[key] = core
-            self.output_dim += core.proj.out_features
+            out_shape = core.output_shape(in_shape)
+            for rand in rands:
+                out_shape = rand.output_shape_out(out_shape)
+            self.output_dim += int(np.prod(out_shape))
         self.obs_nets = nn.ModuleDict(cores)
         self.packed_keys = []
         self.packed = None
@@ -170,15 +178,15 @@ class ObservationEncoder(nn.Module):
             trunk = self.packed(images.permute(0, 3, 1, 2).contiguous(),
                                 obs_dict[LANG_EMB_KEY])
             for key, x in zip(self.packed_keys, trunk.chunk(len(self.packed_keys), 1)):
-                feats[key] = self.obs_nets[key].head(x)
+                feats[key] = self.obs_nets[key].head(x, generator)
         out = []
         for key, _ in self.spec:
             x = feats.get(key)
             if x is None and key in self.obs_nets:
                 core = self.obs_nets[key]
                 lang = isinstance(core, obs_core.VisualCoreLanguageConditioned)
-                x = core(randomized[key], obs_dict[LANG_EMB_KEY]) if lang else core(
-                    randomized[key])
+                x = (core(randomized[key], obs_dict[LANG_EMB_KEY], generator) if lang
+                     else core(randomized[key], generator=generator))
             if x is None:
                 x = randomized[key]
             elif self.feature_activation == "relu":
@@ -187,6 +195,19 @@ class ObservationEncoder(nn.Module):
                 x = rand.forward_out(x)
             out.append(x.reshape(x.shape[0], -1))
         return torch.cat(out, dim=-1)
+
+
+def unported_in_mixed_precision(module):
+    """The names of the modules and randomizers under @module that
+    ``train.mixed_precision`` has not been held against the JAX bf16 step
+    with (``MIXED_PRECISION`` False): the algo refuses the mode for them."""
+    names = {type(m).__name__ for m in module.modules()
+             if getattr(m, "MIXED_PRECISION", True) is False}
+    for enc in module.modules():
+        if isinstance(enc, ObservationEncoder):
+            names.update(type(r).__name__ for rands in enc.randomizers.values()
+                         for r in rands if not r.MIXED_PRECISION)
+    return sorted(names)
 
 
 def set_packed_rgb_encoders(module, enabled):

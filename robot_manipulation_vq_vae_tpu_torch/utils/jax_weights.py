@@ -21,9 +21,9 @@ Leaves are converted by type: Linear ``kernel [in, out]`` -> ``weight
 [out, in]``; Conv2d ``kernel [h, w, in, out]`` -> ``weight [out, in, h, w]``;
 Conv1d ``kernel [k, in, out]`` -> ``weight [out, in, k]``;
 BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
-``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
-``scale``/``bias``. Any key that is missing or left unused raises: there are
-no partial loads.
+``weight``/``bias``/``running_mean``/``running_var``; LayerNorm and
+GroupNorm ``scale``/``bias``. Any key that is missing or left unused
+raises: there are no partial loads.
 
 A JAX tree traced with ``train.packed_rgb_encoders`` holds each group of
 cameras' trunks as one ``packed_backbone``; it is carried across in the
@@ -49,7 +49,7 @@ def _leaf_entries(mod):
         return [("params", "scale", "weight", same), ("params", "bias", "bias", same),
                 ("batch_stats", "mean", "running_mean", same),
                 ("batch_stats", "var", "running_var", same)]
-    elif isinstance(mod, nn.LayerNorm):
+    elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
         return [("params", "scale", "weight", same), ("params", "bias", "bias", same)]
     else:
         return []

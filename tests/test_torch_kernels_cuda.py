@@ -365,6 +365,34 @@ def test_stem_pool_bf16_kernels_match_plain(cuda_device, shape, kind):
     torch.testing.assert_close(dx_k, S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)
 
 
+# R3M's stem ([N, 64, 112, 112], a 224 x 224 input): in fp32 a plane's input,
+# maxima and offsets (65,856 B) pass a block's budget and the launcher takes
+# the tile kernel; in bf16 (34,496 B) one plane fits a block, and a 160 x 160
+# plane takes the bf16 tile kernel
+_R3M_STEM = (4, 64, 112, 112)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["relu", "zeros"])
+@pytest.mark.parametrize("dtype,shape,per_block", [
+    (torch.float32, _R3M_STEM, 0), (torch.bfloat16, _R3M_STEM, 1),
+    (torch.bfloat16, (2, 64, 160, 160), 0)], ids=["fp32_r3m", "bf16_r3m", "bf16_160"])
+def test_stem_pool_tile_path_at_the_r3m_stem(cuda_device, dtype, shape, per_block, kind):
+    """Kernel 3 at R3M's stem, through the launcher's tile kernel where a
+    plane passes a block's budget: maxima and offsets bit-equal to the plain
+    version, ties included, and kernel 4's dx from them too."""
+    x = _pool_input(shape, kind, cuda_device, 6).to(dtype)
+    assert S.pool_fwd_plan(shape, dtype)[0] == per_block   # 0: the tile kernel
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    out_p, idx_p = S.pool_fwd_plain(x)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
+    g = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(7)).to(
+        cuda_device, dtype)
+    torch.testing.assert_close(S.pool_bwd_cuda(idx_k, g, shape[2:]),
+                               S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("offset", [0, 1, 7])

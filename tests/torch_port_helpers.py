@@ -158,3 +158,105 @@ def check_parameters(got_module, want_module, tol, loose=(), loose_tol=None):
         bound = loose_tol if any(s in n for s in loose) else tol
         err = float((p - want[n]).detach().abs().max()) / float(want[n].detach().abs().max())
         assert err <= bound, f"{n}: {err} of its largest"
+
+
+class PinnedJaxRandom:
+    """A stand-in for the ``jax`` module inside one JAX package module
+    (monkeypatch that module's global ``jax`` with it): ``random.uniform``,
+    ``randint`` and ``normal`` return values drawn from a seeded numpy
+    RandomState (a uniform's already scaled to its range; @fixed {name:
+    value} pins one outright), each logged as (name, value) in call order;
+    everything else is JAX's. Under ``jit`` the values are constants of the
+    trace. ``port_draws`` replays the log into the port's randomizers.
+
+    A 0-d ``randint`` comes back as a numpy value, and ``lax.switch`` on
+    such a constant index calls the branch ``lax.switch`` would take,
+    clamped as it clamps, and traces no other: the color jitter's 24 orders
+    cost the trace of one."""
+
+    def __init__(self, seed, fixed=None):
+        import types
+
+        import jax
+
+        self._jax = jax
+        self.rng = np.random.RandomState(seed)
+        self.fixed = dict(fixed or {})
+        self.log = []
+        self.random = types.SimpleNamespace(
+            split=jax.random.split, PRNGKey=jax.random.PRNGKey,
+            uniform=self._uniform, randint=self._randint, normal=self._normal)
+        self.lax = _PinnedLax(jax.lax)
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+    def _record(self, name, value, dtype):
+        """Log numpy @value; return it as a JAX array of @dtype (a constant
+        of the trace under jit)."""
+        import jax.numpy as jnp
+
+        value = np.asarray(value, dtype)
+        self.log.append((name, value))
+        return jnp.asarray(value)
+
+    def _float(self):
+        return self._jax.dtypes.canonicalize_dtype(np.float64)
+
+    def _uniform(self, key, shape=(), dtype=None, minval=0.0, maxval=1.0):
+        u = self.rng.rand(*shape)
+        return self._record("uniform", minval + (maxval - minval) * u, self._float())
+
+    def _randint(self, key, shape, minval, maxval, dtype=None):
+        value = self.fixed.get("randint", self.rng.randint(minval, maxval, size=shape))
+        out = self._record("randint", np.broadcast_to(value, shape),
+                           self._jax.dtypes.canonicalize_dtype(np.int64))
+        return self.log[-1][1] if not shape else out
+
+    def _normal(self, key, shape=(), dtype=None):
+        return self._record("normal", self.rng.randn(*shape), self._float())
+
+
+class _PinnedLax:
+    """``jax.lax`` with ``switch`` taking a constant index's branch alone."""
+
+    def __init__(self, lax):
+        self._lax = lax
+        self.pinned = 0   # switches taken on a constant index
+
+    def __getattr__(self, name):
+        return getattr(self._lax, name)
+
+    def switch(self, index, branches, *operands):
+        try:
+            i = int(index)
+        except TypeError:   # a traced index
+            return self._lax.switch(index, branches, *operands)
+        self.pinned += 1
+        return branches[min(max(i, 0), len(branches) - 1)](*operands)
+
+
+def port_draws(monkeypatch, log, obs_core):
+    """Make the port's randomizers in @obs_core draw the values of @log (a
+    ``PinnedJaxRandom`` log) in order, from its start again once it is used
+    up: a crop takes two randint entries, a color jitter a uniform per
+    enabled jitter and a randint, the Gaussian noise a normal. Returns the
+    replay's state ({"i": entries taken})."""
+    import torch
+
+    state = {"i": 0}
+
+    def pop(kind):
+        name, value = log[state["i"] % len(log)]
+        state["i"] += 1
+        assert name == kind, f"entry {state['i'] - 1}: {name}, expected {kind}"
+        return torch.from_numpy(value)
+
+    monkeypatch.setattr(obs_core.CropRandomizer, "draw", lambda self, x, gen: tuple(
+        pop("randint").long().to(x.device) for _ in range(2)))
+    monkeypatch.setattr(obs_core.ColorRandomizer, "draw", lambda self, x, gen: (
+        {n: pop("uniform").to(x.device, x.dtype) for n in self.ranges},
+        int(pop("randint"))))
+    monkeypatch.setattr(obs_core.GaussianNoiseRandomizer, "draw",
+                        lambda self, x, gen: pop("normal").to(x.device, x.dtype))
+    return state
