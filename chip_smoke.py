@@ -3,7 +3,8 @@ card and check it.
 
     python3 chip_smoke.py            # what the checks need: one card
     python3 chip_smoke.py --profile  # also device-time breakdowns of get_action,
-                                     # the training steps and a rollout lockstep
+                                     # the training steps, a rollout lockstep
+                                     # and a diffusion-policy request
 
 Phases, each of which fails the run when it fails:
   1. the card's name and power limit (nvidia-smi);
@@ -18,8 +19,9 @@ Phases, each of which fails the run when it fails:
   6. the stem pool's kernels (forward, backward) in fp32 against their plain
      versions at the paper training path's [512, 64, 58, 58], the flagship
      fp32 step's [1024, 64, 58, 58], phase 15's training shapes [100 | 1000
-     | 320 | 640, 64, 58, 58] and the requests' [1 | 10 | 16 | 160 | 256, 64,
-     58, 58] (all timed) and at [2, 64, 57, 59], on
+     | 320 | 640, 64, 58, 58], the diffusion policy's [200, 64, 58, 58]
+     (phase 17) and the requests' [1 | 2 | 10 | 16 | 32 | 160 | 256, 64,
+     58, 58] (all timed; [2] and [32] the diffusion policy's To = 2 frames) and at [2, 64, 57, 59], on
      inputs after a ReLU (about 60 % zeros, so windows tie): maxima, offsets
      and dx bit-equal; each timed forward with the path its launcher took
      (runs of whole planes or tiles, blocks, shared memory);
@@ -135,7 +137,21 @@ Phases, each of which fails the run when it fails:
      temperature and keypoint noise), ShallowConv + SpatialMeanPool,
      ResNet-18 FiLM with the cross-attention, ResNet-34, ResNet-50, Gaussian
      noise on the low-dim keys, and a ScanCore on a synthetic scan key, each
-     with its stem-pool launches checked.
+     with its stem-pool launches checked;
+  17. the imitation baselines at their templates' widths on phase 8's
+     observations (the FiLM ResNet-18 trunks, which all three take), fp32,
+     train.pallas_pool on, B = 100, a warm-up and 2 timed steps each (3 + 3
+     stem-pool launches a step), the peak device memory, requests at B = 1
+     and 16, the B = 16 action bit-equal to the F.max_pool2d twin's with the
+     same draws, and a kernel step against a plain step: 17a bc's
+     BC_Transformer_GMM (GPT 6 x 512, context 10, 5 modes; windows of 10,
+     [1000, 64, 58, 58]); 17b bc's BC_VAE ([100, ...]), then one step of
+     BC_RNN_GMM (2-layer LSTM of 400, 100 x 10); 17c DiffusionPolicyUNet
+     (the UNet 256 / 512 / 1024, To 2, Tp 16, EMA, GroupNorm trunks at
+     [200, ...]): DDPM requests (100 UNet calls each) and DDIM ones (10);
+     17d ACT (512 wide, 3200 feed-forward, 4 + 7 layers, chunk 10): after a
+     reset, 11 calls at B = 1 and 16, the first and the last predicting a
+     chunk (3 stem-pool launches), the others popping it (none).
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -186,13 +202,15 @@ FLAGSHIP_POOL = (1024, 64, 58, 58)
 # frames per step, each [512, 64, 58, 58]), the flagship's in fp32, the ICL
 # family's training steps (phase 15: the MLP policies' 100 frames, the RNN
 # policies' 100 x 10, icl_mamba's 32 x 10 a group, ICLMambaHVQVAE's 64 x
-# 10), the requests' (an MLP or RNN policy's B = 1 and 16 frames,
-# icl_mamba's 1 x 10 and 16 x 10 a group, the paper's 16 x 16 at B = 16 and
-# in the rollout), and a small odd shape; all but the odd one are timed, the
+# 10; phase 17: BC_Transformer_GMM's 100 x 10, the diffusion policy's 100 x
+# 2 on its GroupNorm trunks), the requests' (an MLP or RNN policy's B = 1 and 16 frames,
+# the diffusion policy's 1 x 2 and 16 x 2, icl_mamba's 1 x 10 and 16 x 10 a
+# group, the paper's 16 x 16 at B = 16 and in the rollout), and a small odd
+# shape; all but the odd one are timed, the
 # first feeds the kernels line
 FAMILY_POOL_SHAPES = ((100, 64, 58, 58), (1000, 64, 58, 58), (320, 64, 58, 58),
-                      (640, 64, 58, 58))
-REQUEST_POOL_SHAPES = tuple((n, 64, 58, 58) for n in (1, 10, 16, 160, 256))
+                      (640, 64, 58, 58), (200, 64, 58, 58))
+REQUEST_POOL_SHAPES = tuple((n, 64, 58, 58) for n in (1, 2, 10, 16, 32, 160, 256))
 POOL_SHAPES = ((512, 64, 58, 58), FLAGSHIP_POOL, *FAMILY_POOL_SHAPES,
                *REQUEST_POOL_SHAPES, (2, 64, 57, 59))
 # kernel 5's op at the flagship stem activation as the JAX package drives it
@@ -774,7 +792,13 @@ def one_step(model, batch, deterministic=False):
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = before
-    grads = {n: p.grad.clone() for n, p in model.nets.named_parameters()}
+    # frozen tensors (the diffusion policy's EMA shadows) are left out; a
+    # trained parameter without a gradient fails
+    grads = {}
+    for n, p in model.nets.named_parameters():
+        if p.requires_grad:
+            check(p.grad is not None, f"{n}: trained, but the step gave it no gradient")
+            grads[n] = p.grad.clone()
     buffers = {k: v.clone() for k, v in model.nets.named_buffers()
                if v.is_floating_point()}
     return {k: float(v) for k, v in losses.items()}, grads, buffers
@@ -807,7 +831,8 @@ def compare_steps(res_k, res_p, keys=("action_loss", "vq_vae_loss", "policy_grad
     worst = rel[-1][0]
     whole = grad_gap(res_k, res_p)
     zero = [n for n, g in res_p[1].items() if not bool(g.abs().max() > 0)]
-    buf = max(float((res_k[2][k] - v).abs().max()) for k, v in res_p[2].items())
+    buf = max((float((res_k[2][k] - v).abs().max()) for k, v in res_p[2].items()),
+              default=0.0)
     log(f"  gradients: max over {len(res_p[1])} tensors of max|kernel - plain| / "
         f"max|plain| {worst:.3g} ({len(zero)} all-zero; largest: "
         f"{', '.join(f'{n} {r:.3g}' for r, n in rel[-3:])}); as one vector "
@@ -2199,27 +2224,39 @@ def served(algo, obs, ctx=None):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def family_requests(CB, algo, rng, per_request, path, ctx_t=None):
-    """3 requests at B = 1 and 3 at B = 16 (a warm one first each): the
-    launch counts of each (@per_request, added to @path's) and the medians.
-    @ctx_t: the context window of a prompt-conditioned policy."""
+def family_requests(CB, algo, rng, per_request, path, ctx_t=None, obs_t=None,
+                    n=REQUESTS, start=None, times=None):
+    """@n requests at B = 1 and @n at B = 16 (a warm one first each): the
+    launch counts of each (``per_request(b, call)``, added to @path's) and
+    the medians. @ctx_t: the context window of a prompt-conditioned policy;
+    @obs_t: the observation window of a policy that takes no context.
+    @start: called before the warm request and again before the timed ones
+    (ACT's reset); @times: filled with each B's times, in call order."""
     medians = {}
     for b in BATCHES:
-        reqs = [(request_obs(rng, b, ctx_t), make_request(rng, b, ctx_t)[1] if ctx_t else None)
-                for _ in range(REQUESTS + 1)]
+        reqs = [(request_obs(rng, b, ctx_t or obs_t),
+                 make_request(rng, b, ctx_t)[1] if ctx_t else None)
+                for _ in range(n + 1)]
+        if start is not None:
+            start()
         served(algo, *reqs[0])
-        times = []
-        for obs, ctx in reqs[1:]:
+        if start is not None:
+            start()
+        b_times = []
+        for call, (obs, ctx) in enumerate(reqs[1:]):
             CB.reset_launch_counts()
             action, ms = served(algo, obs, ctx)
-            times.append(ms)
+            b_times.append(ms)
             check(action.shape == (b, 12) and bool(action.isfinite().all()),
-                  f"B={b}: action {tuple(action.shape)}")
-            check_launches(f"request B={b}", dict(CB.LAUNCHES), per_request(b), 1)
+                  f"B={b} call {call}: action {tuple(action.shape)}")
+            check_launches(f"request B={b} call {call}", dict(CB.LAUNCHES),
+                           per_request(b, call), 1)
             record_path(path, dict(CB.LAUNCHES))
-        medians[b] = statistics.median(times)
+        if times is not None:
+            times[b] = b_times
+        medians[b] = statistics.median(b_times)
         log(f"  B={b}: get_action median {medians[b]:.3f} ms "
-            f"(all: {', '.join(f'{v:.3f}' for v in times)})")
+            f"(all: {', '.join(f'{v:.3f}' for v in b_times)})")
     return medians
 
 
@@ -2277,7 +2314,7 @@ def phase_family_mlp(CB, dev, gen, mode, card):
                                    f"15a {mode} step ({card})", f"phase 15a {name} training",
                                    keys)
     rng = np.random.RandomState(15)
-    req_ms = family_requests(CB, algo, rng, lambda b: {"stem_pool_fwd": 3},
+    req_ms = family_requests(CB, algo, rng, lambda b, call: {"stem_pool_fwd": 3},
                              f"phase 15a {name} serving")
     obs = request_obs(rng, BATCHES[-1])
     twin = family_algo(mode, dev, pallas_pool=False)
@@ -2394,7 +2431,8 @@ def phase_mamba(CB, dev, gen, card, gpt_step_ms, profile):
         log(f"  the Mamba backbone alone / the step's device busy time: "
             f"{mamba_ms[0] / busy:.3f}")
     rng = np.random.RandomState(17)
-    req_ms = family_requests(CB, algo, rng, lambda b: {"stem_pool_fwd": 6, "lipvq_assign": 1},
+    req_ms = family_requests(CB, algo, rng,
+                             lambda b, call: {"stem_pool_fwd": 6, "lipvq_assign": 1},
                              "phase 15c ICLMamba_GMM LipVQ serving", ctx_t=MAMBA_T)
     obs, ctx = make_request(rng, BATCHES[-1], MAMBA_T)
     twin = mamba_algo(dev, pallas_pool=False)
@@ -2511,7 +2549,7 @@ def phase_paper_core(CB, dev, card, backbone, b, steps, paper_step_ms, profile):
         device_profile(f"{tag} train step", lambda: algo.train_on_batch(batches[0], epoch=0),
                        share=("pool_fwd_kernel", "pool_bwd_kernel", "assign_kernel"))
     rng = np.random.RandomState(16)
-    family_requests(CB, algo, rng, lambda n: {"stem_pool_fwd": 6, "lipvq_assign": 1},
+    family_requests(CB, algo, rng, lambda b, call: {"stem_pool_fwd": 6, "lipvq_assign": 1},
                     f"{path} serving", ctx_t=16)
     twin = Algo.algo_factory("icl_gmm_paper", paper_config(backbone=backbone, color=True),
                              SHAPES, 12, device=dev)
@@ -2583,7 +2621,7 @@ def phase_frozen_core(CB, dev, gen, card, name, configure, per_step, profile):
         device_profile(f"{tag} train step", lambda: algo.train_on_batch(batches[0], epoch=0),
                        share=("pool_fwd_tile_kernel",))
     rng = np.random.RandomState(18)
-    family_requests(CB, algo, rng, lambda b: per_step_serving(per_step),
+    family_requests(CB, algo, rng, lambda b, call: per_step_serving(per_step),
                     f"phase {tag} ICL {name} serving")
     twin = family_algo("plain", dev, pallas_pool=False, configure=configure)
     twin.nets.load_state_dict(algo.nets.state_dict())
@@ -2763,6 +2801,277 @@ def phase_cores(CB, S, dev, card, paper_step_ms, profile):
     return row_3g
 
 
+# ---------------------------------------------------------------------------
+# 17: the imitation baselines
+# ---------------------------------------------------------------------------
+
+BASELINE_B = 100       # the batch_size of exps/templates/bc.json, act.json and
+                       # diffusion_policy.json
+BC_T = 10              # bc.json's transformer.context_length and rnn.horizon
+DP_TO, DP_TP = 2, 16   # diffusion_policy.json's observation and prediction horizons
+ACT_CHUNK = 10         # act.json's train.seq_length
+DP_REQUESTS = 2        # timed requests a batch size: a DDPM request is 100 UNet calls
+BASELINE_STEPS = 2     # timed training steps, after a warm-up
+
+
+def baseline_algo(name, dev, configure=None, pallas_pool=True, use_kernels=True):
+    """The ``@name`` algo (bc, diffusion_policy or act) at its template's
+    widths on phase 8's observations (the FiLM ResNet-18 trunks, which all
+    three take; the diffusion policy's with GroupNorm), with @configure (a
+    function of the config) applied."""
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory(name)
+    with cfg.values_unlocked():
+        _observations(cfg)
+        cfg.train.pallas_pool = pallas_pool
+        if configure is not None:
+            configure(cfg)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory(name, cfg, SHAPES, 12, device=dev, use_kernels=use_kernels)
+
+
+def bc_mode(mode):
+    """A configure hook of ``bc``: the template's transformer-GMM, VAE or
+    RNN-GMM policy."""
+    def configure(cfg):
+        cfg.algo.gmm.enabled = mode in ("transformer_gmm", "rnn_gmm")
+        cfg.algo.transformer.enabled = mode == "transformer_gmm"
+        cfg.algo.vae.enabled = mode == "vae"
+        cfg.algo.rnn.enabled = mode == "rnn_gmm"
+        if mode == "rnn_gmm":
+            cfg.algo.actor_layer_dims = []
+            cfg.train.seq_length = BC_T
+    return configure
+
+
+def check_stem_shapes(tag, shapes, frames, n):
+    """The stem pools ran at N = @frames x each of @n (their input shapes,
+    recorded by ``stem_inputs``), and phase 6 holds each of those shapes."""
+    want = sorted((frames * b, 64, 58, 58) for b in n)
+    got = sorted(set(shapes))
+    log(f"  {tag}: the stems pooled {got}")
+    check(got == want, f"{tag}: the stems pooled {got}, not {want}")
+    check(set(got) <= set(POOL_SHAPES), f"{tag}: phase 6 holds none of "
+          f"{sorted(set(got) - set(POOL_SHAPES))}")
+
+
+def baseline_cell(CB, dev, gen, tag, make, t, frames, keys, card, serve, twin_check):
+    """One cell of phase 17: build with @make(pallas_pool, use_kernels), a
+    warm-up and BASELINE_STEPS timed steps on batches of BASELINE_B windows
+    of @t steps (3 + 3 stem-pool launches a step, the metrics @keys), the
+    peak memory, the requests (``serve(algo, rng)``), the B = 16 action
+    against the F.max_pool2d twin's (``twin_check(algo, twin, rng)``), then
+    a kernel step against a plain step. The policy encodes @frames
+    observations a window: its stem pools must run at N = BASELINE_B x
+    @frames in the steps and B x @frames in the requests. Returns (step ms,
+    what @serve returns)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    algo = make(True, True)
+    log(f"phase {tag}: {type(algo).__name__}, "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, "
+        f"B={BASELINE_B} x T={t}")
+    batches = [algo.process_batch_for_training(make_train_batch(gen, dev, BASELINE_B, t))
+               for _ in range(BASELINE_STEPS + 1)]
+    shapes, handles = stem_inputs(algo)
+    step_ms = family_train(CB, algo, batches, {"stem_pool_fwd": 3, "stem_pool_bwd": 3},
+                           f"{tag} step ({card})", f"phase {tag} training", keys)
+    log(f"  peak device memory of the steps {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        "GiB")
+    check_stem_shapes(f"{tag} steps", shapes, frames, (BASELINE_B,))
+    shapes.clear()
+    rng = np.random.RandomState(17)
+    req_ms = serve(algo, rng)
+    check_stem_shapes(f"{tag} requests", shapes, frames, BATCHES)
+    for h in handles:
+        h.remove()
+    twin = make(False, True)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    twin_check(algo, twin, rng)
+    log(f"  B={BATCHES[-1]} action bit-equal to the F.max_pool2d model's")
+    del twin
+    kernel_against_plain(algo, lambda: make(True, False), batches[0], keys)
+    return step_ms, req_ms
+
+
+def equal_actions(tag, got, want):
+    import torch
+
+    check(torch.equal(got, want), f"{tag}: B={BATCHES[-1]} action differs from the "
+          f"F.max_pool2d model's by {float((got - want).abs().max())}")
+
+
+def seeded(algo, seed, fn, *args):
+    """@fn(*args) with @algo's generator seeded: a twin seeded alike draws
+    the same noise."""
+    algo.generator.manual_seed(seed)
+    return fn(*args)
+
+
+def phase_bc(CB, dev, gen, card):
+    """17a BC_Transformer_GMM and 17b BC_VAE, then BC_RNN_GMM's step."""
+    import torch
+
+    def make_mode(mode):
+        return lambda pool, kernels: baseline_algo("bc", dev, bc_mode(mode), pool, kernels)
+
+    def tx_twin(algo, twin, rng):
+        obs = request_obs(rng, BATCHES[-1], BC_T)
+        got, want = same_draws(algo.action_distribution(obs), twin.action_distribution(obs),
+                               torch.Generator(dev).manual_seed(8))
+        equal_actions("BC_Transformer_GMM", algo._select_output(got),
+                      twin._select_output(want))
+
+    nll = ("log_probs", "action_loss", "policy_grad_norms")
+    rows = {"BC_Transformer_GMM": baseline_cell(
+        CB, dev, gen, "17a BC_Transformer_GMM", make_mode("transformer_gmm"), BC_T, BC_T, nll, card,
+        serve=lambda algo, rng: family_requests(
+            CB, algo, rng, lambda b, call: {"stem_pool_fwd": 3},
+            "phase 17a BC_Transformer_GMM serving", obs_t=BC_T),
+        twin_check=tx_twin)}
+    free_card()
+
+    def vae_twin(algo, twin, rng):
+        obs = request_obs(rng, BATCHES[-1])
+        equal_actions("BC_VAE", seeded(algo, 9, algo.get_action, obs),
+                      seeded(twin, 9, twin.get_action, obs))
+
+    rows["BC_VAE"] = baseline_cell(
+        CB, dev, gen, "17b BC_VAE", make_mode("vae"), 1, 1,
+        ("recons_loss", "kl_loss", "action_loss", "policy_grad_norms"), card,
+        serve=lambda algo, rng: family_requests(
+            CB, algo, rng, lambda b, call: {"stem_pool_fwd": 3}, "phase 17b BC_VAE serving"),
+        twin_check=vae_twin)
+    free_card()
+    rnn = make_mode("rnn_gmm")(True, True)
+    log(f"phase 17b BC_RNN_GMM (ICLRNN_GMM's step): 2-layer LSTM of "
+        f"{rnn.algo_config.rnn.hidden_dim}, {sum(p.numel() for p in rnn.nets.parameters())} "
+        f"parameters, B={BASELINE_B} x T={BC_T}")
+    batches = [make_train_batch(gen, dev, BASELINE_B, BC_T) for _ in range(2)]
+    counts, rnn_ms, _ = timed_steps(CB, rnn, batches, f"17b BC_RNN_GMM step ({card})",
+                                    "phase 17b BC_RNN_GMM training")
+    check_launches("17b BC_RNN_GMM", counts, {"stem_pool_fwd": 3, "stem_pool_bwd": 3}, 1)
+    del rnn
+    free_card()
+    return rows, rnn_ms
+
+
+def ddim_config(cfg):
+    """The diffusion policy served by its template's DDIM sampler."""
+    cfg.algo.ddpm.enabled, cfg.algo.ddim.enabled = False, True
+
+
+def phase_diffusion(CB, dev, gen, card, profile):
+    """17c DiffusionPolicyUNet: steps on GroupNorm trunks, DDPM requests
+    (100 UNet calls each; with @profile one B = 1 request's device time),
+    DDIM requests, the B = 16 DDPM action against the F.max_pool2d twin's."""
+    def make(pool, kernels):
+        algo = baseline_algo("diffusion_policy", dev, None, pool, kernels)
+        check(algo.ema_enabled and not algo.use_ddim and algo.num_inference_steps == 100,
+              "diffusion_policy.json's DDPM sampler with EMA")
+        norms = {type(m).__name__ for m in algo.nets["obs_encoder"].modules()
+                 if "Norm" in type(m).__name__}
+        check(norms == {"GroupNorm"}, f"the diffusion trunks' norms: {norms}")
+        return algo
+
+    def serve(algo, rng):
+        req = family_requests(CB, algo, rng, lambda b, call: {"stem_pool_fwd": 3},
+                              "phase 17c DiffusionPolicyUNet DDPM serving", obs_t=DP_TO,
+                              n=DP_REQUESTS)
+        ddpm = {"ms": req}
+        if profile:
+            obs = request_obs(rng, 1, DP_TO)
+            device_profile("diffusion DDPM get_action B=1", lambda: algo.get_action(obs))
+        ddim = baseline_algo("diffusion_policy", dev, ddim_config)
+        ddim.nets.load_state_dict(algo.nets.state_dict())
+        log(f"  DDIM ({ddim.num_inference_steps} steps, diffusion_policy.json's algo.ddim):")
+        shapes, handles = stem_inputs(ddim)
+        ddpm["ddim"] = family_requests(CB, ddim, rng, lambda b, call: {"stem_pool_fwd": 3},
+                                       "phase 17c DiffusionPolicyUNet DDIM serving",
+                                       obs_t=DP_TO, n=DP_REQUESTS)
+        check_stem_shapes("17c DDIM requests", shapes, DP_TO, BATCHES)
+        for h in handles:
+            h.remove()
+        del ddim
+        return ddpm
+
+    def twin_check(algo, twin, rng):
+        obs = request_obs(rng, BATCHES[-1], DP_TO)
+        equal_actions("DiffusionPolicyUNet", seeded(algo, 10, algo.get_action, obs),
+                      seeded(twin, 10, twin.get_action, obs))
+
+    step_ms, req = baseline_cell(CB, dev, gen, "17c DiffusionPolicyUNet", make, DP_TP,
+                                 DP_TO, ("l2_loss",), card, serve=serve, twin_check=twin_check)
+    free_card()
+    return step_ms, req["ms"], req["ddim"]
+
+
+def phase_act(CB, dev, gen, card):
+    """17d ACT: steps on t = 0 observations; then at B = 1 and 16, after a
+    reset, ACT_CHUNK + 1 calls: the first and the last find the queue empty
+    and predict a chunk (3 stem-pool launches), the others pop (none)."""
+    def make(pool, kernels):
+        return baseline_algo("act", dev, None, pool, kernels)
+
+    def predicts(call):
+        return call % ACT_CHUNK == 0
+
+    def serve(algo, rng):
+        times = {}
+        medians = family_requests(
+            CB, algo, rng, lambda b, call: {"stem_pool_fwd": 3} if predicts(call) else {},
+            "phase 17d ACT serving", n=ACT_CHUNK + 1, start=algo.reset, times=times)
+        for b in BATCHES:
+            kinds = {k: [ms for call, ms in enumerate(times[b]) if predicts(call) == k]
+                     for k in (True, False)}
+            medians[f"predict{b}"] = statistics.median(kinds[True])
+            log(f"  B={b}: {len(kinds[True])} calls predicted a chunk (median "
+                f"{medians[f'predict{b}']:.3f} ms), {len(kinds[False])} popped it (median "
+                f"{statistics.median(kinds[False]):.3f} ms)")
+        return medians
+
+    def twin_check(algo, twin, rng):
+        obs = request_obs(rng, BATCHES[-1])
+        for p in (algo, twin):
+            p.reset()
+        equal_actions("ACT", algo.get_action(obs), twin.get_action(obs))
+        check(len(algo._ac_queue) == ACT_CHUNK - 1, "ACT: the chunk was not queued")
+
+    out = baseline_cell(CB, dev, gen, "17d ACT", make, ACT_CHUNK, 1,
+                        ("l1_loss", "kl_loss", "action_loss", "policy_grad_norms"), card,
+                        serve=serve, twin_check=twin_check)
+    free_card()
+    return out
+
+
+def phase_baselines(CB, dev, card, profile=False):
+    """17: the imitation baselines at full width (see the module
+    docstring)."""
+    import torch
+
+    log(f"phase 17: the imitation baselines (bc, diffusion_policy, act), phase 8's "
+        f"observations, fp32, train.pallas_pool on ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(27)
+    rows, rnn_ms = phase_bc(CB, dev, gen, card)
+    dp_ms, dp_req, ddim_req = phase_diffusion(CB, dev, gen, card, profile)
+    act_ms, act_req = phase_act(CB, dev, gen, card)
+    rows["DiffusionPolicyUNet (DDPM)"] = (dp_ms, dp_req)
+    rows["DiffusionPolicyUNet (DDIM)"] = (dp_ms, ddim_req)
+    rows["ACT (all calls)"] = (act_ms, act_req)
+    log(f"  phase 17 medians ({card}), ms: policy, train step, get_action B=1, B=16")
+    for name, (step_ms, req) in rows.items():
+        log(f"  {name:28s} {step_ms:10.3f} {req[1]:10.3f} {req[BATCHES[-1]]:10.3f}")
+    log(f"  {'ACT (a call that predicts)':28s} {'':10s} {act_req['predict1']:10.3f} "
+        f"{act_req[f'predict{BATCHES[-1]}']:10.3f}")
+    log(f"  BC_RNN_GMM step {rnn_ms:.3f} ms")
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -2799,7 +3108,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print device-time breakdowns of get_action, "
-                             "of one training step and of one rollout lockstep")
+                             "of one training step, of one rollout lockstep and "
+                             "of one diffusion-policy request")
     args = parser.parse_args()
 
     import torch
@@ -2869,6 +3179,8 @@ def main():
     phase_family(CB, dev, card, paper_step_ms, args.profile)
     free_card()
     row_3g = phase_cores(CB, S, dev, card, paper_step_ms, args.profile)
+    free_card()
+    phase_baselines(CB, dev, card, args.profile)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]

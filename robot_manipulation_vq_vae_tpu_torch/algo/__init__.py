@@ -21,3 +21,16 @@ from robot_manipulation_vq_vae_tpu_torch.algo.icl_mamba import (
     ICLMamba_GMM,
     ICLMambaHVQVAE,
 )
+from robot_manipulation_vq_vae_tpu_torch.algo.bc import (
+    BC,
+    BC_GMM,
+    BC_RNN,
+    BC_RNN_GMM,
+    BC_VAE,
+    BC_Gaussian,
+    BC_Transformer,
+    BC_Transformer_GMM,
+    ICLVAE,
+)
+from robot_manipulation_vq_vae_tpu_torch.algo.diffusion_policy import DiffusionPolicyUNet
+from robot_manipulation_vq_vae_tpu_torch.algo.act import ACT

@@ -372,6 +372,46 @@ class PolicyAlgo(Algo):
     steps' policy call, in mixed precision where asked, and the action-MSE
     evaluation."""
 
+    def _dtype(self):
+        return next(self.nets.parameters()).dtype
+
+    def _obs(self, obs_dict):
+        """Observations on the device in the networks' dtype (float64 after
+        ``nets.double()``), or None."""
+        if obs_dict is None:
+            return None
+        return {k: v.to(self._dtype())
+                for k, v in device_process_obs(obs_dict, self.device).items()}
+
+    def _device_batch(self, batch):
+        """(observations, actions) on the device, in the networks' dtype
+        (``nets.double()`` runs the step in float64)."""
+        actions = torch.as_tensor(batch["actions"]).to(
+            self.device, torch.float32, non_blocking=True).to(self._dtype())
+        return self._obs(batch["obs"]), actions
+
+    def _draw(self, value):
+        """A random draw injected by a test's hook, on the device; floating
+        ones in the networks' dtype."""
+        value = torch.as_tensor(value).to(self.device)
+        return value.to(self._dtype()) if value.is_floating_point() else value
+
+    def _policy_step(self, losses):
+        """The backward of ``losses["action_loss"]`` into the policy's
+        parameters (a parameter without gradient gets zeros, as optax steps
+        it), their global norm, clipping to ``train.max_grad_norm`` and one
+        step of the policy's optimizer. Returns the detached losses and
+        ``policy_grad_norms``."""
+        params = list(self.nets["policy"].parameters())
+        grads = torch.autograd.grad(losses["action_loss"], params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
+        metrics["policy_grad_norms"] = OptimUtils.global_norm(grads)
+        if self.max_grad_norm is not None:
+            OptimUtils.clip_by_global_norm_(grads, self.max_grad_norm)
+        self._step("policy", params, grads)
+        return metrics
+
     def _policy_call(self, *args, **kwargs):
         """``self.nets["policy"](*args, **kwargs)`` in a training step. Under
         ``train.mixed_precision`` the policy runs as the JAX steps run it:

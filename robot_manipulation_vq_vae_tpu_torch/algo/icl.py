@@ -6,8 +6,8 @@ as ``icl_gmm_paper``; and the rest of the family that ``icl`` routes to: the
 MLP policies ``ICL``, ``ICLGaussian`` and ``ICLGMM``, trained on the first
 step of each window, and the RNN policies ``ICLRNN`` and ``ICLRNN_GMM``,
 trained on the whole window and served step by step with a carried hidden
-state. ``ICLVAE`` is not ported: it waits for ``bc``'s BC_VAE, and ``icl``
-never routes to it.
+state. ``ICLVAE`` is ``algo/bc.py``'s (``BC_VAE`` under the ICL name; ``icl``
+never routes to it).
 
 ``ICLTransformerHVQVAE.train_on_batch`` (JAX ``:736-866``) runs the
 hierarchical VQ-VAE over the batch's actions (its training forward updates
@@ -51,7 +51,6 @@ import torch
 
 from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     PolicyAlgo,
-    device_process_obs,
     register_algo_factory_func,
     to_host,
 )
@@ -144,24 +143,6 @@ class ICL(PolicyAlgo):
                 "goal_obs": batch.get("goal_obs", None),
                 "actions": batch["actions"][:, 0]}
 
-    def _dtype(self):
-        return next(self.nets.parameters()).dtype
-
-    def _obs(self, obs_dict):
-        """Observations on the device in the networks' dtype (float64 after
-        ``nets.double()``), or None."""
-        if obs_dict is None:
-            return None
-        return {k: v.to(self._dtype())
-                for k, v in device_process_obs(obs_dict, self.device).items()}
-
-    def _device_batch(self, batch):
-        """(observations, actions) on the device, in the networks' dtype
-        (``nets.double()`` runs the step in float64)."""
-        actions = torch.as_tensor(batch["actions"]).to(
-            self.device, torch.float32, non_blocking=True).to(self._dtype())
-        return self._obs(batch["obs"]), actions
-
     def _action_losses(self, acts, target):
         """l2, smooth-l1 and (first 3 dims) cosine losses, and their
         weighted sum ``action_loss``."""
@@ -190,16 +171,7 @@ class ICL(PolicyAlgo):
         return self._action_losses(acts, actions)
 
     def _train_step(self, batch):
-        losses = self._losses(batch)
-        params = list(self.nets["policy"].parameters())
-        grads = torch.autograd.grad(losses["action_loss"], params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
-        metrics["policy_grad_norms"] = global_norm(grads)
-        if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.max_grad_norm)
-        self._step("policy", params, grads)
-        return metrics
+        return self._policy_step(self._losses(batch))
 
     def _validate_step(self, batch):
         return self._losses(batch)

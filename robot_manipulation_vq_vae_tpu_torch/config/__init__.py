@@ -11,3 +11,8 @@ from robot_manipulation_vq_vae_tpu_torch.config.icl_config import (
     ICLHVQVAEConfig,
 )
 from robot_manipulation_vq_vae_tpu_torch.config.icl_mamba_config import ICLMambaConfig
+from robot_manipulation_vq_vae_tpu_torch.config.bc_config import BCConfig
+from robot_manipulation_vq_vae_tpu_torch.config.diffusion_policy_config import (
+    DiffusionPolicyConfig,
+)
+from robot_manipulation_vq_vae_tpu_torch.config.act_config import ACTConfig

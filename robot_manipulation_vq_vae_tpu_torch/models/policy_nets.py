@@ -1,7 +1,8 @@
 """Actor networks (counterpart of the JAX package's ``models/policy_nets.py``
-:57-359, 388-501): the MLP actors (deterministic, Gaussian and GMM heads),
+:57-385, 388-501): the MLP actors (deterministic, Gaussian and GMM heads),
 the RNN actors (deterministic and GMM), the transformer actor of the
-flagship ICLTransformerHVQVAE, and the prompt-conditioned ICL transformer
+flagship ICLTransformerHVQVAE and its GMM variant (``BC_Transformer_GMM``'s),
+and the prompt-conditioned ICL transformer
 actors (GPT or Mamba backbone). The ICL GMM actor is the paper's LipVQ
 path. With ``low_noise_eval`` the stochastic heads' eval scales are 1e-4.
 In training (``self.training``) the scales are the activated scale heads,
@@ -249,7 +250,7 @@ class TransformerActorNetwork(nn.Module):
         self.goal_shapes = goal_shapes
         self.net = MIMO_Transformer(
             input_obs_group_shapes=_groups(obs_shapes, goal_shapes),
-            output_shapes=[("action", (ac_dim,))],
+            output_shapes=self._output_shapes(),
             transformer_embed_dim=transformer_embed_dim,
             transformer_num_layers=transformer_num_layers,
             transformer_num_heads=transformer_num_heads,
@@ -258,11 +259,39 @@ class TransformerActorNetwork(nn.Module):
             **transformer_kwargs,
         )
 
+    def _output_shapes(self):
+        return [("action", (self.ac_dim,))]
+
+    def _heads(self, obs_dict, goal_dict, generator):
+        return self.net(generator=generator,
+                        **_inputs(obs_dict, goal_dict, self.goal_shapes))
+
     def forward(self, obs_dict, actions=None, goal_dict=None, generator=None):
         """obs [B, T, ...] -> actions [B, T, ac_dim]; @generator draws the
         random crops in training."""
-        inputs = _inputs(obs_dict, goal_dict, self.goal_shapes)
-        return torch.tanh(self.net(generator=generator, **inputs)["action"])
+        return torch.tanh(self._heads(obs_dict, goal_dict, generator)["action"])
+
+
+class TransformerGMMActorNetwork(TransformerActorNetwork):
+    """The transformer actor emitting a GMM over [B, T] actions (JAX
+    ``TransformerGMMActorNetwork``): tanh'd means; in eval with
+    ``low_noise_eval`` the scales are 1e-4."""
+
+    def __init__(self, *args, num_modes=5, min_std=0.01, std_activation="softplus",
+                 low_noise_eval=True, **kwargs):
+        self.num_modes = num_modes
+        super().__init__(*args, **kwargs)
+        self.min_std = min_std
+        self.std_activation = std_activation
+        self.low_noise_eval = low_noise_eval
+
+    def _output_shapes(self):
+        m, a = self.num_modes, self.ac_dim
+        return [("mean", (m, a)), ("scale", (m, a)), ("logits", (m,))]
+
+    def forward(self, obs_dict, actions=None, goal_dict=None, generator=None):
+        return _gmm(self._heads(obs_dict, goal_dict, generator), self.min_std,
+                    self.std_activation, self.low_noise_eval and not self.training)
 
 
 class ICLTransformerActorNetwork(nn.Module):

@@ -19,7 +19,9 @@ and fills @module, whose classes say how their JAX children are named:
 
 Leaves are converted by type: Linear ``kernel [in, out]`` -> ``weight
 [out, in]``; Conv2d ``kernel [h, w, in, out]`` -> ``weight [out, in, h, w]``;
-Conv1d ``kernel [k, in, out]`` -> ``weight [out, in, k]``;
+Conv1d ``kernel [k, in, out]`` -> ``weight [out, in, k]``; ConvTranspose1d
+(Flax's ``transpose_kernel=True``) ``kernel [k, out, in]`` -> ``weight [in,
+out, k]``;
 BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
 ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm and
 GroupNorm ``scale``/``bias``. Any key that is missing or left unused
@@ -43,7 +45,9 @@ def _leaf_entries(mod):
         out = [("params", "kernel", "weight", lambda a: a.T)]
     elif isinstance(mod, nn.Conv2d):
         out = [("params", "kernel", "weight", lambda a: a.transpose(3, 2, 0, 1))]
-    elif isinstance(mod, nn.Conv1d):
+    elif isinstance(mod, (nn.Conv1d, nn.ConvTranspose1d)):
+        # Conv1d [k, in, out] -> [out, in, k]; ConvTranspose1d (Flax's
+        # transpose_kernel=True) [k, out, in] -> [in, out, k]
         out = [("params", "kernel", "weight", lambda a: a.transpose(2, 1, 0))]
     elif isinstance(mod, nn.BatchNorm2d):
         return [("params", "scale", "weight", same), ("params", "bias", "bias", same),

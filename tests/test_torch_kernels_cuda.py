@@ -807,3 +807,81 @@ def test_family_step_with_kernels_matches_plain(cuda_device, name):
     assert any(float(g.abs().max()) > 0 for n, g in res_p[1].items() if "backbone" in n)
     keys = ("action_loss", "policy_grad_norms") + (("vq_vae_loss",) if groups == 2 else ())
     compare_steps(res_k, res_p, keys)
+
+
+# ---------------------------------------------------------------------------
+# the imitation baselines (bc's transformer-GMM policy, the diffusion policy)
+# ---------------------------------------------------------------------------
+
+def _baseline_algo(name, device, use_kernels=True):
+    """A small BC_Transformer_GMM (one GPT layer of 32, context 4) or
+    DiffusionPolicyUNet (down dims 16 / 32, To 2, Tp 4, its trunk with
+    GroupNorm), one 64x64 camera through ResNet-18 and train.pallas_pool."""
+    from robot_manipulation_vq_vae_tpu_torch import algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory(name)
+    with cfg.values_unlocked():
+        cfg.observation.modalities.obs.low_dim = ["eef_pos"]
+        cfg.observation.modalities.obs.rgb = ["cam_image"]
+        cfg.observation.encoder.rgb.core_class = "VisualCore"
+        cfg.observation.encoder.rgb.core_kwargs = {
+            "feature_dimension": 32, "backbone_class": "ResNet18Conv",
+            "backbone_kwargs": {"pretrained": False, "input_coord_conv": False},
+            "pool_class": "SpatialSoftmax",
+            "pool_kwargs": {"num_kp": 16, "learnable_temperature": False,
+                            "temperature": 1.0, "noise_std": 0.0},
+        }
+        cfg.observation.encoder.rgb.obs_randomizer_class = None
+        if name == "bc":
+            cfg.algo.gmm.enabled = True
+            tc = cfg.algo.transformer
+            tc.enabled, tc.context_length, tc.embed_dim, tc.num_layers, tc.num_heads = (
+                True, 4, 32, 1, 4)
+        else:
+            cfg.algo.horizon.prediction_horizon = 4
+            cfg.algo.unet.down_dims = [16, 32]
+            cfg.algo.unet.diffusion_step_embed_dim = 16
+        cfg.train.pallas_pool = True
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory(name, cfg, {"eef_pos": (3,), "cam_image": (64, 64, 3)}, 7,
+                             device=device, use_kernels=use_kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bc", "diffusion_policy"])
+def test_baseline_step_with_kernels_matches_plain(cuda_device, name):
+    """One training step of BC_Transformer_GMM (B = 4 windows of 4) and of
+    DiffusionPolicyUNet (B = 4, 2 frames, 4 actions; EMA on) with the
+    kernels, against one step of the same weights with F.max_pool2d's plain
+    versions, batch and draws alike, under cuDNN's deterministic algorithms:
+    chip_smoke's tolerances. The kernel step launches the stem pool once a
+    step (forward and backward over the window's frames); the plain one
+    launches nothing."""
+    import numpy as np
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from chip_smoke import compare_steps, one_step
+
+    rng = np.random.RandomState(0)
+    batch = {"obs": {"eef_pos": rng.randn(4, 4, 3).astype(np.float32),
+                     "cam_image": rng.randint(0, 256, (4, 4, 64, 64, 3), dtype=np.uint8)},
+             "actions": rng.uniform(-1, 1, (4, 4, 7)).astype(np.float32)}
+    algo = _baseline_algo(name, cuda_device)
+    assert type(algo).__name__ == ("BC_Transformer_GMM" if name == "bc"
+                                   else "DiffusionPolicyUNet")
+    batch = algo.process_batch_for_training(batch)
+    state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
+    CB.reset_launch_counts()
+    res_k = one_step(algo, batch, deterministic=True)
+    assert (LAUNCHES["stem_pool_fwd"], LAUNCHES["stem_pool_bwd"]) == (1, 1)
+    plain = _baseline_algo(name, cuda_device, use_kernels=False)
+    plain.nets.load_state_dict(state)
+    CB.reset_launch_counts()
+    res_p = one_step(plain, batch, deterministic=True)
+    assert sum(LAUNCHES.values()) == 0
+    assert any(float(g.abs().max()) > 0 for n, g in res_p[1].items() if "backbone" in n)
+    keys = (("log_probs", "action_loss", "policy_grad_norms") if name == "bc"
+            else ("l2_loss",))
+    compare_steps(res_k, res_p, keys)

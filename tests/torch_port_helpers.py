@@ -163,7 +163,8 @@ def check_parameters(got_module, want_module, tol, loose=(), loose_tol=None):
 class PinnedJaxRandom:
     """A stand-in for the ``jax`` module inside one JAX package module
     (monkeypatch that module's global ``jax`` with it): ``random.uniform``,
-    ``randint`` and ``normal`` return values drawn from a seeded numpy
+    ``randint``, ``normal`` and ``categorical`` return values drawn from a
+    seeded numpy
     RandomState (a uniform's already scaled to its range; @fixed {name:
     value} pins one outright), each logged as (name, value) in call order;
     everything else is JAX's. Under ``jit`` the values are constants of the
@@ -185,7 +186,8 @@ class PinnedJaxRandom:
         self.log = []
         self.random = types.SimpleNamespace(
             split=jax.random.split, PRNGKey=jax.random.PRNGKey,
-            uniform=self._uniform, randint=self._randint, normal=self._normal)
+            uniform=self._uniform, randint=self._randint, normal=self._normal,
+            categorical=self._categorical)
         self.lax = _PinnedLax(jax.lax)
 
     def __getattr__(self, name):
@@ -215,6 +217,14 @@ class PinnedJaxRandom:
 
     def _normal(self, key, shape=(), dtype=None):
         return self._record("normal", self.rng.randn(*shape), self._float())
+
+    def _categorical(self, key, logits, axis=-1):
+        """A uniform pick over the last axis of @logits (the draw is
+        pinned, not its distribution)."""
+        assert axis == -1
+        shape = tuple(logits.shape)
+        return self._record("categorical", self.rng.randint(0, shape[-1], size=shape[:-1]),
+                            self._jax.dtypes.canonicalize_dtype(np.int64))
 
 
 class _PinnedLax:
@@ -260,3 +270,84 @@ def port_draws(monkeypatch, log, obs_core):
     monkeypatch.setattr(obs_core.GaussianNoiseRandomizer, "draw",
                         lambda self, x, gen: pop("normal").to(x.device, x.dtype))
     return state
+
+
+def random_init(init):
+    """A stand-in for @init (a JAX algo's ``_init_variables``) that compiles
+    nothing: its variables' shapes (``jax.eval_shape``) filled with seeded
+    random values, kernels N(0, 1 / fan_in), norm scales 1 + N(0, 0.2^2),
+    other vectors N(0, 0.2^2). (The parity tests make every leaf random anyway; eagerly
+    each op of an init compiles alone, jitted the init compiles as a whole:
+    seconds either way.)"""
+    import jax
+    import jax.numpy as jnp
+
+    def make(rng, batch):
+        draws = np.random.RandomState(7)
+
+        def leaf(path, s):
+            name = str(path[-1])
+            if len(s.shape) >= 2:
+                std = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+                return jnp.asarray(draws.normal(0.0, std, s.shape), s.dtype)
+            base = 1.0 if "scale" in name else 0.0
+            return jnp.asarray(base + draws.normal(0.0, 0.2, s.shape), s.dtype)
+
+        return jax.tree_util.tree_map_with_path(leaf, jax.eval_shape(init, rng, batch))
+
+    return make
+
+
+# the reference ConditionalUnet1D's state dict -> the JAX package's Flax tree
+# (a copy of tests/test_diffusion_parity.py's torch_unet_to_flax, which
+# imports the reference mount at module level)
+def _unet_linear(sd, prefix):
+    return {"kernel": sd[prefix + ".weight"].T.copy(), "bias": sd[prefix + ".bias"].copy()}
+
+
+def _unet_conv1d(sd, prefix):
+    # Conv1d [out, in, k] and ConvTranspose1d [in, out, k] both -> [k, ., .]
+    return {"kernel": sd[prefix + ".weight"].transpose(2, 1, 0).copy(),
+            "bias": sd[prefix + ".bias"].copy()}
+
+
+def _unet_groupnorm(sd, prefix):
+    return {"scale": sd[prefix + ".weight"].copy(), "bias": sd[prefix + ".bias"].copy()}
+
+
+def _unet_resblock(sd, prefix):
+    out = {
+        "block1": {"conv": _unet_conv1d(sd, prefix + ".blocks.0.block.0"),
+                   "gn": _unet_groupnorm(sd, prefix + ".blocks.0.block.1")},
+        "block2": {"conv": _unet_conv1d(sd, prefix + ".blocks.1.block.0"),
+                   "gn": _unet_groupnorm(sd, prefix + ".blocks.1.block.1")},
+        "cond_proj": _unet_linear(sd, prefix + ".cond_encoder.1"),
+    }
+    if prefix + ".residual_conv.weight" in sd:   # Identity when in == out
+        out["res_conv"] = _unet_conv1d(sd, prefix + ".residual_conv")
+    return out
+
+
+def torch_unet_to_flax(state_dict, down_dims):
+    """The Flax params of a ConditionalUnet1D in the reference's layout
+    (@state_dict: its tensors as numpy arrays)."""
+    sd = state_dict
+    params = {
+        "temb1": _unet_linear(sd, "diffusion_step_encoder.1"),
+        "temb2": _unet_linear(sd, "diffusion_step_encoder.3"),
+        "mid1": _unet_resblock(sd, "mid_modules.0"),
+        "mid2": _unet_resblock(sd, "mid_modules.1"),
+        "final_block": {"conv": _unet_conv1d(sd, "final_conv.0.block.0"),
+                        "gn": _unet_groupnorm(sd, "final_conv.0.block.1")},
+        "final_conv": _unet_conv1d(sd, "final_conv.1"),
+    }
+    for i in range(len(down_dims)):
+        params[f"down{i}_r1"] = _unet_resblock(sd, f"down_modules.{i}.0")
+        params[f"down{i}_r2"] = _unet_resblock(sd, f"down_modules.{i}.1")
+        if i < len(down_dims) - 1:
+            params[f"down{i}_pool"] = _unet_conv1d(sd, f"down_modules.{i}.2.conv")
+    for j in range(len(down_dims) - 1):
+        params[f"up{j}_r1"] = _unet_resblock(sd, f"up_modules.{j}.0")
+        params[f"up{j}_r2"] = _unet_resblock(sd, f"up_modules.{j}.1")
+        params[f"up{j}_up"] = _unet_conv1d(sd, f"up_modules.{j}.2.conv")
+    return params
