@@ -151,7 +151,23 @@ Phases, each of which fails the run when it fails:
      [200, ...]): DDPM requests (100 UNet calls each) and DDIM ones (10);
      17d ACT (512 wide, 3200 feed-forward, 4 + 7 layers, chunk 10): after a
      reset, 11 calls at B = 1 and 16, the first and the last predicting a
-     chunk (3 stem-pool launches), the others popping it (none).
+     chunk (3 stem-pool launches), the others popping it (none);
+  18. the offline-RL family at its templates' widths, fp32, B = 100: 18a
+     IQL (actor and 2 critics [300, 400], Gaussian actor), 18b TD3-BC
+     ([256, 256]; D4RL HalfCheetah's 17-d state, A = 6), 18c CQL ([300,
+     400], tanh-Gaussian actor, 10 random actions), 18d BCQ (2 critics [300,
+     400], a VAE sampler of latent 14, 10 candidates a backup and 100 a
+     request, ensemble weight 0.75), each on robomimic Lift's low-dim keys
+     (A = 7) but TD3-BC: a warm-up and 3 timed steps, 3 requests at B = 1
+     and 16, no kernel; then one step and one request each of BCQ_GMM and
+     BCQ_Distributional (51 atoms); 18e the four on phase 8's observations
+     with train.pallas_pool: a warm-up and one timed step (the stem-pool
+     launches and input shapes of each, the peak device memory under 60
+     GiB; CQL's actor also pools [1000]: s and s' tiled 10 times), 3
+     requests at B = 1 and 16 (BCQ's 100 candidates a row scored on each
+     row's features, encoded once), the B = 16 action bit-equal to the
+     F.max_pool2d twin's with the same draws, and a kernel step against a
+     plain step from the same weights and optimizer state.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -165,6 +181,7 @@ non-zero, printing no result, without a CUDA device or without the port.
 
 import argparse
 import contextlib
+import copy
 import glob
 import hashlib
 import json
@@ -203,7 +220,9 @@ FLAGSHIP_POOL = (1024, 64, 58, 58)
 # family's training steps (phase 15: the MLP policies' 100 frames, the RNN
 # policies' 100 x 10, icl_mamba's 32 x 10 a group, ICLMambaHVQVAE's 64 x
 # 10; phase 17: BC_Transformer_GMM's 100 x 10, the diffusion policy's 100 x
-# 2 on its GroupNorm trunks), the requests' (an MLP or RNN policy's B = 1 and 16 frames,
+# 2 on its GroupNorm trunks; phase 18e: the offline-RL steps' 100 and CQL's
+# actor's 1000), the requests' (an MLP or RNN policy's B = 1 and 16 frames,
+# the offline-RL policies' too,
 # the diffusion policy's 1 x 2 and 16 x 2, icl_mamba's 1 x 10 and 16 x 10 a
 # group, the paper's 16 x 16 at B = 16 and in the rollout), and a small odd
 # shape; all but the odd one are timed, the
@@ -2225,16 +2244,18 @@ def served(algo, obs, ctx=None):
 
 
 def family_requests(CB, algo, rng, per_request, path, ctx_t=None, obs_t=None,
-                    n=REQUESTS, start=None, times=None):
+                    n=REQUESTS, start=None, times=None, make_obs=None, ac_dim=12):
     """@n requests at B = 1 and @n at B = 16 (a warm one first each): the
     launch counts of each (``per_request(b, call)``, added to @path's) and
     the medians. @ctx_t: the context window of a prompt-conditioned policy;
     @obs_t: the observation window of a policy that takes no context.
     @start: called before the warm request and again before the timed ones
-    (ACT's reset); @times: filled with each B's times, in call order."""
+    (ACT's reset); @times: filled with each B's times, in call order;
+    @make_obs(rng, b): observations other than phase 8's; @ac_dim: the
+    action's width."""
     medians = {}
     for b in BATCHES:
-        reqs = [(request_obs(rng, b, ctx_t or obs_t),
+        reqs = [(request_obs(rng, b, ctx_t or obs_t) if make_obs is None else make_obs(rng, b),
                  make_request(rng, b, ctx_t)[1] if ctx_t else None)
                 for _ in range(n + 1)]
         if start is not None:
@@ -2247,7 +2268,7 @@ def family_requests(CB, algo, rng, per_request, path, ctx_t=None, obs_t=None,
             CB.reset_launch_counts()
             action, ms = served(algo, obs, ctx)
             b_times.append(ms)
-            check(action.shape == (b, 12) and bool(action.isfinite().all()),
+            check(action.shape == (b, ac_dim) and bool(action.isfinite().all()),
                   f"B={b} call {call}: action {tuple(action.shape)}")
             check_launches(f"request B={b} call {call}", dict(CB.LAUNCHES),
                            per_request(b, call), 1)
@@ -2850,7 +2871,7 @@ def bc_mode(mode):
 def check_stem_shapes(tag, shapes, frames, n):
     """The stem pools ran at N = @frames x each of @n (their input shapes,
     recorded by ``stem_inputs``), and phase 6 holds each of those shapes."""
-    want = sorted((frames * b, 64, 58, 58) for b in n)
+    want = sorted({(frames * b, 64, 58, 58) for b in n})
     got = sorted(set(shapes))
     log(f"  {tag}: the stems pooled {got}")
     check(got == want, f"{tag}: the stems pooled {got}, not {want}")
@@ -3072,6 +3093,221 @@ def phase_baselines(CB, dev, card, profile=False):
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 18: the offline-RL family
+# ---------------------------------------------------------------------------
+
+RL_B = 100             # the batch_size of exps/templates/{iql,td3_bc,cql,bcq}.json
+RL_STEPS = 3           # timed steps of a low-dim cell, after a warm-up
+# the templates' observations: robomimic Lift's low-dim keys (iql, cql, bcq;
+# A = 7) and D4RL HalfCheetah's flat state (td3_bc; A = 6)
+LIFT = {"robot0_eef_pos": (3,), "robot0_eef_quat": (4,), "robot0_gripper_qpos": (2,),
+        "object": (10,)}
+HALFCHEETAH = {"flat": (17,)}
+# BCQ_Distributional's atoms span these (the bcq template sets no bounds):
+# discounted returns of rewards in [0, 1] at gamma 0.99 lie in [0, 100]
+RL_VALUE_BOUNDS = [-100.0, 100.0]
+# tag -> (algo name, class, the metrics a step must give)
+RL_CELLS = {
+    "18a": ("iql", "IQL", ("critic/critic1_loss", "vf_loss", "actor/loss")),
+    "18b": ("td3_bc", "TD3_BC", ("critic/critic1_loss", "actor/loss")),
+    "18c": ("cql", "CQL", ("actor/loss", "critic/critic1_loss", "critic/cql_weight")),
+    "18d": ("bcq", "BCQ", ("action_sampler/loss", "critic/critic1_loss")),
+}
+# 18e's stem-pool launches (3 cameras a trunk): a step, and a request. IQL:
+# V at s', 2 target critics, 2 critics, V and the actor forward; the
+# critics, V and the actor backward. TD3-BC (a step that moves the actor):
+# the target actor, 2 target critics, 2 critics, the actor and the stepped
+# first critic forward; the critics and the actor backward. CQL: the actor
+# at s, s' and s and s' tiled 10 times ([1000]), 2 critics, 2 target
+# critics forward; the actor and the critics backward. BCQ: the VAE at s
+# and at s', 2 target critics, 2 critics forward; the VAE and the critics
+# backward. A request: the actor; BCQ's the VAE and the first critic, each
+# row encoded once for its 100 candidates.
+RL_IMAGE_LAUNCHES = {
+    "IQL": ({"stem_pool_fwd": 21, "stem_pool_bwd": 12}, {"stem_pool_fwd": 3}),
+    "TD3_BC": ({"stem_pool_fwd": 21, "stem_pool_bwd": 9}, {"stem_pool_fwd": 3}),
+    "CQL": ({"stem_pool_fwd": 24, "stem_pool_bwd": 9}, {"stem_pool_fwd": 3}),
+    "BCQ": ({"stem_pool_fwd": 18, "stem_pool_bwd": 9}, {"stem_pool_fwd": 6}),
+}
+RL_PEAK_GIB = 60.0     # 18e's steps must fit in this at B = 100
+
+
+def rl_algo(name, dev, images=False, pallas_pool=True, use_kernels=True, configure=None):
+    """The ``@name`` algo at its template's widths, on the template's low-dim
+    observations (``LIFT``, or ``HALFCHEETAH`` for td3_bc) or, with @images,
+    on phase 8's (A = 12), with @configure (a function of the config)
+    applied."""
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory(name)
+    with cfg.values_unlocked():
+        if images:
+            _observations(cfg)
+            cfg.train.pallas_pool = pallas_pool
+        elif name != "td3_bc":
+            cfg.observation.modalities.obs.low_dim = list(LIFT)
+        if configure is not None:
+            configure(cfg)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    shapes, ac_dim = rl_shapes(name, images)
+    return Algo.algo_factory(name, cfg, shapes, ac_dim, device=dev, use_kernels=use_kernels)
+
+
+def rl_shapes(name, images):
+    if images:
+        return SHAPES, 12
+    return (HALFCHEETAH, 6) if name == "td3_bc" else (LIFT, 7)
+
+
+def rl_batch(gen, dev, algo, b, images):
+    """A processed batch of @b transitions (s, a, r, s', done) on the card:
+    phase 8's observations with @images, else the template's low-dim ones;
+    rewards in [0, 1], 5 % of the rows done."""
+    import torch
+
+    shapes, ac_dim = rl_shapes(algo.global_config.algo_name, images)
+    if images:
+        batch = make_train_batch(gen, dev, b, 1)
+        batch["next_obs"] = make_train_batch(gen, dev, b, 1)["obs"]
+    else:
+        def obs():
+            return {k: torch.randn((b, 1, *s), generator=gen, device=dev)
+                    for k, s in shapes.items()}
+        batch = {"obs": obs(), "next_obs": obs(),
+                 "actions": torch.rand((b, 1, ac_dim), generator=gen, device=dev) * 2 - 1}
+    batch["rewards"] = torch.rand((b, 1), generator=gen, device=dev)
+    batch["dones"] = (torch.rand((b, 1), generator=gen, device=dev) < 0.05).float()
+    return algo.process_batch_for_training(batch)
+
+
+def rl_lowdim_obs(name):
+    shapes, _ = rl_shapes(name, False)
+    return lambda rng, b: {k: rng.randn(b, *s).astype(np.float32) for k, s in shapes.items()}
+
+
+def phase_rl_lowdim(CB, dev, gen, card, tag, name, cls, keys, configure=None,
+                    steps=RL_STEPS, requests=REQUESTS):
+    """One low-dim cell of 18a-18d at the template's widths, B = RL_B: a
+    warm-up and @steps timed steps, @requests requests at B = 1 and 16; no
+    kernel runs. Returns (step median, {B: request median})."""
+    algo = rl_algo(name, dev, configure=configure)
+    check(type(algo).__name__ == cls, f"{tag}: {type(algo).__name__}")
+    log(f"phase {tag} {cls}: {sum(p.numel() for p in algo.nets.parameters())} parameters, "
+        f"B={RL_B}, observations {sorted(rl_shapes(name, False)[0])}")
+    batches = [rl_batch(gen, dev, algo, RL_B, False) for _ in range(steps + 1)]
+    step_ms = family_train(CB, algo, batches, {}, f"{tag} {cls} step ({card})",
+                           f"phase {tag} {cls} training", keys)
+    req = family_requests(CB, algo, np.random.RandomState(18), lambda b, call: {},
+                          f"phase {tag} {cls} serving", n=requests,
+                          make_obs=rl_lowdim_obs(name), ac_dim=rl_shapes(name, False)[1])
+    del algo
+    free_card()
+    return step_ms, req
+
+
+def phase_rl_image(CB, dev, gen, card, tag, name, cls, keys, profile):
+    """One algo of 18e on phase 8's observations with train.pallas_pool at
+    its template's widths, B = RL_B: a warm-up and one timed step (its
+    stem-pool launches and input shapes, its peak device memory under
+    RL_PEAK_GIB), 3 requests at B = 1 and 16, the B = 16 action bit-equal to
+    the F.max_pool2d twin's with the same draws, and a kernel step against
+    a plain step. Returns (step ms, {B: request median}, peak GiB)."""
+    import torch
+
+    per_step, per_request = RL_IMAGE_LAUNCHES[cls]
+    path = f"phase 18e {cls}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    algo = rl_algo(name, dev, images=True)
+    log(f"phase 18e {cls}: phase 8's observations, train.pallas_pool on, "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, B={RL_B}")
+    batches = [rl_batch(gen, dev, algo, RL_B, True) for _ in range(2)]
+    shapes, handles = stem_inputs(algo)
+    counts, step_ms, vals = timed_steps(CB, algo, batches, f"18e {cls} step ({card})",
+                                        f"{path} training")
+    check_launches(f"18e {cls}", counts, per_step, 1)
+    check(set(keys) <= set(vals), f"18e {cls}: metrics {sorted(vals)}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"  peak device memory of the steps {peak:.2f} GiB ({card})")
+    check(peak < RL_PEAK_GIB, f"18e {cls}: peak {peak:.2f} GiB")
+    n_rand = int(algo.algo_config.critic.num_random_actions) if cls == "CQL" else 1
+    check_stem_shapes(f"18e {cls} steps", shapes, 1, (RL_B, RL_B * n_rand))
+    if profile:
+        device_profile(f"18e {cls} train step",
+                       lambda: algo.train_on_batch(batches[0], epoch=0),
+                       share=("pool_fwd_kernel", "pool_bwd_kernel"))
+    shapes.clear()
+    rng = np.random.RandomState(19)
+    req = family_requests(CB, algo, rng, lambda b, call: per_request, f"{path} serving")
+    check_stem_shapes(f"18e {cls} requests", shapes, 1, BATCHES)
+    for h in handles:
+        h.remove()
+    twin = rl_algo(name, dev, images=True, pallas_pool=False)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    obs = request_obs(rng, BATCHES[-1])
+    equal_actions(cls, seeded(algo, 9, algo.get_action, obs),
+                  seeded(twin, 9, twin.get_action, obs))
+    log(f"  B={BATCHES[-1]} action bit-equal to the F.max_pool2d model's")
+    del twin
+
+    # the plain model takes the optimizers' state too: a network's loss may
+    # read another as its step left it (TD3-BC's actor the first critic,
+    # CQL's critics the actor, BCQ's the sampler)
+    opt_state = {n: copy.deepcopy(o.state_dict()) for n, o in algo.optimizers.items()}
+
+    def plain():
+        p = rl_algo(name, dev, images=True, use_kernels=False)
+        for n, sd in opt_state.items():
+            p.optimizers[n].load_state_dict(sd)
+        if cls == "TD3_BC":
+            p.critic_steps = 1
+        return p
+
+    if cls == "TD3_BC":   # both compared steps move the actor (update_freq 2)
+        algo.critic_steps = 1
+    kernel_against_plain(algo, plain, batches[0], keys)
+    del opt_state
+    return step_ms, req, peak
+
+
+def phase_offline_rl(CB, dev, card, profile=False):
+    """18: the offline-RL family (see the module docstring)."""
+    import torch
+
+    log(f"phase 18: the offline-RL family (iql, td3_bc, cql, bcq), fp32 ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(28)
+    rows = {}
+    for tag, (name, cls, keys) in RL_CELLS.items():
+        rows[f"{tag} {cls}"] = phase_rl_lowdim(CB, dev, gen, card, tag, name, cls, keys)
+
+    def gmm(cfg):
+        cfg.algo.action_sampler.gmm.enabled = True
+
+    def distributional(cfg):
+        cfg.algo.critic.distributional.enabled = True
+        cfg.algo.critic.value_bounds = RL_VALUE_BOUNDS
+
+    for cls, configure in (("BCQ_GMM", gmm), ("BCQ_Distributional", distributional)):
+        rows[f"18d {cls}"] = phase_rl_lowdim(CB, dev, gen, card, "18d", "bcq", cls,
+                                             ("action_sampler/loss", "critic/critic1_loss"),
+                                             configure=configure, steps=1, requests=1)
+    image_rows = {}
+    for tag, (name, cls, keys) in RL_CELLS.items():
+        image_rows[cls] = phase_rl_image(CB, dev, gen, card, tag, name, cls, keys, profile)
+        free_card()
+    log(f"  phase 18 medians ({card}), ms: cell, train step, get_action B=1, B=16")
+    for cell, (step_ms, req) in rows.items():
+        log(f"  {cell:24s} {step_ms:10.3f} {req[1]:10.3f} {req[BATCHES[-1]]:10.3f}")
+    for cls, (step_ms, req, peak) in image_rows.items():
+        log(f"  {'18e ' + cls:24s} {step_ms:10.3f} {req[1]:10.3f} {req[BATCHES[-1]]:10.3f}"
+            f"   peak {peak:.2f} GiB")
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -3181,6 +3417,8 @@ def main():
     row_3g = phase_cores(CB, S, dev, card, paper_step_ms, args.profile)
     free_card()
     phase_baselines(CB, dev, card, args.profile)
+    free_card()
+    phase_offline_rl(CB, dev, card, args.profile)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]

@@ -3,6 +3,7 @@ from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     ICLRolloutPolicy,
     PolicyAlgo,
     RolloutPolicy,
+    ValueAlgo,
     algo_factory,
     register_algo_factory_func,
     rollout_policy_class,
@@ -34,3 +35,7 @@ from robot_manipulation_vq_vae_tpu_torch.algo.bc import (
 )
 from robot_manipulation_vq_vae_tpu_torch.algo.diffusion_policy import DiffusionPolicyUNet
 from robot_manipulation_vq_vae_tpu_torch.algo.act import ACT
+from robot_manipulation_vq_vae_tpu_torch.algo.iql import IQL
+from robot_manipulation_vq_vae_tpu_torch.algo.td3_bc import TD3_BC
+from robot_manipulation_vq_vae_tpu_torch.algo.cql import CQL
+from robot_manipulation_vq_vae_tpu_torch.algo.bcq import BCQ, BCQ_GMM, BCQ_Distributional

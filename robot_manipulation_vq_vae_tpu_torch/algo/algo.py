@@ -12,13 +12,16 @@ in the mode it found them in.
 reference's names (``REFERENCE_NAMES``), which the JAX package's checkpoint
 converter reads, and optionally everything a resumed run needs.
 
-``PolicyAlgo`` adds the action-MSE evaluation, and ``RolloutPolicy`` /
+``PolicyAlgo`` adds the action-MSE evaluation; ``ValueAlgo`` is the base of
+the offline-RL family (``n_step_returns`` builds its n-step batches); and
+``RolloutPolicy`` /
 ``ICLRolloutPolicy`` wrap an algo for stepping environments: observation
 normalization, the language embedding and the context batch on the host in
 numpy, one ``get_action`` on the device, the action back on the host once
 per query, then unnormalization and the runtime rot_6d conversion.
 """
 
+import copy
 import re
 from collections import OrderedDict
 
@@ -65,6 +68,13 @@ REFERENCE_NAMES = (
     # the RNN policies: encoder, RNN and per-step head
     (r"^policy\.(encoder|rnn)\.", r"policy.nets.\1."),
     (r"^policy\.per_step_net\.", "policy.nets.rnn.per_step_net."),
+    # the offline-RL family (robomimic's names: the critics and their
+    # targets in ModuleLists, each network's layers under nets.); the VAE
+    # action sampler keeps the port's names, as BC_VAE's policy does
+    (r"^(actor|actor_target|action_sampler|vf|critic\.\d+|critic_target\.\d+)\."
+     r"(?:nets?\.)?encoder\.nets\.(\w+)\.obs_nets\.([^.]+)\.proj\.",
+     r"\1.nets.encoder.nets.\2.obs_nets.\3.nets.2."),
+    (r"^(actor|actor_target|action_sampler)\.net\.", r"\1.nets."),
 )
 
 
@@ -128,6 +138,9 @@ class Algo:
     MIXED_PRECISION = False
     # whether get_action takes a context batch (ICLRolloutPolicy wraps it)
     TAKES_CONTEXT = False
+    # counters of the algo's own (attribute names) that a resumed run needs:
+    # ``serialize`` saves them with the optimizers, ``deserialize`` restores
+    TRAINING_COUNTERS = ()
 
     def __init__(self, algo_config, obs_config, global_config, obs_key_shapes,
                  ac_dim, device=None, use_kernels=True):
@@ -202,6 +215,10 @@ class Algo:
 
     def _create_networks(self):
         raise NotImplementedError
+
+    def _encoder_kwargs(self):
+        """The observation encoders' per-modality settings."""
+        return ObsUtils.obs_encoder_kwargs_from_config(self.obs_config.encoder)
 
     def _num_training_steps(self):
         """``train.num_epochs * experiment.epoch_every_n_steps`` (the cosine
@@ -295,9 +312,10 @@ class Algo:
         """The networks' state dict under the reference's names (BatchNorm
         statistics and the HVQVAE's EMA buffers included), copied to the CPU.
         With @include_optimizer, also ``training_state``: each optimizer's and
-        schedule's state dict, the step counter, the algo's generator (crops,
-        k-means, dead codes) and the global generator (dropout), so that a
-        resumed run draws what the uninterrupted run would have drawn."""
+        schedule's state dict, the step counter and the ``TRAINING_COUNTERS``,
+        the algo's generator (crops, k-means, dead codes) and the global
+        generator (dropout), so that a resumed run draws what the
+        uninterrupted run would have drawn."""
         names = self._reference_names()
         out = OrderedDict((names[k], v.detach().cpu().clone())
                           for k, v in self.nets.state_dict().items())
@@ -308,6 +326,7 @@ class Algo:
                 "lr_schedulers": {n: s.state_dict()
                                   for n, s in self.lr_schedulers.items()},
                 "step": self.global_step,
+                **{name: getattr(self, name) for name in self.TRAINING_COUNTERS},
                 "generator": self.generator.get_state(),
                 "rng_state": self._rng_state(),
             }
@@ -332,6 +351,8 @@ class Algo:
         for n, sd in state["lr_schedulers"].items():
             self.lr_schedulers[n].load_state_dict(sd)
         self.global_step = int(state["step"])
+        for name in self.TRAINING_COUNTERS:
+            setattr(self, name, int(state[name]))
         self.generator.set_state(torch.as_tensor(state["generator"]))
         rng = torch.as_tensor(state["rng_state"])
         if self.device.type == "cuda":
@@ -472,6 +493,161 @@ class PolicyAlgo(Algo):
                     predicted_actions=pred.reshape(-1, pred.shape[-1]))
                 vis_log[f"{key.lower()}_pred"] = save_path
         return mse_log, vis_log
+
+
+class ValueAlgo(Algo):
+    """Base of the value-learning algos, the offline-RL family (``iql``,
+    ``td3_bc``, ``cql``, ``bcq``; each also a ``PolicyAlgo``):
+    ``get_state_value`` / ``get_state_action_value``, and what their steps
+    share.
+
+    * ``train_on_batch`` runs ``_rl_step(batch, gates, validate)`` on the
+      batch (s, a, r, s', done) on the device. Each network runs in the mode
+      the JAX step gives it: those named in ``TRAIN_MODE_NETS`` in training
+      mode, the others (critics, targets, V) in inference mode. With
+      @validate the step computes the same losses under ``no_grad`` and
+      updates nothing, as the JAX step does.
+    * ``gates``: whether each ``optim_params`` entry's ``start_epoch`` /
+      ``end_epoch`` window (-1 unbounded) is open at the batch's epoch; a
+      closed window skips that network's update (TD3-BC, BCQ).
+    * ``_add_optimizer`` / ``_update``: an optimizer per network (each critic
+      of an ensemble its own, so clipping takes each one's global norm), and
+      one gradient step of a loss into its parameters.
+    * Target networks copy the online ones at construction, take no
+      gradient, and move by ``iql.polyak`` over the parameters.
+    """
+
+    # the networks the JAX step runs with train=True
+    TRAIN_MODE_NETS = ()
+    # the metric ``log_info`` reports as ``Loss``
+    LOSS_KEY = "actor/loss"
+
+    def __init__(self, *args, **kwargs):
+        self._opt_params, self._max_norm = {}, {}
+        super().__init__(*args, **kwargs)
+        if self.goal_shapes:
+            raise NotImplementedError(
+                f"goal-conditioned {type(self).__name__} is not ported (the JAX step "
+                "passes no goals to its networks)")
+
+    def get_state_value(self, obs_dict, goal_dict=None):
+        raise NotImplementedError
+
+    def get_state_action_value(self, obs_dict, actions, goal_dict=None):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ optimizers
+    def _add_optimizer(self, name, module, optim_params, max_grad_norm=None):
+        """Optimizer @name (and its schedule) over @module's parameters,
+        their gradients clipped to @max_grad_norm by their global norm."""
+        params = list(module.parameters())
+        self.optimizers[name], self.lr_schedulers[name] = (
+            OptimUtils.optimizer_from_optim_params(params, optim_params,
+                                                   self._num_training_steps()))
+        self._opt_params[name], self._max_norm[name] = params, max_grad_norm
+
+    def _update(self, name, loss, validate, gate=True):
+        """One step of optimizer @name on the gradient of @loss, unless
+        @validate or the network's epoch @gate is closed."""
+        if validate or not gate:
+            return
+        params = self._opt_params[name]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if self._max_norm[name] is not None:
+            OptimUtils.clip_by_global_norm_(grads, self._max_norm[name])
+        self._step(name, params, grads)
+
+    @staticmethod
+    def _target_of(module):
+        """A frozen copy of @module: a target network."""
+        target = copy.deepcopy(module)
+        target.requires_grad_(False)
+        return target
+
+    def _check_epoch(self, net_name, epoch):
+        """Whether @net_name's ``optim_params`` window is open at @epoch."""
+        p = self.algo_config.optim_params[net_name]
+        start, end = p.get("start_epoch", -1), p.get("end_epoch", -1)
+        return (start == -1 or epoch >= start) and (end == -1 or epoch < end)
+
+    def _epoch_gates(self, epoch):
+        return {name: self._check_epoch(name, epoch)
+                for name in self.algo_config.optim_params}
+
+    # ------------------------------------------------------------ steps
+    def _rl_batch(self, batch):
+        """(s, a, r, s', done) on the device in the networks' dtype (the
+        actions read in float32 first, as the policies read them)."""
+        def to_device(v):
+            return torch.as_tensor(v).to(self.device, self._dtype(), non_blocking=True)
+
+        actions = torch.as_tensor(batch["actions"]).to(self.device, torch.float32,
+                                                       non_blocking=True)
+        return {"obs": self._obs(batch["obs"]), "next_obs": self._obs(batch["next_obs"]),
+                "actions": actions.to(self._dtype()), "rewards": to_device(batch["rewards"]),
+                "dones": to_device(batch["dones"])}
+
+    def train_on_batch(self, batch, epoch, validate=False):
+        was_training = self.nets.training
+        try:
+            self.nets.eval()
+            for name in self.TRAIN_MODE_NETS:
+                if name in self.nets:
+                    self.nets[name].train()
+            with torch.set_grad_enabled(not validate):
+                losses = self._rl_step(self._rl_batch(batch), self._epoch_gates(epoch),
+                                       validate)
+            if not validate:
+                self.global_step += 1
+            return {"losses": OrderedDict((k, v.detach()) for k, v in losses.items())}
+        finally:
+            self.nets.train(was_training)
+
+    def _rl_step(self, batch, gates, validate):
+        raise NotImplementedError
+
+    def log_info(self, info):
+        """Every metric as a float, and ``Loss`` (``LOSS_KEY``'s)."""
+        log = OrderedDict((k, float(v)) for k, v in info["losses"].items())
+        log["Loss"] = log.get(self.LOSS_KEY, 0.0)
+        return log
+
+    def _hooked(self, name):
+        """The draws that the test seam @name (``_noise_hook``,
+        ``_sample_hook``) injects, on the device (arrays, or tuples or dicts
+        of them), or None where it is unset."""
+        def to_device(v):
+            if isinstance(v, dict):
+                return {k: to_device(x) for k, x in v.items()}
+            if isinstance(v, tuple):
+                return tuple(to_device(x) for x in v)
+            return self._draw(v)
+
+        hook = getattr(self, name)
+        return None if hook is None else to_device(hook())
+
+
+def n_step_returns(batch, n_step, gamma, infinite_horizon=False):
+    """The first step of each window (s, a), the discounted sum of its first
+    @n_step rewards, done where any of those steps is, and s' @n_step - 1
+    steps on (the JAX TD3-BC / BCQ / CQL ``process_batch_for_training``).
+    With @infinite_horizon a done row's return is scaled by
+    1 / (1 - gamma^n). Works on numpy arrays and on tensors."""
+    xp = torch if isinstance(batch["rewards"], torch.Tensor) else np
+    rewards = batch["rewards"][:, :n_step]
+    discounts = gamma ** np.arange(n_step)
+    if xp is torch:
+        discounts = torch.as_tensor(discounts, dtype=rewards.dtype, device=rewards.device)
+    r = (rewards * discounts[None]).sum(1).reshape(-1, 1)
+    dones = batch["dones"][:, :n_step].any(1)
+    dones = (dones.float() if xp is torch else dones.astype(np.float32)).reshape(-1, 1)
+    if infinite_horizon:
+        r = xp.where(dones > 0, r / (1.0 - gamma ** n_step), r)
+    return {"obs": {k: v[:, 0] for k, v in batch["obs"].items()},
+            "next_obs": {k: v[:, n_step - 1] for k, v in batch["next_obs"].items()},
+            "goal_obs": batch.get("goal_obs", None),
+            "actions": batch["actions"][:, 0], "rewards": r, "dones": dones}
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,6 @@ from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.hvqvae import (
     get_codebook_usage,
 )
 from robot_manipulation_vq_vae_tpu_torch.utils import loss_utils as LossUtils
-from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.optim_utils import (
     clip_by_global_norm_,
@@ -133,9 +132,6 @@ class ICL(PolicyAlgo):
             mlp_layer_dims=tuple(self.algo_config.actor_layer_dims),
             encoder_kwargs=self._encoder_kwargs(),
         )
-
-    def _encoder_kwargs(self):
-        return ObsUtils.obs_encoder_kwargs_from_config(self.obs_config.encoder)
 
     def process_batch_for_training(self, batch):
         """The first step of each window."""

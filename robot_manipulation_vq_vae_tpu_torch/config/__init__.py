@@ -16,3 +16,7 @@ from robot_manipulation_vq_vae_tpu_torch.config.diffusion_policy_config import (
     DiffusionPolicyConfig,
 )
 from robot_manipulation_vq_vae_tpu_torch.config.act_config import ACTConfig
+from robot_manipulation_vq_vae_tpu_torch.config.iql_config import IQLConfig
+from robot_manipulation_vq_vae_tpu_torch.config.td3_bc_config import TD3_BCConfig
+from robot_manipulation_vq_vae_tpu_torch.config.cql_config import CQLConfig
+from robot_manipulation_vq_vae_tpu_torch.config.bcq_config import BCQConfig

@@ -1,6 +1,12 @@
 """Action distributions (counterpart of the JAX package's
-``models/distributions.py``:19-75, 159-173): a mixture of diagonal Gaussians
-and a diagonal Gaussian, with explicit tensor math."""
+``models/distributions.py``): a mixture of diagonal Gaussians, a diagonal
+Gaussian, and the tanh-squashed wrappers of both (y = tanh(x) * scale), with
+explicit tensor math.
+
+The tanh wrappers keep the reference's forms (robomimic's
+``TanhWrappedDistribution``): atanh recovered through ``1 +- v`` clamped at
+epsilon, and the squash correction ``log(1 - v^2 + epsilon)`` with epsilon
+added (1e-6)."""
 
 import math
 from dataclasses import dataclass
@@ -64,6 +70,34 @@ class GMMActionDistribution:
         return mean + scale * eps
 
 
+def _atanh(value, eps):
+    """atanh(@value) as 0.5 log((1 + v) / (1 - v)), each side clamped at @eps."""
+    return 0.5 * torch.log((1.0 + value).clamp_min(eps) / (1.0 - value).clamp_min(eps))
+
+
+def _squash_correction(value, eps):
+    """sum over the action of log(1 - v^2 + @eps)."""
+    return torch.log(1.0 - value ** 2 + eps).sum(-1)
+
+
+@dataclass
+class TanhWrappedGMM:
+    """The GMM @base squashed: y = tanh(x) * @scale."""
+
+    base: GMMActionDistribution
+    scale: float = 1.0
+    tanh_epsilon: float = 1e-6
+
+    def log_prob(self, value):
+        value = value / self.scale
+        pre_tanh = 0.5 * (torch.log((1.0 + value).clamp_min(self.tanh_epsilon))
+                          - torch.log((1.0 - value).clamp_min(self.tanh_epsilon)))
+        return (self.base.log_prob(pre_tanh) - _squash_correction(value, self.tanh_epsilon)
+                - value.shape[-1] * math.log(self.scale))
+
+    def sample(self, generator=None, mode=None, eps=None):
+        return torch.tanh(self.base.sample(generator, mode, eps)) * self.scale
+
 
 @dataclass
 class DiagGaussian:
@@ -88,3 +122,43 @@ class DiagGaussian:
             eps = torch.randn(self.mean.shape, generator=generator,
                               device=self.mean.device, dtype=self.mean.dtype)
         return self.mean + self.scale * eps
+
+
+@dataclass
+class TanhWrappedGaussian:
+    """The diagonal Gaussian @base squashed: y = tanh(x) * @scale.
+    ``log_prob`` takes the pre-tanh value where the caller has it (a
+    reparameterized sample's), else recovers it by atanh; a @scale other
+    than 1 adds A log(scale) to the correction."""
+
+    base: DiagGaussian
+    scale: float = 1.0
+    tanh_epsilon: float = 1e-6
+
+    def log_prob(self, value, pre_tanh_value=None):
+        value = value / self.scale
+        if pre_tanh_value is None:
+            pre_tanh_value = _atanh(value, self.tanh_epsilon)
+        correction = _squash_correction(value, self.tanh_epsilon)
+        if self.scale != 1.0:
+            correction = correction + value.shape[-1] * math.log(self.scale)
+        return self.base.log_prob(pre_tanh_value) - correction
+
+    def sample(self, generator=None, eps=None):
+        return torch.tanh(self.base.sample(generator, eps)) * self.scale
+
+    def rsample_with_pretanh(self, sample_shape=(), eps=None, generator=None):
+        """(tanh(z) * scale, z) with z = mean + scale_base * eps, a sample
+        that carries the gradient; the standard-normal @eps of shape
+        ``sample_shape + mean.shape`` may be injected, else it is drawn
+        from @generator."""
+        mean = self.base.mean
+        if eps is None:
+            eps = torch.randn(tuple(sample_shape) + tuple(mean.shape), generator=generator,
+                              device=mean.device, dtype=mean.dtype)
+        z = mean + self.base.scale * eps
+        return torch.tanh(z) * self.scale, z
+
+    @property
+    def mean(self):
+        return self.base.mean

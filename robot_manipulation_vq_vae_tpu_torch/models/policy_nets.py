@@ -4,7 +4,9 @@ the RNN actors (deterministic and GMM), the transformer actor of the
 flagship ICLTransformerHVQVAE and its GMM variant (``BC_Transformer_GMM``'s),
 and the prompt-conditioned ICL transformer
 actors (GPT or Mamba backbone). The ICL GMM actor is the paper's LipVQ
-path. With ``low_noise_eval`` the stochastic heads' eval scales are 1e-4.
+path. With ``use_tanh`` the Gaussian and the ICL GMM actors return
+tanh-wrapped distributions (CQL's actor). With ``low_noise_eval`` the
+stochastic heads' eval scales are 1e-4.
 In training (``self.training``) the scales are the activated scale heads,
 and a @generator draws the random crops."""
 
@@ -18,6 +20,8 @@ from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.models.distributions import (
     DiagGaussian,
     GMMActionDistribution,
+    TanhWrappedGaussian,
+    TanhWrappedGMM,
 )
 from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import (
     ICL_MIMO_Transformer,
@@ -53,10 +57,11 @@ def _inputs(obs_dict, goal_dict, goal_shapes, over_time=True):
     return inputs
 
 
-def _gmm(out, min_std, std_activation, low_noise):
-    """The GMM of the heads @out: tanh'd means; scales 1e-4 where
-    @low_noise, else the activated scale head + @min_std."""
-    means = torch.tanh(out["mean"])
+def _gmm(out, min_std, std_activation, low_noise, squash_means=True):
+    """The GMM of the heads @out: tanh'd means (the head itself without
+    @squash_means); scales 1e-4 where @low_noise, else the activated scale
+    head + @min_std."""
+    means = torch.tanh(out["mean"]) if squash_means else out["mean"]
     if low_noise:
         scales = torch.full_like(means, 1e-4)
     else:
@@ -116,17 +121,23 @@ class GaussianActorNetwork(ActorNetwork):
     scale ``softplus(x) * init_std / softplus(0)`` (or ``exp``, or the head
     itself; ``init_std`` alone with ``fixed_std``) clamped to
     ``(min_std or std_limits[0], std_limits[1])``; 1e-4 in low-noise eval.
-    The tanh-wrapped distribution (``use_tanh``) is not ported: no ICL config
-    sets it."""
+    With ``use_tanh`` the mean is clamped but not tanh'd, and the whole
+    distribution is tanh-wrapped (``TanhWrappedGaussian``, CQL's actor).
+    ``init_last_fc_weight`` scales the heads' initial weights (the JAX
+    ``decoder_init_scale``)."""
 
     def __init__(self, obs_shapes, ac_dim, mlp_layer_dims=(1024, 1024),
                  fixed_std=False, init_std=0.3, min_std=None,
                  mean_limits=(-9.0, 9.0), std_limits=(0.007, 7.5),
                  std_activation="softplus", low_noise_eval=True, use_tanh=False,
-                 goal_shapes=None, encoder_kwargs=None):
-        if use_tanh:
-            raise NotImplementedError("the tanh-wrapped Gaussian is not ported yet")
+                 init_last_fc_weight=None, goal_shapes=None, encoder_kwargs=None):
         super().__init__(obs_shapes, ac_dim, mlp_layer_dims, goal_shapes, encoder_kwargs)
+        if init_last_fc_weight is not None:
+            with torch.no_grad():
+                for head in self.net.decoder.nets.values():
+                    head.weight.uniform_(-init_last_fc_weight, init_last_fc_weight)
+                    head.bias.uniform_(-init_last_fc_weight, init_last_fc_weight)
+        self.use_tanh = use_tanh
         self.fixed_std = fixed_std
         self.init_std = init_std
         self.min_std = min_std
@@ -140,19 +151,24 @@ class GaussianActorNetwork(ActorNetwork):
 
     def forward(self, obs_dict, goal_dict=None, generator=None):
         out = self._heads(obs_dict, goal_dict, generator)
-        mean = torch.tanh(out["mean"].clamp(*self.mean_limits))
+        mean = out["mean"].clamp(*self.mean_limits)
+        if not self.use_tanh:
+            mean = torch.tanh(mean)
         if self.low_noise_eval and not self.training:
-            return DiagGaussian(mean=mean, scale=torch.full_like(mean, 1e-4))
-        if self.fixed_std:
-            scale = torch.full_like(mean, self.init_std)
-        elif self.std_activation == "softplus":
-            scale = F.softplus(out["scale"]) * (self.init_std / math.log(2.0))
-        elif self.std_activation == "exp":
-            scale = torch.exp(out["scale"])
+            scale = torch.full_like(mean, 1e-4)
         else:
-            scale = out["scale"]
-        lo = self.std_limits[0] if self.min_std is None else self.min_std
-        return DiagGaussian(mean=mean, scale=scale.clamp(lo, self.std_limits[1]))
+            if self.fixed_std:
+                scale = torch.full_like(mean, self.init_std)
+            elif self.std_activation == "softplus":
+                scale = F.softplus(out["scale"]) * (self.init_std / math.log(2.0))
+            elif self.std_activation == "exp":
+                scale = torch.exp(out["scale"])
+            else:
+                scale = out["scale"]
+            lo = self.std_limits[0] if self.min_std is None else self.min_std
+            scale = scale.clamp(lo, self.std_limits[1])
+        dist = DiagGaussian(mean=mean, scale=scale)
+        return TanhWrappedGaussian(base=dist) if self.use_tanh else dist
 
 
 class RNNActorNetwork(nn.Module):
@@ -338,9 +354,8 @@ class ICLTransformerGMMActorNetwork(ICLTransformerActorNetwork):
                  std_activation="softplus", low_noise_eval=True,
                  use_tanh=False, **kwargs):
         self.num_modes = num_modes
-        if use_tanh:
-            raise NotImplementedError("the tanh-wrapped GMM is not ported yet")
         super().__init__(*args, **kwargs)
+        self.use_tanh = use_tanh
         self.min_std = min_std
         self.std_activation = std_activation
         self.low_noise_eval = low_noise_eval
@@ -353,11 +368,13 @@ class ICLTransformerGMMActorNetwork(ICLTransformerActorNetwork):
                       low_noise_eval=None, generator=None):
         """Returns (GMM distribution over [B, T], vq_vae_loss). In training
         (``self.training``) the scales are always softplus(scale) + min_std,
-        and @generator draws the random crops."""
+        and @generator draws the random crops. With ``use_tanh`` the means
+        are the heads' and the GMM is tanh-wrapped (``TanhWrappedGMM``)."""
         out = self._forward_raw(obs_dict, context_obs, actions, goal_dict,
                                 generator)
         lne = self.low_noise_eval if low_noise_eval is None else low_noise_eval
-        return (_gmm(out, self.min_std, self.std_activation, lne and not self.training),
-                out["vq_vae_loss"])
+        dist = _gmm(out, self.min_std, self.std_activation, lne and not self.training,
+                    squash_means=not self.use_tanh)
+        return (TanhWrappedGMM(base=dist) if self.use_tanh else dist), out["vq_vae_loss"]
 
     forward = forward_train

@@ -1,6 +1,7 @@
-"""Loss helpers (counterpart of the JAX package's ``utils/loss_utils.py``
-:7-24, 25-52, 77-82): the transformer policies' action losses, and the KL
-terms and Gaussian log densities of the VAE actor and ACT."""
+"""Loss helpers (counterpart of the JAX package's ``utils/loss_utils.py``):
+the transformer policies' action losses, the KL terms and Gaussian log
+densities of the VAE actor and ACT, and the categorical (C51) projection of
+``BCQ_Distributional``'s target."""
 
 import math
 
@@ -45,3 +46,27 @@ def log_normal_mixture(x, m, v, log_w):
     """log of the mixture with log weights @log_w [..., M] of the diagonal
     Gaussians (@m, @v) [..., M, D] at @x [..., D]."""
     return torch.logsumexp(log_normal(x[..., None, :], m, v) + log_w, dim=-1)
+
+
+def project_values_onto_atoms(values, probabilities, atoms):
+    """The categorical (C51) projection of a distribution with mass
+    @probabilities [B, N] on @values [B, N] onto the grid @atoms [A]
+    (evenly spaced): each value, clipped to the grid, splits its mass
+    between the atoms below and above it in proportion to its distance from
+    each, and a value on an atom gives that atom all of it (the ``eq`` term).
+    Returns [B, A]. The mass goes through a one-hot product, as the JAX
+    version's: an index past the last atom (the grid's spacing rounded down)
+    holds no atom, and its share is dropped as there."""
+    vmin, vmax = atoms[0], atoms[-1]
+    d = atoms[1] - atoms[0]
+    b = (torch.minimum(torch.maximum(values, vmin), vmax) - vmin) / d
+    lower, upper = torch.floor(b), torch.ceil(b)
+    eq = (upper == lower).to(probabilities.dtype)
+    grid = torch.arange(atoms.shape[0], device=values.device)
+
+    def scatter(idx, weights):
+        onehot = (idx.long()[..., None] == grid).to(weights.dtype)
+        return torch.einsum("bn,bna->ba", weights, onehot)
+
+    return (scatter(lower, probabilities * (upper - b + eq))
+            + scatter(upper, probabilities * (b - lower)))

@@ -885,3 +885,111 @@ def test_baseline_step_with_kernels_matches_plain(cuda_device, name):
     keys = (("log_probs", "action_loss", "policy_grad_norms") if name == "bc"
             else ("l2_loss",))
     compare_steps(res_k, res_p, keys)
+
+
+def _offline_rl_algo(name, device, pallas_pool=True, use_kernels=True):
+    """A small ``@name`` (layers [32, 32]; BCQ's VAE [32], 10 candidates in
+    the backup and 100 a request, as its template) on one 64x64 camera
+    through ResNet-18 with a crop, and a low-dim key."""
+    from robot_manipulation_vq_vae_tpu_torch import algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory(name)
+    with cfg.values_unlocked():
+        cfg.observation.modalities.obs.low_dim = ["eef_pos"]
+        cfg.observation.modalities.obs.rgb = ["cam_image"]
+        cfg.observation.encoder.rgb.core_class = "VisualCore"
+        cfg.observation.encoder.rgb.core_kwargs = {
+            "feature_dimension": 32, "backbone_class": "ResNet18Conv",
+            "backbone_kwargs": {"pretrained": False, "input_coord_conv": False},
+            "pool_class": "SpatialSoftmax",
+            "pool_kwargs": {"num_kp": 16, "learnable_temperature": False,
+                            "temperature": 1.0, "noise_std": 0.0},
+        }
+        cfg.observation.encoder.rgb.obs_randomizer_class = "CropRandomizer"
+        cfg.observation.encoder.rgb.obs_randomizer_kwargs = {
+            "crop_height": 58, "crop_width": 58, "num_crops": 1, "pos_enc": False}
+        cfg.algo.critic.layer_dims = cfg.algo.actor.layer_dims = [32, 32]
+        if name == "bcq":
+            cfg.algo.action_sampler.vae.encoder_layer_dims = [32]
+            cfg.algo.action_sampler.vae.decoder_layer_dims = [32]
+        cfg.train.pallas_pool = pallas_pool
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory(name, cfg, {"eef_pos": (3,), "cam_image": (64, 64, 3)}, 7,
+                             device=device, use_kernels=use_kernels)
+
+
+# a step's stem-pool launches with one camera (forward, backward): IQL's V at
+# s', 2 target critics, 2 critics, V, the actor; TD3-BC's (a step that moves
+# the actor) the target actor, 2 targets, 2 critics, the actor and the
+# first critic; CQL the actor 4 times, 2 critics, 2 targets; BCQ the VAE
+# twice, 2 targets, 2 critics
+_RL_STEP_LAUNCHES = {"iql": (7, 4), "td3_bc": (7, 3), "cql": (8, 3), "bcq": (6, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_RL_STEP_LAUNCHES))
+def test_offline_rl_step_with_kernels_matches_plain(cuda_device, name):
+    """One step of each offline-RL algo (B = 8 transitions, random crops)
+    with the kernels against one of the same weights with their plain
+    versions, batch and draws alike, under cuDNN's deterministic
+    algorithms: chip_smoke's tolerances and the step's launch counts."""
+    import numpy as np
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from chip_smoke import compare_steps, one_step
+
+    rng = np.random.RandomState(0)
+
+    def obs():
+        return {"eef_pos": rng.randn(8, 1, 3).astype(np.float32),
+                "cam_image": rng.randint(0, 256, (8, 1, 64, 64, 3), dtype=np.uint8)}
+
+    batch = {"obs": obs(), "next_obs": obs(),
+             "actions": rng.uniform(-1, 1, (8, 1, 7)).astype(np.float32),
+             "rewards": rng.rand(8, 1).astype(np.float32),
+             "dones": (rng.rand(8, 1) < 0.3).astype(np.float32)}
+    algo = _offline_rl_algo(name, cuda_device)
+    batch = algo.process_batch_for_training(batch)
+    state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
+    plain = _offline_rl_algo(name, cuda_device, use_kernels=False)
+    plain.nets.load_state_dict(state)
+    if name == "td3_bc":   # update_freq 2: the second critic step moves the actor
+        algo.critic_steps = plain.critic_steps = 1
+    CB.reset_launch_counts()
+    res_k = one_step(algo, batch, deterministic=True)
+    assert (LAUNCHES["stem_pool_fwd"], LAUNCHES["stem_pool_bwd"]) == _RL_STEP_LAUNCHES[name]
+    CB.reset_launch_counts()
+    res_p = one_step(plain, batch, deterministic=True)
+    assert sum(LAUNCHES.values()) == 0
+    assert any(float(g.abs().max()) > 0 for n, g in res_p[1].items() if "backbone" in n)
+    keys = [k for k in res_p[0] if k.endswith("loss")]
+    compare_steps(res_k, res_p, keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_RL_STEP_LAUNCHES))
+def test_offline_rl_request_with_kernels_equals_max_pool2d(cuda_device, name):
+    """A B = 16 request (BCQ: 100 candidates a row) through the kernels is
+    equal to the bit to the F.max_pool2d model's with the same weights and
+    draws; one stem-pool forward a request (BCQ: the VAE's and the first
+    critic's)."""
+    import numpy as np
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+
+    rng = np.random.RandomState(1)
+    obs = {"eef_pos": rng.randn(16, 3).astype(np.float32),
+           "cam_image": rng.randint(0, 256, (16, 64, 64, 3), dtype=np.uint8)}
+    algo = _offline_rl_algo(name, cuda_device)
+    twin = _offline_rl_algo(name, cuda_device, pallas_pool=False)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    CB.reset_launch_counts()
+    algo.generator.manual_seed(3)
+    got = algo.get_action(obs)
+    assert LAUNCHES["stem_pool_fwd"] == (2 if name == "bcq" else 1)
+    twin.generator.manual_seed(3)
+    want = twin.get_action(obs)
+    assert got.shape == (16, 7)
+    assert torch.equal(got, want)
