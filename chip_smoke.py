@@ -24,10 +24,15 @@ Phases, each of which fails the run when it fails:
      58, 58] (all timed; [2] and [32] the diffusion policy's To = 2 frames) and at [2, 64, 57, 59], on
      inputs after a ReLU (about 60 % zeros, so windows tie): maxima, offsets
      and dx bit-equal; each timed forward with the path its launcher took
-     (runs of whole planes or tiles, blocks, shared memory);
+     (runs of whole planes or bands of rows, blocks, shared memory); the
+     requests' forwards also by device time alone (graph_ms: calls
+     replayed from a CUDA graph), beside F.max_pool2d's, and the wrapper's
+     host us a call at [1]; R3M's stem shapes [1 | 16 | 100, 64, 112, 112]
+     (the band kernel) bit-equal too;
   6b. the stem pool's kernels in bf16 at the paper's [512, 64, 58, 58] and
      the flagship's [1024, 64, 58, 58]: maxima, offsets and dx bit-equal to
-     the plain versions, each timed;
+     the plain versions, each timed; and at [2, 64, 160, 160], the band
+     kernel's bf16 instance, bit-equal;
   6c. kernel 5 (pool_route, the equality-routing pool backward) against its
      plain version at [3072, 64, 58, 58] in bf16 and fp32, on ReLU'd inputs
      (ties) and distinct values, bit-equal, each timed, with the path its
@@ -128,10 +133,12 @@ Phases, each of which fails the run when it fails:
      trunks at B = 32 (R50_TRAIN_B says why); 16c, phase 15a's ICL policy on
      a frozen R3M ResNet-50 per camera (random trunk weights; 3 stem-pool
      forwards a step on [100, 64, 112, 112] and a request on [1 or 16, 64,
-     112, 112], kernel 3's tile path, no backward; the trunk unchanged to
+     112, 112], kernel 3's band kernel, no backward; the trunk unchanged to
      the bit; the B = 16 action bit-equal to the F.max_pool2d model's), and
      kernel 3 alone at each of those three shapes against its plain
-     version, timed (row 3g); 16d, the same policy on MVP's ViT-B
+     version, timed back to back and by device time alone beside
+     F.max_pool2d, with the wrapper's host us a call at [1] (row 3g); 16d,
+     the same policy on MVP's ViT-B
      (no kernel on that path); 16e, one step and one B = 16 request each
      with ResNet-18 (group norm, coord-conv, SpatialSoftmax with a learnable
      temperature and keypoint noise), ShallowConv + SpatialMeanPool,
@@ -295,6 +302,85 @@ def cuda_ms(fn, iters=20, warmup=3, repeats=5):
         torch.cuda.synchronize()
         means.append(start.elapsed_time(end) / iters)
     return statistics.median(means), min(means), max(means)
+
+
+def graph_ms(fn, iters=20, repeats=5):
+    """Device time of @fn without the host's share: @iters calls captured in
+    one CUDA graph after a warm-up outside the capture, the graph replayed
+    between CUDA events @repeats times. Returns (median, min, max) of the ms
+    a call. The capture's calls are not launches of a path: LAUNCHES and
+    PATH_LAUNCHES are restored to what they were."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+
+    counts, paths = dict(CB.LAUNCHES), copy.deepcopy(PATH_LAUNCHES)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    CB.LAUNCHES.update(counts)
+    PATH_LAUNCHES.clear()
+    PATH_LAUNCHES.update(paths)
+    graph.replay()
+    means = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(means), min(means), max(means)
+
+
+def wrapper_host_us(S, x, calls=200):
+    """Host us a call of kernel 3's wrapper on @x, of each part of it, and of
+    F.max_pool2d with its indices: the mean over @calls calls on the host
+    clock, fewer than the launch queue holds, so that the host never waits
+    for the card. The launches are not a path's: LAUNCHES is restored."""
+    import torch
+    import torch.nn.functional as F
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+
+    counts = dict(CB.LAUNCHES)
+    n, c, h, w = x.shape
+    ho, wo = S.pooled_hw(h, w)
+    name = CB.kernel_name("stem_pool_fwd", x.dtype)
+    entry = getattr(CB.library(name), CB.KERNELS[name][1])
+    out, idx = S.pool_fwd_cuda(x)
+    args = (x.data_ptr(), n * c, h, w, out.data_ptr(), idx.data_ptr(), CB.stream_of(x))
+    parts = {
+        "wrapper": lambda: S.pool_fwd_cuda(x),
+        "check_cuda_inputs": lambda: CB.check_cuda_inputs(name, (x,), dtypes=(x.dtype,)),
+        "two torch.empty": lambda: (
+            torch.empty(n, c, ho, wo, dtype=x.dtype, device=x.device),
+            torch.empty(n, c, ho, wo, dtype=torch.int8, device=x.device)),
+        "current stream": lambda: CB.stream_of(x),
+        "ctypes call alone": lambda: entry(*args),
+        "F.max_pool2d": lambda: F.max_pool2d(x, 3, 2, 1, return_indices=True),
+    }
+    us = {}
+    for part, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us[part] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    CB.LAUNCHES.update(counts)
+    log(f"  host us a call at {'x'.join(map(str, x.shape))} ({calls} calls, host clock): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    return us
 
 
 def fmt(t):
@@ -542,10 +628,36 @@ def relu_input(shape, gen, dev, relu=True):
 
 def fwd_path(S, x):
     """The path kernel 3's launcher takes for @x, as its log line says it."""
-    per_block, blocks, smem = S.pool_fwd_plan(x.shape, x.dtype)
+    per_block, blocks, smem, rows = S.pool_fwd_plan(x.shape, x.dtype)
     how = (f"runs of {per_block} whole planes a block" if per_block
-           else "8 x 32 output tiles (planes past a block's budget)")
+           else f"bands of {rows} output rows (planes past a block's budget)")
     return f"{how}, {blocks} blocks of {smem} B of shared memory"
+
+
+def check_band_forward(S, x, tag):
+    """Kernel 3 on @x through the band kernel (asserted from the plan):
+    maxima and offsets bit-equal to the plain version, and kernel 4's dx
+    from the band kernel's offsets bit-equal too. Returns max|out err|."""
+    import torch
+
+    plan = S.pool_fwd_plan(x.shape, x.dtype)
+    check(plan[0] == 0 and plan[3] > 0, f"{tag}: kernel 3 took whole planes {plan}, "
+          "not the band kernel")
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    out_p, idx_p = S.pool_fwd_plain(x)
+    g = torch.randn(out_k.shape, generator=torch.Generator(x.device).manual_seed(29),
+                    device=x.device).to(x.dtype)
+    dx_k = S.pool_bwd_cuda(idx_k, g, x.shape[2:])
+    dx_p = S.pool_bwd_plain(idx_p, g, x.shape[2:])
+    torch.cuda.synchronize()
+    n_idx = int((idx_k != idx_p).sum())
+    err = float((out_k.float() - out_p.float()).abs().max())
+    check(torch.equal(out_k, out_p) and n_idx == 0,
+          f"{tag}: band kernel differs (max|err| {err}, {n_idx} offsets)")
+    check(torch.equal(dx_k, dx_p), f"{tag}: dx from the band kernel's offsets differs")
+    log(f"  {tag} {str(x.dtype)[6:]} ({float((x == 0).float().mean()):.3f} zeros): maxima, "
+        f"offsets and dx bit-equal; {fwd_path(S, x)}")
+    return err
 
 
 def phase_stem_pool(S, dev):
@@ -594,9 +706,15 @@ def phase_stem_pool(S, dev):
                 # offset and g read once, dx written once; one add per output
                 (5 * n_out + 4 * n_in, n_out), bwd_err),
         }
-        timed_rows = time_kernels(timed, tag)
+        request = shape in REQUEST_POOL_SHAPES
+        timed_rows = time_kernels(timed, tag, graph=("stem_pool_fwd",) if request else ())
+        if request and shape[0] == 1:
+            wrapper_host_us(S, x)
         if shape == POOL_SHAPES[0]:
             rows.update(timed_rows)
+    # R3M's stem (phase 16c), planes past a block's budget: the band kernel
+    for shape in R3M_POOL_SHAPES:
+        check_band_forward(S, relu_input(shape, gen, dev), "x".join(map(str, shape)))
     return rows
 
 
@@ -871,6 +989,7 @@ def compare_steps(res_k, res_p, keys=("action_loss", "vq_vae_loss", "policy_grad
 # kernels 3 and 4 in bf16: the paper's mixed-precision step's stem
 # activation and the flagship's; the flagship's feeds the kernels line
 POOL_SHAPES_BF16 = (POOL_SHAPES[0], FLAGSHIP_POOL)
+BF16_BAND_SHAPE = (2, 64, 160, 160)   # bf16 planes past a block's budget
 
 
 def phase_stem_pool_bf16(S, dev):
@@ -921,12 +1040,17 @@ def phase_stem_pool_bf16(S, dev):
         }
         rows = time_kernels(timed, tag)
         del x, out_k, idx_k, out_p, idx_p, g, dx_k, dx_p, lib_idx
+    # the band kernel's bf16 instance: a bf16 plane passes a block's budget
+    # from about 160 x 160
+    check_band_forward(S, relu_input(BF16_BAND_SHAPE, gen, dev).bfloat16(),
+                       "x".join(map(str, BF16_BAND_SHAPE)))
     return rows
 
 
-def time_kernels(timed, tag):
+def time_kernels(timed, tag, graph=()):
     """{name: (kernel, plain, library or None, (bytes, operations), err)} ->
-    the kernels-line fields of each, measured now."""
+    the kernels-line fields of each, measured now; those named in @graph
+    also by device time alone (graph_ms), the kernel and its library call."""
     rows = {}
     for name, (kern, plain, lib, (n_bytes, n_ops), err) in timed.items():
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
@@ -939,6 +1063,12 @@ def time_kernels(timed, tag):
         rows[name] = dict(ms=ms[0], plain_ms=plain_ms[0],
                           library_ms=lib_ms[0] if lib_ms else None,
                           bound_ms=b, bound_by=by, max_abs_err=err)
+        if name in graph:
+            g_ms, lib_g_ms = graph_ms(kern), graph_ms(lib)
+            log(f"  {name} at {tag} by device time (a CUDA graph of 20 calls): kernel "
+                f"{fmt(g_ms)}, library {fmt(lib_g_ms)}; kernel {g_ms[0] / b:.2f} x the "
+                f"bound, {g_ms[0] / lib_g_ms[0]:.3f} x the library")
+            rows[name].update(graph_ms=g_ms[0], library_graph_ms=lib_g_ms[0])
     return rows
 
 
@@ -2520,7 +2650,7 @@ def phase_family(CB, dev, card, gpt_step_ms, profile):
 R50_TRAIN_B = 32
 # 16c: R3M resizes the 116 x 116 crop to 256 and takes the center 224, so its
 # stem pools [N, 64, 112, 112]: planes past a block's staging budget, which
-# kernel 3's launcher gives to its tile kernel. N is a request's B (1, 16)
+# kernel 3's launcher gives to its band kernel. N is a request's B (1, 16)
 # or the training step's B = 100
 R3M_POOL_SHAPES = tuple((n, 64, 112, 112) for n in (*BATCHES, FAMILY_B))
 SCAN_KEY, SCAN_LEN = "robot0_lidar_scan", 360   # 16e's synthetic scan, one beam a degree
@@ -2640,7 +2770,7 @@ def phase_frozen_core(CB, dev, gen, card, name, configure, per_step, profile):
         f"unchanged to the bit by {CORE_STEPS + 1} steps")
     if profile:
         device_profile(f"{tag} train step", lambda: algo.train_on_batch(batches[0], epoch=0),
-                       share=("pool_fwd_tile_kernel",))
+                       share=("pool_fwd_band_kernel",))
     rng = np.random.RandomState(18)
     family_requests(CB, algo, rng, lambda b, call: per_step_serving(per_step),
                     f"phase {tag} ICL {name} serving")
@@ -2666,34 +2796,27 @@ def per_step_serving(per_step):
 def phase_r3m_pool(S, dev, gen):
     """Row 3g: kernel 3 alone at each of 16c's stem shapes (R3M_POOL_SHAPES:
     its requests' and its training step's), fp32, on ReLU'd inputs (ties):
-    maxima and offsets bit-equal to the plain version, the launcher's path
-    asserted (the tile kernel), each timed beside its bound, the plain
-    version and F.max_pool2d. Returns a row for each shape."""
-    import torch
+    maxima, offsets and kernel 4's dx bit-equal to the plain versions, the
+    launcher's path asserted (the band kernel), each timed beside its bound,
+    the plain version and F.max_pool2d, back to back and by device time
+    alone, and the wrapper's host us a call at [1]. Returns a row for each
+    shape."""
     import torch.nn.functional as F
 
     rows = []
     for shape in R3M_POOL_SHAPES:
         x = relu_input(shape, gen, dev)
-        out_k, idx_k = S.pool_fwd_cuda(x)
-        out_p, idx_p = S.pool_fwd_plain(x)
-        torch.cuda.synchronize()
-        n_idx = int((idx_k != idx_p).sum())
-        err = float((out_k - out_p).abs().max())
         tag = "x".join(map(str, shape))
-        check(torch.equal(out_k, out_p) and n_idx == 0,
-              f"{tag}: kernel 3 differs (max|err| {err}, {n_idx} offsets)")
-        plan = S.pool_fwd_plan(x.shape, x.dtype)
-        check(plan[0] == 0, f"{tag}: kernel 3 took whole planes {plan}, not the tile kernel")
-        log(f"  kernel 3 at {tag} fp32 ({float((x == 0).float().mean()):.3f} zeros): maxima "
-            f"and offsets bit-equal; {fwd_path(S, x)}")
-        n_in, n_out = x.numel(), out_k.numel()
+        err = check_band_forward(S, x, f"kernel 3 at {tag}")
+        n_in, n_out = x.numel(), shape[0] * shape[1] * int(np.prod(S.pooled_hw(*shape[2:])))
         timed = time_kernels({"stem_pool_fwd": (
             lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
             lambda: F.max_pool2d(x, 3, 2, 1, return_indices=True),
-            (4 * n_in + 5 * n_out, 8 * n_out), err)}, tag)
+            (4 * n_in + 5 * n_out, 8 * n_out), err)}, tag, graph=("stem_pool_fwd",))
+        if shape[0] == 1:
+            wrapper_host_us(S, x)
         rows.append(dict(timed["stem_pool_fwd"], shape=list(shape)))
-        del x, out_k, idx_k, out_p, idx_p
+        del x
     return rows
 
 
@@ -3433,11 +3556,12 @@ def main():
         dict(name="lipvq_assign_bf16", route="cuda", source=f"{SOURCE}/lipvq_assign.cu",
              replaces=f"{TPU_KERNELS}:39", launches=bf16_counts["lipvq_assign_bf16"],
              library_ms=None, **assign_bf16[PAPER_ASSIGN_N]),
-        # tile_path: the launcher's tile kernel at each of R3M's stem shapes
-        # (phase 16c's requests and training step)
+        # band_path: the launcher's band kernel at each of R3M's stem shapes
+        # (phase 16c's requests and training step), with its device time
+        # alone and F.max_pool2d's
         dict(name="stem_pool_fwd", route="cuda", source=f"{SOURCE}/stem_pool.cu",
              replaces=f"{TPU_POOL}:60", launches=train_counts["stem_pool_fwd"],
-             **pool["stem_pool_fwd"], tile_path=row_3g),
+             **pool["stem_pool_fwd"], band_path=row_3g),
         dict(name="stem_pool_bwd", route="cuda", source=f"{SOURCE}/stem_pool.cu",
              replaces=f"{TPU_POOL}:113", launches=train_counts["stem_pool_bwd"],
              **pool["stem_pool_bwd"]),

@@ -29,19 +29,37 @@
 //   modulo 16 that it has in device memory, so that the vectors land aligned
 //   whatever the view's offset (the helpers are stage_run.cuh's, shared with
 //   pool_route.cu). Each thread then takes up to kRun adjacent
-//   windows of one output row: it reads the 3 input rows' 2 kRun + 1 columns
-//   once into registers (column 2q + 1 is shared by windows q and q + 1;
-//   cells outside the image are -inf, decided by index), and scans each
-//   window's 9 taps in row-major order with a strict `>`, so the first
-//   maximum wins, as in torch's MaxPool2d and the TPU kernel. bf16 becomes
-//   fp32 only to compare: exact, so the compares are bf16's own. The maxima
-//   (in the input's type) and the offsets 3 di + dj go to shared memory,
-//   again at their device address's offset modulo 16, and after one barrier
-//   both runs leave in 16-byte stores with a scalar head and tail.
-//   pool_fwd_tile_kernel keeps the tile design for planes too large for the
-//   budget; the launcher picks the kernel by plane size. R3M's stem reaches
-//   it: its 224 x 224 input pools [N, 64, 112, 112], planes of 50,176 B of
-//   input in fp32 (chip_smoke.py phase 16c).
+//   windows of one output row (pool_windows): it reads the 3 input rows'
+//   2 kRun + 1 columns once into registers (column 2q + 1 is shared by
+//   windows q and q + 1; cells outside the image are -inf, decided by
+//   index), and scans each window's 9 taps in row-major order with a strict
+//   `>`, so the first maximum wins, as in torch's MaxPool2d and the TPU
+//   kernel. bf16 becomes fp32 only to compare: exact, so the compares are
+//   bf16's own. The maxima (in the input's type) and the offsets 3 di + dj
+//   go to shared memory, again at their device address's offset modulo 16,
+//   and after one barrier both runs leave in 16-byte stores with a scalar
+//   head and tail.
+// * pool_fwd_band_kernel: planes too large for the budget (R3M's stem: a
+//   224 x 224 input pools [N, 64, 112, 112], 50,176 B of fp32 input a plane,
+//   chip_smoke.py phase 16c) go in full-width bands of R output rows. Output
+//   rows [oh0, oh0 + R) need input rows max(0, 2 oh0 - 1) .. min(H - 1,
+//   2 (oh0 + R) - 1), whole rows, so a band's input is again one contiguous
+//   run of x and its maxima and offsets one run each of `out` and `idx`:
+//   the band is staged, scanned by pool_windows and stored exactly as a run
+//   of planes is, and each input row is read once more only where two bands
+//   share it (one row in 2 R + 1). The bound is the same bytes: at fp32
+//   [100, 64, 112, 112] 321.1 MB read and 100.4 MB written, 0.1258 ms at
+//   3.35 TB/s. fwd_plan takes the largest R whose band fits kFwdStageBytes
+//   (34 rows at fp32 112 x 112), spreads the plane's rows evenly over that
+//   many bands (R = 28: 2 bands, 33,424 B), then lowers R until the grid has
+//   kFwdMinBlocks blocks, about four per SM (R = 7 at [1, 64, 112, 112]: 512
+//   blocks). The tile kernel it replaces staged a 17 x 65 patch per 8 x 32
+//   outputs with a scalar load and a bounds test per element, half its
+//   blocks the ragged second column tile of a 56-wide output.
+//   A row so wide that one band of R = 1 (3 input rows, their maxima and
+//   offsets) passes the budget takes dynamic shared memory up to kMaxSmem
+//   (227 KB): rows of about 16,000 fp32 or 31,000 bf16 elements. Past that
+//   the plan returns cudaErrorInvalidValue and launches nothing.
 // * pool_bwd_kernel: a gather with no atomics, a thread per window (p, q).
 //   Row i = 2p lies only in window row p, row 2p + 1 in rows p and p + 1,
 //   and the same for columns, so the thread owns the 2x2 input quad at rows
@@ -65,14 +83,16 @@
 //   4-byte __nv_bfloat162 (bf16) each where W is even; scalar stores
 //   otherwise.
 //
-// Any H and W are accepted; the output is floor((H - 1) / 2) + 1 rows by
-// floor((W - 1) / 2) + 1 columns. Plane offsets are 64-bit; in the backward
-// the cells of one plane, H * W, must fit an int.
+// Any H is accepted, and any W up to the band kernel's widest row in the
+// forward; the output is floor((H - 1) / 2) + 1 rows by
+// floor((W - 1) / 2) + 1 columns. Plane and row offsets are 64-bit; the
+// cells of one plane, H * W, must fit an int.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 
 #include "stage_run.cuh"
@@ -80,13 +100,10 @@
 namespace {
 
 constexpr int kFwdThreads = 256;          // forward: threads per block
-constexpr int kFwdStageBytes = 40960;     // ... its staged planes and outputs at most
+constexpr int kFwdStageBytes = 40960;     // ... its staged planes or band and outputs at most
 constexpr int kRun = 3;                   // ... adjacent windows per thread
-constexpr int kTileW = 32;                // tile forward: output columns per block
-constexpr int kTileH = 8;                 // ... output rows per block
-constexpr int kThreads = kTileW * kTileH;
-constexpr int kPatchH = 2 * kTileH + 1;   // ... input rows of a tile, halo included
-constexpr int kPatchW = 2 * kTileW + 1;
+constexpr int kFwdMinBlocks = 512;        // band forward: blocks at least, about four per SM
+constexpr int kMaxSmem = 232448;          // ... and a band's shared memory at most (227 KB)
 constexpr int kBwdThreads = 256;          // backward: threads per block
 constexpr int kBwdStageBytes = 16384;     // ... and its staged tile at most
 
@@ -101,6 +118,48 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The kRun windows of output row @oh from column @ow0 on (those left of
+// column Wo): each one's maximum to so[o + q] and the offset 3 di + dj of
+// its first maximum to sk[o + q], o = out0 + oh Wo + ow0. @xp holds the
+// plane's input rows from row @row0 on, W elements to a row; cells outside
+// the image are -inf, decided by index.
+template <typename T>
+__device__ __forceinline__ void pool_windows(const T* xp, int row0, int H, int W,
+                                             int Wo, int oh, int ow0, T* so,
+                                             int8_t* sk, int out0) {
+  // rows 2 oh - 1 .. 2 oh + 1, columns 2 ow0 - 1 .. 2 ow0 + 2 kRun - 1
+  float v[3][2 * kRun + 1];
+#pragma unroll
+  for (int di = 0; di < 3; ++di) {
+    const int i = 2 * oh - 1 + di;
+    const bool row_in = i >= 0 && i < H;
+#pragma unroll
+    for (int c = 0; c < 2 * kRun + 1; ++c) {
+      const int j = 2 * ow0 - 1 + c;
+      v[di][c] = row_in && j >= 0 && j < W ? to_float(xp[(i - row0) * W + j])
+                                           : -CUDART_INF_F;
+    }
+  }
+  const int o = out0 + oh * Wo + ow0;
+#pragma unroll
+  for (int q = 0; q < kRun; ++q) {
+    if (ow0 + q < Wo) {
+      float best = v[0][2 * q];
+      int k_best = 0;
+#pragma unroll
+      for (int k = 1; k < 9; ++k) {
+        const float t = v[k / 3][2 * q + k % 3];
+        if (t > best) {  // strict: the first maximum in row-major order wins
+          best = t;
+          k_best = k;
+        }
+      }
+      so[o + q] = from_float<T>(best);
+      sk[o + q] = static_cast<int8_t>(k_best);
+    }
+  }
 }
 
 template <typename T>
@@ -132,82 +191,51 @@ __global__ void __launch_bounds__(kFwdThreads, 4)
   for (int e = threadIdx.x; e < np * runs; e += kFwdThreads) {
     const int p = e / runs, r = e - p * runs;
     const int oh = r / runs_w, ow0 = (r - oh * runs_w) * kRun;
-    const T* xp = sx + p * hw;
-    // rows 2 oh - 1 .. 2 oh + 1, columns 2 ow0 - 1 .. 2 ow0 + 2 kRun - 1
-    float v[3][2 * kRun + 1];
-#pragma unroll
-    for (int di = 0; di < 3; ++di) {
-      const int i = 2 * oh - 1 + di;
-      const bool row_in = i >= 0 && i < H;
-#pragma unroll
-      for (int c = 0; c < 2 * kRun + 1; ++c) {
-        const int j = 2 * ow0 - 1 + c;
-        v[di][c] = row_in && j >= 0 && j < W ? to_float(xp[i * W + j]) : -CUDART_INF_F;
-      }
-    }
-    const int o = p * ohw + oh * Wo + ow0;
-#pragma unroll
-    for (int q = 0; q < kRun; ++q) {
-      if (ow0 + q < Wo) {
-        float best = v[0][2 * q];
-        int k_best = 0;
-#pragma unroll
-        for (int k = 1; k < 9; ++k) {
-          const float t = v[k / 3][2 * q + k % 3];
-          if (t > best) {  // strict: the first maximum in row-major order wins
-            best = t;
-            k_best = k;
-          }
-        }
-        so[o + q] = from_float<T>(best);
-        sk[o + q] = static_cast<int8_t>(k_best);
-      }
-    }
+    pool_windows(sx + p * hw, 0, H, W, Wo, oh, ow0, so, sk, p * ohw);
   }
   __syncthreads();
   copy_run<kFwdThreads, false>(so, os, np * ohw);
   copy_run<kFwdThreads, false>(sk, ks, np * ohw);
 }
 
+// input rows that a band of @R output rows stages at most
+__host__ __device__ __forceinline__ long long band_in_rows(long long R, int H) {
+  return 2 * R + 1 < H ? 2 * R + 1 : H;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    pool_fwd_tile_kernel(const T* __restrict__ x, int H, int W, int Ho, int Wo,
-                         int tiles_w, int tiles_per_plane, T* __restrict__ out,
+__global__ void __launch_bounds__(kFwdThreads, 4)
+    pool_fwd_band_kernel(const T* __restrict__ x, int H, int W, int Ho, int Wo,
+                         int band_rows, int bands, T* __restrict__ out,
                          int8_t* __restrict__ idx) {
-  // fp32 in shared memory whatever T is: bf16 -> fp32 is exact, so the
-  // compares and the maximum are the input type's own
-  __shared__ float patch[kPatchH][kPatchW];
-  const long long plane = blockIdx.x / tiles_per_plane;
-  const int tile = blockIdx.x % tiles_per_plane;
-  const int oh0 = (tile / tiles_w) * kTileH;
-  const int ow0 = (tile % tiles_w) * kTileW;
-  const T* xp = x + plane * H * W;
-  const int ih0 = 2 * oh0 - 1, iw0 = 2 * ow0 - 1;
-  for (int e = threadIdx.x; e < kPatchH * kPatchW; e += kThreads) {
-    const int r = e / kPatchW, c = e % kPatchW;
-    const int i = ih0 + r, j = iw0 + c;
-    patch[r][c] = (i >= 0 && i < H && j >= 0 && j < W)
-                      ? to_float(xp[static_cast<long long>(i) * W + j])
-                      : -CUDART_INF_F;
-  }
+  // the band's input rows, its maxima and its offsets, each placed at its
+  // device address's offset modulo 16
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long plane = blockIdx.x / bands;
+  const int oh0 = static_cast<int>(blockIdx.x - plane * bands) * band_rows;
+  const int rows = min(band_rows, Ho - oh0);          // the last band may be short
+  const int i0 = max(0, 2 * oh0 - 1);                 // input rows [i0, i1)
+  const int i1 = min(H, 2 * (oh0 + rows));
+  const T* xs = x + (plane * H + i0) * W;
+  T* os = out + (plane * Ho + oh0) * Wo;
+  int8_t* ks = idx + (plane * Ho + oh0) * Wo;
+  const int in_room = stage_room(band_in_rows(band_rows, H) * W * sizeof(T));
+  const int out_room = stage_room(static_cast<long long>(band_rows) * Wo * sizeof(T));
+  T* sx = reinterpret_cast<T*>(smem + mod16(xs));
+  T* so = reinterpret_cast<T*>(smem + in_room + mod16(os));
+  int8_t* sk = reinterpret_cast<int8_t*>(smem + in_room + out_room + mod16(ks));
+
+  copy_run<kFwdThreads, true>(xs, sx, (i1 - i0) * W);
   __syncthreads();
 
-  const int ty = threadIdx.x / kTileW, tx = threadIdx.x % kTileW;
-  const int oh = oh0 + ty, ow = ow0 + tx;
-  if (oh >= Ho || ow >= Wo) return;
-  float best = patch[2 * ty][2 * tx];
-  int k_best = 0;
-#pragma unroll
-  for (int k = 1; k < 9; ++k) {
-    const float v = patch[2 * ty + k / 3][2 * tx + k % 3];
-    if (v > best) {  // strict: the first maximum in row-major order wins
-      best = v;
-      k_best = k;
-    }
+  const int runs_w = (Wo + kRun - 1) / kRun;
+  for (int e = threadIdx.x; e < rows * runs_w; e += kFwdThreads) {
+    const int r = e / runs_w, ow0 = (e - r * runs_w) * kRun;
+    pool_windows(sx, i0, H, W, Wo, oh0 + r, ow0, so, sk, -oh0 * Wo);
   }
-  const long long o = plane * Ho * Wo + static_cast<long long>(oh) * Wo + ow;
-  out[o] = from_float<T>(best);
-  idx[o] = static_cast<int8_t>(k_best);
+  __syncthreads();
+  copy_run<kFwdThreads, false>(so, os, rows * Wo);
+  copy_run<kFwdThreads, false>(sk, ks, rows * Wo);
 }
 
 // two neighbouring cells of a row in one store; @p is 2-element aligned
@@ -287,10 +315,22 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
+// shared memory of a band of @R output rows of W-wide planes of H rows:
+// its input rows, maxima and offsets, each in a room of its own
+// (stage_room's arithmetic in 64 bits: a row may be far too wide for one)
+long long band_bytes(long long R, int H, int W, int elem_bytes) {
+  const long long Wo = (W - 1) / 2 + 1;
+  const auto room = [](long long bytes) { return (bytes + 15) / 16 * 16 + 16; };
+  return room(band_in_rows(R, H) * W * elem_bytes) + room(R * Wo * elem_bytes) +
+         room(R * Wo);
+}
+
 // How the forward runs on @planes planes of H x W elements of @elem_bytes
-// bytes: planes per block of pool_fwd_kernel (0: pool_fwd_tile_kernel), the
-// blocks, and a block's shared memory in bytes. Returns a cudaError_t.
-int fwd_plan(long long planes, int H, int W, int elem_bytes, long long plan[3]) {
+// bytes: planes per block of pool_fwd_kernel (0: pool_fwd_band_kernel), the
+// blocks, a block's shared memory in bytes, and the output rows of a band
+// (0: whole planes). Returns a cudaError_t: cudaErrorInvalidValue for rows
+// too wide for one band of a row in kMaxSmem.
+int fwd_plan(long long planes, int H, int W, int elem_bytes, long long plan[4]) {
   if (planes < 0 || H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
   const long long hw = static_cast<long long>(H) * W, ohw = Ho * Wo;
@@ -305,34 +345,64 @@ int fwd_plan(long long planes, int H, int W, int elem_bytes, long long plan[3]) 
     plan[1] = (planes + per_block - 1) / per_block;
     plan[2] = stage_room(per_block * hw * elem_bytes) +
               stage_room(per_block * ohw * elem_bytes) + stage_room(per_block * ohw);
+    plan[3] = 0;
   } else {
-    const long long tiles_w = (Wo + kTileW - 1) / kTileW;
+    if (band_bytes(1, H, W, elem_bytes) > kMaxSmem) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // the most rows within the budget, at least one
+    long long lo = 1, hi = Ho;
+    while (lo < hi) {
+      const long long mid = (lo + hi + 1) / 2;
+      if (band_bytes(mid, H, W, elem_bytes) <= kFwdStageBytes) lo = mid; else hi = mid - 1;
+    }
+    // that many bands or more, for kFwdMinBlocks blocks, their rows spread evenly
+    const long long want = planes > 0 ? (kFwdMinBlocks + planes - 1) / planes : 1;
+    const long long bands = std::max((Ho + lo - 1) / lo, std::min(Ho, want));
+    const long long R = (Ho + bands - 1) / bands;
     plan[0] = 0;
-    plan[1] = planes * tiles_w * ((Ho + kTileH - 1) / kTileH);
-    plan[2] = sizeof(float) * kPatchH * kPatchW;
+    plan[1] = planes * ((Ho + R - 1) / R);
+    plan[2] = band_bytes(R, H, W, elem_bytes);
+    plan[3] = R;
   }
   return plan[1] > 0x7fffffffLL ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+// Lets pool_fwd_band_kernel<T> take up to kMaxSmem of dynamic shared memory,
+// once per device: at the launcher's first call there, which runs eagerly,
+// before any launch of the band kernel and outside any stream capture.
+template <typename T>
+int allow_wide_bands() {
+  static std::atomic<unsigned long long> done{0};   // bit d: device d
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err != 0) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (done.load() & bit) return 0;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      pool_fwd_band_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+  if (err == 0) done.fetch_or(bit);
+  return err;
 }
 
 template <typename T>
 int launch_fwd(const T* x, long long planes, int H, int W, T* out, int8_t* idx,
                void* stream) {
   if (planes <= 0) return 0;
-  long long plan[3];
-  const int err = fwd_plan(planes, H, W, sizeof(T), plan);
+  long long plan[4];
+  int err = fwd_plan(planes, H, W, sizeof(T), plan);
+  if (err == 0) err = allow_wide_bands<T>();
   if (err != 0) return err;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
   const unsigned blocks = static_cast<unsigned>(plan[1]);
+  const size_t smem = static_cast<size_t>(plan[2]);
   if (plan[0] > 0) {
-    pool_fwd_kernel<T><<<blocks, kFwdThreads, static_cast<size_t>(plan[2]),
-                         static_cast<cudaStream_t>(stream)>>>(
+    pool_fwd_kernel<T><<<blocks, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         x, planes, H, W, Ho, Wo, static_cast<int>(plan[0]), out, idx);
   } else {
-    const int tiles_w = (Wo + kTileW - 1) / kTileW;
-    const int tiles_per_plane = tiles_w * ((Ho + kTileH - 1) / kTileH);
-    pool_fwd_tile_kernel<T><<<blocks, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        x, H, W, Ho, Wo, tiles_w, tiles_per_plane, out, idx);
+    const int R = static_cast<int>(plan[3]);
+    pool_fwd_band_kernel<T><<<blocks, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, H, W, Ho, Wo, R, (Ho + R - 1) / R, out, idx);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -372,8 +442,10 @@ extern "C" const char* stem_pool_error_string(int err) {
 
 // The forward's plan for x [planes, H, W] of @elem_bytes-byte elements (4:
 // fp32, 2: bf16), as stem_pool_fwd*_launch takes it: @plan gets the planes
-// per block (0: the tile kernel of planes past the budget), the blocks, and
-// a block's shared memory in bytes. Returns a cudaError_t; launches nothing.
+// per block (0: the band kernel of planes past the budget), the blocks, a
+// block's shared memory in bytes, and a band's output rows (0: whole
+// planes). Returns a cudaError_t, cudaErrorInvalidValue for rows too wide
+// for the band kernel; launches nothing.
 extern "C" int stem_pool_fwd_plan(long long planes, int H, int W, int elem_bytes,
                                   long long* plan) {
   if (elem_bytes != 4 && elem_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
@@ -382,7 +454,8 @@ extern "C" int stem_pool_fwd_plan(long long planes, int H, int W, int elem_bytes
 
 // x [planes, H, W], contiguous (planes = N * C), at any element offset;
 // writes out [planes, Ho, Wo] in x's type and idx [planes, Ho, Wo] int8.
-// Launches on @stream and returns cudaGetLastError().
+// Launches on @stream and returns cudaGetLastError(), or the plan's error
+// without a launch.
 extern "C" int stem_pool_fwd_launch(const float* x, long long planes, int H,
                                     int W, float* out, int8_t* idx,
                                     void* stream) {

@@ -16,7 +16,9 @@ Both are bound by device memory on the H100 (about 579 MB moved each at the
 fp32 policy path's [512, 64, 58, 58], 0.173 ms at 3.35 TB/s); the kernel
 source says how each reads its input once and writes its output once. Tensors
 are NCHW, the layout of the port's trunk; the TPU kernels' lane packing of two
-columns has no counterpart here. Any H and W are accepted: the output is
+columns has no counterpart here. Any H is accepted, and any W up to the
+forward's widest row (a band of one output row in 227 KB of shared memory:
+about 16,000 fp32 or 31,000 bf16 elements with H >= 3); the output is
 floor((H - 1) / 2) + 1 by floor((W - 1) / 2) + 1, as in ``F.max_pool2d``.
 
 Each kernel has an fp32 and a bf16 instance (mixed-precision training pools
@@ -31,6 +33,7 @@ are built by ``ops/cuda_build.py``.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -96,7 +99,10 @@ def pool_bwd_plain(idx, g, hw):
 
 def pool_fwd_cuda(x):
     """Kernel 3: x [N, C, H, W] fp32 or bf16, NCHW-contiguous -> (max in x's
-    type, offset int8), each [N, C, Ho, Wo]."""
+    type, offset int8), each [N, C, Ho, Wo]. Planes past a block's 40 KB go
+    in bands of whole rows; a ValueError names a W too wide for a band of
+    one output row in 227 KB of shared memory (about 16,000 fp32 or 31,000
+    bf16 elements where H >= 3)."""
     if on_cpu((x,)):
         return pool_fwd_plain(x)
     name = kernel_name("stem_pool_fwd", x.dtype)
@@ -104,6 +110,7 @@ def pool_fwd_cuda(x):
     if x.dim() != 4:
         raise ValueError(f"{name}: expected [N, C, H, W], got {tuple(x.shape)}")
     n, c, h, w = x.shape
+    _check_plane(h, w, x.dtype)
     ho, wo = pooled_hw(h, w)
     out = torch.empty(n, c, ho, wo, dtype=x.dtype, device=x.device)
     idx = torch.empty(n, c, ho, wo, dtype=torch.int8, device=x.device)
@@ -115,18 +122,30 @@ def pool_fwd_cuda(x):
 def pool_fwd_plan(shape, dtype):
     """How kernel 3's launcher runs an input of @shape [N, C, H, W] in @dtype
     (fp32 or bf16), as ``csrc/stem_pool.cu``'s ``fwd_plan`` decides it:
-    (planes per block, 0 where the tile kernel takes planes too large for a
-    block; blocks; a block's shared memory in bytes). Launches nothing;
-    builds the kernel's library where it is not built yet."""
+    (planes per block, 0 where the band kernel takes planes too large for a
+    block; blocks; a block's shared memory in bytes; a band's output rows, 0
+    where blocks take whole planes). Launches nothing; builds the kernel's
+    library where it is not built yet. Raises a ValueError naming W where
+    the rows are too wide for a band of one output row."""
     fn = library(kernel_name("stem_pool_fwd", dtype)).stem_pool_fwd_plan
     fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong)]
-    plan = (ctypes.c_longlong * 3)()
+    plan = (ctypes.c_longlong * 4)()
     n, c, h, w = shape
     err = fn(n * c, h, w, torch.empty(0, dtype=dtype).element_size(), plan)
     if err != 0:
-        raise ValueError(f"stem_pool_fwd: no plan for {tuple(shape)} in {dtype}")
+        raise ValueError(
+            f"stem_pool_fwd: no plan for {tuple(shape)} in {dtype}: rows of W = {w} "
+            "are too wide for one output row's 3 input rows, maxima and offsets "
+            "in a block's 227 KB of shared memory")
     return tuple(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plane(h, w, dtype):
+    """Raise pool_fwd_plan's ValueError where kernel 3 has no plan for H x W
+    planes in @dtype; once per plane size and type."""
+    pool_fwd_plan((1, 1, h, w), dtype)
 
 
 def pool_bwd_cuda(idx, g, hw):

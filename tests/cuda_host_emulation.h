@@ -1,9 +1,10 @@
 // A host emulation of the CUDA subset that the port's kernels
 // (robot_manipulation_vq_vae_tpu_torch/csrc/lipvq_*.cu, stem_pool.cu) use, so
 // that their own sources compile with g++ and run on the CPU in the tests:
-// each block's threads are std::threads, __syncthreads is a std::barrier,
-// __shared__ variables are statics and dynamic shared memory is one array,
-// filled with garbage before every block. Blocks run one after another.
+// each block's threads are std::threads (one set per launch, which takes the
+// blocks one after another), __syncthreads is a std::barrier, __shared__
+// variables are statics and dynamic shared memory is one array, filled with
+// garbage before every block.
 // Launches are rewritten by the test from
 // `kernel<<<grid, threads, smem, stream>>>(args);` to
 // `emu::launch(grid, threads, smem, stream, [&] { kernel(args); });`.
@@ -123,6 +124,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 }
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 
 enum cudaError_t {
   cudaSuccess = 0,
@@ -135,6 +137,10 @@ inline cudaError_t cudaGetLastError() {
   const cudaError_t e = emu_last_error;
   emu_last_error = cudaSuccess;
   return e;
+}
+inline cudaError_t cudaGetDevice(int* device) {  // one card, device 0
+  *device = 0;
+  return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess                  ? "no error"
@@ -164,20 +170,33 @@ inline void launch(dim3 grid, int threads, size_t smem, cudaStream_t,
     return;
   }
   gridDim = {grid.x, grid.y, 1};
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = {bx, by, 0};
-      std::memset(dynamic_smem, 0xff, kMaxSmem);  // NaN, as garbage
-      std::barrier<> bar(threads);
-      std::vector<std::thread> ts;
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([&, t] {
-          threadIdx = {unsigned(t), 0, 0};
-          emu_barrier = &bar;
-          body();
-        });
-      for (auto& th : ts) th.join();
-    }
+  const unsigned blocks = grid.x * grid.y;
+  if (blocks == 0) return;
+  // one host thread per CUDA thread for the whole launch: the threads take
+  // the blocks in turn, and between two blocks the last to finish one sets
+  // the next block's index and refills shared memory with garbage
+  unsigned block = 0;
+  const auto start_block = [&]() noexcept {
+    blockIdx = {block % grid.x, block / grid.x, 0};
+    std::memset(dynamic_smem, 0xff, kMaxSmem);  // NaN, as garbage
+  };
+  start_block();
+  const auto next_block = [&]() noexcept {
+    if (++block < blocks) start_block();
+  };
+  std::barrier<> bar(threads);
+  std::barrier<decltype(next_block)> between(threads, next_block);
+  std::vector<std::thread> ts;
+  for (int t = 0; t < threads; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx = {unsigned(t), 0, 0};
+      emu_barrier = &bar;
+      for (unsigned b = 0; b < blocks; ++b) {
+        body();
+        between.arrive_and_wait();
+      }
+    });
+  for (auto& th : ts) th.join();
   if (misaligned.exchange(false)) emu_last_error = cudaErrorMisalignedAddress;
 }
 }  // namespace emu

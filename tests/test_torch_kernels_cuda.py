@@ -367,8 +367,8 @@ def test_stem_pool_bf16_kernels_match_plain(cuda_device, shape, kind):
 
 # R3M's stem ([N, 64, 112, 112], a 224 x 224 input): in fp32 a plane's input,
 # maxima and offsets (65,856 B) pass a block's budget and the launcher takes
-# the tile kernel; in bf16 (34,496 B) one plane fits a block, and a 160 x 160
-# plane takes the bf16 tile kernel
+# the band kernel; in bf16 (34,496 B) one plane fits a block, and a 160 x 160
+# plane takes the bf16 band kernel
 _R3M_STEM = (4, 64, 112, 112)
 
 
@@ -378,11 +378,13 @@ _R3M_STEM = (4, 64, 112, 112)
     (torch.float32, _R3M_STEM, 0), (torch.bfloat16, _R3M_STEM, 1),
     (torch.bfloat16, (2, 64, 160, 160), 0)], ids=["fp32_r3m", "bf16_r3m", "bf16_160"])
 def test_stem_pool_tile_path_at_the_r3m_stem(cuda_device, dtype, shape, per_block, kind):
-    """Kernel 3 at R3M's stem, through the launcher's tile kernel where a
-    plane passes a block's budget: maxima and offsets bit-equal to the plain
-    version, ties included, and kernel 4's dx from them too."""
+    """Kernel 3 at R3M's stem, through the launcher's band kernel (which took
+    over the tile kernel's planes) where a plane passes a block's budget:
+    maxima and offsets bit-equal to the plain version, ties included, and
+    kernel 4's dx from them too."""
     x = _pool_input(shape, kind, cuda_device, 6).to(dtype)
-    assert S.pool_fwd_plan(shape, dtype)[0] == per_block   # 0: the tile kernel
+    plan = S.pool_fwd_plan(shape, dtype)
+    assert plan[0] == per_block and (plan[3] > 0) == (per_block == 0)   # 0: bands
     out_k, idx_k = S.pool_fwd_cuda(x)
     out_p, idx_p = S.pool_fwd_plain(x)
     torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
@@ -394,11 +396,87 @@ def test_stem_pool_tile_path_at_the_r3m_stem(cuda_device, dtype, shape, per_bloc
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,blocks", [(1, 7, 512), (16, 28, 2048), (100, 28, 12800)])
+def test_stem_pool_band_kernel_at_the_r3m_shapes(cuda_device, n, rows, blocks):
+    """fp32 [N, 64, 112, 112] at R3M's request and training N: the plan's
+    bands (7 output rows at N = 1 for 512 blocks, 2 of 28 a plane at N = 16
+    and 100), one launch, maxima and offsets bit-equal on ReLU'd inputs."""
+    shape = (n, 64, 112, 112)
+    x = _relu_input(shape, cuda_device, 11)
+    per_block, n_blocks, _, n_rows = S.pool_fwd_plan(shape, torch.float32)
+    assert (per_block, n_blocks, n_rows) == (0, blocks, rows)
+    before = LAUNCHES["stem_pool_fwd"]
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["stem_pool_fwd"] == before + 1
+    out_p, idx_p = S.pool_fwd_plain(x)
+    assert torch.equal(out_k, out_p) and torch.equal(idx_k, idx_p)
+    assert torch.equal(out_k, F.max_pool2d(x, 3, 2, 1))
+
+
+# past the budget in both types: odd H and W, one band of a row each (101 x
+# 163), 20 such planes (2 rows a band, a ragged last band), views 1 and 3
+# elements in (each band at its own offset modulo 16), a row that needs
+# dynamic shared memory past 48 KB (5 x 7001), and about the widest fp32
+# row (3 x 16001: 232,096 B)
+_BAND_CASES = [((1, 1, 101, 163), 0), ((1, 1, 101, 163), 3), ((1, 20, 101, 163), 1),
+               ((2, 20, 101, 163), 3), ((1, 1, 5, 7001), 1), ((1, 1, 3, 16001), 0),
+               ((1, 1, 3, 16001), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["relu", "zeros"])
+@pytest.mark.parametrize("shape,offset", _BAND_CASES)
+def test_stem_pool_band_kernel_edges(cuda_device, shape, offset, kind, dtype):
+    n = torch.Size(shape).numel()
+    buf = _pool_input((n + offset,), kind, cuda_device, 12).to(dtype)
+    x = buf[offset:].view(shape)
+    assert S.pool_fwd_plan(shape, dtype)[0] == 0
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    torch.cuda.synchronize()
+    out_p, idx_p = S.pool_fwd_plain(x)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,w", [(torch.float32, 16100), (torch.bfloat16, 31000)])
+def test_stem_pool_band_kernel_refuses_rows_too_wide(cuda_device, dtype, w):
+    """A row whose band of one output row passes 227 KB: a ValueError that
+    names the width, and no launch."""
+    x = torch.zeros(1, 1, 3, w, device=cuda_device, dtype=dtype)
+    name = "stem_pool_fwd" if dtype == torch.float32 else "stem_pool_fwd_bf16"
+    before = LAUNCHES[name]
+    with pytest.raises(ValueError, match=f"W = {w}"):
+        S.pool_fwd_cuda(x)
+    assert LAUNCHES[name] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 64, 112, 112), (1, 64, 58, 58)])
+def test_stem_pool_forward_replays_from_a_cuda_graph(cuda_device, shape):
+    """Kernel 3 captured in a CUDA graph (as chip_smoke.py's graph_ms times
+    it) replays the eager launch's maxima and offsets on new inputs."""
+    x = _relu_input(shape, cuda_device, 13)
+    S.pool_fwd_cuda(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g, idx_g = S.pool_fwd_cuda(x)
+    x.copy_(_relu_input(shape, cuda_device, 14))
+    graph.replay()
+    torch.cuda.synchronize()
+    out_p, idx_p = S.pool_fwd_plain(x)
+    assert torch.equal(out_g, out_p) and torch.equal(idx_g, idx_p)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("offset", [0, 1, 7])
 # 5 and 9 planes of the stem's size (a block takes 2 in fp32 and 4 in bf16,
-# so the last block takes fewer), and a plane too large for a block (the tile
-# kernel)
+# so the last block takes fewer), and a plane too large for a block (the
+# band kernel)
 @pytest.mark.parametrize("shape", [(1, 5, 58, 58), (3, 3, 57, 59), (1, 1, 100, 160)])
 def test_stem_pool_forward_takes_misaligned_views(cuda_device, shape, offset, dtype):
     """x a contiguous view @offset elements into its buffer, so that the

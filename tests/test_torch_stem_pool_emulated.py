@@ -8,7 +8,9 @@ through the same C entry points and argument types as on the card. The
 outputs are held to the bit against the plain versions and the JAX
 package's ``ops/pool_argmax``: the plane runs' staging at every offset
 modulo 16, the last block's ragged run of planes, the padding by index, the
-tie order, and the tile kernel of large planes. What only the card can show
+tie order, and the band kernel of large planes (its plan, ragged last bands,
+odd planes, misaligned bands, rows that need dynamic shared memory and rows
+too wide for it). What only the card can show
 (the compiler's code, the timing, races that a host schedule hides) stays
 with tests/test_torch_kernels_cuda.py and ``chip_smoke.py``."""
 
@@ -68,7 +70,9 @@ def lib(tmp_path_factory):
 
 
 def _plan(lib, planes, h, w, elem_bytes):
-    plan = (ctypes.c_longlong * 3)()
+    """(planes per block, 0 on the band path; blocks; shared memory in bytes;
+    a band's output rows, 0 on the plane-run path)"""
+    plan = (ctypes.c_longlong * 4)()
     assert lib.stem_pool_fwd_plan(planes, h, w, elem_bytes, plan) == 0
     return tuple(plan)
 
@@ -143,13 +147,86 @@ def test_host_forward_matches_plain_and_jax(lib, shape, offset, kind, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_host_forward_takes_the_tile_kernel_past_the_budget(lib, dtype):
     """A 100 x 160 plane does not fit a block's 40 KB with its outputs in
-    either type: the tile kernel takes it, bit-equal as well, at a
-    misaligned view too."""
+    either type: the band kernel (which took over the tile kernel's planes)
+    takes it, one output row a band for the 512 blocks that one plane
+    cannot give, bit-equal as well, at a misaligned view too."""
     shape = (1, 1, 100, 160)
     x = _input(shape, "relu", DTYPES[dtype], offset=1, seed=3)
-    per_block, blocks, _ = _plan(lib, 1, 100, 160, x.element_size())
-    assert per_block == 0 and blocks == 7 * 3   # 50 x 80 outputs in 8 x 32 tiles
+    per_block, blocks, _, rows = _plan(lib, 1, 100, 160, x.element_size())
+    assert (per_block, blocks, rows) == (0, 50, 1)   # 50 bands of 1 output row
     _assert_forward_exact(x, *_forward(lib, x))
+
+
+# (shape, element offset of the view, input), past the budget in both types:
+# odd H and W (101 x 163: 51 bands of a row, the last one's bottom padding
+# row decided by index); 20 such planes (2 rows a band for 520 blocks, so
+# the last band of each plane has 1 row), each band at its own offset modulo
+# 16 (163 is odd), at views 1 and 3 elements into their buffers; a row too
+# wide for one band of a row in 40 KB (5 x 7001: dynamic shared memory,
+# about 102 KB in fp32 and 53 KB in bf16); and about the widest row the
+# band kernel takes in fp32 (3 x 16001: 232,096 of 232,448 B)
+_BAND_CASES = [((1, 1, 101, 163), 0, "relu"), ((1, 1, 101, 163), 0, "zeros"),
+               ((1, 1, 101, 163), 3, "relu"), ((1, 20, 101, 163), 1, "relu"),
+               ((1, 20, 101, 163), 3, "zeros"), ((1, 1, 5, 7001), 0, "relu"),
+               ((1, 1, 5, 7001), 1, "zeros"), ((1, 1, 3, 16001), 0, "relu"),
+               ((1, 1, 3, 16001), 3, "zeros")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,offset,kind", _BAND_CASES)
+def test_host_band_forward_matches_plain_and_jax(lib, shape, offset, kind, dtype):
+    x = _input(shape, kind, DTYPES[dtype], offset, seed=4)
+    per_block, blocks, smem, rows = _plan(lib, shape[0] * shape[1], *shape[2:],
+                                          x.element_size())
+    ho = S.pooled_hw(*shape[2:])[0]
+    assert per_block == 0 and blocks == shape[1] * -(-ho // rows)
+    assert (smem > 48 * 1024) == (shape[3] > 5000)   # past the static 48 KB
+    if shape[1] == 20:
+        assert rows == 2 and ho % rows == 1          # a ragged last band
+    _assert_forward_exact(x, *_forward(lib, x))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["relu", "zeros"])
+def test_host_band_forward_at_r3m_planes(lib, kind, dtype):
+    """R3M's stem planes at small N: [1, 2, 112, 112] in fp32 (in bf16 a
+    112 x 112 plane fits a block whole, so bf16 takes bands from about
+    160 x 160: [1, 2, 160, 160]), one output row a band."""
+    shape = (1, 2, 112, 112) if dtype == "fp32" else (1, 2, 160, 160)
+    x = _input(shape, kind, DTYPES[dtype], seed=5)
+    assert _plan(lib, 2, *shape[2:], x.element_size())[::3] == (0, 1)
+    assert _plan(lib, 2, 112, 112, 2)[::3] == (1, 0)   # bf16 112 x 112: whole planes
+    _assert_forward_exact(x, *_forward(lib, x))
+
+
+def test_host_band_plan_at_the_r3m_stem(lib):
+    """fp32 [N, 64, 112, 112]: 34 output rows fit 40 KB, so 2 bands of 28 a
+    plane at N = 16 and 100 (2,048 and 12,800 blocks); at N = 1 bands of 7
+    rows give the 512 blocks (15 input rows staged for 14). bf16 takes one
+    whole plane a block."""
+    assert _plan(lib, 64, 112, 112, 4) == (0, 512, 6736 + 1584 + 416, 7)
+    assert _plan(lib, 16 * 64, 112, 112, 4) == (0, 2048, 25552 + 6288 + 1584, 28)
+    assert _plan(lib, 100 * 64, 112, 112, 4) == (0, 12800, 33424, 28)
+    assert _plan(lib, 100 * 64, 112, 112, 2)[:2] == (1, 6400)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_host_band_plan_refuses_rows_too_wide(lib, dtype):
+    """A row whose band of one output row (3 input rows, their maxima and
+    offsets) passes 227 KB: the plan returns cudaErrorInvalidValue, and the
+    launcher returns it too, having launched nothing."""
+    elem = 4 if dtype == "fp32" else 2
+    widest, wider = (16001, 16100) if dtype == "fp32" else (30900, 31000)
+    assert _plan(lib, 1, 3, widest, elem)[2] <= 232448
+    plan = (ctypes.c_longlong * 4)()
+    assert lib.stem_pool_fwd_plan(1, 3, wider, elem, plan) == 1   # cudaErrorInvalidValue
+    x = _input((1, 1, 3, wider), "relu", DTYPES[dtype])
+    out = torch.full((1, 1, 2, wider // 2), float("nan"), dtype=x.dtype)
+    idx = torch.full(out.shape, -1, dtype=torch.int8)
+    fn = getattr(lib, f"stem_pool_fwd{_suffix(x.dtype)}_launch")
+    assert fn(x.data_ptr(), 1, 3, wider, out.data_ptr(), idx.data_ptr(), None) == 1
+    assert out.isnan().all() and (idx == -1).all()
+
 
 
 def test_host_forward_plan_at_the_stem(lib):
@@ -159,7 +236,7 @@ def test_host_forward_plan_at_the_stem(lib):
     bf16 = _plan(lib, 1024 * 64, 58, 58, 2)
     assert fp32[:2] == (2, 16384) and bf16[:2] == (4, 16384)
     assert fp32[2] == (26912 + 16) + (6728 + 8 + 16) + (1682 + 14 + 16)
-    assert max(fp32[2], bf16[2]) <= 48 * 1024
+    assert max(fp32[2], bf16[2]) <= 48 * 1024 and fp32[3] == bf16[3] == 0
     assert _plan(lib, 1024 * 64, 58, 58, 4)[:2] == (2, 32768)
     plan = (ctypes.c_longlong * 3)()
     assert lib.stem_pool_fwd_plan(4, 0, 5, 4, plan) != 0
