@@ -3,8 +3,9 @@ card and check it.
 
     python3 chip_smoke.py            # what the checks need: one card
     python3 chip_smoke.py --profile  # also device-time breakdowns of get_action,
-                                     # the training steps, a rollout lockstep
-                                     # and a diffusion-policy request
+                                     # the training steps, a rollout lockstep,
+                                     # a diffusion-policy request and an MCR
+                                     # pretraining step
 
 Phases, each of which fails the run when it fails:
   1. the card's name and power limit (nvidia-smi);
@@ -28,7 +29,10 @@ Phases, each of which fails the run when it fails:
      requests' forwards also by device time alone (graph_ms: calls
      replayed from a CUDA graph), beside F.max_pool2d's, and the wrapper's
      host us a call at [1]; R3M's stem shapes [1 | 16 | 100, 64, 112, 112]
-     (the band kernel) bit-equal too;
+     (the band kernel) bit-equal too; and MCR pretraining's stem [160, 64,
+     112, 112] (rows 3h / 4g: kernel 3's band kernel, kernel 4 on whole
+     planes, both asserted from their plans), bit-equal, timed back to back
+     and by device time beside max_pool2d and its indices' backward;
   6b. the stem pool's kernels in bf16 at the paper's [512, 64, 58, 58] and
      the flagship's [1024, 64, 58, 58]: maxima, offsets and dx bit-equal to
      the plain versions, each timed; and at [2, 64, 160, 160], the band
@@ -175,6 +179,30 @@ Phases, each of which fails the run when it fails:
      row's features, encoded once), the B = 16 action bit-equal to the
      F.max_pool2d twin's with the same draws, and a kernel step against a
      plain step from the same weights and optimizer state.
+  19. the hierarchical family and MCR at their templates' widths, fp32, B =
+     100 windows of 10 steps (the subgoal horizon and the actor's RNN
+     horizon): 19a GL and GL_VAE (gl.json: [300, 400], latent 16) on
+     robomimic Lift's low-dim keys, 1 + 2 steps, 3 subgoal predictions at
+     B = 1 and 16; 19b HBC (GL_VAE planner, BC_RNN actor: LSTM 2 x 400,
+     MLP [1024, 1024]) in separate and cascade modes and 19c IRIS (a
+     ValuePlanner of GL_VAE and BCQ, 100 subgoals a row) on the same keys,
+     1 + 2 steps and 20 stepwise get_action calls at B = 1 and 16, the
+     subgoal refreshed at calls 0 and 10 alone; no kernel; 19d HBC
+     (separate, cascade) and IRIS with the planner and actor on phase 8's
+     observations, train.pallas_pool: 6 + 6 stem-pool launches a step
+     (cascade 9 + 6) at [100] and [1000], 6 at a refresh and 3 at the other
+     calls, every B = 16 call bit-equal to the F.max_pool2d twin's, a kernel
+     step against a plain step from the same weights and optimizer state;
+     19f MCR pretraining through scripts/train_mcr_representation.py at
+     its defaults with --size 50 (32 quintuples of 224 x 224 frames: the
+     stem at [160, 64, 112, 112], 1 + 1 launches a step), the
+     script's first step with an evaluation and its snapshots, 2 timed
+     steps, a kernel step against a plain step, the trunk exported; 19e
+     the mcr policy (MCR_GMM, ResNet50Conv / SpatialSoftmax) on phase 8's
+     cameras warm-started from that trunk through RMVQ_MCR_CKPT (each
+     backbone equal to the export to the bit), 1 + 2 steps (3 + 3 launches
+     at [100]), requests, the B = 16 action bit-equal to the twin's, a
+     kernel step against a plain step.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -913,6 +941,21 @@ def phase_training_path(CB, dev, profile):
     return counts, med
 
 
+def algos_of(model):
+    """@model, or the algos that a hierarchical one is made of (its planner,
+    value network and actor)."""
+    if hasattr(model, "generator"):
+        return [model]
+    return [a for name in ("planner", "value_net", "actor") if hasattr(model, name)
+            for a in algos_of(getattr(model, name))]
+
+
+def step_metrics(model, info):
+    """A training step's metrics: its ``losses``, or a hierarchical algo's
+    ``log_info`` (``Planner/...``, ``Actor/...``)."""
+    return info["losses"] if "losses" in info else model.log_info(info)
+
+
 def one_step(model, batch, deterministic=False):
     """A training step with the crop and dropout generators seeded (and, with
     @deterministic, cuDNN's deterministic algorithms): (metrics, every
@@ -920,12 +963,13 @@ def one_step(model, batch, deterministic=False):
     the flagship, the HVQVAE's codebooks and EMA statistics)."""
     import torch
 
-    model.generator.manual_seed(7)
+    for algo in algos_of(model):
+        algo.generator.manual_seed(7)
     torch.manual_seed(7)   # dropout draws from the global generator
     before = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = deterministic
     try:
-        losses = model.train_on_batch(batch, epoch=0)["losses"]
+        losses = step_metrics(model, model.train_on_batch(batch, epoch=0))
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = before
@@ -2085,7 +2129,7 @@ def timed_steps(CB, algo, batches, tag, path):
     times = []
     for batch in batches[1:]:
         t0 = time.perf_counter()
-        losses = algo.train_on_batch(batch, epoch=0)["losses"]
+        losses = step_metrics(algo, algo.train_on_batch(batch, epoch=0))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         vals = {k: float(v) for k, v in losses.items()}
@@ -2093,7 +2137,7 @@ def timed_steps(CB, algo, batches, tag, path):
     counts = dict(CB.LAUNCHES)
     record_path(path, counts)
     med = statistics.median(times)
-    b = len(batches[0]["actions"])
+    b = len((batches[0]["actor"] if "actor" in batches[0] else batches[0])["actions"])
     log(f"  {tag}: median {med:.3f} ms per step ({b / med * 1e3:.1f} samples/s at B={b}; "
         f"all: {', '.join(f'{v:.3f}' for v in times)}); last {vals}; launches over "
         f"{len(times)} steps { {k: v for k, v in counts.items() if v} }")
@@ -2289,15 +2333,17 @@ FAMILY_MODES = {"plain": "ICL", "gaussian": "ICLGaussian", "gmm": "ICLGMM",
                 "rnn": "ICLRNN", "rnn_gmm": "ICLRNN_GMM"}
 
 
-def _observations(cfg):
-    """Phase 8's observations on @cfg."""
-    cfg.observation.modalities.obs.low_dim = list(LOW_DIM) + ["lang_emb"]
-    cfg.observation.modalities.obs.rgb = CAMS
+def _observations(cfg, section=None):
+    """Phase 8's observations on @cfg's observation @section (by default
+    ``cfg.observation``)."""
+    obs = cfg.observation if section is None else section
+    obs.modalities.obs.low_dim = list(LOW_DIM) + ["lang_emb"]
+    obs.modalities.obs.rgb = CAMS
     paper = paper_config().observation.encoder.rgb
-    cfg.observation.encoder.rgb.core_class = paper.core_class
-    cfg.observation.encoder.rgb.core_kwargs = dict(paper.core_kwargs)
-    cfg.observation.encoder.rgb.obs_randomizer_class = paper.obs_randomizer_class
-    cfg.observation.encoder.rgb.obs_randomizer_kwargs = dict(paper.obs_randomizer_kwargs)
+    obs.encoder.rgb.core_class = paper.core_class
+    obs.encoder.rgb.core_kwargs = dict(paper.core_kwargs)
+    obs.encoder.rgb.obs_randomizer_class = paper.obs_randomizer_class
+    obs.encoder.rgb.obs_randomizer_kwargs = dict(paper.obs_randomizer_kwargs)
 
 
 def family_algo(mode, dev, pallas_pool=True, use_kernels=True, configure=None,
@@ -2725,13 +2771,14 @@ def core_config(core_class, **core_kwargs):
 
 
 def stem_inputs(algo):
-    """Hooks recording the input shapes of @algo's stem pools; returns the
-    list they fill and the hooks' handles."""
+    """Hooks recording the input shapes of the stem pools of @algo (an algo
+    or a module); returns the list they fill and the hooks' handles."""
     from robot_manipulation_vq_vae_tpu_torch.models.base_nets import StemMaxPool
 
     shapes = []
+    module = getattr(algo, "nets", algo)
     handles = [m.register_forward_pre_hook(lambda mod, args: shapes.append(
-        tuple(args[0].shape))) for m in algo.nets.modules() if isinstance(m, StemMaxPool)]
+        tuple(args[0].shape))) for m in module.modules() if isinstance(m, StemMaxPool)]
     return shapes, handles
 
 
@@ -2817,6 +2864,56 @@ def phase_r3m_pool(S, dev, gen):
             wrapper_host_us(S, x)
         rows.append(dict(timed["stem_pool_fwd"], shape=list(shape)))
         del x
+    return rows
+
+
+# MCR pretraining's stem (phase 19f: train_mcr_representation.py's default
+# batch of 32 frame quintuples at 224 x 224)
+MCR_POOL = (32 * 5, 64, 112, 112)
+
+
+def phase_mcr_pool(S, dev):
+    """Rows 3h / 4g: kernels 3 and 4 in fp32 at MCR_POOL, on ReLU'd inputs
+    (ties): maxima, offsets and dx bit-equal to the plain versions (kernel 3
+    through its band kernel, kernel 4 on whole planes of windows, both
+    asserted from their plans), each timed beside its bound, the plain
+    version and the library call (F.max_pool2d, its indices' backward), back
+    to back and by device time alone. Returns {kernel: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    log(f"phase 6 (MCR stem): kernels 3 and 4 at {list(MCR_POOL)} fp32")
+    gen = torch.Generator(dev).manual_seed(31)
+    x = relu_input(MCR_POOL, gen, dev)
+    tag = "x".join(map(str, MCR_POOL))
+    hw = MCR_POOL[2:]
+    fwd_err = check_band_forward(S, x, f"kernels 3 and 4 at {tag}")
+    tile_h, tile_w, blocks, smem = S.pool_bwd_plan(MCR_POOL, x.dtype)
+    ho, wo = S.pooled_hw(*hw)
+    check((tile_h, tile_w) == (ho, wo), f"kernel 4 took tiles of {tile_h} x {tile_w} "
+          f"windows at {tag}, not whole planes of {ho} x {wo}")
+    log(f"  stem_pool_bwd at {tag}: whole planes of {ho} x {wo} windows, {blocks} blocks of "
+        f"{smem} B of shared memory")
+    out, idx = S.pool_fwd_cuda(x)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    dx_k, dx_p = S.pool_bwd_cuda(idx, g, hw), S.pool_bwd_plain(idx, g, hw)
+    bwd_err = float((dx_k - dx_p).abs().max())
+    check(torch.equal(dx_k, dx_p), f"kernel 4 at {tag}: dx differs by {bwd_err}")
+    del dx_k, dx_p
+    _, lib_idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+    n_in, n_out = x.numel(), out.numel()
+    rows = time_kernels({
+        "stem_pool_fwd": (lambda: S.pool_fwd_cuda(x), lambda: S.pool_fwd_plain(x),
+                          lambda: F.max_pool2d(x, 3, 2, 1, return_indices=True),
+                          (4 * n_in + 5 * n_out, 8 * n_out), fwd_err),
+        "stem_pool_bwd": (lambda: S.pool_bwd_cuda(idx, g, hw),
+                          lambda: S.pool_bwd_plain(idx, g, hw),
+                          lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                              g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
+                          (5 * n_out + 4 * n_in, n_out), bwd_err),
+    }, tag, graph=("stem_pool_fwd", "stem_pool_bwd"))
+    del x, out, idx, g, lib_idx
+    free_card()
     return rows
 
 
@@ -3379,20 +3476,15 @@ def phase_rl_image(CB, dev, gen, card, tag, name, cls, keys, profile):
     # the plain model takes the optimizers' state too: a network's loss may
     # read another as its step left it (TD3-BC's actor the first critic,
     # CQL's critics the actor, BCQ's the sampler)
-    opt_state = {n: copy.deepcopy(o.state_dict()) for n, o in algo.optimizers.items()}
-
     def plain():
         p = rl_algo(name, dev, images=True, use_kernels=False)
-        for n, sd in opt_state.items():
-            p.optimizers[n].load_state_dict(sd)
         if cls == "TD3_BC":
             p.critic_steps = 1
         return p
 
     if cls == "TD3_BC":   # both compared steps move the actor (update_freq 2)
         algo.critic_steps = 1
-    kernel_against_plain(algo, plain, batches[0], keys)
-    del opt_state
+    against_plain_from_state(algo, plain, batches[0], keys)
     return step_ms, req, peak
 
 
@@ -3429,6 +3521,505 @@ def phase_offline_rl(CB, dev, card, profile=False):
         log(f"  {'18e ' + cls:24s} {step_ms:10.3f} {req[1]:10.3f} {req[BATCHES[-1]]:10.3f}"
             f"   peak {peak:.2f} GiB")
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the hierarchical family, MCR and its representation pretraining
+# ---------------------------------------------------------------------------
+
+HIER_B = 100           # the batch_size of exps/templates/{gl,hbc,iris,mcr}.json
+HIER_T = 10            # windows: the subgoal horizon and the actor's rnn.horizon
+HIER_STEPS = 2         # timed steps of a path, after a warm-up
+HIER_CALLS = 20        # stepwise get_action calls: two subgoal intervals
+# 19d's cells (algo, mode) and their stem-pool launches a step: the
+# planner's three trunks forward at [100] and backward, the actor's at
+# [1000]; cascade also predicts the batch's subgoals ([100], no backward).
+# A request: the actor's three trunks, and the planner's at a refresh
+HIER_IMAGE_CELLS = {
+    ("hbc", "separate"): {"stem_pool_fwd": 6, "stem_pool_bwd": 6},
+    ("hbc", "cascade"): {"stem_pool_fwd": 9, "stem_pool_bwd": 6},
+    ("iris", "separate"): {"stem_pool_fwd": 6, "stem_pool_bwd": 6},
+}
+# the MCR pretraining script's defaults, with the ResNet-50 trunk that 19e
+# grafts
+MCR_ARGS = ("--size", "50", "--dataset", "synthetic")
+
+
+def hier_config(name, images=False, pallas_pool=True, mode="separate", vae=True):
+    """``@name`` (gl, hbc, iris) at its template's widths, windows of HIER_T:
+    every section on robomimic Lift's low-dim keys (LIFT), or with @images
+    the planner's and the actor's on phase 8's observations and the
+    subgoals and IRIS's value network on phase 8's low-dim keys."""
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+
+    cfg = config_factory(name)
+    keys = list(LOW_DIM) if images else list(LIFT)
+    with cfg.values_unlocked():
+        cfg.train.seq_length = HIER_T
+        cfg.train.pallas_pool = pallas_pool
+        obs = cfg.observation
+        if name == "gl":
+            planner, sections = obs, [obs]
+            cfg.algo.vae.enabled = vae
+        else:
+            cfg.algo.mode = mode
+            planner = obs.planner if name == "hbc" else obs.value_planner.planner
+            sections = [planner, obs.actor]
+            if name == "iris":
+                obs.value_planner.value.modalities.obs.low_dim = keys
+        for section in sections:
+            if images:
+                _observations(cfg, section)
+            else:
+                section.modalities.obs.low_dim = keys
+        planner.modalities.subgoal.low_dim = keys
+    return cfg
+
+
+def hier_algo(name, dev, images=False, pallas_pool=True, use_kernels=True, **kw):
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = hier_config(name, images, pallas_pool, **kw)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    shapes, ac_dim = (SHAPES, 12) if images else (LIFT, 7)
+    return Algo.algo_factory(name, cfg, shapes, ac_dim, device=dev, use_kernels=use_kernels)
+
+
+def hier_batch(gen, dev, algo, images):
+    """A processed batch of HIER_B windows of HIER_T steps on the card: phase
+    8's observations (and the next observations' low-dim keys, which the
+    subgoals and the value network read) with @images, else Lift's low-dim
+    keys; rewards in [0, 1], 5 % of the steps done."""
+    import torch
+
+    def randn(shapes):
+        return {k: torch.randn((HIER_B, HIER_T, *s), generator=gen, device=dev)
+                for k, s in shapes.items()}
+
+    if images:
+        batch = make_train_batch(gen, dev, HIER_B, HIER_T)
+        batch["next_obs"] = randn(LOW_DIM)
+    else:
+        batch = {"obs": randn(LIFT), "next_obs": randn(LIFT),
+                 "actions": torch.rand((HIER_B, HIER_T, 7), generator=gen, device=dev) * 2 - 1}
+    batch["rewards"] = torch.rand((HIER_B, HIER_T), generator=gen, device=dev)
+    batch["dones"] = (torch.rand((HIER_B, HIER_T), generator=gen, device=dev) < 0.05).float()
+    return algo.process_batch_for_training(batch)
+
+
+def hier_keys(algo):
+    """The metrics a hierarchical step must give (and a kernel step is
+    held to)."""
+    if type(algo).__name__ == "IRIS":
+        return ("Planner/Planner/goal_loss", "Planner/ValueNetwork/critic/critic1_loss",
+                "Actor/action_loss")
+    return ("Planner/goal_loss", "Actor/action_loss", "Actor/policy_grad_norms")
+
+
+def subgoal_requests(CB, algo, rng, path):
+    """REQUESTS subgoal predictions of a planner at B = 1 and 16 (a warm one
+    first each), each key [B, ...] and finite; no kernel. Returns the
+    medians."""
+    import torch
+
+    make_obs = rl_lowdim_obs("bcq")
+    medians = {}
+    for b in BATCHES:
+        times = []
+        for call in range(REQUESTS + 1):
+            obs = make_obs(rng, b)
+            CB.reset_launch_counts()
+            t0 = time.perf_counter()
+            sub = algo.get_subgoal_predictions(obs)
+            torch.cuda.synchronize()
+            if call:
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(all(tuple(v.shape) == (b, *LIFT[k]) and bool(v.isfinite().all())
+                      for k, v in sub.items()), f"B={b}: subgoals {sub.keys()}")
+            check_launches(f"{path} B={b}", dict(CB.LAUNCHES), {}, 1)
+            record_path(path, dict(CB.LAUNCHES))
+        medians[b] = statistics.median(times)
+        log(f"  B={b}: get_subgoal_predictions median {medians[b]:.3f} ms "
+            f"(all: {', '.join(f'{v:.3f}' for v in times)})")
+    return medians
+
+
+def stepwise_requests(CB, algo, rng, b, path, per_refresh, per_call, make_obs, ac_dim,
+                      twin=None):
+    """HIER_CALLS stepwise get_action calls at B = @b after a reset: the
+    planner called at calls 0 and ``subgoal_update_interval`` alone,
+    @per_refresh launches at those calls and @per_call at the others; with
+    @twin (the F.max_pool2d model), each action bit-equal to its, both
+    drawing from generators seeded alike. Returns the median ms."""
+    import torch
+
+    refreshed, times = [], []
+    predict = algo.get_subgoal_predictions
+
+    def spy(*args, **kwargs):
+        refreshed.append(call)
+        return predict(*args, **kwargs)
+
+    for model in [algo] + ([twin] if twin is not None else []):
+        model.reset()
+        for a in algos_of(model):
+            a.generator.manual_seed(9)
+    interval = algo._subgoal_update_interval
+    algo.get_subgoal_predictions = spy
+    try:
+        for call in range(HIER_CALLS):
+            obs = make_obs(rng, b)
+            CB.reset_launch_counts()
+            t0 = time.perf_counter()
+            action = algo.get_action(obs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(action.shape == (b, ac_dim) and bool(action.isfinite().all()),
+                  f"{path} call {call}: action {tuple(action.shape)}")
+            check_launches(f"{path} B={b} call {call}", dict(CB.LAUNCHES),
+                           per_refresh if call % interval == 0 else per_call, 1)
+            record_path(path, dict(CB.LAUNCHES))
+            if twin is not None:
+                equal_actions(f"{path} call {call}", action, twin.get_action(obs))
+    finally:
+        del algo.get_subgoal_predictions
+    check(refreshed == [0, interval], f"{path}: the subgoal was refreshed at calls "
+          f"{refreshed}, not 0 and {interval}")
+    med = statistics.median(times)
+    log(f"  B={b}: {HIER_CALLS} stepwise get_action calls, median {med:.3f} ms, the "
+        f"refreshes {times[0]:.3f} / {times[interval]:.3f} ms (all: "
+        f"{', '.join(f'{v:.3f}' for v in times)}); subgoal refreshed at calls {refreshed}"
+        + ("; each action bit-equal to the F.max_pool2d model's" if twin is not None else ""))
+    return med
+
+
+def against_plain_from_state(algo, make_plain, batch, keys):
+    """``kernel_against_plain`` with the plain model given the optimizers'
+    and schedules' state too (a network's loss may read another as its step
+    left it: the cascade actor's goals, BCQ's critic target)."""
+    algos = algos_of(algo)
+    opt = [({n: copy.deepcopy(o.state_dict()) for n, o in a.optimizers.items()},
+            {n: copy.deepcopy(s.state_dict()) for n, s in a.lr_schedulers.items()})
+           for a in algos]
+
+    def plain():
+        p = make_plain()
+        for a, (optimizers, schedulers) in zip(algos_of(p), opt):
+            for n, sd in optimizers.items():
+                a.optimizers[n].load_state_dict(sd)
+            for n, sd in schedulers.items():
+                a.lr_schedulers[n].load_state_dict(sd)
+        return p
+
+    del algos
+    kernel_against_plain(algo, plain, batch, keys)
+
+
+def phase_gl(CB, dev, gen, card):
+    """19a: GL and GL_VAE at gl.json's widths on Lift's low-dim keys, B =
+    HIER_B: a warm-up and HIER_STEPS timed steps, REQUESTS subgoal
+    predictions at B = 1 and 16; no kernel. Returns {class: (step ms, {B:
+    request ms})}."""
+    rows = {}
+    for vae in (False, True):
+        algo = hier_algo("gl", dev, vae=vae)
+        cls = type(algo).__name__
+        check(cls == ("GL_VAE" if vae else "GL"), f"19a: {cls}")
+        log(f"phase 19a {cls}: {sum(p.numel() for p in algo.nets.parameters())} parameters, "
+            f"B={HIER_B}, subgoals {HIER_T - 1} steps on of {sorted(algo.subgoal_shapes)}")
+        batches = [hier_batch(gen, dev, algo, False) for _ in range(HIER_STEPS + 1)]
+        step_ms = family_train(CB, algo, batches, {}, f"19a {cls} step ({card})",
+                               f"phase 19a {cls} training", ("goal_loss",))
+        rows[f"19a {cls}"] = (step_ms, subgoal_requests(
+            CB, algo, np.random.RandomState(19), f"phase 19a {cls} serving"))
+        del algo
+        free_card()
+    return rows
+
+
+def phase_hier_lowdim(CB, dev, gen, card, tag, name, mode):
+    """19b / 19c: @name (hbc, iris) in @mode at its template's widths on
+    Lift's low-dim keys, B = HIER_B windows of HIER_T: a warm-up and
+    HIER_STEPS timed steps, then HIER_CALLS stepwise get_action calls at B =
+    1 and 16; no kernel. Returns (step ms, {B: request ms})."""
+    algo = hier_algo(name, dev, mode=mode)
+    cls = type(algo).__name__
+    rnn = algo.algo_config.actor.rnn
+    log(f"phase {tag} {cls} ({mode}): planner {type(algo.planner).__name__}, actor "
+        f"{type(algo.actor).__name__} ({rnn.num_layers}-layer {rnn.rnn_type} of "
+        f"{rnn.hidden_dim}, MLP {list(algo.algo_config.actor.actor_layer_dims)}), "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, B={HIER_B} "
+        f"T={HIER_T}")
+    batches = [hier_batch(gen, dev, algo, False) for _ in range(HIER_STEPS + 1)]
+    path = f"phase {tag} {cls} {mode}"
+    step_ms = family_train(CB, algo, batches, {}, f"{tag} {cls} {mode} step ({card})",
+                           f"{path} training", hier_keys(algo))
+    rng = np.random.RandomState(20)
+    req = {b: stepwise_requests(CB, algo, rng, b, f"{path} serving", {}, {},
+                                rl_lowdim_obs("bcq"), 7) for b in BATCHES}
+    del algo
+    free_card()
+    return step_ms, req
+
+
+def phase_hier_image(CB, dev, gen, card, name, mode, profile):
+    """19d: @name (hbc, iris) in @mode on phase 8's observations with
+    train.pallas_pool, B = HIER_B windows of HIER_T: a warm-up and
+    HIER_STEPS timed steps (HIER_IMAGE_CELLS' launches, the stems at [100]
+    and [1000]), the peak device memory, HIER_CALLS stepwise calls at B = 1
+    and 16 (6 launches at a refresh, 3 at the other calls; every B = 16
+    action bit-equal to the F.max_pool2d twin's with the same draws), and a
+    kernel step against a plain step from the same weights and optimizer
+    state. Returns (step ms, {B: request ms}, peak GiB)."""
+    import torch
+
+    per_step = HIER_IMAGE_CELLS[name, mode]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    algo = hier_algo(name, dev, images=True, mode=mode)
+    cls = type(algo).__name__
+    path = f"phase 19d {cls} {mode}"
+    log(f"{path}: phase 8's observations, train.pallas_pool on, "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, B={HIER_B} "
+        f"T={HIER_T}")
+    batches = [hier_batch(gen, dev, algo, True) for _ in range(HIER_STEPS + 1)]
+    shapes, handles = stem_inputs(algo)
+    keys = hier_keys(algo)
+    step_ms = family_train(CB, algo, batches, per_step, f"19d {cls} {mode} step ({card})",
+                           f"{path} training", keys)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"  peak device memory of the steps {peak:.2f} GiB ({card})")
+    check_stem_shapes(f"19d {cls} {mode} steps", shapes, 1, (HIER_B, HIER_B * HIER_T))
+    if profile:
+        device_profile(f"19d {cls} {mode} train step",
+                       lambda: algo.train_on_batch(batches[0], epoch=0),
+                       share=("pool_fwd_kernel", "pool_bwd_kernel"))
+    shapes.clear()
+    twin = hier_algo(name, dev, images=True, mode=mode, pallas_pool=False)
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    rng = np.random.RandomState(21)
+    req = {b: stepwise_requests(CB, algo, rng, b, f"{path} serving", {"stem_pool_fwd": 6},
+                                {"stem_pool_fwd": 3}, request_obs, 12,
+                                twin=twin if b == BATCHES[-1] else None)
+           for b in BATCHES}
+    check_stem_shapes(f"19d {cls} {mode} requests", shapes, 1, BATCHES)
+    for h in handles:
+        h.remove()
+    del twin
+    free_card()
+    against_plain_from_state(
+        algo, lambda: hier_algo(name, dev, images=True, mode=mode, use_kernels=False),
+        batches[0], keys)
+    return step_ms, req, peak
+
+
+def phase_mcr_pretrain(CB, dev, card, work, profile):
+    """19f: MCR pretraining through scripts/train_mcr_representation.py at
+    its defaults (32 quintuples of 224 x 224 frames, TCN weight 1) with
+    ``--size 50``: the script's first step with an evaluation
+    step and its snapshots, then HIER_STEPS timed steps (one stem-pool launch
+    each way at MCR_POOL), a kernel step against a plain step from the same
+    state and negatives, and the trunk exported to @work. Returns (trunk
+    path, step ms, peak GiB)."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import synthetic_batches
+    from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
+    from robot_manipulation_vq_vae_tpu_torch.scripts import train_mcr_representation as Script
+
+    args = Script.build_parser().parse_args(
+        [*MCR_ARGS, "--work_dir", work, "--train_steps", "1", "--eval_freq", "1",
+         "--device", str(dev)])
+    path = "phase 19f MCR pretraining"
+    log(f"phase 19f: MCR pretraining, ResNet-{args.size}, B={args.batch_size} x 5 frames "
+        f"at {args.image_size}x{args.image_size}, TCN weight {args.tcnweight} ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    CB.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = Script.run(args)
+    torch.cuda.synchronize()
+    log(f"  the script: one step, an evaluation step and two snapshots in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_launches("19f script", dict(CB.LAUNCHES), {"stem_pool_fwd": 2, "stem_pool_bwd": 1}, 1)
+    record_path(path, dict(CB.LAUNCHES))
+    shapes, handles = stem_inputs(trainer.model)
+    batches = synthetic_batches(args.batch_size, args.image_size, args.action_dim,
+                                state_dim=42, seed=args.seed + 2)
+    times = []
+    for _ in range(HIER_STEPS):
+        batch = next(batches)
+        CB.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.update(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(v) for v in metrics.values()), f"19f: metrics {metrics}")
+        check_launches("19f step", dict(CB.LAUNCHES), {"stem_pool_fwd": 1, "stem_pool_bwd": 1}, 1)
+        record_path(path, dict(CB.LAUNCHES))
+    for h in handles:
+        h.remove()
+    check(set(shapes) == {MCR_POOL}, f"19f: the stem pooled {sorted(set(shapes))}")
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    frames = args.batch_size * 5
+    log(f"  19f step ({card}): median {step_ms:.3f} ms ({frames / step_ms * 1e3:.1f} frames/s; "
+        f"all: {', '.join(f'{v:.3f}' for v in times)}); last {metrics}; the stem pooled "
+        f"{list(MCR_POOL)}; peak device memory {peak:.2f} GiB")
+    if profile:
+        device_profile("19f MCR pretraining step", lambda: trainer.update(next(batches)),
+                       share=("pool_fwd_kernel", "pool_bwd_kernel"))
+
+    # a kernel step and a plain step from one state, batch and negatives
+    model, batch = trainer.model, next(batches)
+    state = copy.deepcopy(model.state_dict())
+    opt = copy.deepcopy(trainer.optimizer.state_dict())
+    perm_gen = torch.Generator(dev).manual_seed(3)
+    perms = torch.stack([torch.randperm(args.batch_size, generator=perm_gen, device=dev)
+                         for _ in range(model.num_negatives)])
+    results = []
+    for use_kernel in (True, False):
+        model.load_state_dict(state)
+        trainer.optimizer.load_state_dict(opt)
+        BaseNets.set_stem_pool(model, True, use_kernel)
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            metrics = trainer.update(batch, neg_perms=perms)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = before
+        results.append((metrics, {n: p.grad.clone() for n, p in model.named_parameters()},
+                        {k: v.clone() for k, v in model.named_buffers()
+                         if v.is_floating_point()}))
+    BaseNets.set_stem_pool(model, True)
+    compare_steps(*results, keys=("full_loss", "tcnloss"))
+    del results, state, opt
+    trunk = os.path.join(work, "mcr_trunk.pkl")
+    trainer.export_trunk(trunk)
+    del trainer
+    free_card()
+    return trunk, step_ms, peak
+
+
+def mcr_algo(dev, pallas_pool=True, use_kernels=True):
+    """``mcr`` (MCR_GMM: 5 modes; its ResNet50Conv / SpatialSoftmax core,
+    64-d features) on phase 8's cameras and low-dim keys, phase 8's crop."""
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = config_factory("mcr")
+    paper = paper_config().observation.encoder.rgb
+    with cfg.values_unlocked():
+        cfg.train.pallas_pool = pallas_pool
+        cfg.observation.modalities.obs.low_dim = list(LOW_DIM)
+        cfg.observation.modalities.obs.rgb = CAMS
+        cfg.observation.encoder.rgb.obs_randomizer_class = paper.obs_randomizer_class
+        cfg.observation.encoder.rgb.obs_randomizer_kwargs = dict(paper.obs_randomizer_kwargs)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory("mcr", cfg, SHAPES, 12, device=dev, use_kernels=use_kernels)
+
+
+def phase_mcr_policy(CB, dev, gen, card, trunk):
+    """19e: the MCR policy warm-started from 19f's @trunk through
+    RMVQ_MCR_CKPT (every camera's backbone equal to the export to the bit),
+    B = HIER_B: a warm-up and HIER_STEPS timed steps (3 + 3 stem-pool
+    launches at [100]), 3 requests at B = 1 and 16, the B = 16 action
+    bit-equal to the F.max_pool2d twin's with the same draws, and a kernel
+    step against a plain step. Returns (step ms, {B: request ms}, peak
+    GiB)."""
+    import pickle
+
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import jax_flat, jax_variables
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    os.environ["RMVQ_MCR_CKPT"] = trunk
+    try:
+        algo = mcr_algo(dev)
+        twin = mcr_algo(dev, pallas_pool=False)
+    finally:
+        del os.environ["RMVQ_MCR_CKPT"]
+    cls = type(algo).__name__
+    check(cls == "MCR_GMM", f"19e: {cls}")
+    with open(trunk, "rb") as f:
+        want = jax_flat(pickle.load(f))
+    backbones = [m.backbone for m in algo.nets.modules()
+                 if hasattr(m, "backbone") and hasattr(m, "head")]
+    check(len(backbones) == len(CAMS), f"19e: {len(backbones)} backbones")
+    for bb in backbones:
+        got = jax_variables(bb)
+        check(all(np.array_equal(got[k], v) for k, v in want.items()),
+              "19e: a grafted backbone differs from the exported trunk")
+    log(f"phase 19e {cls}: warm-started from 19f's trunk ({len(want)} tensors, each of the "
+        f"{len(backbones)} backbones equal to the export to the bit), "
+        f"{sum(p.numel() for p in algo.nets.parameters())} parameters, B={HIER_B}")
+    batches = [algo.process_batch_for_training(make_train_batch(gen, dev, HIER_B, 1))
+               for _ in range(HIER_STEPS + 1)]
+    shapes, handles = stem_inputs(algo)
+    keys = ("log_probs", "action_loss", "policy_grad_norms")
+    step_ms = family_train(CB, algo, batches, {"stem_pool_fwd": 3, "stem_pool_bwd": 3},
+                           f"19e {cls} step ({card})", f"phase 19e {cls} training", keys)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"  peak device memory of the steps {peak:.2f} GiB ({card})")
+    check_stem_shapes(f"19e {cls} steps", shapes, 1, (HIER_B,))
+    shapes.clear()
+    rng = np.random.RandomState(22)
+    req = family_requests(CB, algo, rng, lambda b, call: {"stem_pool_fwd": 3},
+                          f"phase 19e {cls} serving")
+    check_stem_shapes(f"19e {cls} requests", shapes, 1, BATCHES)
+    for h in handles:
+        h.remove()
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    obs = request_obs(rng, BATCHES[-1])
+    equal_actions(cls, seeded(algo, 9, algo.get_action, obs),
+                  seeded(twin, 9, twin.get_action, obs))
+    log(f"  B={BATCHES[-1]} action bit-equal to the F.max_pool2d model's")
+    del twin
+    free_card()
+    kernel_against_plain(algo, lambda: mcr_algo(dev, use_kernels=False), batches[0], keys)
+    return step_ms, req, peak
+
+
+def phase_hierarchical(CB, dev, card, profile=False):
+    """19: the hierarchical family and MCR (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    log(f"phase 19: the hierarchical family (gl, hbc, iris) and mcr with its "
+        f"pretraining, fp32 ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(29)
+    rows = phase_gl(CB, dev, gen, card)
+    for tag, name, mode in (("19b", "hbc", "separate"), ("19b", "hbc", "cascade"),
+                            ("19c", "iris", "separate")):
+        rows[f"{tag} {name} {mode}"] = phase_hier_lowdim(CB, dev, gen, card, tag, name, mode)
+    image_rows = {}
+    for name, mode in HIER_IMAGE_CELLS:
+        image_rows[f"19d {name} {mode}"] = phase_hier_image(CB, dev, gen, card, name, mode,
+                                                           profile)
+        free_card()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mcr_")
+    try:
+        trunk, pretrain_ms, pretrain_peak = phase_mcr_pretrain(CB, dev, card, work, profile)
+        image_rows["19e mcr"] = phase_mcr_policy(CB, dev, gen, card, trunk)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_card()
+    log(f"  phase 19 medians ({card}), ms: cell, train step, request B=1, B=16 (the "
+        "stepwise cells: the median of 20 calls)")
+    for cell, (step_ms, req) in rows.items():
+        log(f"  {cell:24s} {step_ms:10.3f} {req[1]:10.3f} {req[BATCHES[-1]]:10.3f}")
+    for cell, (step_ms, req, peak) in image_rows.items():
+        log(f"  {cell:24s} {step_ms:10.3f} {req[1]:10.3f} {req[BATCHES[-1]]:10.3f}"
+            f"   peak {peak:.2f} GiB")
+    log(f"  19f MCR pretraining       {pretrain_ms:10.3f}   peak {pretrain_peak:.2f} GiB")
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
 
 def device_profile(tag, fn, share=()):
@@ -3508,6 +4099,7 @@ def main():
     tok_counts = phase_tokenizer_path(CB, tok_model, x)
     del tok_model, x
     pool = phase_stem_pool(S, dev)
+    mcr_pool = phase_mcr_pool(S, dev)
     pool.update(phase_stem_pool_bf16(S, dev))
     torch.cuda.empty_cache()
     route, route_counts = phase_pool_route(CB, P, dev)
@@ -3542,6 +4134,8 @@ def main():
     phase_baselines(CB, dev, card, args.profile)
     free_card()
     phase_offline_rl(CB, dev, card, args.profile)
+    free_card()
+    phase_hierarchical(CB, dev, card, args.profile)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -3577,6 +4171,13 @@ def main():
                replaces=f"{TPU_ROUTE}:50", launches=route_counts[name], **route[name])
           for name in ("pool_route", "pool_route_bf16")),
     ]
+    # rows 3h / 4g: kernels 3 and 4 at MCR pretraining's stem (phase 6's
+    # timing), with their launches on phase 19f's path
+    for row in kernels:
+        if row["name"] not in mcr_pool:
+            continue
+        row["mcr_stem"] = dict(mcr_pool[row["name"]], shape=list(MCR_POOL),
+                               launches=PATH_LAUNCHES["phase 19f MCR pretraining"][row["name"]])
     # each kernel's launches on every path that ran it
     for row in kernels:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in PATH_LAUNCHES.items()

@@ -1,6 +1,8 @@
 from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     REGISTERED_ALGOS,
+    HierarchicalAlgo,
     ICLRolloutPolicy,
+    PlannerAlgo,
     PolicyAlgo,
     RolloutPolicy,
     ValueAlgo,
@@ -39,3 +41,14 @@ from robot_manipulation_vq_vae_tpu_torch.algo.iql import IQL
 from robot_manipulation_vq_vae_tpu_torch.algo.td3_bc import TD3_BC
 from robot_manipulation_vq_vae_tpu_torch.algo.cql import CQL
 from robot_manipulation_vq_vae_tpu_torch.algo.bcq import BCQ, BCQ_GMM, BCQ_Distributional
+from robot_manipulation_vq_vae_tpu_torch.algo.gl import GL, GL_VAE, ValuePlanner
+from robot_manipulation_vq_vae_tpu_torch.algo.hbc import HBC
+from robot_manipulation_vq_vae_tpu_torch.algo.iris import IRIS
+from robot_manipulation_vq_vae_tpu_torch.algo.mcr import (
+    MCR,
+    MCR_GMM,
+    MCR_RNN,
+    MCR_RNN_GMM,
+    MCR_Transformer,
+    MCR_Transformer_GMM,
+)

@@ -13,7 +13,9 @@ reference's names (``REFERENCE_NAMES``), which the JAX package's checkpoint
 converter reads, and optionally everything a resumed run needs.
 
 ``PolicyAlgo`` adds the action-MSE evaluation; ``ValueAlgo`` is the base of
-the offline-RL family (``n_step_returns`` builds its n-step batches); and
+the offline-RL family (``n_step_returns`` builds its n-step batches);
+``PlannerAlgo`` of the subgoal planners and ``HierarchicalAlgo`` of the
+planner-actor algos; and
 ``RolloutPolicy`` /
 ``ICLRolloutPolicy`` wrap an algo for stepping environments: observation
 normalization, the language embedding and the context batch on the host in
@@ -21,6 +23,7 @@ numpy, one ``get_action`` on the device, the action back on the host once
 per query, then unnormalization and the runtime rot_6d conversion.
 """
 
+import contextlib
 import copy
 import re
 from collections import OrderedDict
@@ -105,7 +108,7 @@ def algo_factory(algo_name, config, obs_key_shapes, ac_dim, device=None,
         raise ValueError(
             f"algo '{algo_name}' not registered; have {sorted(REGISTERED_ALGOS)}"
         )
-    algo_cls, _ = REGISTERED_ALGOS[algo_name](config.algo)
+    algo_cls, algo_kwargs = REGISTERED_ALGOS[algo_name](config.algo)
     return algo_cls(
         algo_config=config.algo,
         obs_config=config.observation,
@@ -114,7 +117,20 @@ def algo_factory(algo_name, config, obs_key_shapes, ac_dim, device=None,
         ac_dim=ac_dim,
         device=device,
         use_kernels=use_kernels,
+        **algo_kwargs,
     )
+
+
+@contextlib.contextmanager
+def module_mode(module, training):
+    """@module in training (or, with @training False, inference) mode inside
+    the block; its own mode after."""
+    was = module.training
+    module.train(training)
+    try:
+        yield module
+    finally:
+        module.train(was)
 
 
 def device_process_obs(obs_dict, device):
@@ -199,12 +215,15 @@ class Algo:
             self.nets, train_config.get("packed_rgb_encoders", False))
 
     def _create_shapes(self, obs_keys, obs_key_shapes):
-        """Split obs_key_shapes into obs / goal dicts by the modality config."""
+        """Split obs_key_shapes into obs / goal / subgoal dicts by the
+        modality config."""
         self.obs_shapes = OrderedDict()
         self.goal_shapes = OrderedDict()
+        self.subgoal_shapes = OrderedDict()
         for k in obs_key_shapes:
             for group, target in (("obs", self.obs_shapes),
-                                  ("goal", self.goal_shapes)):
+                                  ("goal", self.goal_shapes),
+                                  ("subgoal", self.subgoal_shapes)):
                 if group in obs_keys and k in [
                     obs_key for modality in obs_keys[group].values()
                     for obs_key in modality
@@ -241,6 +260,13 @@ class Algo:
                     )
                 )
 
+    @staticmethod
+    def _gradients(loss, params):
+        """d @loss / d @params, zeros for a parameter the loss does not reach
+        (optax steps those too)."""
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
     def _step(self, name, params, grads):
         """One step of optimizer @name with @grads on @params, then one step
         of its schedule, if it has one."""
@@ -249,6 +275,23 @@ class Algo:
         self.optimizers[name].step()
         if name in self.lr_schedulers:
             self.lr_schedulers[name].step()
+
+    def _dtype(self):
+        return next(self.nets.parameters()).dtype
+
+    def _obs(self, obs_dict):
+        """Observations on the device in the networks' dtype (float64 after
+        ``nets.double()``), or None."""
+        if obs_dict is None:
+            return None
+        return {k: v.to(self._dtype())
+                for k, v in device_process_obs(obs_dict, self.device).items()}
+
+    def _draw(self, value):
+        """A random draw injected by a test's hook, on the device; floating
+        ones in the networks' dtype."""
+        value = torch.as_tensor(value).to(self.device)
+        return value.to(self._dtype()) if value.is_floating_point() else value
 
     def process_batch_for_training(self, batch):
         return batch
@@ -393,29 +436,12 @@ class PolicyAlgo(Algo):
     steps' policy call, in mixed precision where asked, and the action-MSE
     evaluation."""
 
-    def _dtype(self):
-        return next(self.nets.parameters()).dtype
-
-    def _obs(self, obs_dict):
-        """Observations on the device in the networks' dtype (float64 after
-        ``nets.double()``), or None."""
-        if obs_dict is None:
-            return None
-        return {k: v.to(self._dtype())
-                for k, v in device_process_obs(obs_dict, self.device).items()}
-
     def _device_batch(self, batch):
         """(observations, actions) on the device, in the networks' dtype
         (``nets.double()`` runs the step in float64)."""
         actions = torch.as_tensor(batch["actions"]).to(
             self.device, torch.float32, non_blocking=True).to(self._dtype())
         return self._obs(batch["obs"]), actions
-
-    def _draw(self, value):
-        """A random draw injected by a test's hook, on the device; floating
-        ones in the networks' dtype."""
-        value = torch.as_tensor(value).to(self.device)
-        return value.to(self._dtype()) if value.is_floating_point() else value
 
     def _policy_step(self, losses):
         """The backward of ``losses["action_loss"]`` into the policy's
@@ -424,8 +450,7 @@ class PolicyAlgo(Algo):
         step of the policy's optimizer. Returns the detached losses and
         ``policy_grad_norms``."""
         params = list(self.nets["policy"].parameters())
-        grads = torch.autograd.grad(losses["action_loss"], params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = self._gradients(losses["action_loss"], params)
         metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
         metrics["policy_grad_norms"] = OptimUtils.global_norm(grads)
         if self.max_grad_norm is not None:
@@ -552,8 +577,7 @@ class ValueAlgo(Algo):
         if validate or not gate:
             return
         params = self._opt_params[name]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = self._gradients(loss, params)
         if self._max_norm[name] is not None:
             OptimUtils.clip_by_global_norm_(grads, self._max_norm[name])
         self._step(name, params, grads)
@@ -626,6 +650,30 @@ class ValueAlgo(Algo):
 
         hook = getattr(self, name)
         return None if hook is None else to_device(hook())
+
+
+class PlannerAlgo(Algo):
+    """Base of the subgoal planners (``GL``, ``GL_VAE``): subgoal
+    observations predicted from the observations (and goals) by
+    ``get_subgoal_predictions`` and ``sample_subgoals``."""
+
+
+class HierarchicalAlgo:
+    """Base of the hierarchical algos (``hbc``, ``iris``): a planner and an
+    actor, each an ``Algo`` with its own networks, optimizers and device;
+    this class holds no networks of its own. ``nets`` is a view of both
+    (``planner.*``, ``actor.*``), for printing and counting."""
+
+    TAKES_CONTEXT = False
+
+    @property
+    def nets(self):
+        return torch.nn.ModuleDict({"planner": self.planner.nets,
+                                    "actor": self.actor.nets})
+
+    @property
+    def device(self):
+        return self.actor.device
 
 
 def n_step_returns(batch, n_step, gamma, infinite_horizon=False):

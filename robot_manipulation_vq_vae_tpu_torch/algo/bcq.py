@@ -41,7 +41,6 @@ GMM, (component, standard normal). Otherwise they come from the algo's
 generator.
 """
 
-import contextlib
 from collections import OrderedDict
 
 import torch
@@ -49,6 +48,7 @@ import torch
 from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     PolicyAlgo,
     ValueAlgo,
+    module_mode,
     n_step_returns,
     register_algo_factory_func,
 )
@@ -90,17 +90,6 @@ class PerturbationActor(ValueNets.ActionValueNetwork):
     def head(self, feats, acts=None):
         delta = self.perturbation_scale * torch.tanh(self._raw(feats, acts))
         return (acts + delta).clamp(-1.0, 1.0)
-
-
-@contextlib.contextmanager
-def training(module):
-    """@module in training mode inside the block."""
-    was = module.training
-    module.train()
-    try:
-        yield module
-    finally:
-        module.train(was)
 
 
 def tile(dist, n):
@@ -295,7 +284,7 @@ class BCQ_GMM(BCQ):
             low_noise_eval=gmm.get("low_noise_eval", True), encoder_kwargs=self._enc)
 
     def _sampler_loss(self, obs, acts, eps):
-        with training(self.nets["action_sampler"]) as sampler:
+        with module_mode(self.nets["action_sampler"], True) as sampler:
             loss = -sampler(obs, generator=self.generator).log_prob(acts).mean()
         return loss, OrderedDict([("action_sampler/loss", loss)])
 

@@ -20,3 +20,7 @@ from robot_manipulation_vq_vae_tpu_torch.config.iql_config import IQLConfig
 from robot_manipulation_vq_vae_tpu_torch.config.td3_bc_config import TD3_BCConfig
 from robot_manipulation_vq_vae_tpu_torch.config.cql_config import CQLConfig
 from robot_manipulation_vq_vae_tpu_torch.config.bcq_config import BCQConfig
+from robot_manipulation_vq_vae_tpu_torch.config.gl_config import GLConfig
+from robot_manipulation_vq_vae_tpu_torch.config.hbc_config import HBCConfig
+from robot_manipulation_vq_vae_tpu_torch.config.iris_config import IRISConfig
+from robot_manipulation_vq_vae_tpu_torch.config.mcr_config import MCRConfig

@@ -407,28 +407,45 @@ int launch_fwd(const T* x, long long planes, int H, int W, T* out, int8_t* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd(const int8_t* idx, const T* g, long long planes, int H, int W,
-               T* dx, void* stream) {
-  if (planes <= 0) return 0;
+// The backward's tiling of dx [planes, H, W] of @elem_bytes-byte elements:
+// the largest tile of windows whose staged g and offsets, halo included, fit
+// kBwdStageBytes (whole rows where two of them fit, else column tiles).
+// @plan gets the tile's window rows and columns, the blocks and a block's
+// shared memory in bytes.
+int bwd_plan(long long planes, int H, int W, int elem_bytes, long long plan[4]) {
   if (H <= 0 || W <= 0 || static_cast<long long>(H) * W > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  // the largest tile whose staged g and offsets, halo included, fit
-  // kBwdStageBytes: whole rows where two of them fit, else column tiles
-  const int stage_max = kBwdStageBytes / static_cast<int>(sizeof(T) + 1);
+  const int stage_max = kBwdStageBytes / (elem_bytes + 1);
   const int tile_w = std::min(Wo, stage_max / 2 - 1);
   const int tile_h = std::min(Ho, stage_max / (tile_w + 1) - 1);
   const int tiles_w = (Wo + tile_w - 1) / tile_w;
-  const int tiles_per_plane = tiles_w * ((Ho + tile_h - 1) / tile_h);
-  const long long blocks = planes * tiles_per_plane;
+  const long long blocks =
+      planes * tiles_w * static_cast<long long>((Ho + tile_h - 1) / tile_h);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(tile_h + 1) * (tile_w + 1) * (sizeof(T) + 1);
+  plan[0] = tile_h;
+  plan[1] = tile_w;
+  plan[2] = blocks;
+  plan[3] = static_cast<long long>(tile_h + 1) * (tile_w + 1) * (elem_bytes + 1);
+  return 0;
+}
+
+template <typename T>
+int launch_bwd(const int8_t* idx, const T* g, long long planes, int H, int W,
+               T* dx, void* stream) {
+  if (planes <= 0) return 0;
+  long long plan[4];
+  const int err = bwd_plan(planes, H, W, sizeof(T), plan);
+  if (err != 0) return err;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int tile_h = static_cast<int>(plan[0]), tile_w = static_cast<int>(plan[1]);
+  const int tiles_w = (Wo + tile_w - 1) / tile_w;
+  const int tiles_per_plane = tiles_w * ((Ho + tile_h - 1) / tile_h);
   const bool pair_stores =
       W % 2 == 0 && reinterpret_cast<uintptr_t>(dx) % (2 * sizeof(T)) == 0;
-  pool_bwd_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  pool_bwd_kernel<T><<<static_cast<unsigned>(plan[2]), kBwdThreads,
+                       static_cast<size_t>(plan[3]), static_cast<cudaStream_t>(stream)>>>(
       idx, g, H, W, Ho, Wo, tile_h, tile_w, tiles_w, tiles_per_plane,
       pair_stores, dx);
   return static_cast<int>(cudaGetLastError());
@@ -450,6 +467,15 @@ extern "C" int stem_pool_fwd_plan(long long planes, int H, int W, int elem_bytes
                                   long long* plan) {
   if (elem_bytes != 4 && elem_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
   return fwd_plan(planes, H, W, elem_bytes, plan);
+}
+
+// The backward's plan for dx [planes, H, W] (see bwd_plan): the tile's
+// window rows and columns (whole planes where they are Ho and Wo), the
+// blocks and a block's shared memory in bytes. Launches nothing.
+extern "C" int stem_pool_bwd_plan(long long planes, int H, int W, int elem_bytes,
+                                  long long* plan) {
+  if (elem_bytes != 4 && elem_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_plan(planes, H, W, elem_bytes, plan);
 }
 
 // x [planes, H, W], contiguous (planes = N * C), at any element offset;

@@ -141,6 +141,23 @@ def pool_fwd_plan(shape, dtype):
     return tuple(plan)
 
 
+def pool_bwd_plan(shape, dtype):
+    """How kernel 4's launcher tiles the input gradient of @shape [N, C, H,
+    W] in @dtype, as ``csrc/stem_pool.cu``'s ``bwd_plan`` decides it: (a
+    tile's window rows, its window columns, blocks, a block's shared memory
+    in bytes); a tile of Ho x Wo windows is a whole plane. Launches nothing;
+    builds the kernel's library where it is not built yet."""
+    fn = library(kernel_name("stem_pool_bwd", dtype)).stem_pool_bwd_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    plan = (ctypes.c_longlong * 4)()
+    n, c, h, w = shape
+    err = fn(n * c, h, w, torch.empty(0, dtype=dtype).element_size(), plan)
+    if err != 0:
+        raise ValueError(f"stem_pool_bwd: no plan for {tuple(shape)} in {dtype}")
+    return tuple(plan)
+
+
 @functools.lru_cache(maxsize=None)
 def _check_plane(h, w, dtype):
     """Raise pool_fwd_plan's ValueError where kernel 3 has no plan for H x W

@@ -118,7 +118,7 @@ class EnvFactory:
     imported in the worker), since ``CUSTOM_ENV_CLASSES`` is empty there.
 
     @obs_specs: (a list of) {group: {modality: [keys]}}, as
-    ``config.observation.modalities.to_dict()``. @env_class defaults to the
+    ``ObsUtils.observation_specs(config)``. @env_class defaults to the
     class that ``get_env_class`` gives for @env_meta in the caller's process.
     """
 
@@ -136,7 +136,7 @@ class EnvFactory:
     @classmethod
     def from_config(cls, env_meta, config, **kwargs):
         """The factory of @config's observations and frame stacking."""
-        return cls(env_meta, [config.observation.modalities.to_dict()],
+        return cls(env_meta, ObsUtils.observation_specs(config),
                    frame_stack=config.train.frame_stack, **kwargs)
 
     def __call__(self):

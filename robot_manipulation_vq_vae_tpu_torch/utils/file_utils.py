@@ -110,7 +110,8 @@ def atomic_write_json(path, obj, indent=None):
 # ---------------------------------------------------------------------------
 
 def _rgb_keys(config):
-    return set(config["observation"]["modalities"]["obs"].get("rgb", []))
+    return {k for spec in ObsUtils.observation_specs(config)
+            for k in spec["obs"].get("rgb", [])}
 
 
 def shape_metadata_to_reference(shape_meta, config):

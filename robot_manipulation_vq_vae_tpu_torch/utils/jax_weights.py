@@ -25,7 +25,7 @@ out, k]``;
 BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
 ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm and
 GroupNorm ``scale``/``bias``. Any key that is missing or left unused
-raises: there are no partial loads.
+raises: there are no partial loads. ``jax_variables`` goes the other way.
 
 A JAX tree traced with ``train.packed_rgb_encoders`` holds each group of
 cameras' trunks as one ``packed_backbone``; it is carried across in the
@@ -39,26 +39,32 @@ import torch.nn as nn
 
 
 def _leaf_entries(mod):
-    """(collection, JAX leaf name, torch tensor name, transform) of a leaf."""
+    """(collection, JAX leaf name, torch tensor name, transform, its
+    inverse) of a leaf."""
     same = lambda a: a  # noqa: E731
     if isinstance(mod, nn.Linear):
-        out = [("params", "kernel", "weight", lambda a: a.T)]
+        t = lambda a: a.T  # noqa: E731
+        out = [("params", "kernel", "weight", t, t)]
     elif isinstance(mod, nn.Conv2d):
-        out = [("params", "kernel", "weight", lambda a: a.transpose(3, 2, 0, 1))]
+        out = [("params", "kernel", "weight", lambda a: a.transpose(3, 2, 0, 1),
+                lambda a: a.transpose(2, 3, 1, 0))]
     elif isinstance(mod, (nn.Conv1d, nn.ConvTranspose1d)):
         # Conv1d [k, in, out] -> [out, in, k]; ConvTranspose1d (Flax's
         # transpose_kernel=True) [k, out, in] -> [in, out, k]
-        out = [("params", "kernel", "weight", lambda a: a.transpose(2, 1, 0))]
+        t = lambda a: a.transpose(2, 1, 0)  # noqa: E731
+        out = [("params", "kernel", "weight", t, t)]
     elif isinstance(mod, nn.BatchNorm2d):
-        return [("params", "scale", "weight", same), ("params", "bias", "bias", same),
-                ("batch_stats", "mean", "running_mean", same),
-                ("batch_stats", "var", "running_var", same)]
+        return [("params", "scale", "weight", same, same),
+                ("params", "bias", "bias", same, same),
+                ("batch_stats", "mean", "running_mean", same, same),
+                ("batch_stats", "var", "running_var", same, same)]
     elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-        return [("params", "scale", "weight", same), ("params", "bias", "bias", same)]
+        return [("params", "scale", "weight", same, same),
+                ("params", "bias", "bias", same, same)]
     else:
         return []
     if mod.bias is not None:
-        out.append(("params", "bias", "bias", same))
+        out.append(("params", "bias", "bias", same, same))
     return out
 
 
@@ -69,21 +75,23 @@ def _jax_names(mod):
 
 
 def _entries(mod, jax_path, torch_path):
-    """Yield (flat JAX key, torch state-dict key, transform) under @mod."""
-    for coll, jax_leaf, torch_leaf, fn in _leaf_entries(mod):
+    """Yield (flat JAX key, torch state-dict key, transform, its inverse or
+    None) under @mod."""
+    same = lambda a: a  # noqa: E731
+    for coll, jax_leaf, torch_leaf, fn, inv in _leaf_entries(mod):
         yield ("/".join([coll, *jax_path, jax_leaf]),
-               ".".join([*torch_path, torch_leaf]), fn)
+               ".".join([*torch_path, torch_leaf]), fn, inv)
     for name in getattr(mod, "JAX_PARAMS", ()):
         yield ("/".join(["params", *jax_path, name]),
-               ".".join([*torch_path, name]), lambda a: a)
+               ".".join([*torch_path, name]), same, same)
     for coll, names in getattr(mod, "JAX_BUFFERS", {}).items():
         for jax_name, torch_name in names.items():
             yield ("/".join([coll, *jax_path, jax_name]),
-                   ".".join([*torch_path, torch_name]), lambda a: a)
+                   ".".join([*torch_path, torch_name]), same, same)
     stacked = mod.jax_stacked() if hasattr(mod, "jax_stacked") else {}
     for torch_name, (jax_names, stack) in stacked.items():
         yield (tuple("/".join(["params", *jax_path, n]) for n in jax_names),
-               ".".join([*torch_path, torch_name]), stack)
+               ".".join([*torch_path, torch_name]), stack, None)
     yield from _child_entries(mod, _jax_names(mod), jax_path, torch_path)
 
 
@@ -146,7 +154,7 @@ def load_jax_variables(module, flat):
     state = module.state_dict()
     wanted = {k for k in state if not k.endswith("num_batches_tracked")}
     used, filled, new_state = set(), set(), {}
-    for jax_key, torch_key, fn in _entries(module, [], []):
+    for jax_key, torch_key, fn, _ in _entries(module, [], []):
         # a tuple of keys: a torch tensor stacked from several JAX leaves
         jax_keys = jax_key if isinstance(jax_key, tuple) else (jax_key,)
         for key in jax_keys:
@@ -173,3 +181,30 @@ def load_jax_variables(module, flat):
     if missing:
         raise KeyError(f"port tensors not filled: {missing[:8]} ({len(missing)})")
     module.load_state_dict(new_state, strict=False)
+
+
+def jax_variables(module):
+    """The inverse of ``load_jax_variables``: @module's tensors as the flat
+    JAX variables {"params/a/b/kernel": numpy array, ...} in the JAX
+    package's layouts and names (a tensor stacked from several JAX leaves
+    raises)."""
+    state = module.state_dict()
+    flat = {}
+    for jax_key, torch_key, _, inv in _entries(module, [], []):
+        if inv is None:
+            raise NotImplementedError(f"{torch_key} is stacked from {jax_key}")
+        flat[jax_key] = np.ascontiguousarray(inv(state[torch_key].detach().cpu().numpy()))
+    return flat
+
+
+def jax_tree(flat, collection="params"):
+    """The nested tree of @collection of the flat JAX variables @flat (the
+    layout of a Flax variable collection)."""
+    return _unflatten({k[len(collection) + 1:]: v for k, v in flat.items()
+                       if k.startswith(collection + "/")})
+
+
+def jax_flat(tree, collection="params"):
+    """The inverse of ``jax_tree``: the nested @collection @tree as flat
+    JAX variables."""
+    return {f"{collection}/{k}": v for k, v in _flatten(tree).items()}

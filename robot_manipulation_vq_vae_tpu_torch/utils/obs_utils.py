@@ -62,10 +62,31 @@ def initialize_default_obs_encoder(obs_encoder_config):
     }
 
 
+def observation_sections(config):
+    """The observation sections of @config (a Config or its dict), the
+    actor's last: ``observation`` itself, or for ``hbc`` its planner's and
+    actor's, for ``iris`` its value planner's planner and value network's
+    and its actor's (JAX ``utils/obs_utils.py:95-114``)."""
+    obs = config["observation"]
+    if config["algo_name"] == "hbc":
+        return [obs["planner"], obs["actor"]]
+    if config["algo_name"] == "iris":
+        vp = obs["value_planner"]
+        return [vp["planner"], vp["value"], obs["actor"]]
+    return [obs]
+
+
+def observation_specs(config):
+    """Each observation section's modalities as a plain dict."""
+    return [dict(s["modalities"].to_dict() if hasattr(s["modalities"], "to_dict")
+                 else s["modalities"]) for s in observation_sections(config)]
+
+
 def initialize_obs_utils_with_config(config):
-    """Parse the observation section of a full config."""
-    initialize_obs_utils_with_obs_specs([config.observation.modalities.to_dict()])
-    initialize_default_obs_encoder(config.observation.encoder)
+    """Parse the observation sections of a full config; the encoder settings
+    are the actor's section's."""
+    initialize_obs_utils_with_obs_specs(observation_specs(config))
+    initialize_default_obs_encoder(observation_sections(config)[-1]["encoder"])
 
 
 def obs_encoder_kwargs_from_config(obs_encoder_config):

@@ -453,6 +453,45 @@ def test_stem_pool_band_kernel_refuses_rows_too_wide(cuda_device, dtype, w):
     assert LAUNCHES[name] == before
 
 
+# MCR pretraining's stem ([160, 64, 112, 112]: 32 x 5 frames at 224 x 224,
+# forward and backward) and an odd plane of the same class: kernel 4 takes
+# whole planes at 112 x 112 in both types (57 x 57 staged windows, 16,245 B
+# in fp32 under its 16,384 B budget); at 111 x 113 fp32 takes bands of 55
+# window rows, bf16 whole planes
+_MCR_STEM_PLANS = {
+    (torch.float32, (160, 64, 112, 112)): (56, 56, 10240, 16245),
+    (torch.bfloat16, (160, 64, 112, 112)): (56, 56, 10240, 9747),
+    (torch.float32, (3, 64, 111, 113)): (55, 57, 384, 16240),
+    (torch.bfloat16, (3, 64, 111, 113)): (56, 57, 192, 9918),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["relu", "zeros"])
+@pytest.mark.parametrize("dtype,shape", list(_MCR_STEM_PLANS),
+                         ids=["fp32_160", "bf16_160", "fp32_odd", "bf16_odd"])
+def test_stem_pool_kernels_at_the_mcr_stem(cuda_device, dtype, shape, kind):
+    """Kernels 3 and 4 at MCR pretraining's stem and an odd 112-class plane:
+    maxima, offsets and dx bit-equal to the plain versions, ties included;
+    kernel 3 through the band kernel in fp32, kernel 4's tiles as planned,
+    one launch each."""
+    x = _pool_input(shape, kind, cuda_device, 15).to(dtype)
+    assert S.pool_bwd_plan(shape, dtype) == _MCR_STEM_PLANS[dtype, shape]
+    assert (S.pool_fwd_plan(shape, dtype)[0] == 0) == (dtype == torch.float32)
+    suffix = "" if dtype == torch.float32 else "_bf16"
+    before = dict(LAUNCHES)
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    g = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(16)).to(
+        cuda_device, dtype)
+    dx_k = S.pool_bwd_cuda(idx_k, g, shape[2:])
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"stem_pool_fwd{suffix}"] == before[f"stem_pool_fwd{suffix}"] + 1
+    assert LAUNCHES[f"stem_pool_bwd{suffix}"] == before[f"stem_pool_bwd{suffix}"] + 1
+    out_p, idx_p = S.pool_fwd_plain(x)
+    assert torch.equal(out_k, out_p) and torch.equal(idx_k, idx_p)
+    assert torch.equal(dx_k, S.pool_bwd_plain(idx_p, g, shape[2:]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 64, 112, 112), (1, 64, 58, 58)])
 def test_stem_pool_forward_replays_from_a_cuda_graph(cuda_device, shape):

@@ -64,8 +64,9 @@ def lib(tmp_path_factory):
         if source == "stem_pool.cu":
             fn = getattr(lib, entry)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.stem_pool_fwd_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    for plan in (lib.stem_pool_fwd_plan, lib.stem_pool_bwd_plan):
+        plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
 
@@ -256,6 +257,35 @@ def test_host_backward_matches_plain(lib, shape, dtype):
     g = g.to(x.dtype)
     dx = _backward(lib, idx, g, shape[2:])
     assert torch.equal(dx, S.pool_bwd_plain(idx, g, shape[2:]))
+
+
+def _bwd_plan(lib, planes, h, w, elem_bytes):
+    """(a tile's window rows, its window columns, blocks, shared memory in
+    bytes) of kernel 4."""
+    plan = (ctypes.c_longlong * 4)()
+    assert lib.stem_pool_bwd_plan(planes, h, w, elem_bytes, plan) == 0
+    return tuple(plan)
+
+
+# MCR pretraining's stem, [160, 64, 112, 112] (B = 32 x 5 frames at 224 x
+# 224): in fp32 a whole plane of 56 x 56 windows stages 57 x 57 x 5 =
+# 16,245 B, just under the 16,384 B budget; in bf16 9,747 B. An odd 111 x
+# 113 plane (56 x 57 windows) passes the fp32 budget: bands of 55 window
+# rows and a ragged one of 1
+@pytest.mark.parametrize("dtype,hw,plan", [
+    ("fp32", (112, 112), (56, 56, 10240, 16245)), ("bf16", (112, 112), (56, 56, 10240, 9747)),
+    ("fp32", (111, 113), (55, 57, 20480, 16240)), ("bf16", (111, 113), (56, 57, 10240, 9918))])
+def test_host_backward_at_the_mcr_stem(lib, dtype, hw, plan):
+    """Kernel 4's plan at the MCR stem's planes (whole planes at 112 x 112,
+    from the [160, 64] planes' count), and dx bit-equal to the plain version
+    on two such planes of ReLU'd inputs."""
+    elem = 4 if dtype == "fp32" else 2
+    assert _bwd_plan(lib, 160 * 64, *hw, elem) == plan
+    x = _input((1, 2, *hw), "relu", DTYPES[dtype], seed=3)
+    _, idx = S.pool_fwd_plain(x)
+    g = torch.from_numpy(np.random.RandomState(4).randn(*idx.shape).astype(np.float32))
+    g = g.to(x.dtype)
+    assert torch.equal(_backward(lib, idx, g, hw), S.pool_bwd_plain(idx, g, hw))
 
 
 _PROBE = """#include <cuda_runtime.h>

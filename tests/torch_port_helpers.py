@@ -298,6 +298,25 @@ def random_init(init):
     return make
 
 
+def set_jax_state(algo, variables):
+    """@algo's state from @variables ({network: Flax variables}), as its
+    ``ensure_state`` would set it, with each optimizer's state initialized
+    under ``jax.jit`` (eagerly each op of optax's init compiles alone, for
+    every parameter shape)."""
+    import jax
+    import jax.numpy as jnp
+
+    from robot_manipulation_vq_vae_tpu.algo.algo import AlgoState
+
+    params = {n: v["params"] for n, v in variables.items()}
+    aux = {n: {k: x for k, x in v.items() if k != "params"} for n, v in variables.items()}
+    algo.state = AlgoState(
+        params=params, aux=aux,
+        opt_states={n: jax.jit(algo.optimizers[n].init)(p) for n, p in params.items()
+                    if n in algo.optimizers},
+        step=jnp.zeros((), jnp.int32), rng=jax.random.split(algo._init_rng)[0])
+
+
 # the reference ConditionalUnet1D's state dict -> the JAX package's Flax tree
 # (a copy of tests/test_diffusion_parity.py's torch_unet_to_flax, which
 # imports the reference mount at module level)
