@@ -3,8 +3,9 @@ card and check it.
 
     python3 chip_smoke.py            # what the checks need: one card
     python3 chip_smoke.py --profile  # also device-time breakdowns of get_action,
-                                     # the training steps, a rollout lockstep,
-                                     # a diffusion-policy request and an MCR
+                                     # the training steps (phase 20's bf16
+                                     # ones too), a rollout lockstep, a
+                                     # diffusion-policy request and an MCR
                                      # pretraining step
 
 Phases, each of which fails the run when it fails:
@@ -33,10 +34,13 @@ Phases, each of which fails the run when it fails:
      112, 112] (rows 3h / 4g: kernel 3's band kernel, kernel 4 on whole
      planes, both asserted from their plans), bit-equal, timed back to back
      and by device time beside max_pool2d and its indices' backward;
-  6b. the stem pool's kernels in bf16 at the paper's [512, 64, 58, 58] and
-     the flagship's [1024, 64, 58, 58]: maxima, offsets and dx bit-equal to
-     the plain versions, each timed; and at [2, 64, 160, 160], the band
-     kernel's bf16 instance, bit-equal;
+  6b. the stem pool's kernels in bf16 at the paper's [512, 64, 58, 58],
+     the flagship's [1024, 64, 58, 58] and phase 20's stems ([320 | 1000
+     | 200 | 100, 64, 58, 58] and R3M's [1 | 16 | 100, 64, 112, 112], each
+     on runs of whole planes, also by device time beside max_pool2d and
+     its indices' backward): maxima, offsets and dx bit-equal to the plain
+     versions, each timed; and at [2, 64, 160, 160], the band kernel's bf16
+     instance, bit-equal;
   6c. kernel 5 (pool_route, the equality-routing pool backward) against its
      plain version at [3072, 64, 58, 58] in bf16 and fp32, on ReLU'd inputs
      (ties) and distinct values, bit-equal, each timed, with the path its
@@ -99,7 +103,7 @@ Phases, each of which fails the run when it fails:
      encoding share of a request;
   14. the opt-in training modes: 14a, the assign kernel's bf16 instance (a
      bf16 codebook, z in fp32 as the bf16 paper step gives it) against its
-     plain version at D = 976, N in {256, 512, 65536}, timed;
+     plain version at D = 976, N in {256, 320, 512, 65536}, timed;
      14b, icl_gmm_paper's bf16 mixed-precision step at phase 8's width and
      batch (6 + 6 bf16 stem-pool launches and 1 bf16 assign a step, the
      median beside phase 8's, a kernel step against a plain step within
@@ -203,6 +207,25 @@ Phases, each of which fails the run when it fails:
      backbone equal to the export to the bit), 1 + 2 steps (3 + 3 launches
      at [100]), requests, the B = 16 action bit-equal to the twin's, a
      kernel step against a plain step.
+  20. the bf16 training steps (train.mixed_precision) taken from the JAX
+     package's transformer, GMM and diffusion steps, train.pallas_pool on:
+     20a ICLMamba_GMM at 15c's configuration (6 + 6 bf16 stem-pool
+     launches and 1 bf16 assign a step, N = 320), 20b BC_Transformer at
+     17a's widths, B = 100 x 10 (its fp32 step timed beside it), 20c the
+     diffusion policy at 17c's, 20d icl_gmm_paper on ResNet-34 and
+     ResNet-50 FiLM with the crop and ColorRandomizer at B = 64 (the
+     jitter's fp32 draws keep the trunks, and their pools, fp32; ResNet-50
+     FiLM cut to 16b's B = 32 where B = 64 runs out of memory, which the
+     log says), each a warm-up and 2 timed steps with its peak memory; 20e
+     one bf16 step of BC_Transformer at B = 10 x 10 on each of 16e's cores
+     and options and on frozen R3M (ResNet-50) and MVP (ViT-B) cores, then
+     one MCR_Transformer step on mcr's ResNet-50 core. Every cell: the
+     fp32 masters fp32 and moved, a B = 1 and a B = 16 request equal to
+     the bit to the fp32-mode algo's from the same weights; 20a-20d and
+     MCR_Transformer a kernel step against a plain step from the same
+     state within phase 10b's bf16 tolerances (metrics 1e-3, gradients
+     1e-2 of each tensor's max, buffers 1e-4). With --profile, one step of
+     20a, 20c and 20d's ResNet-34 FiLM by kernel.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -242,7 +265,9 @@ MAX_FLIP_SHARE = 1e-3      # ... and at most 0.1% of the rows may
 # rows, icl_mamba's B = 16 request (160), 256, icl_mamba's step (its context
 # half, 32 x 10 rows), the paper step's 512, and the tokenizer's
 ASSIGN_DS, ASSIGN_NS = (976, 210), (10, 16, 160, 256, 320, 512, 65536)
-ASSIGN_NS_BF16 = (256, 512, 65536)
+# kernel 1's bf16 instance: 14b's 512 rows, ICLMamba_GMM's bf16 step's 320
+# (20a: its context half, 32 x 10 rows)
+ASSIGN_NS_BF16 = (256, 320, 512, 65536)
 TOKENIZER_CHUNKS = 65536
 IMG, CROP = 128, 116       # camera images, center-cropped at eval
 BATCHES = (1, 16)          # one env, and the 16-env batch
@@ -271,6 +296,11 @@ POOL_SHAPES = ((512, 64, 58, 58), FLAGSHIP_POOL, *FAMILY_POOL_SHAPES,
 # (scripts/mfu_campaign.py, [3072, 58, 58, 64] NHWC), and a shape it must
 # leave to torch's own gradient
 ROUTE_SHAPE, ODD_SHAPE = (3072, 64, 58, 58), (2, 64, 57, 59)
+# 16c: R3M resizes the 116 x 116 crop to 256 and takes the center 224, so its
+# stem pools [N, 64, 112, 112]: planes past a block's staging budget in fp32,
+# which kernel 3's launcher gives to its band kernel. N is a request's B (1,
+# 16) or the training step's B = 100 (exps/templates/icl.json's batch_size)
+R3M_POOL_SHAPES = tuple((n, 64, 112, 112) for n in (*BATCHES, 100))
 TRAIN_B, TRAIN_STEPS = 64, 3   # bench_train.py's batch; 3 timed steps
 # phase 11's demos: 16 x 200 steps, 50 steps of B = 64 per epoch
 EPOCH_DEMOS, DEMO_STEPS = 16, 200
@@ -1030,27 +1060,42 @@ def compare_steps(res_k, res_p, keys=("action_loss", "vq_vae_loss", "policy_grad
 # the bf16 stem pool, kernel 5, and the flagship ICLTransformerHVQVAE
 # ---------------------------------------------------------------------------
 
+# kernels 3 and 4 in bf16 at the stems of phase 20's bf16 steps: 20a
+# ICLMamba_GMM's 32 x 10 frames a group, 20b BC_Transformer's 100 x 10, 20c
+# the diffusion policy's 100 x 2, 20e's 10 x 10; and R3M's stem in bf16 at
+# its request and training N (a 112 x 112 bf16 plane, 25,088 B, fits a
+# block: runs of whole planes, not the band kernel fp32 takes there)
+BF16_STEP_POOL_SHAPES = ((320, 64, 58, 58), (1000, 64, 58, 58), (200, 64, 58, 58),
+                         (100, 64, 58, 58), *R3M_POOL_SHAPES)
 # kernels 3 and 4 in bf16: the paper's mixed-precision step's stem
-# activation and the flagship's; the flagship's feeds the kernels line
-POOL_SHAPES_BF16 = (POOL_SHAPES[0], FLAGSHIP_POOL)
+# activation, phase 20's shapes, and the flagship's, which feeds the kernels
+# line
+POOL_SHAPES_BF16 = (POOL_SHAPES[0], *BF16_STEP_POOL_SHAPES, FLAGSHIP_POOL)
 BF16_BAND_SHAPE = (2, 64, 160, 160)   # bf16 planes past a block's budget
 
 
 def phase_stem_pool_bf16(S, dev):
     """Kernels 3 and 4 in bf16 at the stem activations of the paper's and
-    the flagship's mixed-precision steps: maxima, offsets and dx bit-equal
-    to the plain versions, each shape timed with its bound. Returns the
-    flagship shape's kernels-line fields."""
+    the flagship's mixed-precision steps and of phase 20's bf16 steps:
+    maxima, offsets and dx bit-equal to the plain versions, each shape timed
+    with its bound, phase 20's also by device time alone (graph_ms) beside
+    max_pool2d's and its indices' backward, and on runs of whole planes.
+    Returns the flagship shape's kernels-line fields, and a row a shape for
+    phase 20's ({kernel: [row, ...]})."""
     import torch
     import torch.nn.functional as F
 
     log(f"phase 6b: stem pool kernels in bf16 vs plain at {POOL_SHAPES_BF16} "
         "(inputs after a ReLU)")
     gen = torch.Generator(dev).manual_seed(17)
-    rows = {}
+    rows, step_rows = {}, {"stem_pool_fwd_bf16": [], "stem_pool_bwd_bf16": []}
     for shape in POOL_SHAPES_BF16:
         tag = "x".join(map(str, shape))
         x = relu_input(shape, gen, dev).bfloat16()
+        step_shape = shape in BF16_STEP_POOL_SHAPES
+        if step_shape:
+            check(S.pool_fwd_plan(shape, x.dtype)[0] > 0,
+                  f"{tag}: kernel 3 took bands, not runs of whole bf16 planes")
         hw = shape[2:]
         out_k, idx_k = S.pool_fwd_cuda(x)
         out_p, idx_p = S.pool_fwd_plain(x)
@@ -1082,13 +1127,16 @@ def phase_stem_pool_bf16(S, dev):
                     g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
                 (3 * n_out + 2 * n_in, n_out), bwd_err),
         }
-        rows = time_kernels(timed, tag)
+        rows = time_kernels(timed, tag, graph=tuple(timed) if step_shape else ())
+        if step_shape:
+            for name, row in rows.items():
+                step_rows[name].append(dict(row, shape=list(shape)))
         del x, out_k, idx_k, out_p, idx_p, g, dx_k, dx_p, lib_idx
     # the band kernel's bf16 instance: a bf16 plane passes a block's budget
     # from about 160 x 160
     check_band_forward(S, relu_input(BF16_BAND_SHAPE, gen, dev).bfloat16(),
                        "x".join(map(str, BF16_BAND_SHAPE)))
-    return rows
+    return rows, step_rows
 
 
 def time_kernels(timed, tag, graph=()):
@@ -2325,7 +2373,7 @@ def phase_flagship_modes(CB, dev, bf16_step_ms):
 # 15: the rest of the ICL family
 # ---------------------------------------------------------------------------
 
-FAMILY_B = 100         # exps/templates/icl.json's batch_size
+FAMILY_B = 100         # exps/templates/icl.json's batch_size (fixed above: 16c's R3M shapes)
 RNN_T = 10             # the RNN policies' window: rnn.horizon of icl.json
 MAMBA_T = 10           # algo.mamba.context_length of icl_mamba.json
 RNN_CALLS = 20         # stepwise get_action calls: two horizons
@@ -2378,12 +2426,14 @@ def family_algo(mode, dev, pallas_pool=True, use_kernels=True, configure=None,
     return algo
 
 
-def mamba_algo(dev, tokenizer="lipvq", gmm=True, use_kernels=True, pallas_pool=True):
+def mamba_algo(dev, tokenizer="lipvq", gmm=True, use_kernels=True, pallas_pool=True,
+               mixed_precision=False):
     """``icl_mamba`` at exps/templates/icl_mamba.json's widths (6 Mamba
     layers of 512, d_state 16, context 10) on phase 8's observations:
     ``ICLMamba_GMM`` with LipVQ (1024 codes) or the template's LN-act
     tokenizer, or (not @gmm) ``ICLMambaHVQVAE`` with the template's HVQVAE;
-    every step supervised (the GMM path folds the window's actions)."""
+    every step supervised (the GMM path folds the window's actions);
+    @mixed_precision its bf16 step."""
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
     from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
@@ -2392,6 +2442,7 @@ def mamba_algo(dev, tokenizer="lipvq", gmm=True, use_kernels=True, pallas_pool=T
     with cfg.values_unlocked():
         _observations(cfg)
         cfg.train.pallas_pool = pallas_pool
+        cfg.train.mixed_precision = mixed_precision
         cfg.algo.gmm.enabled = gmm
         mc = cfg.algo.mamba
         mc.context_length = MAMBA_T
@@ -2477,17 +2528,18 @@ def family_train(CB, algo, batches, per_step, tag, path, keys):
     return med
 
 
-def kernel_against_plain(algo, make_plain, batch, keys):
+def kernel_against_plain(algo, make_plain, batch, keys, tols=()):
     """One step of @algo and one of the plain model (@make_plain: its
     use_kernels=False twin) from the same state, batch and draws, under
-    cuDNN's deterministic algorithms, within phase 8's tolerances."""
+    cuDNN's deterministic algorithms, within phase 8's tolerances (or
+    @tols: ``compare_steps``' metric, gradient and buffer tolerances)."""
     state = {k: v.clone() for k, v in algo.nets.state_dict().items()}
     res_k = one_step(algo, batch, deterministic=True)
     del algo
     free_card()
     plain = make_plain()
     plain.nets.load_state_dict(state)
-    compare_steps(res_k, one_step(plain, batch, deterministic=True), keys)
+    compare_steps(res_k, one_step(plain, batch, deterministic=True), keys, *tols)
     del plain, state
     free_card()
 
@@ -2664,7 +2716,7 @@ def phase_mamba(CB, dev, gen, card, gpt_step_ms, profile):
 
 def phase_family(CB, dev, card, gpt_step_ms, profile):
     """15: the rest of the ICL family at full width (see the module
-    docstring)."""
+    docstring). Returns 15c's step medians ({tag: ms})."""
     import torch
 
     log(f"phase 15: the rest of the ICL family, phase 8's observations, fp32, "
@@ -2683,6 +2735,7 @@ def phase_family(CB, dev, card, gpt_step_ms, profile):
     log(f"  {'ICLMamba_GMM':14s} {steps['ICLMamba_GMM LipVQ']:10.3f} {req_ms[1]:10.3f} "
         f"{req_ms[BATCHES[-1]]:10.3f}")
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    return steps
 
 
 # ---------------------------------------------------------------------------
@@ -2694,11 +2747,6 @@ def phase_family(CB, dev, card, gpt_step_ms, profile):
 # CPU), 90 GiB for B = 64's 3,072 images, over the card's 80 GB; B = 32
 # keeps half of that. (ResNet-34 FiLM: 9.9 MiB, 30 GiB at B = 64.)
 R50_TRAIN_B = 32
-# 16c: R3M resizes the 116 x 116 crop to 256 and takes the center 224, so its
-# stem pools [N, 64, 112, 112]: planes past a block's staging budget, which
-# kernel 3's launcher gives to its band kernel. N is a request's B (1, 16)
-# or the training step's B = 100
-R3M_POOL_SHAPES = tuple((n, 64, 112, 112) for n in (*BATCHES, FAMILY_B))
 SCAN_KEY, SCAN_LEN = "robot0_lidar_scan", 360   # 16e's synthetic scan, one beam a degree
 CORE_STEPS = 2   # 16b-16d: a warm-up and 2 timed steps
 
@@ -2927,13 +2975,10 @@ def with_scan(obs, gen, dev):
     return obs
 
 
-def phase_core_options(CB, dev, gen, card):
-    """16e: one training step and one B = 16 request of phase 15a's ICL policy
-    with each of the other cores and observation options; the stem-pool
-    launches of each (3 + 3 a step and 3 a request where the cameras have a
-    ResNet stem)."""
-    import torch
-
+def core_variants():
+    """16e's list (also 20e's): (name, configure, stem-pool launches a fp32
+    step, takes a scan) for each of the other cores and observation
+    options."""
     film = dict(paper_config().observation.encoder.rgb.core_kwargs)
     kp = {"num_kp": 32, "learnable_temperature": False, "temperature": 1.0, "noise_std": 0.0}
 
@@ -2970,6 +3015,17 @@ def phase_core_options(CB, dev, gen, card):
         ("GaussianNoiseRandomizer on the low-dim keys", low_dim_noise, pooled, False),
         (f"ScanCore on {SCAN_KEY} [{SCAN_LEN}]", scan, pooled, True),
     ]
+    return variants
+
+
+def phase_core_options(CB, dev, gen, card):
+    """16e: one training step and one B = 16 request of phase 15a's ICL policy
+    with each of the other cores and observation options; the stem-pool
+    launches of each (3 + 3 a step and 3 a request where the cameras have a
+    ResNet stem)."""
+    import torch
+
+    variants = core_variants()
     rng = np.random.RandomState(19)
     for name, configure, per_step, scanned in variants:
         shapes = {**SHAPES, SCAN_KEY: (SCAN_LEN,)} if scanned else None
@@ -3005,7 +3061,8 @@ def phase_core_options(CB, dev, gen, card):
 
 def phase_cores(CB, S, dev, card, paper_step_ms, profile):
     """16: the other vision cores and observation options (see the module
-    docstring). Returns row 3g's rows, one a shape."""
+    docstring). Returns row 3g's rows, one a shape, and 16a's / 16b's
+    (step median, B) by backbone."""
     import torch
 
     log(f"phase 16: the other vision cores and observation options, fp32, "
@@ -3039,7 +3096,7 @@ def phase_cores(CB, S, dev, card, paper_step_ms, profile):
         f"{b_ms:.3f} at B={R50_TRAIN_B}, 16c R3M {c_ms:.3f} and 16d MVP {d_ms:.3f} at "
         f"B={FAMILY_B}; peak device memory 16a {a_peak:.2f} GiB, 16b {b_peak:.2f} GiB")
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
-    return row_3g
+    return row_3g, {"ResNet34ConvFiLM": (a_ms, TRAIN_B), "ResNet50ConvFiLM": (b_ms, R50_TRAIN_B)}
 
 
 # ---------------------------------------------------------------------------
@@ -3055,11 +3112,12 @@ DP_REQUESTS = 2        # timed requests a batch size: a DDPM request is 100 UNet
 BASELINE_STEPS = 2     # timed training steps, after a warm-up
 
 
-def baseline_algo(name, dev, configure=None, pallas_pool=True, use_kernels=True):
+def baseline_algo(name, dev, configure=None, pallas_pool=True, use_kernels=True,
+                  shapes=None):
     """The ``@name`` algo (bc, diffusion_policy or act) at its template's
     widths on phase 8's observations (the FiLM ResNet-18 trunks, which all
     three take; the diffusion policy's with GroupNorm), with @configure (a
-    function of the config) applied."""
+    function of the config) applied, of @shapes (SHAPES)."""
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
     from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
@@ -3071,7 +3129,8 @@ def baseline_algo(name, dev, configure=None, pallas_pool=True, use_kernels=True)
         if configure is not None:
             configure(cfg)
     ObsUtils.initialize_obs_utils_with_config(cfg)
-    return Algo.algo_factory(name, cfg, SHAPES, 12, device=dev, use_kernels=use_kernels)
+    return Algo.algo_factory(name, cfg, SHAPES if shapes is None else shapes, 12, device=dev,
+                             use_kernels=use_kernels)
 
 
 def bc_mode(mode):
@@ -3291,7 +3350,7 @@ def phase_act(CB, dev, gen, card):
 
 def phase_baselines(CB, dev, card, profile=False):
     """17: the imitation baselines at full width (see the module
-    docstring)."""
+    docstring). Returns {policy: (step median, {B: request median})}."""
     import torch
 
     log(f"phase 17: the imitation baselines (bc, diffusion_policy, act), phase 8's "
@@ -3311,6 +3370,7 @@ def phase_baselines(CB, dev, card, profile=False):
         f"{act_req[f'predict{BATCHES[-1]}']:10.3f}")
     log(f"  BC_RNN_GMM step {rnn_ms:.3f} ms")
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3903,9 +3963,10 @@ def phase_mcr_pretrain(CB, dev, card, work, profile):
     return trunk, step_ms, peak
 
 
-def mcr_algo(dev, pallas_pool=True, use_kernels=True):
+def mcr_algo(dev, pallas_pool=True, use_kernels=True, configure=None):
     """``mcr`` (MCR_GMM: 5 modes; its ResNet50Conv / SpatialSoftmax core,
-    64-d features) on phase 8's cameras and low-dim keys, phase 8's crop."""
+    64-d features) on phase 8's cameras and low-dim keys, phase 8's crop;
+    @configure (a function of the config) applied."""
     import robot_manipulation_vq_vae_tpu_torch.algo as Algo
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
     from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
@@ -3918,6 +3979,8 @@ def mcr_algo(dev, pallas_pool=True, use_kernels=True):
         cfg.observation.modalities.obs.rgb = CAMS
         cfg.observation.encoder.rgb.obs_randomizer_class = paper.obs_randomizer_class
         cfg.observation.encoder.rgb.obs_randomizer_kwargs = dict(paper.obs_randomizer_kwargs)
+        if configure is not None:
+            configure(cfg)
     ObsUtils.initialize_obs_utils_with_config(cfg)
     return Algo.algo_factory("mcr", cfg, SHAPES, 12, device=dev, use_kernels=use_kernels)
 
@@ -4022,6 +4085,339 @@ def phase_hierarchical(CB, dev, card, profile=False):
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 20: the bf16 training steps of the JAX package's three bf16 steps
+# ---------------------------------------------------------------------------
+
+# phase 10b's bf16 tolerances: metrics (relative), gradients (of each
+# tensor's largest), buffers (absolute)
+BF16_TOLS = (1e-3, 1e-2, 1e-4)
+BF16_STEPS = 2           # timed bf16 steps of 20a-20d, after a warm-up
+# 20e's batch: 10 windows of BC_T = 100 frames a camera (16c / 16d's B = 100
+# frames; BC_Transformer's own template batch of 100 windows is 20b's)
+BF16_CORE_B = 10
+BF16_POOL = {"stem_pool_fwd_bf16": 3, "stem_pool_bwd_bf16": 3}
+
+
+def bf16_launches(per_step):
+    """A fp32 step's stem-pool launches, as the bf16 instances'."""
+    return {f"{k}_bf16": v for k, v in per_step.items()}
+
+
+def masters_move(tag, algo, start):
+    """The fp32 masters stay fp32, and the steps moved them."""
+    import torch
+
+    params = dict(algo.nets.named_parameters())
+    check(all(p.dtype == torch.float32 for p in params.values()),
+          f"{tag}: a master parameter is not fp32")
+    moved = [n for n, p in params.items() if not torch.equal(p, start[n])]
+    log(f"  {tag}: masters fp32; the steps moved {len(moved)} of {len(params)} parameter "
+        "tensors")
+    check(moved, f"{tag}: the steps moved no parameter")
+
+
+def bf16_serving_equal(tag, algo, twin, serve):
+    """A B = 1 and a B = 16 request of the bf16-mode @algo and of its
+    fp32-mode @twin from the same weights: equal to the bit
+    (``serve(algo, b)``: the request's outputs, a tuple of tensors)."""
+    import torch
+
+    twin.nets.load_state_dict(algo.nets.state_dict())
+    for b in BATCHES:
+        got, want = serve(algo, b), serve(twin, b)
+        check(all(g.dtype == torch.float32 and torch.equal(g, w) for g, w in zip(got, want)),
+              f"{tag}: the B={b} request differs between the bf16 and the fp32 mode")
+    log(f"  {tag}: requests at B={' and '.join(map(str, BATCHES))} equal to the bit to the "
+        "fp32-mode algo's from the same weights")
+
+
+def bf16_cell(CB, dev, tag, make, batches, per_step, keys, card, serve, twin_check=True,
+              process=False, profile=False):
+    """One cell of phase 20: @make(mixed_precision, use_kernels) builds it;
+    @batches go through its ``process_batch_for_training`` where @process;
+    a warm-up and len(@batches) - 1 timed bf16 steps with @per_step launches
+    a step and the peak memory (with @profile, one more step's device time
+    by kernel); the masters fp32 and moving; the requests of
+    @serve equal to the fp32-mode algo's; with @twin_check a kernel step
+    against a plain (use_kernels=False) bf16 step from the same state
+    within phase 10b's bf16 tolerances. Returns (step median, peak GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    algo = make(True, True)
+    check(algo.mixed_precision, f"{tag}: mixed_precision not taken")
+    if process:
+        batches = [algo.process_batch_for_training(b) for b in batches]
+    start = {n: p.detach().clone() for n, p in algo.nets.named_parameters()}
+    log(f"phase {tag}: {type(algo).__name__} bf16, "
+        f"{sum(p.numel() for p in start.values())} parameters, "
+        f"B={len(batches[0]['actions'])}")
+    counts, med, vals = timed_steps(CB, algo, batches, f"{tag} bf16 step ({card})",
+                                    f"phase {tag} bf16 training")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check_launches(tag, counts, per_step, len(batches) - 1)
+    check(set(keys) <= set(vals), f"{tag}: metrics {sorted(vals)}")
+    log(f"  {tag}: peak device memory {peak:.2f} GiB ({card})")
+    if profile:
+        device_profile(f"{tag} bf16 train step", lambda: algo.train_on_batch(batches[0], epoch=0),
+                       share=("pool_fwd_kernel", "pool_bwd_kernel", "assign_kernel"))
+    masters_move(tag, algo, start)
+    del start
+    twin = make(False, True)
+    bf16_serving_equal(tag, algo, twin, serve)
+    del twin
+    free_card()
+    if twin_check:
+        kernel_against_plain(algo, lambda: make(True, False), batches[0], keys, BF16_TOLS)
+    del algo
+    free_card()
+    return med, peak
+
+
+def gmm_request(t):
+    """``serve`` of a prompt-conditioned GMM policy: its GMM's parameters for
+    a request of [b, @t] observations and context."""
+    def serve(algo, b):
+        obs, ctx = make_request(np.random.RandomState(b), b, t)
+        dist, _ = algo.action_distribution(obs, ctx)
+        return dist.means, dist.scales, dist.logits
+    return serve
+
+
+def action_request(t, seed=None):
+    """``serve`` of a policy that takes observations alone ([b, @t] windows,
+    or [b] with @t None): its action, with the algo's generator seeded by
+    @seed where it samples."""
+    def serve(algo, b):
+        obs = request_obs(np.random.RandomState(b), b, t)
+        if seed is not None:
+            algo.generator.manual_seed(seed)
+        return (algo.get_action(obs),)
+    return serve
+
+
+def bf16_transformer():
+    """A configure hook of ``bc`` / ``mcr``: the template's (non-GMM)
+    transformer policy."""
+    def configure(cfg):
+        cfg.algo.gmm.enabled = False
+        cfg.algo.transformer.enabled = True
+        cfg.algo.vae.enabled = False
+        cfg.algo.rnn.enabled = False
+    return configure
+
+
+def mixed(*configures):
+    """One configure hook: @configures, then ``train.mixed_precision`` on."""
+    def configure(cfg, on=True):
+        for c in configures:
+            if c is not None:
+                c(cfg)
+        cfg.train.mixed_precision = on
+    return configure
+
+
+def phase_bf16_mamba(CB, dev, gen, card, fp32_ms, profile):
+    """20a: ICLMamba_GMM with LipVQ at 15c's configuration, bf16."""
+    batches = [make_train_batch(gen, dev, TRAIN_B, MAMBA_T) for _ in range(BF16_STEPS + 1)]
+    med, peak = bf16_cell(
+        CB, dev, "20a ICLMamba_GMM", lambda mp, k: mamba_algo(
+            dev, use_kernels=k, mixed_precision=mp), batches,
+        {"stem_pool_fwd_bf16": 6, "stem_pool_bwd_bf16": 6, "lipvq_assign_bf16": 1},
+        ("action_loss", "vq_vae_loss", "policy_grad_norms"), card,
+        gmm_request(MAMBA_T), profile=profile)
+    log(f"  20a: bf16 {med:.3f} ms a step against 15c's fp32 {fp32_ms:.3f} ms "
+        f"({med / fp32_ms:.3f} x; {card})")
+    return med, peak
+
+
+def phase_bf16_bc(CB, dev, gen, card):
+    """20b: BC_Transformer at 17a's widths and batch (GPT 6 x 512, context
+    BC_T, B = 100), bf16, beside its fp32 step timed here."""
+    def make(mp, k):
+        return baseline_algo("bc", dev, lambda cfg: mixed(bf16_transformer())(cfg, mp),
+                             use_kernels=k)
+
+    batches = [make_train_batch(gen, dev, BASELINE_B, BC_T) for _ in range(BF16_STEPS + 1)]
+    keys = ("l2_loss", "action_loss", "policy_grad_norms")
+    med, peak = bf16_cell(CB, dev, "20b BC_Transformer", make, batches, BF16_POOL, keys,
+                          card, action_request(BC_T), process=True)
+    fp32 = make(False, True)
+    batches = [fp32.process_batch_for_training(b) for b in batches]
+    check(not fp32.mixed_precision and type(fp32).__name__ == "BC_Transformer", "20b fp32")
+    counts, fp32_ms, _ = timed_steps(CB, fp32, batches, f"20b BC_Transformer fp32 step ({card})",
+                                     "phase 20b BC_Transformer fp32 training")
+    check_launches("20b fp32", counts, {"stem_pool_fwd": 3, "stem_pool_bwd": 3},
+                   BF16_STEPS)
+    del fp32
+    free_card()
+    log(f"  20b: bf16 {med:.3f} ms a step against fp32 {fp32_ms:.3f} ms ({med / fp32_ms:.3f} "
+        f"x; {card})")
+    return med, peak, fp32_ms
+
+
+def phase_bf16_diffusion(CB, dev, gen, card, fp32_ms, profile):
+    """20c: DiffusionPolicyUNet at 17c's configuration (GroupNorm trunks, EMA,
+    B = 100 x To 2, Tp 16), bf16; its requests (DDPM) fp32, seeded alike."""
+    def make(mp, k):
+        return baseline_algo("diffusion_policy", dev, lambda cfg: mixed()(cfg, mp),
+                             use_kernels=k)
+
+    def window(batch):   # process_batch_for_training's: To frames, Tp actions
+        return {"obs": {k: v[:, :DP_TO] for k, v in batch["obs"].items()},
+                "actions": batch["actions"][:, :DP_TP]}
+
+    batches = [window(make_train_batch(gen, dev, BASELINE_B, DP_TP))
+               for _ in range(BF16_STEPS + 1)]
+    med, peak = bf16_cell(CB, dev, "20c DiffusionPolicyUNet", make, batches, BF16_POOL,
+                          ("l2_loss",), card, action_request(DP_TO, seed=10), profile=profile)
+    log(f"  20c: bf16 {med:.3f} ms a step against 17c's fp32 {fp32_ms:.3f} ms "
+        f"({med / fp32_ms:.3f} x; {card})")
+    return med, peak
+
+
+def phase_bf16_film(CB, dev, gen, card, fp32_rows, profile):
+    """20d: icl_gmm_paper on ResNet-34 FiLM and ResNet-50 FiLM with the crop
+    and ColorRandomizer's defaults, bf16, at B = TRAIN_B: the batch 16b
+    could not fit in fp32. The jitter's fp32 draws lift the image, and so
+    the trunks and their stem pools, to fp32, as in JAX's bf16 step; the
+    FiLM projections, the LipVQ encoder and the low-dim features stay bf16.
+    Where B = TRAIN_B does not fit, the cell runs at 16b's B and says so.
+    Returns {backbone: (median, peak GiB, B)}."""
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    def make_for(backbone):
+        def make(mp, k):
+            cfg = paper_config(pallas_pool=True, mixed_precision=mp, backbone=backbone,
+                               color=True)
+            ObsUtils.initialize_obs_utils_with_config(cfg)
+            return Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev,
+                                     use_kernels=k)
+        return make
+
+    rows = {}
+    keys = ("action_loss", "vq_vae_loss", "policy_grad_norms")
+    per_step = {"stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign_bf16": 1}
+    for backbone in ("ResNet34ConvFiLM", "ResNet50ConvFiLM"):
+        tag = f"20d {backbone}"
+        fp32_ms, fp32_b = fp32_rows[backbone]
+        b, med = TRAIN_B, None
+        batches = [make_train_batch(gen, dev, b) for _ in range(BF16_STEPS + 1)]
+        try:
+            med, peak = bf16_cell(CB, dev, tag, make_for(backbone), batches, per_step, keys,
+                                  card, gmm_request(16),
+                                  profile=profile and backbone == "ResNet34ConvFiLM")
+        except torch.cuda.OutOfMemoryError as err:
+            log(f"  {tag}: B={b} does not fit on the card in bf16 mode ({card}; "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated at the "
+                f"failure: {str(err).splitlines()[0]})")
+        if med is None:   # out of the handler: its traceback held the step's tensors
+            del batches
+            free_card()
+            b = fp32_b
+            log(f"  {tag}: cut to 16b's B={b}")
+            batches = [make_train_batch(gen, dev, b) for _ in range(BF16_STEPS + 1)]
+            med, peak = bf16_cell(CB, dev, tag, make_for(backbone), batches, per_step, keys,
+                                  card, gmm_request(16))
+        rows[backbone] = (med, peak, b)
+        log(f"  {tag}: bf16 {med:.3f} ms a step at B={b}, peak {peak:.2f} GiB; fp32 (16"
+            f"{'a' if backbone.startswith('ResNet34') else 'b'}) {fp32_ms:.3f} ms at "
+            f"B={fp32_b} ({card})")
+        del batches
+        free_card()
+    return rows
+
+
+def phase_bf16_cores(CB, dev, gen, card):
+    """20e: one bf16 step of BC_Transformer (20b's widths, B = BF16_CORE_B
+    windows) on each of 16e's cores and options and on frozen R3M (ResNet-50)
+    and MVP (ViT-B) cores, then one MCR_Transformer step on mcr's ResNet-50
+    core at that batch: launches, masters, the requests against the
+    fp32-mode algo's, and for MCR_Transformer a kernel step against a plain
+    step."""
+    import torch
+
+    frozen = [
+        ("frozen R3MConv (ResNet-50)", core_config(
+            "VisualCore", backbone_class="R3MConv",
+            backbone_kwargs={"r3m_model_class": "resnet50"}, pool_class=None,
+            feature_dimension=64), {"stem_pool_fwd": 3}, False),
+        ("frozen MVPConv (ViT-B)", core_config(
+            "VisualCore", backbone_class="MVPConv",
+            backbone_kwargs={"mvp_model_class": "vitb-mae-egosoup"}, pool_class=None,
+            feature_dimension=64), {}, False),
+    ]
+    steps = {}
+    for name, configure, per_step, scanned in core_variants() + frozen:
+        shapes = {**SHAPES, SCAN_KEY: (SCAN_LEN,)} if scanned else None
+
+        def make(mp, k, configure=configure, shapes=shapes):
+            return baseline_algo("bc", dev, lambda cfg: mixed(
+                bf16_transformer(), configure)(cfg, mp), use_kernels=k, shapes=shapes)
+
+        batch = make_train_batch(gen, dev, BF16_CORE_B, BC_T)
+        if scanned:
+            batch["obs"] = with_scan(batch["obs"], gen, dev)
+
+        def serve(algo, b, scanned=scanned):
+            obs = request_obs(np.random.RandomState(b), b, BC_T)
+            if scanned:
+                obs = with_scan(obs, torch.Generator(dev).manual_seed(b), dev)
+            return (algo.get_action(obs),)
+
+        steps[name] = bf16_cell(CB, dev, f"20e {name}", make, [batch, batch],
+                                bf16_launches(per_step), ("action_loss", "policy_grad_norms"),
+                                card, serve, twin_check=False, process=True)[0]
+
+    def make_mcr(mp, k):
+        return mcr_algo(dev, use_kernels=k, configure=lambda cfg: mixed(
+            bf16_transformer())(cfg, mp))
+
+    batches = [make_train_batch(gen, dev, BF16_CORE_B, BC_T) for _ in range(2)]
+    steps["MCR_Transformer (ResNet50Conv)"] = bf16_cell(
+        CB, dev, "20e MCR_Transformer", make_mcr, batches, BF16_POOL,
+        ("action_loss", "policy_grad_norms"), card, action_request(BC_T), process=True)[0]
+    log(f"  20e: one bf16 step each after a warm-up, B={BF16_CORE_B} x T={BC_T} ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in steps.items()))
+
+
+def phase_bf16(CB, dev, card, fp32, profile=False):
+    """20: the bf16 training steps (see the module docstring); @fp32 holds
+    the fp32 cells' medians (15c, 16a / 16b, 17c)."""
+    import torch
+
+    log(f"phase 20: the bf16 training steps the port took from JAX's three bf16 steps, "
+        f"train.pallas_pool on ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(28)
+    a = phase_bf16_mamba(CB, dev, gen, card, fp32["15c"], profile)
+    free_card()
+    b = phase_bf16_bc(CB, dev, gen, card)
+    free_card()
+    c = phase_bf16_diffusion(CB, dev, gen, card, fp32["17c"], profile)
+    free_card()
+    d = phase_bf16_film(CB, dev, gen, card, fp32["16"], profile)
+    free_card()
+    phase_bf16_cores(CB, dev, gen, card)
+    log(f"  phase 20 medians ({card}), ms a step: bf16, fp32, bf16 / fp32, peak GiB")
+    log(f"  20a ICLMamba_GMM            {a[0]:10.3f} {fp32['15c']:10.3f} "
+        f"{a[0] / fp32['15c']:8.3f} {a[1]:8.2f}")
+    log(f"  20b BC_Transformer          {b[0]:10.3f} {b[2]:10.3f} {b[0] / b[2]:8.3f} "
+        f"{b[1]:8.2f}")
+    log(f"  20c DiffusionPolicyUNet     {c[0]:10.3f} {fp32['17c']:10.3f} "
+        f"{c[0] / fp32['17c']:8.3f} {c[1]:8.2f}")
+    for backbone, (med, peak, bb) in d.items():
+        ref, ref_b = fp32["16"][backbone]
+        log(f"  20d {backbone:24s}{med:10.3f} {ref:10.3f} {med / ref:8.3f} {peak:8.2f}"
+            f"   (bf16 at B={bb}, fp32 at B={ref_b})")
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -4100,7 +4496,8 @@ def main():
     del tok_model, x
     pool = phase_stem_pool(S, dev)
     mcr_pool = phase_mcr_pool(S, dev)
-    pool.update(phase_stem_pool_bf16(S, dev))
+    pool_bf16, bf16_step_pool = phase_stem_pool_bf16(S, dev)
+    pool.update(pool_bf16)
     torch.cuda.empty_cache()
     route, route_counts = phase_pool_route(CB, P, dev)
     torch.cuda.empty_cache()
@@ -4127,15 +4524,19 @@ def main():
     phase_flagship_packed(CB, dev, flagship[True][1])
     phase_flagship_modes(CB, dev, flagship[True][1])
     free_card()
-    phase_family(CB, dev, card, paper_step_ms, args.profile)
+    mamba_steps = phase_family(CB, dev, card, paper_step_ms, args.profile)
     free_card()
-    row_3g = phase_cores(CB, S, dev, card, paper_step_ms, args.profile)
+    row_3g, film_steps = phase_cores(CB, S, dev, card, paper_step_ms, args.profile)
     free_card()
-    phase_baselines(CB, dev, card, args.profile)
+    baselines = phase_baselines(CB, dev, card, args.profile)
     free_card()
     phase_offline_rl(CB, dev, card, args.profile)
     free_card()
     phase_hierarchical(CB, dev, card, args.profile)
+    free_card()
+    phase_bf16(CB, dev, card, {"15c": mamba_steps["ICLMamba_GMM LipVQ"], "16": film_steps,
+                               "17c": baselines["DiffusionPolicyUNet (DDPM)"][0]},
+               args.profile)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -4146,10 +4547,13 @@ def main():
         dict(name="lipvq_roundtrip", route="cuda",
              source=f"{SOURCE}/lipvq_roundtrip.cu", replaces=f"{TPU_KERNELS}:142",
              launches=tok_counts["lipvq_roundtrip"], library_ms=None, **roundtrip),
-        # kernel 1's bf16 instance at the paper's bf16 step (phase 14b)
+        # kernel 1's bf16 instance at the paper's bf16 step (phase 14b); at
+        # ICLMamba_GMM's bf16 step's N = 320 (phase 20a) under mamba_n320
         dict(name="lipvq_assign_bf16", route="cuda", source=f"{SOURCE}/lipvq_assign.cu",
              replaces=f"{TPU_KERNELS}:39", launches=bf16_counts["lipvq_assign_bf16"],
-             library_ms=None, **assign_bf16[PAPER_ASSIGN_N]),
+             library_ms=None, **assign_bf16[PAPER_ASSIGN_N],
+             mamba_n320=dict(assign_bf16[320], library_ms=None, launches=PATH_LAUNCHES[
+                 "phase 20a ICLMamba_GMM bf16 training"]["lipvq_assign_bf16"])),
         # band_path: the launcher's band kernel at each of R3M's stem shapes
         # (phase 16c's requests and training step), with its device time
         # alone and F.max_pool2d's
@@ -4171,6 +4575,11 @@ def main():
                replaces=f"{TPU_ROUTE}:50", launches=route_counts[name], **route[name])
           for name in ("pool_route", "pool_route_bf16")),
     ]
+    # the bf16 stem pool at phase 20's shapes (phase 6b's timing, by device
+    # time too)
+    for row in kernels:
+        if row["name"] in bf16_step_pool:
+            row["bf16_step_shapes"] = bf16_step_pool[row["name"]]
     # rows 3h / 4g: kernels 3 and 4 at MCR pretraining's stem (phase 6's
     # timing), with their launches on phase 19f's path
     for row in kernels:

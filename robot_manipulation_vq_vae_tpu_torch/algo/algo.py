@@ -150,7 +150,9 @@ class Algo:
     ``self.generator`` (on the device) draws the training randomness the
     networks take explicitly (the random crops)."""
 
-    # whether the class ports ``train.mixed_precision``
+    # whether the class trains under ``train.mixed_precision``: True where
+    # the JAX step honours the flag (the transformer, GMM and diffusion
+    # steps); the others raise, since their JAX steps train fp32 under it
     MIXED_PRECISION = False
     # whether get_action takes a context batch (ICLRolloutPolicy wraps it)
     TAKES_CONTEXT = False
@@ -190,8 +192,8 @@ class Algo:
         ported for this class, rather than train something else."""
         if train_config.get("mixed_precision", False) and not self.MIXED_PRECISION:
             raise NotImplementedError(
-                f"train.mixed_precision is not ported for {type(self).__name__} "
-                "yet (ROADMAP.md)"
+                f"train.mixed_precision is not ported for {type(self).__name__}: "
+                "its JAX step ignores the flag and trains fp32 (ROADMAP.md)"
             )
 
     def _set_train_modes(self, train_config):
@@ -199,13 +201,7 @@ class Algo:
         this algo's modules only (the JAX package sets them process-wide):
         the stem pool's recorded-argmax kernels (``pallas_pool``), frozen
         BatchNorm statistics, the pool-free stride-4 stem, and the packed
-        per-camera FiLM trunks. ``train.mixed_precision`` is refused for the
-        cores and randomizers it has not been held against JAX with."""
-        unported = self.mixed_precision and ObsNets.unported_in_mixed_precision(self.nets)
-        if unported:
-            raise NotImplementedError(
-                f"train.mixed_precision is not ported for {', '.join(unported)} yet "
-                "(ROADMAP.md)")
+        per-camera FiLM trunks."""
         BaseNets.set_stem_pool(self.nets, train_config.get("pallas_pool", False),
                                self.use_kernels)
         BaseNets.set_frozen_batch_norm(

@@ -17,8 +17,10 @@ family, whose steps they share.
   trains on the negative log likelihood of the supervised actions (the last
   step's without ``transformer.supervise_all_steps``).
 
-None of them ports ``train.mixed_precision``: it raises (the JAX
-``BC_Transformer`` has a bf16 step, queued in ROADMAP.md).
+``BC_Transformer`` trains under ``train.mixed_precision`` with
+``ICLTransformer``'s bf16 step (JAX ``algo/icl.py``:735-800, which the JAX
+class inherits). The others raise: their JAX steps ignore the flag and
+train fp32 under it, which the port does not copy (ROADMAP.md).
 """
 
 from collections import OrderedDict
@@ -161,11 +163,18 @@ class ICLVAE(BC_VAE):
 
 
 class BC_Transformer(ICLTransformer):
-    """Transformer BC: ``ICLTransformer``'s step; ``get_action`` takes the
-    observation window [B, T, ...] alone and returns the step that
-    ``_select_output`` picks."""
+    """Transformer BC: ``ICLTransformer``'s step, bf16 under
+    ``train.mixed_precision``. Its layer table, read off ``jax.make_jaxpr``
+    of the JAX bf16 step: with image observations the trunks and keypoint
+    convolutions bf16 and, from the fp32 keypoints on, the rest fp32 on
+    bf16 parameters (see ``ICLTransformer._policy_forward``); with
+    low-dimensional observations alone the token embedding and the first
+    block's qkv projection bf16, its attention scores bf16 operands with an
+    fp32 result, and from that attention's fp32 output on every layer fp32
+    (the later blocks and the action head). ``get_action`` takes the
+    observation window [B, T, ...] alone, in fp32, and returns the step
+    that ``_select_output`` picks."""
 
-    MIXED_PRECISION = False
     TAKES_CONTEXT = False
 
     @torch.inference_mode()
@@ -176,7 +185,11 @@ class BC_Transformer(ICLTransformer):
 
 class BC_Transformer_GMM(BC_Transformer):
     """Transformer-GMM BC: the negative log likelihood of the supervised
-    actions; ``get_action`` samples the GMM with the algo's generator."""
+    actions; ``get_action`` samples the GMM with the algo's generator.
+    ``train.mixed_precision`` raises: the JAX class's own step
+    (``bc.py:268``) ignores it."""
+
+    MIXED_PRECISION = False
 
     def _create_networks(self):
         if not self.algo_config.gmm.enabled:

@@ -25,8 +25,28 @@ Seams for tests (draws in the JAX package's order): ``_noise_hook()``
 returns a training step's (timesteps [B], noise [B, Tp, A]);
 ``_sample_hook()`` returns a request's (initial noise [B, Tp, A], the DDPM
 steps' noises [n, B, Tp, A] or None). Otherwise both come from
-``self.generator``. ``train.mixed_precision`` raises (the JAX step's bf16
-branch is queued in ROADMAP.md).
+``self.generator``.
+
+``train.mixed_precision`` runs the training step as the JAX step's bf16
+branch does (``algo/diffusion_policy.py``:167-213): the timesteps, the noise
+and ``add_noise`` stay fp32; the encoder and the UNet run on bf16 copies of
+their parameters (``utils/mixed_precision.half_call``), the encoder on bf16
+observations and the UNet on the noisy actions cast to bf16 and the
+encoder's condition as it comes; the predicted noise comes back fp32, and
+the loss, both optimizers and the EMA are fp32 on the fp32 masters.
+``get_action`` (DDPM / DDIM) stays fp32. Which layer computes in bf16 is
+JAX's promotion, read off ``jax.make_jaxpr`` of the JAX bf16 step:
+
+* bf16: the encoder's trunks and keypoint convolutions (GroupNorm's
+  statistics and arithmetic fp32, one rounding to bf16; with
+  low-dimensional observations alone the encoder has no layer), and the
+  UNet's first residual block's first convolution, its GroupNorm and Mish,
+  and its 1x1 residual convolution: they take the bf16 noisy actions;
+* fp32 on bf16 parameters: the timestep MLP (the sinusoidal embedding is
+  fp32), every FiLM projection of the condition (the timestep embedding
+  makes it fp32), and from the first FiLM on (a bf16 feature map times an
+  fp32 scale) every later convolution, GroupNorm, transposed convolution
+  and the final convolution.
 """
 
 import copy
@@ -43,6 +63,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.diffusion_nets import (
     DiffusionSchedule,
 )
 from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import ObservationGroupEncoder
+from robot_manipulation_vq_vae_tpu_torch.utils import mixed_precision as MixedPrecision
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.optim_utils import (
@@ -73,6 +94,8 @@ def _schedule(cfg, ddim):
 
 class DiffusionPolicyUNet(PolicyAlgo):
     """See the module docstring."""
+
+    MIXED_PRECISION = True
 
     _noise_hook = None
     _sample_hook = None
@@ -147,10 +170,13 @@ class DiffusionPolicyUNet(PolicyAlgo):
                 "goal_obs": batch.get("goal_obs", None),
                 "actions": actions}
 
-    def _encode_cond(self, encoder, obs, generator=None):
-        """[B, To, ...] observations -> the condition [B, To * D]."""
+    def _encode_cond(self, encoder, obs, generator=None, half=False):
+        """[B, To, ...] observations -> the condition [B, To * D]; with
+        @half on bf16 copies of the encoder's parameters and of @obs."""
         b, to = next(iter(obs.values())).shape[:2]
         flat = {k: v.reshape(b * to, *v.shape[2:]) for k, v in obs.items()}
+        if half:
+            return MixedPrecision.half_call(encoder, ({"obs": flat}, generator)).reshape(b, -1)
         return encoder({"obs": flat}, generator).reshape(b, -1)
 
     def _loss(self, batch):
@@ -165,8 +191,14 @@ class DiffusionPolicyUNet(PolicyAlgo):
                                 device=self.device, dtype=actions.dtype)
         noisy = self.schedule.add_noise(actions, noise, t)
         generator = self.generator if self.nets.training else None
-        cond = self._encode_cond(self.nets["obs_encoder"], obs, generator)
-        eps = self.nets["policy"](noisy, t, cond)
+        half = self.mixed_precision
+        cond = self._encode_cond(self.nets["obs_encoder"], obs, generator, half)
+        if half:
+            eps = MixedPrecision.half_call(self.nets["policy"],
+                                           (noisy.to(MixedPrecision.HALF), t, cond),
+                                           cast_inputs=False).float()
+        else:
+            eps = self.nets["policy"](noisy, t, cond)
         return OrderedDict(l2_loss=((eps - noise) ** 2).mean())
 
     def _train_step(self, batch):

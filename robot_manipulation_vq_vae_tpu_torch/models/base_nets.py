@@ -21,10 +21,12 @@ Parameters keep the reference torch layout and key names
 (``_base_block``, ``_conv_blocks``, ``_film_layers``, torchvision's
 ``conv1``/``bn1``/``downsample``; ``nets.0`` ... ``nets.7`` for the plain
 trunk), so reference checkpoints map one to one. Under mixed precision the
-ResNet-18 trunks take bf16 activations and bf16 copies of their weights (see
-``BatchNorm2d`` and ``SpatialSoftmax``); a module whose ``MIXED_PRECISION``
-is False has not been held against the JAX bf16 step, and the algo refuses
-``train.mixed_precision`` with it.
+trunks take bf16 copies of their weights and compute in the type JAX's
+promotion gives them: bf16 on a bf16 image, fp32 behind the colour jitter
+or the Gaussian noise (see ``BatchNorm2d``, ``GroupNorm`` and
+``SpatialSoftmax``); tests/test_torch_bf16_trunks*.py and
+tests/test_torch_bf16_cores.py hold each against the JAX module on bf16
+casts.
 
 Each module's ``JAX_NAMES`` maps the JAX child names to torch submodule
 paths; ``utils/jax_weights.py`` reads it to carry JAX weights across.
@@ -83,8 +85,10 @@ def flax_batch_norm(x, running_mean, running_var, weight, bias, use_batch,
     biased variance and @running_mean / @running_var move towards them in
     place; else by the running statistics, which stay as they are, but for
     a bf16 @x, where they are rounded to bf16 in place."""
-    half = x.dtype == torch.bfloat16
-    if half:   # fp32 arithmetic on the bf16 values, the output in bf16
+    # bf16 parameters (mixed precision) with a bf16 or an fp32 @x: fp32
+    # arithmetic, the output in @x's type
+    half = torch.bfloat16 in (x.dtype, weight.dtype)
+    if half:
         weight, bias = weight.float(), bias.float()
     if not use_batch:
         if half:   # the step's bf16 copies of the statistics, written back
@@ -116,10 +120,14 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     A bf16 input (mixed precision, where the weights arrive as bf16 copies)
     is normalized in training as Flax does: statistics and arithmetic in
-    fp32, the output rounded once to bf16. The running statistics stay fp32
-    buffers, but the JAX step casts them to bf16 with the rest of ``aux``
-    before Flax updates them, so the update is reproduced with that
-    rounding: ``bf16(running) * bf16(0.99) + 0.01 * batch_stat`` in fp32,
+    fp32, the output rounded once to bf16. An fp32 input on those bf16
+    weights (a trunk behind the colour jitter or the Gaussian noise, whose
+    fp32 draws lift the image to fp32) is normalized in fp32 and stays
+    fp32; its statistics are rounded as below all the same. The running
+    statistics stay fp32 buffers, but the JAX step casts them to bf16 with
+    the rest of ``aux`` before Flax updates them, so the update is
+    reproduced with that rounding: ``bf16(running) * bf16(0.99) + 0.01 *
+    batch_stat`` in fp32,
     where ``bf16(0.99)`` is 0.98828125 (the weakly typed 0.99 takes bf16).
     Flax's product is a bf16 one, but inside the jitted step XLA keeps it in
     fp32 (excess precision; it is exact there), and the port follows the
@@ -155,9 +163,16 @@ class GroupNorm(nn.GroupNorm):
     C // 16 groups, eps 1e-5, as the reference diffusion policy's
     ``replace_bn_with_gn``. Stateless, so ``set_frozen_batch_norm`` leaves
     it alone. (Flax takes the variance as E[x^2] - E[x]^2, torch as the mean
-    of squared deviations: equal in float64, a rounding apart in float32.)"""
+    of squared deviations: equal in float64, a rounding apart in float32.)
 
-    MIXED_PRECISION = False
+    Under mixed precision Flax takes a bf16 input's mean and variance in
+    fp32 and forms (x - mean) * rsqrt(var + eps) * scale + bias in fp32 with
+    the bf16-rounded scale and bias, then rounds once to bf16. torch's
+    ``group_norm`` does the same on a bf16 input with bf16 weights, on the
+    CPU (its bf16 kernel accumulates and normalizes in fp32) and on CUDA
+    (the scale and shift are formed in fp32, the output rounded once): the
+    two differ by where fp32 rounds, not by a bf16 step. An fp32 input on
+    bf16 weights computes in fp32 (``JaxPromotion`` lifts the weights)."""
 
     def __init__(self, channels):
         super().__init__(channels // 16, channels, eps=BN_EPS)
@@ -176,11 +191,13 @@ def trunk_norm(channels, norm):
 def add_coord_channels(x):
     """CoordConv (JAX ``add_coord_channels``): NCHW @x with two channels
     appended after its own, y then x, each a ``linspace(-1, 1)`` over its
-    axis."""
+    axis, taken in at least fp32 and cast to @x's type (a bf16 image gets
+    bf16 coordinates, as JAX's ``astype(x.dtype)`` gives them)."""
     n, _, h, w = x.shape
-    ys = torch.linspace(-1.0, 1.0, h, dtype=x.dtype, device=x.device)
-    xs = torch.linspace(-1.0, 1.0, w, dtype=x.dtype, device=x.device)
-    coords = torch.stack([ys[:, None].expand(h, w), xs[None, :].expand(h, w)])
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    ys = torch.linspace(-1.0, 1.0, h, dtype=dtype, device=x.device)
+    xs = torch.linspace(-1.0, 1.0, w, dtype=dtype, device=x.device)
+    coords = torch.stack([ys[:, None].expand(h, w), xs[None, :].expand(h, w)]).to(x.dtype)
     return torch.cat([x, coords.expand(n, 2, h, w)], dim=1)
 
 
@@ -261,8 +278,6 @@ class StemConv(nn.Conv2d):
         super().__init__(cin + 2 * coord_conv, 64, 7, stride=2, padding=3, bias=False)
         self.coord_conv = coord_conv
         self.pool_free = False
-        # the coordinate channels are not held against the JAX step in bf16
-        self.MIXED_PRECISION = not coord_conv
 
     def forward(self, x):
         if self.coord_conv:
@@ -347,7 +362,6 @@ class _ResNetTrunk(nn.Module):
 
     STAGES = _RESNET18_STAGES
     BLOCK = BasicBlock
-    MIXED_PRECISION = False
 
     def _blocks(self, norm):
         blocks, cin = [], 64
@@ -391,8 +405,6 @@ class _ResNetConv(_ResNetTrunk):
 
 class ResNet18Conv(_ResNetConv):
     """ResNet-18 trunk (JAX ``ResNet18Conv``)."""
-
-    MIXED_PRECISION = True
 
 
 class ResNet34Conv(_ResNetConv):
@@ -455,8 +467,6 @@ class _ResNetConvFiLM(_ResNetTrunk):
 class ResNet18ConvFiLM(_ResNetConvFiLM):
     """ResNet-18 with FiLM after every BasicBlock (JAX ``ResNet18ConvFiLM``)."""
 
-    MIXED_PRECISION = True
-
 
 class ResNet34ConvFiLM(_ResNetConvFiLM):
     """ResNet-34 with FiLM after every BasicBlock (JAX ``ResNet34ConvFiLM``)."""
@@ -507,7 +517,6 @@ class ShallowConv(nn.Module):
     ``nets.6`` (Flax's ``Conv_0`` ... ``Conv_3``). Output [B, C, H/2, W/2]."""
 
     JAX_NAMES = {f"Conv_{i}": f"nets.{2 * i}" for i in range(4)}
-    MIXED_PRECISION = False
 
     def __init__(self, input_channel=3, output_channel=32):
         super().__init__()
@@ -558,9 +567,6 @@ class SpatialSoftmax(nn.Module):
             self.temperature = temperature
         self.output_variance = output_variance
         self.noise_std = noise_std
-        # the options are not held against the JAX step in bf16 yet
-        self.MIXED_PRECISION = not (learnable_temperature or output_variance
-                                    or noise_std > 0)
         pos_x, pos_y = np.meshgrid(np.linspace(-1.0, 1.0, w), np.linspace(-1.0, 1.0, h))
         self.register_buffer(
             "pos", torch.tensor(np.stack([pos_x.reshape(-1), pos_y.reshape(-1)], -1),
@@ -605,8 +611,6 @@ class SpatialSoftmax(nn.Module):
 class SpatialMeanPool(nn.Module):
     """The mean over the spatial dims (JAX ``SpatialMeanPool``):
     [B, C, H, W] -> [B, C]."""
-
-    MIXED_PRECISION = False
 
     def __init__(self, input_shape=None):
         super().__init__()

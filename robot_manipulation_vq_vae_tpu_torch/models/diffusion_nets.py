@@ -234,7 +234,10 @@ class ConditionalUnet1D(nn.Module):
         if x.shape[1] % (2 ** (self.levels - 1)):
             raise ValueError(f"sequence length {x.shape[1]} must divide by "
                              f"2**{self.levels - 1} for the UNet's skips")
-        temb = self.diffusion_step_encoder(t.to(global_cond.dtype))
+        # the timestep embedding is at least fp32, as JAX's (its first Dense
+        # then computes in fp32 on bf16 parameters under mixed precision)
+        temb = self.diffusion_step_encoder(
+            t.to(torch.promote_types(global_cond.dtype, torch.float32)))
         cond = torch.cat([temb, global_cond], dim=-1)
         h = x.transpose(1, 2)
         skips = []

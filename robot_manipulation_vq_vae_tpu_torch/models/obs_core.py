@@ -109,10 +109,6 @@ class VisualCore(nn.Module):
             self.proj = nn.Linear(shape[0], feature_dimension)
             shape = [feature_dimension]
         self._output_shape = shape
-        # held against the JAX bf16 step only with a SpatialSoftmax, flatten
-        # and a projection
-        self.MIXED_PRECISION = (pool_class == "SpatialSoftmax" and flatten
-                                and feature_dimension is not None)
 
     def jax_names(self):
         return {k: v for k, v in self.JAX_NAMES.items() if getattr(self, v) is not None}
@@ -167,7 +163,6 @@ class ScanCore(nn.Module):
     DEFAULT_CHANNELS = (32, 64, 64)
     DEFAULT_KERNELS = (8, 4, 2)
     DEFAULT_STRIDES = (4, 2, 1)
-    MIXED_PRECISION = False
 
     def __init__(self, input_shape, conv_kwargs=None, conv_activation="relu",
                  pool_class=None, pool_kwargs=None, flatten=True,
@@ -231,7 +226,6 @@ class Randomizer:
     ``forward_out`` after it (the mean over the N samples)."""
 
     num_samples = 1
-    MIXED_PRECISION = False
 
     def output_shape_in(self, input_shape=None):
         return list(self.input_shape if input_shape is None else input_shape)
@@ -264,8 +258,6 @@ class CropRandomizer(Randomizer):
     random crops per image, their top-left corners drawn uniformly from
     [0, H - crop_h] x [0, W - crop_w] with the caller's ``torch.Generator``;
     in eval the center crop. input_shape is (H, W, C)."""
-
-    MIXED_PRECISION = True
 
     def __init__(self, input_shape, crop_height=76, crop_width=76, num_crops=1,
                  pos_enc=False):
@@ -400,7 +392,9 @@ class ColorRandomizer(Randomizer):
         factors = {}
         for name, (lo, hi) in self.ranges.items():
             u = torch.rand(shape, generator=generator, device=generator.device)
-            factors[name] = (lo + (hi - lo) * u).to(x.device, x.dtype)
+            # at least fp32, as JAX draws them: a bf16 image becomes fp32
+            factors[name] = (lo + (hi - lo) * u).to(
+                x.device, torch.promote_types(x.dtype, torch.float32))
         n_orders = math.factorial(len(self.ranges))
         order = int(torch.randint(0, n_orders, (), generator=generator,
                                   device=generator.device))
@@ -441,8 +435,9 @@ class GaussianNoiseRandomizer(Randomizer):
         self.num_samples = num_samples
 
     def draw(self, x, generator):
+        # at least fp32, as JAX draws it: a bf16 image becomes fp32
         return torch.randn(x.shape, generator=generator, device=generator.device).to(
-            x.device, x.dtype)
+            x.device, torch.promote_types(x.dtype, torch.float32))
 
     def forward_in(self, x, generator=None, train=False):
         if not train:

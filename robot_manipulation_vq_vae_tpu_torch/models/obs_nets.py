@@ -197,19 +197,6 @@ class ObservationEncoder(nn.Module):
         return torch.cat(out, dim=-1)
 
 
-def unported_in_mixed_precision(module):
-    """The names of the modules and randomizers under @module that
-    ``train.mixed_precision`` has not been held against the JAX bf16 step
-    with (``MIXED_PRECISION`` False): the algo refuses the mode for them."""
-    names = {type(m).__name__ for m in module.modules()
-             if getattr(m, "MIXED_PRECISION", True) is False}
-    for enc in module.modules():
-        if isinstance(enc, ObservationEncoder):
-            names.update(type(r).__name__ for rands in enc.randomizers.values()
-                         for r in rands if not r.MIXED_PRECISION)
-    return sorted(names)
-
-
 def set_packed_rgb_encoders(module, enabled):
     """Pack (or unpack) the eligible cameras of every ObservationEncoder
     under @module (``train.packed_rgb_encoders``; see ``ObservationEncoder``)."""

@@ -39,7 +39,11 @@ VIT_LN_EPS = 1e-6
 def resize_bilinear(x, h, w):
     """NCHW @x resized to @h x @w as ``jax.image.resize(..., "bilinear")``
     does it: half-pixel centers, a triangle filter widened by the scale
-    where it shrinks (antialiasing), weights renormalized at the border."""
+    where it shrinks (antialiasing), weights renormalized at the border. A
+    bf16 @x (mixed precision) is resized in fp32 and rounded once to bf16:
+    torch's CPU build has no bf16 antialiased resize."""
+    if x.dtype == torch.bfloat16:
+        return resize_bilinear(x.float(), h, w).to(x.dtype)
     return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
                          antialias=True)
 
@@ -70,7 +74,6 @@ class R3MConv(nn.Module):
     without gradient and in eval mode (``train`` cannot switch it)."""
 
     JAX_NAMES = {"trunk": "trunk"}
-    MIXED_PRECISION = False
 
     def __init__(self, r3m_model_class="resnet18", freeze=True):
         super().__init__()
@@ -220,7 +223,6 @@ class MVPConv(nn.Module):
     [B, D]. With @freeze (the default) the trunk runs without gradient."""
 
     JAX_NAMES = {"trunk": "trunk"}
-    MIXED_PRECISION = False
 
     def __init__(self, mvp_model_class="vitb-mae-egosoup", freeze=True):
         super().__init__()

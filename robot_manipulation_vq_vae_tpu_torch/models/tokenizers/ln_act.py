@@ -4,7 +4,10 @@ state-space block over the prompt action sequence, then an MLP projection.
 
 The JAX package computes the scan with ``lax.associative_scan``, outside any
 Pallas kernel; here it is a loop over T on [B, Di, N] states in the input's
-dtype (T is the context length, 16 at full width).
+dtype (T is the context length, 16 at full width). In bf16 (mixed
+precision) the loop rounds each step's multiply-add where JAX's pairing
+rounds others: tests/test_torch_bf16_mamba.py holds the block and
+``Mamba_Backbone`` within 2e-2 of their outputs' largest value.
 
 Checkpoint names (``...action_network.<name>``): ``mamba.in_proj.weight``,
 ``mamba.conv1d.{weight [Di, 1, k], bias}``, ``mamba.x_proj.weight``,
@@ -30,7 +33,9 @@ def selective_scan(u, dt, A, B, C, D):
     for t in range(u.shape[1]):
         dt_t = dt[:, t, :, None]                                  # [Bt, Di, 1]
         h = torch.exp(dt_t * A) * h + dt_t * B[:, t, None, :] * u[:, t, :, None]
-        ys.append((h * C[:, t, None, :]).sum(-1))
+        # C_t . h_t as one product (JAX's einsum is a dot): in bf16 the sum
+        # is taken in fp32 and rounded once, not product by product
+        ys.append(torch.matmul(h, C[:, t, :, None])[..., 0])
     return torch.stack(ys, dim=1) + u * D
 
 

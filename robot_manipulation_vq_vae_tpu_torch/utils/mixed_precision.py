@@ -10,7 +10,8 @@ does the same: it calls a module on bf16 copies of its parameters (through
 rounded to bf16 by the casts as JAX's are) and of its floating inputs, under
 ``JaxPromotion``, which gives the ops that torch does not promote (linear,
 the matrix products, convolution, LayerNorm) their operands in the promoted
-type. Elementwise ops, ``cat`` and ``stack`` promote in torch already.
+type (and GroupNorm and the transposed 1-D convolution, the diffusion
+UNet's). Elementwise ops, ``cat`` and ``stack`` promote in torch already.
 
 The modules keep their buffers fp32; where the JAX step would carry a bf16
 copy of one (BatchNorm's statistics, the bin tokenizer's running range, the
@@ -27,8 +28,9 @@ from torch.overrides import TorchFunctionMode
 HALF = torch.bfloat16
 
 # the functions whose floating operands JaxPromotion brings to one type
-_PROMOTED = frozenset({"linear", "conv1d", "conv2d", "layer_norm", "matmul",
-                       "__matmul__", "__rmatmul__", "mm", "bmm", "einsum"})
+_PROMOTED = frozenset({"linear", "conv1d", "conv2d", "conv_transpose1d", "layer_norm",
+                       "group_norm", "matmul", "__matmul__", "__rmatmul__", "mm", "bmm",
+                       "einsum"})
 
 
 def at_least_f32(t):
@@ -62,10 +64,10 @@ def _leaves(tree):
 
 
 class JaxPromotion(TorchFunctionMode):
-    """Gives a linear, matrix product, convolution or LayerNorm all its
-    floating operands in their promoted type, as JAX's ``dot_general`` /
-    ``conv`` / Flax's LayerNorm see them: bf16 with bf16 stays bf16, bf16
-    with fp32 becomes fp32."""
+    """Gives a linear, matrix product, convolution (transposed too),
+    LayerNorm or GroupNorm all its floating operands in their promoted type,
+    as JAX's ``dot_general`` / ``conv`` / Flax's norms see them: bf16 with
+    bf16 stays bf16, bf16 with fp32 becomes fp32."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -79,11 +81,14 @@ class JaxPromotion(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-def half_call(module, args=(), kwargs=None):
+def half_call(module, args=(), kwargs=None, cast_inputs=True):
     """``module(*args, **kwargs)`` on bf16 copies of @module's parameters and
-    of the floating tensors among the arguments, under ``JaxPromotion``."""
+    (with @cast_inputs) of the floating tensors among the arguments, under
+    ``JaxPromotion``."""
     params = {name: p.to(HALF) for name, p in module.named_parameters()}
-    args, kwargs = _map_floating(lambda t: t.to(HALF), (tuple(args), kwargs or {}))
+    args, kwargs = tuple(args), kwargs or {}
+    if cast_inputs:
+        args, kwargs = _map_floating(lambda t: t.to(HALF), (args, kwargs))
     with JaxPromotion():
         return torch.func.functional_call(module, params, args, kwargs)
 

@@ -24,7 +24,9 @@
   measured 1.9e-7 apart).
 * A ``BC_VAE`` checkpoint written by ``scripts/train.train`` serves through
   ``policy_from_checkpoint`` as a ``RolloutPolicy``, its episode's actions
-  equal to the trained algo's; ``train.mixed_precision`` raises.
+  equal to the trained algo's; ``train.mixed_precision`` trains
+  ``BC_Transformer`` (held against JAX in tests/test_torch_bf16_baselines.py)
+  and raises for ``BC_VAE``, whose JAX step ignores it.
 """
 
 import contextlib
@@ -365,12 +367,23 @@ def test_get_action_matches_jax(run):
 
 @pytest.mark.parametrize("mode", ["transformer", "vae"])
 def test_mixed_precision_raises(mode):
+    """For ``BC_VAE``, whose JAX step ignores the flag; ``BC_Transformer``
+    (the JAX class takes ``ICLTransformer``'s bf16 step) builds and takes a
+    bf16 step on fp32 masters."""
     cfg = _tune(config_factory("bc"), mode)
     with cfg.values_unlocked():
         cfg.train.mixed_precision = True
     PortObsUtils.initialize_obs_utils_with_config(cfg)
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
-        PortAlgo.algo_factory("bc", cfg, {"flat": (O,)}, A, device="cpu")
+    if mode == "vae":
+        with pytest.raises(NotImplementedError, match="mixed_precision"):
+            PortAlgo.algo_factory("bc", cfg, {"flat": (O,)}, A, device="cpu")
+        return
+    algo = PortAlgo.algo_factory("bc", cfg, {"flat": (O,)}, A, device="cpu")
+    assert type(algo).__name__ == "BC_Transformer" and algo.mixed_precision
+    losses = algo.train_on_batch(algo.process_batch_for_training(
+        _batch(np.random.RandomState(1))), epoch=0)["losses"]
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert all(p.dtype == torch.float32 for p in algo.nets.parameters())
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,9 @@ package's (its schedule and UNet are held in
   (the x0 prediction divides the UNet's 1e-10 by sqrt(alphas_bar); see the
   test).
 * A validation call leaves the EMA decay's step count alone; the one-time
-  action-range check, ``train.mixed_precision`` and an unported prediction
-  type raise; the observation window must hold To frames; a checkpoint from ``scripts/train.train`` serves through
+  action-range check and an unported prediction type raise,
+  ``train.mixed_precision`` trains (held against JAX in
+  tests/test_torch_bf16_baselines.py); the observation window must hold To frames; a checkpoint from ``scripts/train.train`` serves through
   ``policy_from_checkpoint`` as a ``RolloutPolicy``, its actions equal to
   the trained algo's.
 """
@@ -301,6 +302,8 @@ def test_observation_window_must_hold_to_frames():
 
 @pytest.mark.parametrize("option", ["mixed_precision", "prediction_type"])
 def test_unported_options_raise(option):
+    """An unported prediction type raises; ``train.mixed_precision`` is
+    ported: it builds and takes a bf16 step on fp32 masters."""
     cfg = _tune(config_factory("diffusion_policy"))
     with cfg.values_unlocked():
         if option == "mixed_precision":
@@ -308,8 +311,16 @@ def test_unported_options_raise(option):
         else:
             cfg.algo.ddpm.prediction_type = "sample"
     PortObsUtils.initialize_obs_utils_with_config(cfg)
-    with pytest.raises(NotImplementedError, match=option):
-        PortAlgo.algo_factory("diffusion_policy", cfg, {"flat": (O,)}, A, device="cpu")
+    if option == "prediction_type":
+        with pytest.raises(NotImplementedError, match=option):
+            PortAlgo.algo_factory("diffusion_policy", cfg, {"flat": (O,)}, A, device="cpu")
+        return
+    algo = PortAlgo.algo_factory("diffusion_policy", cfg, {"flat": (O,)}, A, device="cpu")
+    assert algo.mixed_precision
+    losses = algo.train_on_batch(algo.process_batch_for_training(
+        _batch(np.random.RandomState(1))), epoch=0)["losses"]
+    assert np.isfinite(float(losses["l2_loss"]))
+    assert all(p.dtype == torch.float32 for p in algo.nets.parameters())
 
 
 def test_checkpoint_serves_through_the_plain_rollout_policy(tmp_path, monkeypatch):

@@ -23,7 +23,8 @@ why, and are held at its tolerances: metrics within 1e-4; at least 99 % of
 each parameter within 1e-5 and all within 2 lr per step; at least 95 % of
 each BatchNorm statistic within 1e-5 and all within 1e-4.
 
-Also: ``train.mixed_precision`` is refused for a core it has not been held
+Also: ``train.mixed_precision`` builds and trains every core (each is held
+against the JAX bf16 step in tests/test_torch_bf16_cores.py), and this one
 against JAX with, naming it."""
 
 import copy
@@ -216,14 +217,16 @@ _HELD_CORE = {"pool_class": "SpatialSoftmax", "flatten": True, "feature_dimensio
                                       "feature_dimension": None}, id="ResNet18ConvFiLM-no-proj"),
 ])
 def test_mixed_precision_refuses_the_cores_it_has_not_met(backbone, core):
-    """ResNet-34 is refused by name (and so is the color jitter); ResNet-18
-    FiLM with the same jitter is refused for the jitter alone, and the core
-    too when it is not the held one (SpatialSoftmax, flatten, projection)."""
+    """It has met them all: each core, pool and the colour jitter is held
+    against the JAX bf16 step (tests/test_torch_bf16_cores.py), so the mode
+    builds with every one of these and takes a bf16 step on fp32 masters
+    (the jitter's fp32 draws lift the image, and the trunk, to fp32)."""
     cfg = _configure(config_factory("icl_gmm_paper"), backbone, mixed_precision=True)
     with cfg.values_unlocked():
         cfg.observation.encoder.rgb.core_kwargs.update(core)
     PortObsUtils.initialize_obs_utils_with_config(cfg)
-    with pytest.raises(NotImplementedError, match="ColorRandomizer") as err:
-        PortAlgo.algo_factory("icl_gmm_paper", cfg, OBS_KEY_SHAPES, A, device="cpu")
-    assert ("ResNet34ConvFiLM" in str(err.value)) == (backbone == "ResNet34ConvFiLM")
-    assert ("VisualCoreLanguageConditioned" in str(err.value)) == (core is not _HELD_CORE)
+    algo = PortAlgo.algo_factory("icl_gmm_paper", cfg, OBS_KEY_SHAPES, A, device="cpu")
+    assert algo.mixed_precision
+    losses = algo.train_on_batch(_batch(np.random.RandomState(1)), epoch=0)["losses"]
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert all(p.dtype == torch.float32 for p in algo.nets.parameters())

@@ -314,12 +314,20 @@ def test_mamba_gmm_request_matches_jax(mamba_gmm):
 
 
 def test_mamba_gmm_mixed_precision_raises():
+    """It no longer does: the JAX class inherits the paper's bf16 step, and
+    so does the port's (held against JAX's in
+    tests/test_torch_bf16_mamba.py); the mode builds and takes a step on
+    fp32 masters."""
     cfg = _configure(config_factory("icl_mamba"), gmm=True)
     with cfg.values_unlocked():
         cfg.train.mixed_precision = True
     PortObsUtils.initialize_obs_utils_with_config(cfg)
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
-        PortAlgo.algo_factory("icl_mamba", cfg, dict(LOW_DIM), A, device="cpu")
+    algo = PortAlgo.algo_factory("icl_mamba", cfg, dict(LOW_DIM), A, device="cpu")
+    assert isinstance(algo, PortAlgo.ICLMamba_GMM) and algo.mixed_precision
+    losses = algo.train_on_batch(algo.process_batch_for_training(
+        _batch(np.random.RandomState(1))), epoch=0)["losses"]
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert all(p.dtype == torch.float32 for p in algo.nets.parameters())
 
 
 POLICY_METRICS = ("l2_loss", "l1_loss", "cos_loss", "action_loss", "policy_grad_norms")

@@ -225,7 +225,7 @@ def _check_bf16_assign(z, cb, idx_k, zq_k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 512, 65536])
+@pytest.mark.parametrize("n", [256, 320, 512, 65536])
 def test_assign_bf16_kernel_matches_plain(cuda_device, n):
     """The bf16 codebook and an fp32 z, as the mixed-precision step gives
     them, at the paper's D = 976, K = 1024: sigmoid-range latents, as
@@ -360,6 +360,37 @@ def test_stem_pool_bf16_kernels_match_plain(cuda_device, shape, kind):
     assert LAUNCHES["stem_pool_fwd"] == before["stem_pool_fwd"]
     out_p, idx_p = S.pool_fwd_plain(x)
     assert out_k.dtype == dx_k.dtype == torch.bfloat16
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
+    torch.testing.assert_close(dx_k, S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)
+
+
+# the stems of the bf16 training steps: ICLMamba_GMM's 32 x 10 frames a
+# group, BC_Transformer's 100 x 10, the diffusion policy's 100 x 2, 10 x 10
+# windows of BC_Transformer on the other cores, and R3M's stem in bf16 at its
+# request and training N (runs of whole bf16 planes)
+_BF16_STEP_SHAPES = [(320, 64, 58, 58), (1000, 64, 58, 58), (200, 64, 58, 58),
+                     (100, 64, 58, 58), (1, 64, 112, 112), (16, 64, 112, 112),
+                     (100, 64, 112, 112)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _BF16_STEP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_stem_pool_bf16_at_the_bf16_step_shapes(cuda_device, shape):
+    """Kernels 3 and 4 in bf16 at the bf16 steps' stems, on ReLU'd inputs
+    (ties): one launch each, on runs of whole planes; maxima, offsets and dx
+    bit-equal to the plain versions."""
+    x = _pool_input(shape, "relu", cuda_device, 8).bfloat16()
+    assert S.pool_fwd_plan(shape, torch.bfloat16)[0] > 0
+    before = dict(LAUNCHES)
+    out_k, idx_k = S.pool_fwd_cuda(x)
+    g = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(9)).to(
+        cuda_device).bfloat16()
+    dx_k = S.pool_bwd_cuda(idx_k, g, shape[2:])
+    torch.cuda.synchronize()
+    assert LAUNCHES["stem_pool_fwd_bf16"] == before["stem_pool_fwd_bf16"] + 1
+    assert LAUNCHES["stem_pool_bwd_bf16"] == before["stem_pool_bwd_bf16"] + 1
+    out_p, idx_p = S.pool_fwd_plain(x)
     torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
     torch.testing.assert_close(idx_k, idx_p, rtol=0, atol=0)
     torch.testing.assert_close(dx_k, S.pool_bwd_plain(idx_p, g, shape[2:]), rtol=0, atol=0)

@@ -264,11 +264,15 @@ def port_draws(monkeypatch, log, obs_core):
 
     monkeypatch.setattr(obs_core.CropRandomizer, "draw", lambda self, x, gen: tuple(
         pop("randint").long().to(x.device) for _ in range(2)))
+    # the draws in at least fp32, as the randomizers take them
+    def dtype(x):
+        return torch.promote_types(x.dtype, torch.float32)
+
     monkeypatch.setattr(obs_core.ColorRandomizer, "draw", lambda self, x, gen: (
-        {n: pop("uniform").to(x.device, x.dtype) for n in self.ranges},
+        {n: pop("uniform").to(x.device, dtype(x)) for n in self.ranges},
         int(pop("randint"))))
     monkeypatch.setattr(obs_core.GaussianNoiseRandomizer, "draw",
-                        lambda self, x, gen: pop("normal").to(x.device, x.dtype))
+                        lambda self, x, gen: pop("normal").to(x.device, dtype(x)))
     return state
 
 
