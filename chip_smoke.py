@@ -226,6 +226,27 @@ Phases, each of which fails the run when it fails:
      state within phase 10b's bf16 tolerances (metrics 1e-3, gradients
      1e-2 of each tensor's max, buffers 1e-4). With --profile, one step of
      20a, 20c and 20d's ResNet-34 FiLM by kernel.
+  21. the tokenizer zoo and the mesh: 21a VQVAE (128 codes), LFQVAE,
+     LSTMVQVAE ([4096, 16, 12] windows), LFQQuantizerEMA and its k-means
+     variant (1024 codes) and HierarchicalLFQHVQVAE (1024 / 512 codes, q_dim
+     64, hidden 128) at the tokenizer bench's widths (feature 12, latent
+     210): 3 training steps at N = 4096 (Adam where a class has parameters;
+     the EMA updates, the k-means init and the dead-code replacement) against
+     the use_kernel=False twin from the same state and draws (assignments
+     equal but at near ties, losses, parameters and buffers), one eval
+     forward of each at N = 65,536, kernel 1's launches on each path
+     (1 a forward, 2 for the hierarchical one), kernel 1 alone at the zoo's
+     (N, D, K); PRISE where the host has `tokenizers`; 21b make_mesh under
+     nccl at dp = 1 in this process: 3 steps of the flagship (phase 10a's
+     configuration) and of icl_gmm_paper (phase 8's) at B = 32 under
+     shard_state equal to the bit to 3 unsharded steps, kernels 1, 3 and 4
+     counted; 21c dp = 2 on the one card: two spawned processes over gloo
+     (the collectives staged through pinned host memory), the same steps
+     with dropout 0 and no crops (the flagship's codebooks seeded first),
+     against one process's unsharded steps within tests/test_parallel.py's
+     tolerances (the HVQVAE's codebook rows reported beside the unsharded
+     steps' own drift under a 1e-6 change of its encoder's weights), each
+     rank's launches; the steps after the first timed by CUDA events.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -4418,6 +4439,622 @@ def phase_bf16(CB, dev, card, fp32, profile=False):
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the tokenizer zoo on kernel 1, and the dp / mp mesh
+# ---------------------------------------------------------------------------
+
+# the tokenizer bench's widths (bench_tokenizer.py: feature 12, latent 210);
+# each class keeps its own code counts
+ZOO_N, ZOO_FWD_N, ZOO_STEPS, ZOO_LSTM_T = 4096, 65536, 3, 16
+ZOO_KERNEL = ("VQVAE", "LFQQuantizerEMA", "LFQQuantizerEMA_KMeans",
+              "HierarchicalLFQHVQVAE")
+ZOO_LAUNCHES = {"VQVAE": 1, "LFQQuantizerEMA": 1, "LFQQuantizerEMA_KMeans": 1,
+                "HierarchicalLFQHVQVAE": 2, "LFQVAE": 0, "LSTMVQVAE": 0}
+DP_B, DP_STEPS = 32, 3        # 21b / 21c: the global batch and the steps (the
+                              # first one warms up; times are of the others)
+
+
+def host_state(algo):
+    """A host copy of @algo's networks' state dict."""
+    return {k: v.detach().cpu().clone() for k, v in algo.nets.state_dict().items()}
+
+
+def zoo_model(name, dev, use_kernel=True):
+    """@name of the zoo at the bench's widths, its weights drawn from a seed
+    (the same for the kernel and the plain twin)."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.models import tokenizers as Zoo
+
+    makers = {
+        "VQVAE": lambda: Zoo.VQVAE(12, 210, 128, use_kernel=use_kernel),
+        "LFQVAE": lambda: Zoo.LFQVAE(12, 210),
+        "LSTMVQVAE": lambda: Zoo.LSTMVQVAE(12, 210),
+        "LFQQuantizerEMA": lambda: Zoo.LFQQuantizerEMA(1024, 210, use_kernel=use_kernel),
+        "LFQQuantizerEMA_KMeans": lambda: Zoo.LFQQuantizerEMA_KMeans(
+            1024, 210, use_kernel=use_kernel),
+        "HierarchicalLFQHVQVAE": lambda: Zoo.HierarchicalLFQHVQVAE(
+            12, 210, 64, 1024, 512, 128, use_kernel=use_kernel),
+    }
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(31)
+        return makers[name]().to(dev)
+
+
+def zoo_input(name, gen, dev, n):
+    """A batch for @name: actions [n, 12] ([n / 16, 16, 12] windows for the
+    LSTM), or sigmoid latents [n, 210] for the standalone quantizers."""
+    import torch
+
+    if name.startswith("LFQQuantizer"):
+        return torch.sigmoid(torch.randn(n, 210, generator=gen, device=dev))
+    if name == "LSTMVQVAE":   # [4096, 16, 12] windows, whatever @n
+        return torch.randn(ZOO_N, ZOO_LSTM_T, 12, generator=gen, device=dev)
+    return torch.randn(n, 12, generator=gen, device=dev)
+
+
+@contextlib.contextmanager
+def recorded_searches(K, log_to):
+    """Record every nearest-code search (z, codebook, idx) that the zoo
+    runs, through the kernel or its plain version."""
+    cuda, plain = K.l2_nearest_cuda, K.l2_nearest_plain
+
+    def wrap(fn):
+        def run(z, codebook):
+            idx, z_q = fn(z, codebook)
+            log_to.append((z.detach(), codebook.detach().clone(), idx))
+            return idx, z_q
+        return run
+
+    K.l2_nearest_cuda, K.l2_nearest_plain = wrap(cuda), wrap(plain)
+    try:
+        yield log_to
+    finally:
+        K.l2_nearest_cuda, K.l2_nearest_plain = cuda, plain
+
+
+def zoo_train(model, batches, seed):
+    """ZOO_STEPS training forwards of @model (Adam steps where it has
+    parameters), the draws from a generator seeded @seed: (losses, the
+    step times in ms by CUDA events)."""
+    import torch
+
+    gen = torch.Generator(batches[0].device).manual_seed(seed)
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = torch.optim.Adam(params, lr=1e-3) if params else None
+    model.train()
+    losses, times = [], []
+    with deterministic_steps():
+        for x in batches:
+            step_once(model, x, gen, opt, losses, times)
+    model.eval()
+    return [float(v) for v in losses], times
+
+
+@contextlib.contextmanager
+def deterministic_steps():
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    (index_add_ among them) inside the block."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+        torch.use_deterministic_algorithms(False)
+
+
+def step_once(model, x, gen, opt, losses, times):
+    """One training forward of a zoo class (an Adam step with @opt), timed
+    by CUDA events into @times, its loss into @losses."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    if hasattr(model, "z_quantizer") or hasattr(model, "dead_threshold"):
+        out = model(x, generator=gen)
+    else:
+        out = model(x)
+    if opt is not None:
+        opt.zero_grad()
+        out[1].backward()
+        opt.step()
+        losses.append(out[1].detach())
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+
+
+def zoo_state_gap(a, b):
+    """max over @a's floating tensors of max|a - b| / max(1, max|b|)."""
+    gap = 0.0
+    sb = b.state_dict()
+    for k, v in a.state_dict().items():
+        if v.is_floating_point():
+            ref = sb[k]
+            gap = max(gap, float((v - ref).abs().max()) / max(1.0, float(ref.abs().max())))
+        else:
+            check(bool((v == sb[k]).all()), f"{k} differs")
+    return gap
+
+
+def phase_zoo(CB, K, dev, card):
+    """21a: the zoo at the bench's widths: ZOO_STEPS training steps at N =
+    ZOO_N of each class against its use_kernel=False twin from the same
+    state and draws, one N = ZOO_FWD_N forward of each kernel-1 class
+    (timed), kernel 1 timed at the zoo's shapes; launches counted."""
+    import torch
+
+    log(f"phase 21a: the tokenizer zoo at the bench's widths (feature 12, latent 210), "
+        f"{ZOO_STEPS} training steps at N={ZOO_N} against the plain twins, one forward "
+        f"of each kernel-1 class at N={ZOO_FWD_N} ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(41)
+    shapes = {}
+    for name in ZOO_LAUNCHES:
+        batches = [zoo_input(name, gen, dev, ZOO_N) for _ in range(ZOO_STEPS)]
+        runs = {}
+        for use_kernel in (True, False):
+            model = zoo_model(name, dev, use_kernel)
+            searches = []
+            CB.reset_launch_counts()
+            with recorded_searches(K, searches):
+                losses, times = zoo_train(model, batches, seed=43)
+            runs[use_kernel] = (model, losses, times, searches, dict(CB.LAUNCHES))
+        (mk, lk, tk, sk, ck), (mp_, lp, tp, sp, cp) = runs[True], runs[False]
+        want = ZOO_LAUNCHES[name] * ZOO_STEPS
+        check(ck.get("lipvq_assign", 0) == want, f"{name}: {ck} launches, expected {want}")
+        check(sum(cp.values()) == 0, f"{name}'s plain twin launched {cp}")
+        record_path(f"phase 21a {name} training", ck)
+        check(len(sk) == len(sp), f"{name}: {len(sk)} searches against {len(sp)}")
+        flips = 0
+        for i, ((z, cb, idx_k), (_, _, idx_p)) in enumerate(zip(sk, sp)):
+            agree = check_assignments(f"{name} search {i} N={z.shape[0]} D={z.shape[1]} "
+                                      f"K={cb.shape[0]}", idx_k, idx_p, near_ties(z, cb))
+            flips += int((~agree).sum())
+            shapes[(z.shape[0], z.shape[1], cb.shape[0])] = (z, cb)
+        rel = max((abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lk, lp)), default=0.0)
+        gap = zoo_state_gap(mk, mp_)
+        log(f"  {name}: losses kernel {lk} plain {lp} (max rel {rel:.3g}); parameters "
+            f"and buffers max|kernel - plain| / max(1, |plain|) {gap:.3g}; {flips} flipped "
+            f"rows; steps {', '.join(f'{t:.3f}' for t in tk)} ms (plain "
+            f"{', '.join(f'{t:.3f}' for t in tp)}; CUDA events)")
+        if flips == 0:
+            check(rel <= 1e-5 and gap <= 1e-5, f"{name}: kernel and plain steps differ")
+        if name == "HierarchicalLFQHVQVAE":
+            usage = mk.codebook_usage()
+            log(f"  codebook usage after {ZOO_STEPS} steps: {usage}")
+        # the eval forward at the tokenizer bench's N
+        x = zoo_input(name, gen, dev, ZOO_FWD_N)
+        CB.reset_launch_counts()
+        searches = []
+        with torch.no_grad(), recorded_searches(K, searches):
+            out = mk(x)
+            torch.cuda.synchronize()
+        counts = dict(CB.LAUNCHES)
+        check(counts.get("lipvq_assign", 0) == ZOO_LAUNCHES[name],
+              f"{name} forward: {counts}")
+        record_path(f"phase 21a {name} forward N={ZOO_FWD_N}", counts)
+        first = out[0]
+        check(bool(torch.isfinite(first).all()), f"{name}: forward output not finite")
+        for z, cb, _ in searches:
+            shapes[(z.shape[0], z.shape[1], cb.shape[0])] = (z, cb)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: mk(x), iters=3, warmup=1, repeats=3)
+            fwd_p = cuda_ms(lambda: mp_(x), iters=3, warmup=1, repeats=3)
+        log(f"  {name} eval forward N={ZOO_FWD_N}: {fmt(fwd)} (plain twin {fmt(fwd_p)}); "
+            f"launches {counts}")
+        del mk, mp_, runs
+        free_card()
+    # kernel 1 alone at the zoo's (N, D, K), on the inputs the zoo searched
+    counts = dict(CB.LAUNCHES)
+    kernel_rows = {}
+    for (n, d, k), (z, cb) in sorted(shapes.items()):
+        idx_k, zq_k = K.l2_nearest_cuda(z, cb)
+        idx_p, zq_p = K.l2_nearest_plain(z, cb)
+        agree = check_assignments(f"kernel 1 N={n} D={d} K={k}", idx_k, idx_p,
+                                  near_ties(z, cb))
+        err = float((zq_k[agree] - zq_p[agree]).abs().max())
+        ms = cuda_ms(lambda: K.l2_nearest_cuda(z, cb))
+        plain = cuda_ms(lambda: K.l2_nearest_plain(z, cb))
+        flops = 2 * n * k * d
+        b, by = bound_ms((2 * n * d + k * d + k + n) * 4, flops)
+        log(f"  kernel 1 N={n} D={d} K={k}: {fmt(ms)}, plain {fmt(plain)}, bound "
+            f"{b:.4f} ms ({by}), max|err| {err}; {tflops(flops, ms[0])}")
+        kernel_rows[f"N={n} D={d} K={k}"] = dict(ms=ms[0], plain_ms=plain[0], bound_ms=b,
+                                                 bound_by=by, max_abs_err=err,
+                                                 library_ms=None)
+    CB.LAUNCHES.update(counts)
+    # PRISE is a host-side component over the `tokenizers` package
+    import importlib.util
+
+    if importlib.util.find_spec("tokenizers") is None:
+        log("  PRISE (PriseActionTokenizer) is not driven here: this host has no "
+            "`tokenizers` package, which it needs (it runs on the host, no kernel)")
+    else:
+        from robot_manipulation_vq_vae_tpu_torch.models.tokenizers import PriseActionTokenizer
+
+        rng = np.random.RandomState(5)
+        corpus = [[int(c) for c in rng.randint(0, 40, 12)] for _ in range(50)]
+        tok = PriseActionTokenizer("bpe", vocab_size=100)
+        tok.train(corpus)
+        check(all(tok.decode(tok.encode(s)) == s for s in corpus[:10]),
+              "PRISE round trip failed")
+        log(f"  PRISE bpe: vocab {tok.vocab_size}, round trips of 10 sequences equal")
+    log(f"  21a took {time.perf_counter() - t0:.1f} s")
+    return kernel_rows
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_flagship_config(plain_draws):
+    """The flagship training configuration; with @plain_draws dropout 0 and
+    no crop randomizer (the dp > 1 step refuses per-row draws)."""
+    cfg = flagship_config(serving=False)
+    if plain_draws:
+        with cfg.values_unlocked():
+            cfg.observation.encoder.rgb.obs_randomizer_class = None
+            tc = cfg.algo.transformer
+            tc.emb_dropout = tc.attn_dropout = tc.block_output_dropout = 0.0
+            tc.vqvae.dropout = 0.0
+    return cfg
+
+
+def dp_paper_config(plain_draws):
+    cfg = paper_config(pallas_pool=True)
+    if plain_draws:
+        with cfg.values_unlocked():
+            cfg.observation.encoder.rgb.obs_randomizer_class = None
+            tc = cfg.algo.transformer
+            tc.emb_dropout = tc.attn_dropout = tc.block_output_dropout = 0.0
+    return cfg
+
+
+DP_LEGS = {"flagship": ("icl", dp_flagship_config, False),
+           "paper": ("icl_gmm_paper", dp_paper_config, True)}
+
+
+def dp_algo(tag, dev, plain_draws):
+    import torch
+
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    name, make_cfg, _ = DP_LEGS[tag]
+    cfg = make_cfg(plain_draws)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    shapes = flagship_shapes(False) if tag == "flagship" else SHAPES
+    with torch.random.fork_rng(devices=[]):
+        return Algo.algo_factory(name, cfg, shapes, 12, device=dev)
+
+
+def dp_batches(tag, dev):
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(51)
+    return [make_train_batch(gen, dev, b=DP_B) for _ in range(DP_STEPS)]
+
+
+def dp_steps(algo, batches, mesh=None, first=None):
+    """DP_STEPS train_on_batch calls (the shards of @mesh when given), the
+    draws seeded, cuDNN's deterministic algorithms on: ([metrics], [ms a
+    step by CUDA events]). The networks' state after the first step goes
+    into the dict @first, where given."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch
+
+    algo.generator.manual_seed(7)
+    torch.manual_seed(7)
+    metrics, times = [], []
+    with deterministic_steps():
+        for step, batch in enumerate(batches):
+            if step == 1 and first is not None:
+                first.update(host_state(algo))
+            if mesh is not None:
+                batch = shard_batch(mesh, batch, halves=algo.DP_LAYOUT == "halves")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            info = algo.train_on_batch(batch, epoch=0)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            metrics.append({k: float(v) for k, v in info["losses"].items()})
+    return metrics, times
+
+
+def phase_mesh_dp1(CB, dev, card):
+    """21b: make_mesh under nccl at dp = 1 in this process; DP_STEPS
+    flagship and paper steps under shard_state against as many unsharded
+    steps from the same state and draws, equal to the bit; kernels 1, 3
+    and 4 counted."""
+    import torch
+    import torch.distributed as dist
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh, shard_state
+
+    log(f"phase 21b: the mesh at dp = 1 under nccl, {DP_STEPS} steps of the flagship and "
+        f"of icl_gmm_paper at B={DP_B} under shard_state against unsharded steps ({card})")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_mesh()
+        log(f"  mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}")
+        for tag in DP_LEGS:
+            batches = dp_batches(tag, dev)
+            ref = dp_algo(tag, dev, plain_draws=False)
+            state = {k: v.clone() for k, v in ref.nets.state_dict().items()}
+            want, ref_ms = dp_steps(ref, batches)
+            want_state = {k: v.clone() for k, v in ref.nets.state_dict().items()}
+            del ref
+            free_card()
+            algo = dp_algo(tag, dev, plain_draws=False)
+            algo.nets.load_state_dict(state)
+            shard_state(mesh, algo)
+            CB.reset_launch_counts()
+            got, ms = dp_steps(algo, batches, mesh)
+            counts = dict(CB.LAUNCHES)
+            record_path(f"phase 21b {tag} dp=1", counts)
+            per_step = {"stem_pool_fwd": 3, "stem_pool_bwd": 3} if tag == "flagship" else {
+                "stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 1}
+            check_launches(f"21b {tag}", counts, per_step, DP_STEPS)
+            check(got == want, f"21b {tag}: metrics differ: {got} vs {want}")
+            diff = [k for k, v in algo.nets.state_dict().items()
+                    if not torch.equal(v, want_state[k])]
+            check(not diff, f"21b {tag}: {len(diff)} tensors differ, e.g. {diff[:3]}")
+            log(f"  {tag}: {DP_STEPS} steps equal to the bit (metrics, {len(want_state)} "
+                f"tensors); launches {counts}; ms a step under the mesh "
+                f"{', '.join(f'{t:.3f}' for t in ms)}, unsharded "
+                f"{', '.join(f'{t:.3f}' for t in ref_ms)} (CUDA events, deterministic cuDNN)")
+            out[tag] = statistics.median(ms[1:])
+            del algo, want_state
+            free_card()
+    finally:
+        dist.destroy_process_group()
+    log(f"  21b took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mesh_rank(rank, world, port, work):
+    """One rank of 21c: gloo over tcp on the one card; each DP_LEGS step
+    under shard_state on its shard; rank results saved under @work."""
+    import torch
+    import torch.distributed as dist
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh, shard_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    CB.build_kernels()   # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        mesh = make_mesh()
+        for tag in DP_LEGS:
+            algo = dp_algo(tag, dev, plain_draws=True)
+            algo.nets.load_state_dict(torch.load(os.path.join(work, f"{tag}_start.pt")))
+            shard_state(mesh, algo)
+            batches = dp_batches(tag, dev)
+            CB.reset_launch_counts()
+            first = {}
+            metrics, ms = dp_steps(algo, batches, mesh, first)
+            out[tag] = dict(metrics=metrics, ms=ms, launches=dict(CB.LAUNCHES),
+                            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            if rank == 0:
+                out[tag]["first"] = first
+                out[tag]["state"] = host_state(algo)
+            del algo
+            free_card()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+# the flagship's HVQVAE metrics: its cosine codebooks flip near-tied
+# assignments under fp32 reduction-order noise, as tests/test_parallel.py
+# allows for (:278-305)
+DP_VQ_METRICS = ("vqvae_loss", "L_rec", "L_commit_z", "L_commit_q", "vqvae_grad_norms")
+
+
+def check_dp_metrics(tag, got, want):
+    """21c's metrics against the unsharded steps, test_parallel.py's way:
+    every metric within rtol 1e-4 / atol 1e-5 at the first step, and the
+    policy's at every step; the HVQVAE's after the first within its vq
+    bounds (rtol 3e-2 / atol 6e-2). Logs each metric's largest relative
+    gap."""
+    worst = {}
+    for step, (g, w) in enumerate(zip(got, want)):
+        for k, ref in w.items():
+            diff = abs(g[k] - ref)
+            worst[k] = max(worst.get(k, 0.0), diff / max(abs(ref), 1e-30))
+            rtol, atol = ((3e-2, 6e-2) if step > 0 and k in DP_VQ_METRICS
+                          else (1e-4, 1e-5))
+            check(diff <= atol + rtol * abs(ref),
+                  f"21c {tag} step {step} {k}: {g[k]} vs {ref}")
+    log(f"  {tag}: metrics' largest relative gap over {len(want)} steps: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def vq_rows_off(got, want):
+    """{buffer: (rows beyond test_parallel.py's 6e-2 + 3e-2 |want|, rows
+    beyond 1e-6)} over the HVQVAE's codebooks and EMA sums."""
+    out = {}
+    for k, w in want.items():
+        leaf = k.rsplit(".", 1)[-1]
+        if k.startswith("vqvae.") and leaf.startswith(("codebook_", "embed_avg_")):
+            d = (got[k] - w).abs()
+            out[leaf] = (int((d > 6e-2 + 3e-2 * w.abs()).any(-1).sum()),
+                         int((d > 1e-6).any(-1).sum()))
+    return out
+
+
+def check_dp_state(tag, got, want, when, vq_weights=False):
+    """21c's weights and buffers against the unsharded steps @when, at
+    test_parallel.py's bounds: the policy's tensors atol 5e-4 / rtol 1e-2
+    (the HVQVAE's too with @vq_weights), the HVQVAE's EMA mass within 2e-3
+    of its total. Its codebook and EMA-sum rows are reported, not held: at
+    the flagship's width (1,024 codes over 512 action steps) each step
+    replaces the codes no row chose by batch rows, so a last-bit difference
+    in one embedding (the encoder rounds differently over B / 2 rows than
+    over B on the card) moves which codes are replaced and what they
+    become; ``codebook_noise_floor`` measures that drift without dp, and
+    tests/test_torch_mesh.py holds the rows where the rounding is equal.
+    Returns a summary."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"21c {tag}: {k} differs {when}")
+            continue
+        leaf = k.rsplit(".", 1)[-1]
+        vq = k.startswith("vqvae.")
+        if vq and leaf.startswith("cluster_size_"):
+            check(abs(float(g.sum() - w.sum())) <= 2e-3 * abs(float(w.sum())),
+                  f"21c {tag}: {k}'s total mass moved {when}")
+        elif not (vq and leaf.startswith(("codebook_", "embed_avg_"))):
+            ok = bool(((g - w).abs() <= 5e-4 + 1e-2 * w.abs()).all())
+            check(ok or (vq and not vq_weights), f"21c {tag}: {k} beyond tolerance {when}")
+            if ok:
+                worst = max(worst, float((g - w).abs().max()))
+    text = "; ".join(f"{k} {o} rows beyond the bound, {n} beyond 1e-6"
+                     for k, (o, n) in vq_rows_off(got, want).items())
+    return f"weights max|diff| {worst:.3g} {when}" + (f"; {text}" if text else "")
+
+
+def codebook_noise_floor(algo, start, batches):
+    """The unsharded flagship's own drift: the same steps from @start with
+    the HVQVAE encoder's weights scaled by 1 + 1e-6 (a last-bit change),
+    against the steps just taken; the HVQVAE's rows that moved."""
+    import torch
+
+    want = host_state(algo)
+    algo.nets.load_state_dict(start)
+    for opt in algo.optimizers.values():
+        opt.state.clear()
+    with torch.no_grad():
+        for p in algo.nets["vqvae"].encoder.parameters():
+            p.mul_(1 + 1e-6)
+    dp_steps(algo, batches)
+    got = host_state(algo)
+    return "; ".join(f"{k} {o} rows beyond the bound, {n} beyond 1e-6"
+                     for k, (o, n) in vq_rows_off(got, want).items())
+
+
+def seed_codebooks(algo, batch):
+    """The flagship HVQVAE's k-means init and first EMA update from one
+    training forward over @batch's actions (no optimizer step), so that
+    21c's two sides start from one initialized state. The init is a
+    sequential D^2 sampling (1,023 picks of 1,024 codes over 512 action
+    steps) that a last-bit change of one embedding redirects, and the
+    encoder's convolutions round differently over B / 2 rows than over B
+    on the card (logged); tests/test_torch_mesh.py holds the init under dp
+    on the CPU, where they do not. Logs that rounding."""
+    import torch
+
+    vqvae = algo.nets["vqvae"]
+    actions = torch.as_tensor(batch["actions"])
+    with deterministic_steps(), torch.no_grad():
+        whole = vqvae.encoder(actions)
+        halves = torch.cat([vqvae.encoder(part) for part in actions.chunk(2)])
+        vqvae.train()
+        vqvae(actions, torch.Generator(actions.device).manual_seed(5))
+        vqvae.eval()
+    log(f"  the HVQVAE encoder over B={actions.shape[0]} rows and over two halves: "
+        f"max|diff| {float((whole - halves).abs().max()):.3g}")
+
+
+def phase_mesh_dp2(CB, dev, card, dp1_ms):
+    """21c: two processes on the one card over gloo (nccl refuses two ranks
+    on one device; the collectives stage through pinned host memory), each
+    DP_LEGS step under shard_state against the single-process step from
+    the same state (the flagship's codebooks seeded first,
+    ``seed_codebooks``), within the CPU test's tolerances
+    (tests/test_parallel.py's, ``check_dp_metrics`` / ``check_dp_state``);
+    the launches of each rank."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    log(f"phase 21c: dp = 2 on the one card, two processes over gloo, {DP_STEPS} steps of "
+        f"the flagship and of icl_gmm_paper at B={DP_B} (B/2 a rank), dropout 0 and no "
+        f"crops, against one process's unsharded steps ({card})")
+    t0 = time.perf_counter()
+    refs = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
+    for tag in DP_LEGS:
+        algo = dp_algo(tag, dev, plain_draws=True)
+        batches = dp_batches(tag, dev)
+        if "vqvae" in algo.nets:
+            seed_codebooks(algo, batches[0])
+        start = host_state(algo)
+        torch.save(start, os.path.join(work, f"{tag}_start.pt"))
+        first = {}
+        metrics, ms = dp_steps(algo, batches, first=first)
+        refs[tag] = dict(metrics=metrics, ms=ms, first=first,
+                         state=host_state(algo))
+        if "vqvae" in algo.nets:
+            refs[tag]["floor"] = codebook_noise_floor(algo, start, batches)
+        del algo
+        free_card()
+    tmp.spawn(mesh_rank, args=(2, free_port(), work), nprocs=2, join=True)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    for tag in DP_LEGS:
+        ref = refs[tag]
+        for r, res in enumerate(ranks):
+            record_path(f"phase 21c {tag} dp=2 rank {r}", res[tag]["launches"])
+            per_step = {"stem_pool_fwd": 3, "stem_pool_bwd": 3} if tag == "flagship" else {
+                "stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 1}
+            check_launches(f"21c {tag} rank {r}", res[tag]["launches"], per_step, DP_STEPS)
+        check_dp_metrics(tag, ranks[0][tag]["metrics"], ref["metrics"])
+        check(ranks[1][tag]["metrics"] == ranks[0][tag]["metrics"],
+              f"21c {tag}: the ranks' metrics differ")
+        gap = check_dp_state(tag, ranks[0][tag]["first"], ref["first"], "after step 0",
+                             vq_weights=True)
+        gap += "; " + check_dp_state(tag, ranks[0][tag]["state"], ref["state"],
+                                     "after the last step")
+        if "floor" in ref:
+            gap += (f"; the unsharded steps' own drift with the HVQVAE encoder's weights "
+                    f"moved by 1e-6 relative: {ref['floor']}")
+        ms = statistics.median(ranks[0][tag]["ms"][1:])
+        dp1 = dp1_ms[tag]
+        log(f"  {tag}: {gap}; rank launches {[res[tag]['launches'] for res in ranks]}; ms "
+            f"a step (CUDA events): dp=2 rank 0 {', '.join(f'{t:.3f}' for t in ranks[0][tag]['ms'])} "
+            f"(peak {ranks[0][tag]['peak_gib']:.2f} GiB a rank), unsharded "
+            f"{', '.join(f'{t:.3f}' for t in ref['ms'])}, 21b dp=1 {dp1:.3f}; dp=2 / dp=1 "
+            f"{ms / dp1:.3f}")
+    log(f"  21c took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_zoo_and_mesh(CB, K, dev, card):
+    """21: the zoo (21a), the mesh at dp = 1 (21b) and dp = 2 (21c)."""
+    log(f"phase 21: the tokenizer zoo on kernel 1 and the dp / mp mesh ({card})")
+    t0 = time.perf_counter()
+    kernel_rows = phase_zoo(CB, K, dev, card)
+    free_card()
+    dp1_ms = phase_mesh_dp1(CB, dev, card)
+    free_card()
+    phase_mesh_dp2(CB, dev, card, dp1_ms)
+    log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    return kernel_rows
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -4537,13 +5174,16 @@ def main():
     phase_bf16(CB, dev, card, {"15c": mamba_steps["ICLMamba_GMM LipVQ"], "16": film_steps,
                                "17c": baselines["DiffusionPolicyUNet (DDPM)"][0]},
                args.profile)
+    free_card()
+    zoo_kernel = phase_zoo_and_mesh(CB, K, dev, card)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
     kernels = [
+        # zoo_shapes: kernel 1 at the tokenizer zoo's (N, D, K) (phase 21a)
         dict(name="lipvq_assign", route="cuda", source=f"{SOURCE}/lipvq_assign.cu",
              replaces=f"{TPU_KERNELS}:39", launches=pol_counts["lipvq_assign"],
-             library_ms=None, **main_assign),
+             library_ms=None, **main_assign, zoo_shapes=zoo_kernel),
         dict(name="lipvq_roundtrip", route="cuda",
              source=f"{SOURCE}/lipvq_roundtrip.cu", replaces=f"{TPU_KERNELS}:142",
              launches=tok_counts["lipvq_roundtrip"], library_ms=None, **roundtrip),

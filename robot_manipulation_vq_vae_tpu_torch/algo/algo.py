@@ -159,6 +159,12 @@ class Algo:
     # counters of the algo's own (attribute names) that a resumed run needs:
     # ``serialize`` saves them with the optimizers, ``deserialize`` restores
     TRAINING_COUNTERS = ()
+    # data parallelism (``parallel.shard_state`` under dp > 1): the dp axis
+    # (``parallel.AxisComm``), and how ``shard_batch`` must cut a batch for
+    # this class's step ("rows", or "halves" where the step pairs the two
+    # halves of the batch row by row)
+    dp = None
+    DP_LAYOUT = "rows"
 
     def __init__(self, algo_config, obs_config, global_config, obs_key_shapes,
                  ac_dim, device=None, use_kernels=True):
@@ -263,6 +269,34 @@ class Algo:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
+    def set_data_parallel(self, comm):
+        """Run the data-parallel step over @comm (``parallel.shard_state``):
+        the gradients averaged over the ranks, the losses too, and the
+        modules that couple the rows of a batch given the axis."""
+        self.dp = comm
+        for m in self.nets.modules():
+            if hasattr(type(m), "dp"):
+                m.dp = comm
+
+    def _dp_mean(self, grads):
+        """@grads (a list of tensors) averaged over the data-parallel ranks
+        in place: with equal shards, the gradient of the global mean loss."""
+        if self.dp is not None:
+            self.dp.mean_(grads)
+        return grads
+
+    def _dp_losses(self, losses):
+        """The losses as the global batch's: the mean of the ranks' equal
+        shards' means; ``*grad_norms`` are of the averaged gradients
+        already."""
+        keys = [k for k in losses if not k.endswith("grad_norms")]
+        if self.dp is not None and keys:
+            values = torch.stack([losses[k].detach() for k in keys])
+            self.dp.mean_([values])
+            for k, v in zip(keys, values):
+                losses[k] = v
+        return losses
+
     def _step(self, name, params, grads):
         """One step of optimizer @name with @grads on @params, then one step
         of its schedule, if it has one."""
@@ -320,14 +354,19 @@ class Algo:
         @validate, the same losses in eval mode under ``no_grad``, and
         nothing updated. The networks end in the mode they were in. Returns
         {"losses": {name: 0-d tensor}}."""
+        if self.dp is not None and not (getattr(batch, "layout", None) == self.DP_LAYOUT
+                                        and batch.dp == self.dp.size):
+            raise ValueError(
+                f"{type(self).__name__} under data parallelism takes this rank's "
+                f"shard_batch(mesh, batch{', halves=True' if self.DP_LAYOUT == 'halves' else ''})")
         was_training = self.nets.training
         try:
             if validate:
                 self.nets.eval()
                 with torch.no_grad():
-                    return {"losses": self._validate_step(batch)}
+                    return {"losses": self._dp_losses(self._validate_step(batch))}
             self.nets.train()
-            losses = self._train_step(batch)
+            losses = self._dp_losses(self._train_step(batch))
             self.global_step += 1
             return {"losses": losses}
         finally:

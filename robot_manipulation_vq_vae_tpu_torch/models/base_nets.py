@@ -141,13 +141,39 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics and leaves them unchanged, as the JAX package's ``_bn_train``
     does (rounded once to bf16 by a mixed-precision step, as above)."""
 
+    # the data-parallel axis (``parallel.AxisComm``) whose global batch a
+    # training forward normalizes by, set by ``parallel.shard_state``
+    dp = None
+
     def __init__(self, num_features):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - FLAX_BN_MOMENTUM)
         self.frozen = False
 
     def forward(self, x):
+        use_batch = self.training and not self.frozen
+        if use_batch and self.dp is not None:
+            return global_batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                     self.bias, self.eps, self.dp)
         return flax_batch_norm(x, self.running_mean, self.running_var, self.weight,
-                               self.bias, self.training and not self.frozen, self.eps)
+                               self.bias, use_batch, self.eps)
+
+
+def global_batch_norm(x, running_mean, running_var, weight, bias, eps, dp):
+    """Training BatchNorm over the global batch of a data-parallel step: the
+    mean and biased variance of the channels over every rank's equal shard,
+    from an all-reduce of their sums and sums of squares (Flax's one-pass
+    statistics, E[x^2] - E[x]^2, floored at 0), differentiable across the
+    ranks; the running statistics move towards them as in
+    ``flax_batch_norm``."""
+    n = x.numel() // x.shape[1] * dp.size
+    stats = dp.sum(torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))])) / n
+    mean, mean2 = stats.chunk(2)
+    var = (mean2 - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        running_mean.lerp_(mean, 1.0 - FLAX_BN_MOMENTUM)
+        running_var.lerp_(var, 1.0 - FLAX_BN_MOMENTUM)
+    scale = torch.rsqrt(var + eps) * weight
+    return (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
 
 
 def set_frozen_batch_norm(module, frozen):

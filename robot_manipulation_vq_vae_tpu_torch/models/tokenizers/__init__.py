@@ -2,6 +2,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.lipvq import (
     LFQQuantizer,
     LipschitzDense,
     LipVQVAE,
+    LLFQVAE_V4,
 )
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.hvqvae import (
     HierarchicalVQVAE,
@@ -22,4 +23,17 @@ from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.default_encoder impor
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import (
     FastHostEncoder,
     FastProjection,
+)
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.vqvae import (
+    VQVAE,
+    LFQVAE,
+    LSTMVQVAE,
+)
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.hq_vae import (
+    LFQQuantizerEMA,
+    LFQQuantizerEMA_KMeans,
+    HierarchicalLFQHVQVAE,
+)
+from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.prise import (
+    PriseActionTokenizer,
 )

@@ -152,6 +152,10 @@ class HierarchicalVQVAE(nn.Module):
 
     JAX_NAMES = {"encoder": "encoder", "decoder": "decoder"}
     JAX_BUFFERS = {"vq": _VQ_BUFFERS}
+    # the data-parallel axis (``parallel.AxisComm``), set by
+    # ``parallel.shard_state``: the EMA counts and sums are all-reduced, and
+    # the k-means init and the dead-code picks run on the all-gathered batch
+    dp = None
 
     def __init__(self, action_dim, embed_dim=512, num_subclusters=128,
                  num_clusters=64, commitment_cost=1.0, ema_decay=0.99,
@@ -222,7 +226,7 @@ class HierarchicalVQVAE(nn.Module):
         that batch's assignment counts and sums of the raw embeddings."""
         if self._initialized:
             return
-        flat = embeddings.detach().reshape(-1, embeddings.shape[-1])
+        flat = self._global(embeddings.detach().reshape(-1, embeddings.shape[-1]))
         kz, kq = self.num_subclusters, self.num_clusters
         if self.kmeans_init:
             cz, _ = Q.kmeans(flat, kz, self.kmeans_iters, generator)
@@ -247,6 +251,11 @@ class HierarchicalVQVAE(nn.Module):
         self.codebooks_initialized.fill_(True)
         self._initialized = True
 
+    def _global(self, flat):
+        """@flat, or under data parallelism every rank's rows in rank order
+        (the global batch's)."""
+        return flat if self.dp is None else self.dp.all_gather(flat)
+
     @torch.no_grad()
     def _update_codebooks(self, embeddings, quantized_z, z_idx, q_idx, generator):
         """One EMA step (Z on the raw embeddings, Q on quantized_z), then
@@ -255,14 +264,19 @@ class HierarchicalVQVAE(nn.Module):
         emb_flat = embeddings.detach().reshape(-1, d)
         sub_flat = quantized_z.detach().reshape(-1, d)
         normalize = self.normalize_after_ema and self.use_cosine
+        reduce = None if self.dp is None else self.dp.all_reduce_
         nz, sz, cz = Q.ema_update(emb_flat, z_idx.reshape(-1), self.cluster_size_z,
-                                  self.embed_avg_z, self.ema_decay, self.eps, normalize)
+                                  self.embed_avg_z, self.ema_decay, self.eps, normalize,
+                                  reduce)
         nq, sq, cq = Q.ema_update(sub_flat, q_idx.reshape(-1), self.cluster_size_q,
-                                  self.embed_avg_q, self.ema_decay, self.eps, normalize)
-        cz, sz, nz = Q.replace_dead_codes(cz, sz, nz, emb_flat, self.replace_threshold_z,
-                                          self.use_cosine, generator)
-        cq, sq, nq = Q.replace_dead_codes(cq, sq, nq, sub_flat, self.replace_threshold_q,
-                                          self.use_cosine, generator)
+                                  self.embed_avg_q, self.ema_decay, self.eps, normalize,
+                                  reduce)
+        cz, sz, nz = Q.replace_dead_codes(cz, sz, nz, self._global(emb_flat),
+                                          self.replace_threshold_z, self.use_cosine,
+                                          generator)
+        cq, sq, nq = Q.replace_dead_codes(cq, sq, nq, self._global(sub_flat),
+                                          self.replace_threshold_q, self.use_cosine,
+                                          generator)
         for name, value in (("cluster_size_z", nz), ("embed_avg_z", sz),
                             ("codebook_z", cz), ("cluster_size_q", nq),
                             ("embed_avg_q", sq), ("codebook_q", cq)):

@@ -184,3 +184,7 @@ class LipVQVAE(nn.Module):
         flat = x.reshape(-1, x.shape[-1]).contiguous()
         recon, idx = K.lipvq_roundtrip_cuda(flat, **self.fused_weights())
         return recon.reshape(*lead, self.feature_dim), idx.reshape(lead)
+
+
+# the reference class name
+LLFQVAE_V4 = LipVQVAE

@@ -85,13 +85,18 @@ def assignment_stats(flat, idx, num_codes):
 
 
 def ema_update(flat, idx, cluster_size, embed_avg, decay, eps=1e-5,
-               normalize=True):
+               normalize=True, reduce=None):
     """One EMA step of the codebook statistics; returns the new
     (cluster_size, embed_avg, codebook):
       size  <- decay size + (1 - decay) counts
       avg   <- decay avg  + (1 - decay) sums
-      proto  = avg / (size + eps), L2-normalized for cosine codebooks."""
+      proto  = avg / (size + eps), L2-normalized for cosine codebooks.
+    @reduce (an in-place sum over data-parallel ranks) makes the counts and
+    sums the global batch's."""
     counts, sums = assignment_stats(flat, idx, cluster_size.shape[0])
+    if reduce is not None:
+        both = reduce(torch.cat([counts[:, None], sums], 1))
+        counts, sums = both[:, 0], both[:, 1:]
     new_size = decay * cluster_size + (1.0 - decay) * counts
     new_avg = decay * embed_avg + (1.0 - decay) * sums
     proto = new_avg / (new_size + eps)[:, None]

@@ -193,7 +193,7 @@ def jax_variables(module):
     for jax_key, torch_key, _, inv in _entries(module, [], []):
         if inv is None:
             raise NotImplementedError(f"{torch_key} is stacked from {jax_key}")
-        flat[jax_key] = np.ascontiguousarray(inv(state[torch_key].detach().cpu().numpy()))
+        flat[jax_key] = np.array(inv(state[torch_key].detach().cpu().numpy()), order="C")
     return flat
 
 

@@ -1141,3 +1141,157 @@ def test_offline_rl_request_with_kernels_equals_max_pool2d(cuda_device, name):
     want = twin.get_action(obs)
     assert got.shape == (16, 7)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the tokenizer zoo on kernel 1, and the mesh at dp = 1
+# ---------------------------------------------------------------------------
+
+def _zoo_twins(name, device, **kw):
+    """The zoo class @name with the kernel and its use_kernel=False twin,
+    the same weights."""
+    from robot_manipulation_vq_vae_tpu_torch.models import tokenizers as Zoo
+
+    cls = getattr(Zoo, name)
+    torch.manual_seed(0)
+    a = cls(**kw).to(device)
+    b = cls(**kw, use_kernel=False).to(device)
+    b.load_state_dict(a.state_dict())
+    return a, b
+
+
+@pytest.mark.cuda
+def test_vqvae_trains_through_kernel_1(cuda_device):
+    """Two Adam steps of VQVAE at the bench's widths: one assign launch a
+    step, losses and weights equal to the plain twin's (the codebook's
+    gradient through L2Nearest's index_add_, deterministic mode)."""
+    a, b = _zoo_twins("VQVAE", cuda_device, feature_dim=12, latent_dim=210,
+                      num_embeddings=128)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    xs = [torch.randn(2048, 12, generator=gen, device=cuda_device) for _ in range(2)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for model, launches in ((a, 2), (b, 0)):
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            before = LAUNCHES["lipvq_assign"]
+            model.losses = []
+            for x in xs:
+                _, loss = model(x)
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                model.losses.append(float(loss))
+            assert LAUNCHES["lipvq_assign"] - before == launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert a.losses == pytest.approx(b.losses, rel=1e-6)
+    for k, v in b.state_dict().items():
+        torch.testing.assert_close(a.state_dict()[k], v, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["LFQQuantizerEMA", "LFQQuantizerEMA_KMeans"])
+def test_ema_quantizers_match_their_plain_twins(cuda_device, name):
+    """Three training forwards (the k-means init and dead-code replacement
+    with the same generator seed): one assign launch each, z_q, indices and
+    every ``vq`` buffer equal to the plain twin's."""
+    kw = dict(num_codes=256, code_dim=64)
+    if name.endswith("KMeans"):
+        kw["kmeans_iters"] = 5
+    a, b = _zoo_twins(name, cuda_device, **kw)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    xs = [torch.sigmoid(torch.randn(1024, 64, generator=gen, device=cuda_device))
+          for _ in range(3)]
+    outs = {}
+    for model, launches in ((a, 3), (b, 0)):
+        model.train()
+        draws = torch.Generator(cuda_device).manual_seed(3)
+        before = LAUNCHES["lipvq_assign"]
+        outs[launches] = [model(x, generator=draws) for x in xs]
+        assert LAUNCHES["lipvq_assign"] - before == launches
+    for (qa, ia), (qb, ib) in zip(outs[3], outs[0]):
+        assert torch.equal(ia, ib) and torch.equal(qa, qb)
+    for k, v in b.state_dict().items():
+        torch.testing.assert_close(a.state_dict()[k], v, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_hierarchical_lfq_trains_through_kernel_1(cuda_device):
+    """Two Adam steps of HierarchicalLFQHVQVAE at q_dim 64, hidden 128: two
+    assign launches a step (z and q), everything equal to the plain twin's."""
+    a, b = _zoo_twins("HierarchicalLFQHVQVAE", cuda_device, feature_dim=12, z_dim=210,
+                      q_dim=64, num_z_codes=256, num_q_codes=128, hidden_dim=128)
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    xs = [torch.randn(1024, 12, generator=gen, device=cuda_device) for _ in range(2)]
+    losses = {}
+    for model, launches in ((a, 4), (b, 0)):
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        draws = torch.Generator(cuda_device).manual_seed(5)
+        model.train()
+        before = LAUNCHES["lipvq_assign"]
+        losses[launches] = []
+        for x in xs:
+            _, loss = model(x, generator=draws)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses[launches].append(float(loss))
+        assert LAUNCHES["lipvq_assign"] - before == launches
+    assert losses[4] == pytest.approx(losses[0], rel=1e-6)
+    for k, v in b.state_dict().items():
+        if v.is_floating_point():
+            torch.testing.assert_close(a.state_dict()[k], v, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_mesh_dp1_under_nccl_equals_unsharded_steps(cuda_device):
+    """make_mesh over a one-rank nccl group; the tiny flagship (rgb, the
+    stem pool's kernels) and the LipVQ paper step under shard_state and
+    shard_batch equal to the bit to unsharded steps from the same state
+    and draws, the kernels launched."""
+    import socket
+    import sys
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import torch_mesh_workers as W
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh, shard_state
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert tuple(mesh.mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+        legs = W.legs()
+        for tag in ("flagship_rgb", "paper"):
+            name, cfg_name, with_rgb, init_vq, batches, halves = legs[tag]
+            runs = []
+            for under_mesh in (False, True):
+                algo, _ = W.leg_algo(name, cfg_name, with_rgb, init_vq, device=cuda_device)
+                if under_mesh:
+                    shard_state(mesh, algo)
+                before = dict(LAUNCHES)
+                torch.backends.cudnn.deterministic = True
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    losses = W.steps(algo, batches, mesh if under_mesh else None, halves)
+                finally:
+                    torch.backends.cudnn.deterministic = False
+                    torch.use_deterministic_algorithms(False)
+                launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                runs.append((losses, algo.nets.state_dict(), launched))
+            (want, want_state, _), (got, got_state, launched) = runs
+            assert got == want
+            for k, v in want_state.items():
+                assert torch.equal(got_state[k], v), (tag, k)
+            assert launched["stem_pool_fwd"] > 0 and launched["stem_pool_bwd"] > 0 or (
+                tag == "paper")
+            if tag == "paper":
+                assert launched["lipvq_assign"] == len(batches)
+    finally:
+        dist.destroy_process_group()
