@@ -242,11 +242,29 @@ Phases, each of which fails the run when it fails:
      shard_state equal to the bit to 3 unsharded steps, kernels 1, 3 and 4
      counted; 21c dp = 2 on the one card: two spawned processes over gloo
      (the collectives staged through pinned host memory), the same steps
-     with dropout 0 and no crops (the flagship's codebooks seeded first),
+     with dropout 0 and no crops, draw-free beside 22a (the flagship's
+     codebooks seeded first),
      against one process's unsharded steps within tests/test_parallel.py's
      tolerances (the HVQVAE's codebook rows reported beside the unsharded
      steps' own drift under a 1e-6 change of its encoder's weights), each
      rank's launches; the steps after the first timed by CUDA events.
+  22. the mesh with the shipped draws, serving under it, and mp > 1: two
+     spawned processes on the one card over gloo. 22a dp = 2: 3 steps of
+     the flagship as shipped (phase 10a: crops 128 -> 116, dropout 0.1 in
+     the GPT and the HVQVAE, fp32, train.pallas_pool) and of icl_gmm_paper
+     (phase 8's, dropout 0.1, the halves layout) at global B = 64, each
+     draw taken at the global batch's shape, against one process's 3
+     unsharded steps from the same state and generator state: metrics,
+     weights and the policy's Adam moments within tests/test_parallel.py's
+     tolerances, the HVQVAE's codebook rows reported; kernels 1, 3 and 4
+     counted on each rank, the steps after the first timed by CUDA events;
+     22b get_action at B = 16 on each rank's shards (the paper's GMM
+     sampled from the gathered mixture) against unsharded serving from the
+     same weights and generator state (max |diff| <= 1e-3); 22c (dp, mp) =
+     (1, 2): the GPT tensor-parallel, 3 steps of 22a's flagship against the
+     same unsharded steps, a B = 16 request under mp against unsharded
+     serving, and the mp run's .pth loaded into an unsharded algo serving
+     the mp run's actions within 1e-5.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -1016,7 +1034,7 @@ def one_step(model, batch, deterministic=False):
 
     for algo in algos_of(model):
         algo.generator.manual_seed(7)
-    torch.manual_seed(7)   # dropout draws from the global generator
+    torch.manual_seed(7)   # the dropouts outside base_nets draw from the global one
     before = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = deterministic
     try:
@@ -4455,8 +4473,10 @@ DP_B, DP_STEPS = 32, 3        # 21b / 21c: the global batch and the steps (the
 
 
 def host_state(algo):
-    """A host copy of @algo's networks' state dict."""
-    return {k: v.detach().cpu().clone() for k, v in algo.nets.state_dict().items()}
+    """A host copy of @algo's networks' state dict, whole (under mp the
+    GPT's shards gathered: every rank calls it)."""
+    return {k: algo._full(v).detach().cpu().clone()
+            for k, v in algo.nets.state_dict().items()}
 
 
 def zoo_model(name, dev, use_kernel=True):
@@ -4698,7 +4718,7 @@ def free_port():
 
 def dp_flagship_config(plain_draws):
     """The flagship training configuration; with @plain_draws dropout 0 and
-    no crop randomizer (the dp > 1 step refuses per-row draws)."""
+    no crop randomizer (21c's draw-free steps)."""
     cfg = flagship_config(serving=False)
     if plain_draws:
         with cfg.values_unlocked():
@@ -4737,11 +4757,11 @@ def dp_algo(tag, dev, plain_draws):
         return Algo.algo_factory(name, cfg, shapes, 12, device=dev)
 
 
-def dp_batches(tag, dev):
+def dp_batches(tag, dev, b=DP_B, seed=51):
     import torch
 
-    gen = torch.Generator(dev).manual_seed(51)
-    return [make_train_batch(gen, dev, b=DP_B) for _ in range(DP_STEPS)]
+    gen = torch.Generator(dev).manual_seed(seed)
+    return [make_train_batch(gen, dev, b=b) for _ in range(DP_STEPS)]
 
 
 def dp_steps(algo, batches, mesh=None, first=None):
@@ -4871,8 +4891,8 @@ def mesh_rank(rank, world, port, work):
 DP_VQ_METRICS = ("vqvae_loss", "L_rec", "L_commit_z", "L_commit_q", "vqvae_grad_norms")
 
 
-def check_dp_metrics(tag, got, want):
-    """21c's metrics against the unsharded steps, test_parallel.py's way:
+def check_dp_metrics(tag, got, want, phase="21c"):
+    """@phase's metrics against the unsharded steps, test_parallel.py's way:
     every metric within rtol 1e-4 / atol 1e-5 at the first step, and the
     policy's at every step; the HVQVAE's after the first within its vq
     bounds (rtol 3e-2 / atol 6e-2). Logs each metric's largest relative
@@ -4885,8 +4905,8 @@ def check_dp_metrics(tag, got, want):
             rtol, atol = ((3e-2, 6e-2) if step > 0 and k in DP_VQ_METRICS
                           else (1e-4, 1e-5))
             check(diff <= atol + rtol * abs(ref),
-                  f"21c {tag} step {step} {k}: {g[k]} vs {ref}")
-    log(f"  {tag}: metrics' largest relative gap over {len(want)} steps: "
+                  f"{phase} {tag} step {step} {k}: {g[k]} vs {ref}")
+    log(f"  {phase} {tag}: metrics' largest relative gap over {len(want)} steps: "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
@@ -4903,8 +4923,8 @@ def vq_rows_off(got, want):
     return out
 
 
-def check_dp_state(tag, got, want, when, vq_weights=False):
-    """21c's weights and buffers against the unsharded steps @when, at
+def check_dp_state(tag, got, want, when, vq_weights=False, phase="21c"):
+    """@phase's weights and buffers against the unsharded steps @when, at
     test_parallel.py's bounds: the policy's tensors atol 5e-4 / rtol 1e-2
     (the HVQVAE's too with @vq_weights), the HVQVAE's EMA mass within 2e-3
     of its total. Its codebook and EMA-sum rows are reported, not held: at
@@ -4921,16 +4941,17 @@ def check_dp_state(tag, got, want, when, vq_weights=False):
     for k, w in want.items():
         g = got[k]
         if not w.is_floating_point():
-            check(torch.equal(g, w), f"21c {tag}: {k} differs {when}")
+            check(torch.equal(g, w), f"{phase} {tag}: {k} differs {when}")
             continue
         leaf = k.rsplit(".", 1)[-1]
         vq = k.startswith("vqvae.")
         if vq and leaf.startswith("cluster_size_"):
             check(abs(float(g.sum() - w.sum())) <= 2e-3 * abs(float(w.sum())),
-                  f"21c {tag}: {k}'s total mass moved {when}")
+                  f"{phase} {tag}: {k}'s total mass moved {when}")
         elif not (vq and leaf.startswith(("codebook_", "embed_avg_"))):
             ok = bool(((g - w).abs() <= 5e-4 + 1e-2 * w.abs()).all())
-            check(ok or (vq and not vq_weights), f"21c {tag}: {k} beyond tolerance {when}")
+            check(ok or (vq and not vq_weights),
+                  f"{phase} {tag}: {k} beyond tolerance {when}")
             if ok:
                 worst = max(worst, float((g - w).abs().max()))
     text = "; ".join(f"{k} {o} rows beyond the bound, {n} beyond 1e-6"
@@ -4996,50 +5017,51 @@ def phase_mesh_dp2(CB, dev, card, dp1_ms):
         f"crops, against one process's unsharded steps ({card})")
     t0 = time.perf_counter()
     refs = {}
-    work = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
-    for tag in DP_LEGS:
-        algo = dp_algo(tag, dev, plain_draws=True)
-        batches = dp_batches(tag, dev)
-        if "vqvae" in algo.nets:
-            seed_codebooks(algo, batches[0])
-        start = host_state(algo)
-        torch.save(start, os.path.join(work, f"{tag}_start.pt"))
-        first = {}
-        metrics, ms = dp_steps(algo, batches, first=first)
-        refs[tag] = dict(metrics=metrics, ms=ms, first=first,
-                         state=host_state(algo))
-        if "vqvae" in algo.nets:
-            refs[tag]["floor"] = codebook_noise_floor(algo, start, batches)
-        del algo
-        free_card()
-    tmp.spawn(mesh_rank, args=(2, free_port(), work), nprocs=2, join=True)
-    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-             for r in range(2)]
-    for tag in DP_LEGS:
-        ref = refs[tag]
-        for r, res in enumerate(ranks):
-            record_path(f"phase 21c {tag} dp=2 rank {r}", res[tag]["launches"])
-            per_step = {"stem_pool_fwd": 3, "stem_pool_bwd": 3} if tag == "flagship" else {
-                "stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 1}
-            check_launches(f"21c {tag} rank {r}", res[tag]["launches"], per_step, DP_STEPS)
-        check_dp_metrics(tag, ranks[0][tag]["metrics"], ref["metrics"])
-        check(ranks[1][tag]["metrics"] == ranks[0][tag]["metrics"],
-              f"21c {tag}: the ranks' metrics differ")
-        gap = check_dp_state(tag, ranks[0][tag]["first"], ref["first"], "after step 0",
-                             vq_weights=True)
-        gap += "; " + check_dp_state(tag, ranks[0][tag]["state"], ref["state"],
-                                     "after the last step")
-        if "floor" in ref:
-            gap += (f"; the unsharded steps' own drift with the HVQVAE encoder's weights "
-                    f"moved by 1e-6 relative: {ref['floor']}")
-        ms = statistics.median(ranks[0][tag]["ms"][1:])
-        dp1 = dp1_ms[tag]
-        log(f"  {tag}: {gap}; rank launches {[res[tag]['launches'] for res in ranks]}; ms "
-            f"a step (CUDA events): dp=2 rank 0 {', '.join(f'{t:.3f}' for t in ranks[0][tag]['ms'])} "
-            f"(peak {ranks[0][tag]['peak_gib']:.2f} GiB a rank), unsharded "
-            f"{', '.join(f'{t:.3f}' for t in ref['ms'])}, 21b dp=1 {dp1:.3f}; dp=2 / dp=1 "
-            f"{ms / dp1:.3f}")
-    log(f"  21c took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp2_") as work:
+        for tag in DP_LEGS:
+            algo = dp_algo(tag, dev, plain_draws=True)
+            batches = dp_batches(tag, dev)
+            if "vqvae" in algo.nets:
+                seed_codebooks(algo, batches[0])
+            start = host_state(algo)
+            torch.save(start, os.path.join(work, f"{tag}_start.pt"))
+            first = {}
+            metrics, ms = dp_steps(algo, batches, first=first)
+            refs[tag] = dict(metrics=metrics, ms=ms, first=first,
+                             state=host_state(algo))
+            if "vqvae" in algo.nets:
+                refs[tag]["floor"] = codebook_noise_floor(algo, start, batches)
+            del algo
+            free_card()
+        tmp.spawn(mesh_rank, args=(2, free_port(), work), nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        for tag in DP_LEGS:
+            ref = refs[tag]
+            for r, res in enumerate(ranks):
+                record_path(f"phase 21c {tag} dp=2 rank {r}", res[tag]["launches"])
+                per_step = {"stem_pool_fwd": 3, "stem_pool_bwd": 3} if tag == "flagship" else {
+                    "stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 1}
+                check_launches(f"21c {tag} rank {r}", res[tag]["launches"], per_step, DP_STEPS)
+            check_dp_metrics(tag, ranks[0][tag]["metrics"], ref["metrics"])
+            check(ranks[1][tag]["metrics"] == ranks[0][tag]["metrics"],
+                  f"21c {tag}: the ranks' metrics differ")
+            gap = check_dp_state(tag, ranks[0][tag]["first"], ref["first"], "after step 0",
+                                 vq_weights=True)
+            gap += "; " + check_dp_state(tag, ranks[0][tag]["state"], ref["state"],
+                                         "after the last step")
+            if "floor" in ref:
+                gap += (f"; the unsharded steps' own drift with the HVQVAE encoder's weights "
+                        f"moved by 1e-6 relative: {ref['floor']}")
+            ms = statistics.median(ranks[0][tag]["ms"][1:])
+            dp1 = dp1_ms[tag]
+            log(f"  {tag}: {gap}; rank launches {[res[tag]['launches'] for res in ranks]}; ms "
+                f"a step (CUDA events): dp=2 rank 0 "
+                f"{', '.join(f'{t:.3f}' for t in ranks[0][tag]['ms'])} "
+                f"(peak {ranks[0][tag]['peak_gib']:.2f} GiB a rank), unsharded "
+                f"{', '.join(f'{t:.3f}' for t in ref['ms'])}, 21b dp=1 {dp1:.3f}; dp=2 / dp=1 "
+                f"{ms / dp1:.3f}")
+        log(f"  21c took {time.perf_counter() - t0:.1f} s")
 
 
 def phase_zoo_and_mesh(CB, K, dev, card):
@@ -5053,6 +5075,236 @@ def phase_zoo_and_mesh(CB, K, dev, card):
     phase_mesh_dp2(CB, dev, card, dp1_ms)
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
     return kernel_rows
+
+
+MESH22_B, MESH22_REQ_B = 64, 16   # phase 22: the global training batch (phase
+                                  # 10a's) and the requests' batch
+MESH22_PER_STEP = {"flagship": {"stem_pool_fwd": 3, "stem_pool_bwd": 3},
+                   "paper": {"stem_pool_fwd": 6, "stem_pool_bwd": 6, "lipvq_assign": 1}}
+
+
+def mesh22_batches(dev):
+    return dp_batches(None, dev, b=MESH22_B, seed=52)
+
+
+def mesh22_request():
+    """A B = 16 request of 16 steps (observations, context), from a seed."""
+    return make_request(np.random.RandomState(53), MESH22_REQ_B, 16)
+
+
+SERVE22_REQUESTS = 4   # serve22's requests with @times: one checked, three timed
+
+
+def serve22(algo, request, mesh=None, times=None):
+    """get_action on @request (this rank's shards under a dp @mesh) with
+    the generator seeded, cuDNN deterministic: the global batch's actions
+    on the host. With @times, 3 more requests' host ms go there."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch
+
+    obs, ctx = request
+    if mesh is not None:
+        obs, ctx = shard_batch(mesh, obs), shard_batch(mesh, ctx)
+    with deterministic_steps():
+        algo.generator.manual_seed(9)
+        out = algo.get_action(obs, ctx).cpu()
+        for _ in range(SERVE22_REQUESTS - 1 if times is not None else 0):
+            t0 = time.perf_counter()
+            algo.get_action(obs, ctx).cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_request_launches(tag, counts, leg, requests=SERVE22_REQUESTS):
+    """@requests requests of @leg launched kernel 3 (the rgb trunks' stems,
+    as many a request), for the paper kernel 1 once a request, and nothing
+    else."""
+    fwd = counts.get("stem_pool_fwd", 0)
+    check(fwd > 0 and fwd % requests == 0,
+          f"{tag}: {requests} requests launched kernel 3 {fwd} times")
+    want = {"stem_pool_fwd": fwd // requests}
+    if leg == "paper":
+        want["lipvq_assign"] = 1
+    check_launches(tag, counts, want, requests)
+
+
+def host_moments(algo, name):
+    """Optimizer @name's Adam moments on the host, whole, by parameter
+    index (every mp rank calls it)."""
+    return {i: {k: algo._full(v).detach().cpu().clone() for k, v in st.items()
+                if k in ("exp_avg", "exp_avg_sq")}
+            for i, st in enumerate(algo.optimizers[name].state.values())}
+
+
+def check_moments(tag, got, want, phase):
+    """The policy's Adam moments at test_parallel.py's bounds (atol 5e-4,
+    rtol 1e-2); returns the largest |diff|."""
+    worst = 0.0
+    for i, st in want.items():
+        for k, w in st.items():
+            d = (got[i][k] - w).abs()
+            check(bool((d <= 5e-4 + 1e-2 * w.abs()).all()),
+                  f"{phase} {tag}: policy moment {i}.{k} beyond tolerance")
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def mesh22_rank(rank, world, port, work):
+    """One rank of phase 22: gloo over tcp on the one card. At dp = 2 each
+    leg from its start state under shard_state with the shipped draws: a
+    B = 16 request on its shards (22b), then the steps on its shards (22a);
+    at (dp, mp) = (1, 2) the flagship: a request, the steps, a request
+    after them and the .pth (22c). Results saved under @work."""
+    import torch
+    import torch.distributed as dist
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh, shard_state
+    from robot_manipulation_vq_vae_tpu_torch.utils import file_utils as FileUtils
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    CB.build_kernels()   # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        request = mesh22_request()
+        for mp in (1, 2):
+            mesh = make_mesh(mp=mp, device=dev)
+            dp_mesh = mesh if mp == 1 else None
+            for tag in (MESH22_PER_STEP if mp == 1 else ("flagship",)):
+                algo = dp_algo(tag, dev, plain_draws=False)
+                algo.nets.load_state_dict(torch.load(os.path.join(work, f"{tag}_start.pt")))
+                shard_state(mesh, algo)
+                res = {"serve_ms": []}
+                CB.reset_launch_counts()
+                res["serve"] = serve22(algo, request, dp_mesh, res["serve_ms"])
+                res["serve_launches"] = dict(CB.LAUNCHES)
+                CB.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats(dev)
+                first = {}
+                res["metrics"], res["ms"] = dp_steps(algo, mesh22_batches(dev), dp_mesh, first)
+                res["launches"] = dict(CB.LAUNCHES)
+                res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+                state, moments = host_state(algo), host_moments(algo, "policy")
+                if mp > 1:
+                    CB.reset_launch_counts()
+                    res["serve_after"] = serve22(algo, request)
+                    res["after_launches"] = dict(CB.LAUNCHES)
+                    model = algo.serialize()
+                    if rank == 0:
+                        FileUtils.save_checkpoint({"model": model},
+                                                  os.path.join(work, "mp2.pth"))
+                if rank == 0:
+                    res.update(first=first, state=state, moments=moments)
+                out[(mp, tag)] = res
+                del algo, state, moments, first
+                free_card()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def phase_mesh_draws(CB, dev, card):
+    """22: the mesh with the shipped draws (22a), get_action under it (22b)
+    and the flagship under mp = 2 (22c), two processes on the one card over
+    gloo, against one process's unsharded steps and requests from the same
+    states and generator states."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    from robot_manipulation_vq_vae_tpu_torch.utils import file_utils as FileUtils
+
+    log(f"phase 22: the mesh with the shipped draws (dropout 0.1, crops), get_action "
+        f"under it and the GPT under mp = 2, two processes on the one card over gloo, "
+        f"{DP_STEPS} steps at global B={MESH22_B} and requests at B={MESH22_REQ_B} "
+        f"({card})")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh22_") as work:
+        request = mesh22_request()
+        refs = {}
+        for tag in MESH22_PER_STEP:
+            algo = dp_algo(tag, dev, plain_draws=False)
+            batches = mesh22_batches(dev)
+            if "vqvae" in algo.nets:
+                seed_codebooks(algo, batches[0])
+            torch.save(host_state(algo), os.path.join(work, f"{tag}_start.pt"))
+            ref = {"serve_ms": []}
+            CB.reset_launch_counts()
+            ref["serve"] = serve22(algo, request, times=ref["serve_ms"])
+            ref["serve_launches"] = dict(CB.LAUNCHES)
+            check_request_launches(f"22b {tag} unsharded", ref["serve_launches"], tag)
+            record_path(f"phase 22b {tag} unsharded serving", ref["serve_launches"])
+            first = {}
+            ref["metrics"], ref["ms"] = dp_steps(algo, batches, first=first)
+            ref.update(first=first, state=host_state(algo), moments=host_moments(algo, "policy"))
+            refs[tag] = ref
+            del algo
+            free_card()
+        tmp.spawn(mesh22_rank, args=(2, free_port(), work), nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        for (mp, tag) in ((1, "flagship"), (1, "paper"), (2, "flagship")):
+            phase, ref = ("22a" if mp == 1 else "22c"), refs[tag]
+            mesh_name = "dp=2" if mp == 1 else "mp=2"
+            got = ranks[0][(mp, tag)]
+            for r, res in enumerate(ranks):
+                res = res[(mp, tag)]
+                record_path(f"phase {phase} {tag} {mesh_name} rank {r}", res["launches"])
+                check_launches(f"{phase} {tag} rank {r}", res["launches"], MESH22_PER_STEP[tag],
+                               DP_STEPS)
+                check(res["metrics"] == got["metrics"], f"{phase} {tag}: the ranks' metrics differ")
+                # a rank's requests launch what the unsharded requests do
+                serving = f"{'22b' if mp == 1 else '22c'} {tag} {mesh_name}"
+                check(res["serve_launches"] == ref["serve_launches"],
+                      f"{serving} rank {r}: requests launched {res['serve_launches']}, "
+                      f"unsharded {ref['serve_launches']}")
+                record_path(f"phase {serving} serving rank {r}", res["serve_launches"])
+                if "after_launches" in res:
+                    check_request_launches(f"{serving} rank {r} after the steps",
+                                           res["after_launches"], tag, requests=1)
+                    record_path(f"phase {serving} serving rank {r}", res["after_launches"])
+                serve_gap = float((res["serve"] - ref["serve"]).abs().max())
+                check(serve_gap <= 1e-3, f"22b/22c {tag} {mesh_name} rank {r}: get_action "
+                                         f"max|diff| {serve_gap} from unsharded serving")
+            check_dp_metrics(tag, got["metrics"], ref["metrics"], phase)
+            gap = check_dp_state(tag, got["first"], ref["first"], "after step 0", vq_weights=True,
+                                 phase=phase)
+            gap += "; " + check_dp_state(tag, got["state"], ref["state"], "after the last step",
+                                         phase=phase)
+            moments = check_moments(tag, got["moments"], ref["moments"], phase)
+            ms, ref_ms = statistics.median(got["ms"][1:]), statistics.median(ref["ms"][1:])
+            log(f"  {phase} {tag} {mesh_name}: {gap}; the policy's Adam moments max|diff| "
+                f"{moments:.3g}; rank launches {[res[(mp, tag)]['launches'] for res in ranks]}; "
+                f"ms a step (CUDA events): {mesh_name} rank 0 "
+                f"{', '.join(f'{t:.3f}' for t in got['ms'])} (peak {got['peak_gib']:.2f} GiB a "
+                f"rank), unsharded {', '.join(f'{t:.3f}' for t in ref['ms'])}; {mesh_name} / "
+                f"unsharded {ms / ref_ms:.3f} ({card})")
+            gaps = [float((res[(mp, tag)]["serve"] - ref["serve"]).abs().max()) for res in ranks]
+            log(f"  {'22b' if mp == 1 else '22c'} {tag} {mesh_name}: get_action at "
+                f"B={MESH22_REQ_B} on each rank's "
+                f"{'shards' if mp == 1 else 'whole request'}: max|diff| from unsharded serving "
+                f"{', '.join(f'{g:.3g}' for g in gaps)} (ranks 0, 1; bound 1e-3); request ms "
+                f"(host clock) {mesh_name} "
+                f"{', '.join(f'{t:.3f}' for t in got['serve_ms'])}, unsharded "
+                f"{', '.join(f'{t:.3f}' for t in ref['serve_ms'])} ({card})")
+        # 22c: the mp run's checkpoint served by an unsharded algo
+        algo = dp_algo("flagship", dev, plain_draws=False)
+        algo.deserialize(FileUtils.maybe_dict_from_checkpoint(
+            ckpt_path=os.path.join(work, "mp2.pth"))["model"])
+        reloaded = serve22(algo, request)
+        after = ranks[0][(2, "flagship")]["serve_after"]
+        gap = float((reloaded - after).abs().max())
+        check(gap <= 1e-5, f"22c: the mp run's .pth serves {gap} from the mp run's actions")
+        log(f"  22c: the mp run's .pth in an unsharded algo serves the mp run's B="
+            f"{MESH22_REQ_B} actions within {gap:.3g} (bound 1e-5)")
+        del algo
+        free_card()
+        log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
 
 def device_profile(tag, fn, share=()):
@@ -5176,6 +5428,8 @@ def main():
                args.profile)
     free_card()
     zoo_kernel = phase_zoo_and_mesh(CB, K, dev, card)
+    free_card()
+    phase_mesh_draws(CB, dev, card)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]

@@ -39,6 +39,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import mixed_precision as MixedPr
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import rotation_utils as RotUtils
+from robot_manipulation_vq_vae_tpu_torch.utils import tensor_parallel as TP
 from robot_manipulation_vq_vae_tpu_torch.utils import tensor_utils as TensorUtils
 
 # algo_name -> factory func (algo_config -> (cls, kwargs))
@@ -148,7 +149,8 @@ class Algo:
     ``self.device``, seeded from ``config.train.seed``; an optimizer and a
     learning-rate schedule per ``optim_params`` entry that names a network;
     ``self.generator`` (on the device) draws the training randomness the
-    networks take explicitly (the random crops)."""
+    networks take explicitly (the random crops and noise, and the masks of
+    every ``base_nets.Dropout``, which it is handed)."""
 
     # whether the class trains under ``train.mixed_precision``: True where
     # the JAX step honours the flag (the transformer, GMM and diffusion
@@ -165,6 +167,9 @@ class Algo:
     # halves of the batch row by row)
     dp = None
     DP_LAYOUT = "rows"
+    # tensor parallelism (``parallel.shard_state`` under mp > 1): the mp axis
+    # (``parallel.AxisComm``) over which the GPT's parameters are sharded
+    mp = None
 
     def __init__(self, algo_config, obs_config, global_config, obs_key_shapes,
                  ac_dim, device=None, use_kernels=True):
@@ -188,6 +193,9 @@ class Algo:
         self._set_train_modes(global_config.train)
         self.nets.to(self.device).eval()
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        for m in self.nets.modules():
+            if isinstance(m, BaseNets.Dropout):
+                m.generator = self.generator
         self.max_grad_norm = global_config.train.get("max_grad_norm", None)
         self.optimizers, self.lr_schedulers = {}, {}
         self._create_optimizers()
@@ -272,11 +280,29 @@ class Algo:
     def set_data_parallel(self, comm):
         """Run the data-parallel step over @comm (``parallel.shard_state``):
         the gradients averaged over the ranks, the losses too, and the
-        modules that couple the rows of a batch given the axis."""
+        modules that couple the rows of a batch or draw at its shape (and
+        the randomizers) given the axis."""
         self.dp = comm
         for m in self.nets.modules():
             if hasattr(type(m), "dp"):
                 m.dp = comm
+            for rands in (getattr(m, "randomizers", None) or {}).values():
+                for rand in rands:
+                    rand.dp = comm
+
+    def _check_shard(self, batch, layout="rows", what="batch"):
+        """Under data parallelism, raise unless @batch is this rank's
+        ``shard_batch`` shard cut by @layout."""
+        if self.dp is not None and not (getattr(batch, "layout", None) == layout
+                                        and batch.dp == self.dp.size):
+            raise ValueError(
+                f"{type(self).__name__} under data parallelism takes this rank's "
+                f"shard_batch(mesh, {what}{', halves=True' if layout == 'halves' else ''})")
+
+    def _gather_rows(self, t):
+        """@t of this rank's rows as the global batch's (all-gathered over
+        dp in rank order); @t itself without data parallelism."""
+        return t if self.dp is None else self.dp.all_gather(t)
 
     def _dp_mean(self, grads):
         """@grads (a list of tensors) averaged over the data-parallel ranks
@@ -354,11 +380,7 @@ class Algo:
         @validate, the same losses in eval mode under ``no_grad``, and
         nothing updated. The networks end in the mode they were in. Returns
         {"losses": {name: 0-d tensor}}."""
-        if self.dp is not None and not (getattr(batch, "layout", None) == self.DP_LAYOUT
-                                        and batch.dp == self.dp.size):
-            raise ValueError(
-                f"{type(self).__name__} under data parallelism takes this rank's "
-                f"shard_batch(mesh, batch{', halves=True' if self.DP_LAYOUT == 'halves' else ''})")
+        self._check_shard(batch, self.DP_LAYOUT)
         was_training = self.nets.training
         try:
             if validate:
@@ -381,25 +403,33 @@ class Algo:
         return names
 
     def _rng_state(self):
-        """The state of the global generator that dropout draws from."""
+        """The state of the global generator (the dropouts of modules outside
+        ``base_nets``, such as the default action encoder's)."""
         if self.device.type == "cuda":
             return torch.cuda.get_rng_state(self.device)
         return torch.get_rng_state()
+
+    def _full(self, t):
+        """@t whole: under mp, a sharded parameter's or moment's shards
+        gathered (a collective: every mp rank calls it)."""
+        return t if self.mp is None else TP.full_tensor(t, self.mp)
 
     def serialize(self, include_optimizer=False):
         """The networks' state dict under the reference's names (BatchNorm
         statistics and the HVQVAE's EMA buffers included), copied to the CPU.
         With @include_optimizer, also ``training_state``: each optimizer's and
         schedule's state dict, the step counter and the ``TRAINING_COUNTERS``,
-        the algo's generator (crops, k-means, dead codes) and the global
-        generator (dropout), so that a resumed run draws what the
-        uninterrupted run would have drawn."""
+        the algo's generator (crops, dropout, k-means, dead codes) and the
+        global generator (the dropouts of modules outside ``base_nets``), so
+        that a resumed run draws what the uninterrupted run would have
+        drawn. Under mp every tensor is written whole, in the unsharded
+        layout (every mp rank must call it)."""
         names = self._reference_names()
-        out = OrderedDict((names[k], v.detach().cpu().clone())
+        out = OrderedDict((names[k], self._full(v).detach().cpu().clone())
                           for k, v in self.nets.state_dict().items())
         if include_optimizer:
             out["training_state"] = {
-                "optimizers": {n: _to_cpu(o.state_dict())
+                "optimizers": {n: _to_cpu(o.state_dict(), self._full)
                                for n, o in self.optimizers.items()},
                 "lr_schedulers": {n: s.state_dict()
                                   for n, s in self.lr_schedulers.items()},
@@ -413,19 +443,24 @@ class Algo:
     def deserialize(self, model_dict):
         """Load what ``serialize`` wrote (strictly: every entry, no other).
         A ``training_state`` restores the optimizers, schedules, step counter
-        and generators too."""
+        and generators too. Under mp the whole tensors are placed again as
+        the parameters they load into."""
         port_name = {ref: k for k, ref in self._reference_names().items()}
         weights = {k: v for k, v in model_dict.items() if k != "training_state"}
         unknown = sorted(set(weights) - set(port_name))
         if unknown:
             raise KeyError(f"checkpoint entries this algo does not have: {unknown[:5]}")
-        self.nets.load_state_dict({port_name[k]: torch.as_tensor(v)
-                                   for k, v in weights.items()})
+        current = self.nets.state_dict()
+        self.nets.load_state_dict({
+            port_name[k]: TP.place_like(torch.as_tensor(v), current.get(port_name[k]))
+            for k, v in weights.items()})
         state = model_dict.get("training_state")
         if state is None:
             return
         for n, sd in state["optimizers"].items():
             self.optimizers[n].load_state_dict(sd)
+            if self.mp is not None:
+                TP.place_optimizer_state(self.optimizers[n])
         for n, sd in state["lr_schedulers"].items():
             self.lr_schedulers[n].load_state_dict(sd)
         self.global_step = int(state["step"])
@@ -445,14 +480,15 @@ class Algo:
         raise NotImplementedError
 
 
-def _to_cpu(tree):
-    """A copy of @tree (dicts, lists, tensors) with every tensor on the CPU."""
+def _to_cpu(tree, whole=lambda t: t):
+    """A copy of @tree (dicts, lists, tensors) with every tensor, made
+    @whole, on the CPU."""
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_cpu(v, whole) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
+        return type(tree)(_to_cpu(v, whole) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().clone()
+        return whole(tree).detach().cpu().clone()
     return tree
 
 
@@ -487,9 +523,9 @@ class PolicyAlgo(Algo):
         params = list(self.nets["policy"].parameters())
         grads = self._gradients(losses["action_loss"], params)
         metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
-        metrics["policy_grad_norms"] = OptimUtils.global_norm(grads)
+        metrics["policy_grad_norms"] = OptimUtils.global_norm(grads, self.mp)
         if self.max_grad_norm is not None:
-            OptimUtils.clip_by_global_norm_(grads, self.max_grad_norm)
+            OptimUtils.clip_by_global_norm_(grads, self.max_grad_norm, self.mp)
         self._step("policy", params, grads)
         return metrics
 

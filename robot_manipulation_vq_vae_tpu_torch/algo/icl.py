@@ -43,6 +43,7 @@ policy. With ``train.mixed_precision`` its training step runs in bf16 as
 the JAX paper step does (see ``ICLTransformer_GMM``).
 """
 
+import dataclasses
 import os
 from collections import OrderedDict
 
@@ -440,26 +441,38 @@ class ICLTransformer(ICL):
         grads = {n: [next(grads) for _ in params[n]] for n in nets}
         metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
         for n in nets:
-            metrics[f"{n}_grad_norms"] = global_norm(grads[n])
+            metrics[f"{n}_grad_norms"] = global_norm(grads[n], self.mp)
         for n in nets:
             if self.max_grad_norm is not None:
-                clip_by_global_norm_(grads[n], self.max_grad_norm)
+                clip_by_global_norm_(grads[n], self.max_grad_norm, self.mp)
             self._step(n, params[n], grads[n])
         return metrics
 
     def _validate_step(self, batch):
         return self._losses(batch)[0]
 
+    def _check_request(self, obs_dict, context_batch, goal_dict):
+        """Under data parallelism a request's observations, context (and
+        goals) are this rank's ``shard_batch`` rows."""
+        self._check_shard(obs_dict, what="obs")
+        self._check_shard(context_batch, what="context_batch")
+        if goal_dict is not None:
+            self._check_shard(goal_dict, what="goal_dict")
+
     def get_action(self, obs_dict, context_batch, goal_dict=None):
         """The policy's action for one request: [B, ac_dim]. The context
         actions, reconstructed by the HVQVAE where there is one, are passed
-        to the policy, which ignores them."""
+        to the policy, which ignores them. Under data parallelism the
+        request is this rank's shards, and every rank returns the global
+        batch's actions."""
+        self._check_request(obs_dict, context_batch, goal_dict)
         with torch.inference_mode():
             obs, actions = self._device_batch(
                 {"obs": obs_dict, "actions": context_batch["actions"]})
             if "vqvae" in self.nets:
                 actions = self.nets["vqvae"](actions)["reconstructed_actions"]
-            return self._select_output(self.nets["policy"](obs, actions=actions))
+            return self._gather_rows(
+                self._select_output(self.nets["policy"](obs, actions=actions)))
 
 
 class ICLTransformerHVQVAE(ICLTransformer):
@@ -659,7 +672,7 @@ class ICLTransformer_GMM(ICLTransformer):
                                for p, g in zip(params, grads)])
         metrics = OrderedDict(
             log_probs=-action_loss.detach(), action_loss=action_loss.detach(),
-            policy_grad_norms=global_norm(grads),
+            policy_grad_norms=global_norm(grads, self.mp),
         )
         if self.vq_vae_enabled:
             metrics["vq_vae_loss"] = vq_loss.detach()
@@ -668,7 +681,7 @@ class ICLTransformer_GMM(ICLTransformer):
             # moved
             self._step("vq_tokenizer", lipvq, vq_grads)
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            clip_by_global_norm_(grads, self.max_grad_norm, self.mp)
         self._step("policy", params, grads)
         return metrics
 
@@ -704,7 +717,21 @@ class ICLTransformer_GMM(ICLTransformer):
         )
 
     def get_action(self, obs_dict, context_batch, goal_dict=None):
-        """Sample the action of one request: [B, ac_dim] on ``self.device``."""
+        """Sample the action of one request: [B, ac_dim] on ``self.device``.
+        Under data parallelism the request is this rank's shards; the
+        mixture's parameters are gathered and every rank samples the global
+        batch from the replicated generator (``torch.multinomial``'s draw
+        is not separable by rows), as the unsharded request does."""
+        self._check_request(obs_dict, context_batch, goal_dict)
         dist, _ = self.action_distribution(obs_dict, context_batch, goal_dict)
         with torch.inference_mode():
-            return self._select_output(dist.sample(self.generator))
+            return self._select_output(self._gather_dist(dist).sample(self.generator))
+
+    def _gather_dist(self, dist):
+        """The global batch's GMM (or its tanh wrapper) from this rank's."""
+        if self.dp is None:
+            return dist
+        if hasattr(dist, "base"):
+            return dataclasses.replace(dist, base=self._gather_dist(dist.base))
+        return dataclasses.replace(dist, **{f: self._gather_rows(getattr(dist, f))
+                                            for f in ("means", "scales", "logits")})

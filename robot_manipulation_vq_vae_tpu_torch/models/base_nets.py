@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from robot_manipulation_vq_vae_tpu_torch.ops.stem_pool import max_pool_3x3_s2
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw
 
 # Flax's BatchNorm epsilon, the same as torch's default.
 BN_EPS = 1e-5
@@ -574,10 +575,13 @@ class SpatialSoftmax(nn.Module):
     ``learnable_temperature``: the temperature is a parameter of shape (1,).
     ``noise_std`` > 0: in training, ``noise_std`` x N(0, 1) is added to the
     keypoints, drawn from the caller's @generator (JAX draws it from its
-    ``dropout`` stream), or given as @noise; never in eval.
+    ``dropout`` stream) at the global batch's shape under data parallelism
+    (``dp``, ``utils.draws.global_draw``), or given as @noise; never in eval.
     ``output_variance``: returns (keypoints, cov [B, K, 2, 2])."""
 
     JAX_NAMES = {"kp_conv": "nets"}
+    # the data-parallel axis (``Algo.set_data_parallel``)
+    dp = None
 
     def __init__(self, input_shape, num_kp=32, temperature=1.0,
                  learnable_temperature=False, output_variance=False,
@@ -615,8 +619,10 @@ class SpatialSoftmax(nn.Module):
             if noise is None:
                 if generator is None:
                     raise ValueError("SpatialSoftmax's noise needs a generator in training")
-                noise = torch.randn(keypoints.shape, generator=generator,
-                                    device=generator.device, dtype=dtype)
+                noise = global_draw(
+                    lambda shape: torch.randn(shape, generator=generator,
+                                              device=generator.device, dtype=dtype),
+                    keypoints.shape, self.dp)
             keypoints = keypoints + self.noise_std * noise.to(keypoints.device, dtype)
         if not self.output_variance:
             return keypoints
@@ -649,6 +655,41 @@ class SpatialMeanPool(nn.Module):
         return [input_shape[-1]]
 
 
+class Dropout(nn.Module):
+    """Dropout with Flax's semantics and an explicit draw: in training each
+    element is kept with probability 1 - p and scaled by 1 / (1 - p). The
+    keep mask is drawn from ``generator`` (``Algo`` hands every Dropout of
+    its networks its own generator; without one, the global generator) at
+    the global batch's shape under data parallelism (``dp``,
+    ``utils.draws.global_draw``), so that the ranks together draw the
+    unsharded step's mask. @shape and @index draw the mask at @shape and
+    apply its [@index] (the GPT's attention under mp: every head's mask,
+    this rank's heads applied)."""
+
+    dp = None
+
+    def __init__(self, p=0.1):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+    def forward(self, x, shape=None, index=None):
+        if not self.training or self.p == 0.0:
+            return x
+        gen = self.generator
+        device = x.device if gen is None else gen.device
+        keep = global_draw(
+            lambda s: torch.rand(s, generator=gen, device=device) < 1.0 - self.p,
+            x.shape if shape is None else shape, self.dp)
+        if index is not None:
+            keep = keep[index]
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        return torch.where(keep.to(x.device), x / (1.0 - self.p), zero)
+
+
 class MLP(nn.Module):
     """Linear layers of @layer_dims, each followed by @activation (and by
     dropout where @dropouts gives one), then a Linear to @output_dim and the
@@ -664,7 +705,7 @@ class MLP(nn.Module):
             names[f"fc{i}"] = f"_model.{len(layers)}"
             layers += [nn.Linear(dim, width), activation()]
             if dropouts is not None and dropouts[i] > 0:
-                layers.append(nn.Dropout(dropouts[i]))
+                layers.append(Dropout(dropouts[i]))
             dim = width
         names["out"] = f"_model.{len(layers)}"
         layers.append(nn.Linear(dim, output_dim))

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.models import pretrained_nets as PretrainedNets
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw
 
 _POOL_CLASSES = {
     "SpatialSoftmax": BaseNets.SpatialSoftmax,
@@ -223,9 +224,13 @@ class ScanCore(nn.Module):
 class Randomizer:
     """An augmentation around an encoder core (JAX ``Randomizer``):
     ``forward_in`` before the core (may expand B -> B * N in training),
-    ``forward_out`` after it (the mean over the N samples)."""
+    ``forward_out`` after it (the mean over the N samples). Under data
+    parallelism (``dp``, which ``Algo.set_data_parallel`` hands over) a
+    ``draw`` is taken at the global batch's shape and the rank keeps its
+    rows (``utils.draws.global_draw``)."""
 
     num_samples = 1
+    dp = None
 
     def output_shape_in(self, input_shape=None):
         return list(self.input_shape if input_shape is None else input_shape)
@@ -279,12 +284,13 @@ class CropRandomizer(Randomizer):
     def draw(self, x, generator):
         """The crops' top-left corners (hy, wx), each [B, num_crops]."""
         b, h, w = x.shape[:3]
-        shape = (b, self.num_crops)
-        hy = torch.randint(0, h - self.crop_height + 1, shape,
-                           generator=generator, device=generator.device)
-        wx = torch.randint(0, w - self.crop_width + 1, shape,
-                           generator=generator, device=generator.device)
-        return hy.to(x.device), wx.to(x.device)
+
+        def corners(high):
+            return global_draw(lambda shape: torch.randint(
+                0, high, shape, generator=generator, device=generator.device),
+                (b, self.num_crops), self.dp).to(x.device)
+
+        return corners(h - self.crop_height + 1), corners(w - self.crop_width + 1)
 
     def forward_in(self, x, generator=None, train=False):
         """[B, H, W, C] -> [B * num_crops, crop_h, crop_w, C] in training
@@ -391,10 +397,13 @@ class ColorRandomizer(Randomizer):
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         factors = {}
         for name, (lo, hi) in self.ranges.items():
-            u = torch.rand(shape, generator=generator, device=generator.device)
+            u = global_draw(lambda s: torch.rand(s, generator=generator,
+                                                 device=generator.device), shape, self.dp)
             # at least fp32, as JAX draws them: a bf16 image becomes fp32
             factors[name] = (lo + (hi - lo) * u).to(
                 x.device, torch.promote_types(x.dtype, torch.float32))
+        # one order for the whole global batch: every rank takes the same
+        # draw, which keeps the generators in step
         n_orders = math.factorial(len(self.ranges))
         order = int(torch.randint(0, n_orders, (), generator=generator,
                                   device=generator.device))
@@ -436,8 +445,10 @@ class GaussianNoiseRandomizer(Randomizer):
 
     def draw(self, x, generator):
         # at least fp32, as JAX draws it: a bf16 image becomes fp32
-        return torch.randn(x.shape, generator=generator, device=generator.device).to(
-            x.device, torch.promote_types(x.dtype, torch.float32))
+        noise = global_draw(lambda shape: torch.randn(shape, generator=generator,
+                                                      device=generator.device),
+                            x.shape, self.dp)
+        return noise.to(x.device, torch.promote_types(x.dtype, torch.float32))
 
     def forward_in(self, x, generator=None, train=False):
         if not train:

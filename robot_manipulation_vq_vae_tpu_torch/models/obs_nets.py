@@ -365,7 +365,7 @@ class _TransformerEmbedding(nn.Module):
             )
             self.JAX_PARAMS = ("embed_timestep_table",)
         self.embed_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.embed_drop = nn.Dropout(emb_dropout)
+        self.embed_drop = BaseNets.Dropout(emb_dropout)
 
     def forward(self, x):
         emb = self.embed_encoder(x)

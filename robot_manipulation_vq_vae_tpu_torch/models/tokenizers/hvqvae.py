@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from robot_manipulation_vq_vae_tpu_torch.models.base_nets import Dropout
 from robot_manipulation_vq_vae_tpu_torch.models.transformers import LN_EPS
 from robot_manipulation_vq_vae_tpu_torch.ops import quantize as Q
 
@@ -49,7 +50,7 @@ class DilatedTemporalConvLayer(nn.Module):
         self.conv = nn.Conv1d(in_features, features, kernel_size, dilation=dilation,
                               padding=(kernel_size - 1) * dilation // 2)
         nn.init.zeros_(self.conv.bias)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.residual = None
         if in_features != features:
             self.residual = nn.Conv1d(in_features, features, 1)

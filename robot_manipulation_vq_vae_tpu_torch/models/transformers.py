@@ -3,9 +3,16 @@
 mask, a 4x MLP with exact (erf) GELU or GEGLU, pre-LN residual blocks and a
 final LayerNorm; and the sinusoidal positional encoding.
 
-LayerNorms use Flax's epsilon, 1e-6, not torch's default 1e-5. Parameters
-keep the reference torch key names (``nets.transformer.{i}.nets.*``,
-``nets.output_ln``).
+LayerNorms use Flax's epsilon, 1e-6, not torch's default 1e-5. The dropouts
+are ``base_nets.Dropout`` (Flax's semantics, drawn from the algo's
+generator). Parameters keep the reference torch key names
+(``nets.transformer.{i}.nets.*``, ``nets.output_ln``).
+
+Under tensor parallelism (``parallel.shard_params``, JAX's GPT rules) the
+blocks are given their ``mp`` axis and compute on their parameters' local
+shards through ``utils.tensor_parallel``: each rank attends with its own
+heads and holds its part of the MLP's hidden units; without it the same
+forwards compute every head and unit.
 """
 
 import math
@@ -14,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from robot_manipulation_vq_vae_tpu_torch.models.base_nets import Dropout
+from robot_manipulation_vq_vae_tpu_torch.utils import tensor_parallel as TP
 from robot_manipulation_vq_vae_tpu_torch.utils.mixed_precision import at_least_f32
 
 # Flax nn.LayerNorm's default epsilon (torch's default is 1e-5)
@@ -43,10 +52,25 @@ class GEGLU(nn.Module):
         return a * F.gelu(b)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` on its parameters' local tensors (replicated
+    DTensors under tensor parallelism)."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, TP.local(self.weight),
+                            TP.local(self.bias), self.eps)
+
+
 class SelfAttention(nn.Module):
-    """Multi-head self-attention with an optional causal (tril) mask."""
+    """Multi-head self-attention with an optional causal (tril) mask. Under
+    tensor parallelism (``mp``) this rank's heads: their q, k and v from the
+    gathered qkv weight (its ``Shard(0)`` rows do not follow the heads), the
+    attention dropout's mask drawn for every head and cut to them, and the
+    row-parallel output projection summed over mp."""
 
     JAX_NAMES = {"qkv": "nets.qkv", "output": "nets.output"}
+    # the tensor-parallel axis (``parallel.shard_params``)
+    mp = None
 
     def __init__(self, embed_dim, num_heads, causal=True, attn_dropout=0.1,
                  output_dropout=0.1):
@@ -57,25 +81,37 @@ class SelfAttention(nn.Module):
         self.causal = causal
         self.nets = nn.ModuleDict({
             "qkv": nn.Linear(embed_dim, 3 * embed_dim, bias=False),
-            "attn_dropout": nn.Dropout(attn_dropout),
+            "attn_dropout": Dropout(attn_dropout),
             "output": nn.Linear(embed_dim, embed_dim),
-            "output_dropout": nn.Dropout(output_dropout),
+            "output_dropout": Dropout(output_dropout),
         })
 
     def forward(self, x):
         b, t, d = x.shape
         nh, dh = self.num_heads, d // self.num_heads
-        q, k, v = self.nets["qkv"](x).chunk(3, dim=-1)
-        q, k, v = (a.reshape(b, t, nh, dh).transpose(1, 2) for a in (q, k, v))
+        heads = TP.heads(nh, self.mp)
+        n = heads.stop - heads.start
+        q, k, v = self._qkv(x, heads, dh).chunk(3, dim=-1)
+        q, k, v = (a.reshape(b, t, n, dh).transpose(1, 2) for a in (q, k, v))
         # the JAX products ask for fp32 results (preferred_element_type): a
         # bf16 q and k (mixed precision) are multiplied in fp32
         att = (at_least_f32(q) @ at_least_f32(k).transpose(-1, -2)) / math.sqrt(dh)
         if self.causal:
             mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
             att = att.masked_fill(~mask, float("-inf"))
-        att = self.nets["attn_dropout"](torch.softmax(att, dim=-1))
-        y = (att @ v).transpose(1, 2).reshape(b, t, d)
-        return self.nets["output_dropout"](self.nets["output"](y))
+        att = self.nets["attn_dropout"](torch.softmax(att, dim=-1), (b, nh, t, t),
+                                        (slice(None), heads))
+        y = (att @ v).transpose(1, 2).reshape(b, t, n * dh)
+        return self.nets["output_dropout"](TP.row_parallel(self.nets["output"], y, self.mp))
+
+    def _qkv(self, x, heads, dh):
+        """q, k and v of @heads, concatenated."""
+        if self.mp is None:
+            return self.nets["qkv"](x)
+        d = x.shape[-1]
+        w = TP.gathered(self.nets["qkv"].weight, self.mp, 0)
+        w = w.reshape(3, d, d)[:, heads.start * dh:heads.stop * dh].reshape(-1, d)
+        return F.linear(TP.sum_cotangent(x, self.mp), w)
 
 
 class SelfAttentionBlock(nn.Module):
@@ -85,6 +121,10 @@ class SelfAttentionBlock(nn.Module):
 
     JAX_NAMES = {"attention": "nets.attention", "ln1": "nets.ln1",
                  "ln2": "nets.ln2", "mlp_fc": "nets.mlp.0", "mlp_proj": "nets.mlp.2"}
+    # the tensor-parallel axis (``parallel.shard_params``): this rank's part
+    # of the MLP's hidden units (``mlp_fc`` column-, ``mlp_proj``
+    # row-parallel)
+    mp = None
 
     def __init__(self, embed_dim, num_heads, causal=True, attn_dropout=0.1,
                  output_dropout=0.1, activation="gelu"):
@@ -95,19 +135,21 @@ class SelfAttentionBlock(nn.Module):
         self.nets = nn.ModuleDict({
             "attention": SelfAttention(embed_dim, num_heads, causal,
                                        attn_dropout, output_dropout),
-            "ln1": nn.LayerNorm(embed_dim, eps=LN_EPS),
-            "ln2": nn.LayerNorm(embed_dim, eps=LN_EPS),
+            "ln1": LayerNorm(embed_dim, eps=LN_EPS),
+            "ln2": LayerNorm(embed_dim, eps=LN_EPS),
             "mlp": nn.Sequential(
                 nn.Linear(embed_dim, (8 if geglu else 4) * embed_dim),
                 GEGLU() if geglu else nn.GELU(),
                 nn.Linear(4 * embed_dim, embed_dim),
-                nn.Dropout(output_dropout),
+                Dropout(output_dropout),
             ),
         })
 
     def forward(self, x):
         x = x + self.nets["attention"](self.nets["ln1"](x))
-        return x + self.nets["mlp"](self.nets["ln2"](x))
+        fc, act, proj, drop = self.nets["mlp"]
+        h = act(TP.column_parallel(fc, self.nets["ln2"](x), self.mp))
+        return x + drop(TP.row_parallel(proj, h, self.mp))
 
 
 class GPT_Backbone(nn.Module):
@@ -124,7 +166,7 @@ class GPT_Backbone(nn.Module):
                                    block_output_dropout, activation)
                 for _ in range(num_layers)
             ]),
-            "output_ln": nn.LayerNorm(embed_dim, eps=LN_EPS),
+            "output_ln": LayerNorm(embed_dim, eps=LN_EPS),
         })
 
     def jax_names(self):

@@ -203,6 +203,17 @@ def kernel_name(base, dtype):
     return base + _DTYPE_SUFFIX[dtype]
 
 
+def refuse_dtensors(wrapper, tensors):
+    """Raise TypeError, naming @wrapper, when one of @tensors is a DTensor:
+    the kernels read ``data_ptr()``, which would be a local shard's (the
+    mesh keeps the kernels' inputs plain, ``parallel/mesh.py``)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{wrapper} takes plain local tensors, not DTensors (it would "
+                        "read a local shard's data_ptr)")
+
+
 def on_cpu(tensors):
     return all(t.device.type == "cpu" for t in tensors)
 

@@ -47,6 +47,7 @@ from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
     check_cuda_inputs,
     launch,
     on_cpu,
+    refuse_dtensors,
     stream_of,
 )
 from robot_manipulation_vq_vae_tpu_torch.utils.mixed_precision import at_least_f32
@@ -90,6 +91,7 @@ def l2_nearest_cuda(z, codebook):
     stays fp32: it reads the bf16 codebook as it lies, forms the distances
     in fp32 from c_sq summed over the upcast codebook, and writes z_q in
     fp32). Returns (idx [N] int32, z_q [N, D] fp32)."""
+    refuse_dtensors("l2_nearest_cuda", (z, codebook))
     if on_cpu((z, codebook)):
         return l2_nearest_plain(z, codebook)
     name = "lipvq_assign_bf16" if codebook.dtype == torch.bfloat16 else "lipvq_assign"
@@ -192,6 +194,7 @@ def lipvq_roundtrip_cuda(x, enc_w, lip_w, codebook, dec_w):
     wl, bl = lip_w
     (w3, b3), (w4, b4), (w5, b5) = dec_w
     tensors = (x, w1, b1, w2, b2, wl, bl, codebook, w3, b3, w4, b4, w5, b5)
+    refuse_dtensors("lipvq_roundtrip_cuda", tensors)
     if on_cpu(tensors):
         return lipvq_roundtrip_plain(x, enc_w, lip_w, codebook, dec_w)
     name = "lipvq_roundtrip"

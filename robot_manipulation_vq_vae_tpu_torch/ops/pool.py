@@ -39,6 +39,7 @@ from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
     launch,
     library,
     on_cpu,
+    refuse_dtensors,
     stream_of,
 )
 
@@ -92,6 +93,7 @@ def pool_route_plain(x, z, dz):
 def pool_route_cuda(x, z, dz):
     """Kernel 5: x [N, C, H, W] with H and W even, z and dz [N, C, H/2, W/2],
     contiguous, all fp32 or all bf16 -> dx [N, C, H, W]."""
+    refuse_dtensors("pool_route_cuda", (x, z, dz))
     if on_cpu((x, z, dz)):
         return pool_route_plain(x, z, dz)
     name = kernel_name("pool_route", x.dtype)

@@ -44,6 +44,7 @@ from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import (
     launch,
     library,
     on_cpu,
+    refuse_dtensors,
     stream_of,
 )
 
@@ -103,6 +104,7 @@ def pool_fwd_cuda(x):
     in bands of whole rows; a ValueError names a W too wide for a band of
     one output row in 227 KB of shared memory (about 16,000 fp32 or 31,000
     bf16 elements where H >= 3)."""
+    refuse_dtensors("pool_fwd_cuda", (x,))
     if on_cpu((x,)):
         return pool_fwd_plain(x)
     name = kernel_name("stem_pool_fwd", x.dtype)
@@ -168,6 +170,7 @@ def _check_plane(h, w, dtype):
 def pool_bwd_cuda(idx, g, hw):
     """Kernel 4: (offset int8, g fp32 or bf16) [N, C, Ho, Wo], contiguous,
     and the input's (H, W) -> dx [N, C, H, W] in g's type."""
+    refuse_dtensors("pool_bwd_cuda", (idx, g))
     if on_cpu((idx, g)):
         return pool_bwd_plain(idx, g, hw)
     name = kernel_name("stem_pool_bwd", g.dtype)

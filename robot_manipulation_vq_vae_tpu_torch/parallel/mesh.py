@@ -1,4 +1,4 @@
-"""Device mesh, data parallelism and the GPT's tensor-parallel rules
+"""Device mesh, data parallelism and the GPT's tensor parallelism
 (counterpart of the JAX package's ``parallel/mesh.py``), in PyTorch's idiom:
 one process a card, a ``torch.distributed`` process group that the caller
 starts (``init_process_group`` with its address, world size and rank), and a
@@ -15,15 +15,31 @@ starts (``init_process_group`` with its address, world size and rank), and a
   towards them, and the flagship's hierarchical VQ-VAE all-reduces its EMA
   counts and sums and runs its k-means initialization and dead-code picks
   on the all-gathered batch with the generator that every rank holds in the
-  same state. ``shard_state`` refuses (``NotImplementedError``) every algo
-  and option whose step it does not make equal to the unsharded one.
-* ``mp``: the GPT backbone's tensor-parallel rules as DTensor placements
-  (``shard_params``): ``mlp_fc`` and ``qkv`` column-parallel (``Shard(0)``
-  of torch's [out, in] weight), ``mlp_proj`` and the attention ``output``
-  row-parallel (``Shard(1)``), everything else ``Replicate()``. The
-  backbone's forward then runs on DTensors, whose sharding propagation keeps
-  its semantics (``.chunk(3)`` of the column-sharded qkv output splits q, k
-  and v as the unsharded one does). Training under mp > 1 is not ported.
+  same state. Every other random draw of the step (dropout, the
+  randomizers' crops, color jitter and noise, SpatialSoftmax's keypoint
+  noise) is taken at the global batch's shape from that generator, and the
+  rank keeps its rows (``utils.draws.global_draw``): the ranks together draw the
+  unsharded step's one draw, as GSPMD does. ``get_action`` under dp takes
+  ``shard_batch``'s shards and returns the global batch's actions on every
+  rank. ``shard_state`` refuses (``NotImplementedError``) every algo and
+  option whose step it does not make equal to the unsharded one.
+* ``mp``: the GPT backbone's tensor-parallel rules (``shard_params``):
+  ``mlp_fc`` and ``qkv`` column-parallel (``Shard(0)`` of torch's [out, in]
+  weight), ``mlp_proj`` and the attention ``output`` row-parallel
+  (``Shard(1)``), everything else ``Replicate()``. The parameters become
+  DTensors of those placements over the mp axis, which record the layout
+  and hold this rank's shard; the blocks are given the mp axis and their
+  own forwards compute on the local shards (``utils.tensor_parallel``),
+  every collective ``AxisComm``'s in an explicit autograd function, never
+  DTensor's own (on gloo ranks that share a card, DTensor's collectives on
+  CUDA shards kill the rank).
+  Each rank attends with its own heads: it all-gathers the qkv weight (its
+  ``Shard(0)`` rows do not follow the heads) and reduces that gradient;
+  the row-parallel outputs are all-reduced. The gradients come back in
+  their parameters' placements, so the optimizers step the local shards
+  with no collective. The trunks, the tokenizers and the kernels stay on
+  plain replicated tensors; ``Algo.serialize`` gathers full tensors in the
+  reference layout and ``deserialize`` places them again.
 
 The collectives run on the process group's backend: ``nccl`` on cards,
 ``gloo`` on the CPU. A CUDA tensor under ``gloo`` (two ranks that share one
@@ -31,12 +47,23 @@ card, which ``nccl`` refuses) is staged through pinned host memory: gloo's
 CUDA paths are not relied on.
 """
 
-import functools
+import collections
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from robot_manipulation_vq_vae_tpu_torch.algo.icl import (
+    ICLTransformer_GMM,
+    ICLTransformerHVQVAE,
+)
+from robot_manipulation_vq_vae_tpu_torch.models.transformers import GEGLU, GPT_Backbone
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import take_rows
+from robot_manipulation_vq_vae_tpu_torch.utils.tensor_parallel import (
+    local,
+    place_optimizer_state,
+)
 
 # ---------------------------------------------------------------------------
 # the mesh
@@ -55,12 +82,16 @@ def _start_one_rank_group():
                             init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
 
 
-def make_mesh(n_devices=None, mp=1):
+def make_mesh(n_devices=None, mp=1, device=None):
     """A ('dp', 'mp') mesh over the ranks of the started process group, one
     process a card: [world // mp, mp], rank r at (r // mp, r % mp). With no
     group started, @n_devices None or 1 starts one of this process alone
     (nccl on a card, gloo on the CPU); more ranks need the caller's
-    ``init_process_group`` with their address, world size and rank."""
+    ``init_process_group`` with their address, world size and rank. The
+    mesh's device type is @device's, the device the algo trains on
+    ("cuda" where there is a card when @device is None), whatever the
+    backend: the GPT's DTensor shards under mp stay on that device
+    (``shard_state`` refuses an algo on another)."""
     if not dist.is_initialized():
         if n_devices not in (None, 1):
             raise RuntimeError(f"make_mesh: {n_devices} devices need a started process "
@@ -72,8 +103,10 @@ def make_mesh(n_devices=None, mp=1):
         raise ValueError(f"make_mesh: {n_devices} devices asked, the group has {world} ranks")
     if world % mp:
         raise ValueError(f"make_mesh: {world} ranks are not divisible by mp={mp}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.arange(world).reshape(world // mp, mp),
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return DeviceMesh(torch.device(device).type,
+                      torch.arange(world).reshape(world // mp, mp),
                       mesh_dim_names=("dp", "mp"))
 
 
@@ -124,12 +157,13 @@ class AxisComm:
         dist.all_reduce(wire, group=self.group)
         return t.copy_(wire) if copied else t
 
-    def all_gather(self, t):
-        """The ranks' @t concatenated along dim 0 in rank order."""
+    def all_gather(self, t, dim=0):
+        """The ranks' @t concatenated along @dim in rank order."""
+        t = t.movedim(dim, 0)
         wire, _ = self._wire(t.contiguous())
         out = wire.new_empty((self.size * wire.shape[0], *wire.shape[1:]))
         dist.all_gather_into_tensor(out, wire, group=self.group)
-        return out.to(t.device, t.dtype)
+        return out.to(t.device, t.dtype).movedim(0, dim)
 
     def broadcast_(self, t, src=0):
         """@t from the axis' rank @src, in place; returns @t."""
@@ -142,9 +176,16 @@ class AxisComm:
         cotangents over the axis (every rank's loss reads the sum)."""
         return _AllReduceSum.apply(t, self)
 
+    def chunk(self, t, dim=0):
+        """This rank's equal part of @t along @dim."""
+        if t.shape[dim] % self.size:
+            raise ValueError(f"a dim of {t.shape[dim]} is not divisible by {self.size} ranks")
+        return t.chunk(self.size, dim)[self.rank]
+
     def mean_(self, tensors):
-        """Average @tensors over the axis in place, as one flat buffer."""
-        tensors = list(tensors)
+        """Average @tensors over the axis in place, as one flat buffer (a
+        DTensor: its local shard)."""
+        tensors = [local(t) for t in tensors]
         if not tensors:
             return tensors
         flat = torch.cat([t.reshape(-1) for t in tensors])
@@ -181,25 +222,6 @@ class LocalBatch(dict):
         self.dp = dp
 
 
-def _slice(x, rank, n, halves):
-    b = x.shape[0]
-    if halves:
-        if b % (2 * n):
-            raise ValueError(f"shard_batch: each half of a batch of {b} rows must be "
-                             f"divisible by dp={n}")
-        m, mid = b // (2 * n), b // 2
-        rows = list(range(rank * m, (rank + 1) * m))
-        rows += [mid + r for r in rows]
-        if isinstance(x, torch.Tensor):
-            return x[torch.as_tensor(rows, device=x.device)]
-        return x[rows]
-    if b % n:
-        raise ValueError(f"shard_batch: a leading axis of {b} rows is not divisible "
-                         f"by dp={n}")
-    m = b // n
-    return x[rank * m:(rank + 1) * m]
-
-
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -217,7 +239,7 @@ def shard_batch(mesh, batch, halves=False):
     axis that dp does not divide raises."""
     n = _size(mesh, "dp")
     rank = mesh.get_local_rank("dp")
-    return LocalBatch(_tree_map(lambda x: _slice(x, rank, n, halves), batch),
+    return LocalBatch(_tree_map(lambda x: take_rows(x, rank, n, halves), batch),
                       "halves" if halves else "rows", n)
 
 
@@ -227,8 +249,6 @@ def shard_batch(mesh, batch, halves=False):
 
 
 def _backbones(module):
-    from robot_manipulation_vq_vae_tpu_torch.models.transformers import GPT_Backbone
-
     return [m for m in module.modules() if isinstance(m, GPT_Backbone)]
 
 
@@ -245,36 +265,49 @@ def tp_placements(backbone):
     return {name: rules.get(name, Replicate()) for name, _ in backbone.named_parameters()}
 
 
-def _tp_forward(forward, mp_mesh):
-    """The backbone's forward on DTensors: the input replicated over mp, the
-    output gathered back to a plain tensor."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    @functools.wraps(forward)
-    def run(x):
-        x = DTensor.from_local(x, mp_mesh, [Replicate()], run_check=False)
-        with implicit_replication():
-            return forward(x).full_tensor()
-
-    return run
-
-
 def shard_params(mesh, module):
     """Place every GPT backbone's parameters under @module by the
-    tensor-parallel rules (``tp_placements``) over mp, in place; returns
-    @module. With mp = 1 the parameters stay plain replicated tensors."""
+    tensor-parallel rules (``tp_placements``) over mp, in place, and give
+    its blocks and their attention the mp axis (``mp``), so that their own
+    forwards compute on the local shards; returns @module. With mp = 1 the
+    parameters stay plain replicated tensors. Optimizers that hold the
+    replaced parameters must be given the new ones (``shard_state`` does)."""
     if _size(mesh, "mp") == 1:
         return module
     mp_mesh = mesh["mp"]
-    for backbone in _backbones(module):
+    comm = AxisComm(mesh, "mp")
+    backbones = _backbones(module)
+    for backbone in backbones:
+        if any(isinstance(m, GEGLU) for m in backbone.modules()):
+            raise NotImplementedError("shard_params: the GEGLU MLP under mp (its two "
+                                      "halves do not follow mlp_fc's Shard(0) rows)")
+        for block in backbone.nets["transformer"]:
+            if block.nets["attention"].num_heads % comm.size:
+                raise NotImplementedError(
+                    f"shard_params: {block.nets['attention'].num_heads} heads under "
+                    f"mp={comm.size} (each rank attends with whole heads)")
+    for backbone in backbones:
         placements = tp_placements(backbone)
         for name, param in list(backbone.named_parameters()):
             owner, _, leaf = name.rpartition(".")
             sub = backbone.get_submodule(owner) if owner else backbone
-            dt = distribute_tensor(param.detach(), mp_mesh, [placements[name]])
+            pl = placements[name]
+            part = comm.chunk(param.detach(), pl.dim) if pl.is_shard() else param.detach()
+            dt = DTensor.from_local(part.contiguous(), mp_mesh, [pl], run_check=False)
             setattr(sub, leaf, torch.nn.Parameter(dt, requires_grad=param.requires_grad))
-        backbone.forward = _tp_forward(backbone.forward, mp_mesh)
+        for block in backbone.nets["transformer"]:
+            block.mp = block.nets["attention"].mp = comm
     return module
+
+
+def _replace_optimizer_params(optimizer, new_of):
+    """@optimizer over the parameters @new_of gives ({id(old): new}), its
+    state carried over and placed as the new parameters are."""
+    for group in optimizer.param_groups:
+        group["params"] = [new_of.get(id(p), p) for p in group["params"]]
+    optimizer.state = collections.defaultdict(
+        dict, {new_of.get(id(p), p): st for p, st in optimizer.state.items()})
+    place_optimizer_state(optimizer)
 
 
 # ---------------------------------------------------------------------------
@@ -282,15 +315,9 @@ def shard_params(mesh, module):
 # ---------------------------------------------------------------------------
 
 
-def _dp_refusals(algo):
-    """What this algo's step has that the dp step does not make equal to the
-    unsharded step: a list of reasons (empty when covered)."""
-    from robot_manipulation_vq_vae_tpu_torch.algo.icl import (
-        ICLTransformer_GMM,
-        ICLTransformerHVQVAE,
-    )
-    from robot_manipulation_vq_vae_tpu_torch.models.base_nets import SpatialSoftmax
-
+def _refusals(algo):
+    """What this algo's step has that the sharded step does not make equal
+    to the unsharded step: a list of reasons (empty when covered)."""
     name = type(algo).__name__
     if type(algo) not in (ICLTransformerHVQVAE, ICLTransformer_GMM):
         return [f"{name} (covered: ICLTransformerHVQVAE and icl_gmm_paper with LipVQ)"]
@@ -303,28 +330,19 @@ def _dp_refusals(algo):
     for opt in ("mixed_precision", "packed_rgb_encoders"):
         if train.get(opt, False):
             out.append(f"train.{opt}")
-    for path, m in algo.nets.named_modules():
-        if isinstance(m, torch.nn.Dropout) and m.p > 0:
-            out.append(f"dropout {m.p} at {path} (each rank would draw its own masks, "
-                       "not the unsharded step's one draw)")
-        if isinstance(m, SpatialSoftmax) and m.noise_std > 0:
-            out.append(f"SpatialSoftmax keypoint noise at {path}")
-        for key, rands in (getattr(m, "randomizers", None) or {}).items():
-            if rands:
-                out.append(f"the {key} randomizers at {path} (per-row draws)")
     return out
 
 
 def _broadcast_state(comm, algo):
-    """Every rank starts from dp rank 0's weights, buffers, optimizer state
-    and generator."""
+    """Every rank of @comm's axis starts from its rank 0's weights, buffers,
+    optimizer state and generator (a DTensor: its local shard)."""
     for t in algo.nets.state_dict().values():
-        comm.broadcast_(t)
+        comm.broadcast_(local(t))
     for opt in algo.optimizers.values():
         for state in opt.state.values():
             for v in state.values():
                 if isinstance(v, torch.Tensor):
-                    comm.broadcast_(v)
+                    comm.broadcast_(local(v))
     algo.generator.set_state(comm.broadcast_(algo.generator.get_state()))
     for m in algo.nets.modules():
         if hasattr(m, "_initialized") and hasattr(m, "codebooks_initialized"):
@@ -332,27 +350,36 @@ def _broadcast_state(comm, algo):
 
 
 def shard_state(mesh, algo):
-    """Put @algo under @mesh, in place; returns @algo. Every rank holds the
-    parameters (replicated: the tensor-parallel rules at mp = 1), the
-    optimizer state follows its parameters, and every rank takes dp rank
-    0's weights, buffers, optimizer state and generator state, which stands
-    in for JAX's replicated ``rng``. Under dp > 1 ``train_on_batch`` then
-    takes only ``shard_batch``'s shards and runs the data-parallel step;
-    an algo or option whose step that would change raises
+    """Put @algo under @mesh, in place; returns @algo. Every rank takes its
+    axes' rank 0's weights, buffers, optimizer state and generator state,
+    which stands in for JAX's replicated ``rng``. Under mp > 1 the GPT
+    backbones' parameters are placed by ``shard_params`` and the optimizers
+    step their shards; under dp > 1 ``train_on_batch`` and ``get_action``
+    then take only ``shard_batch``'s shards and run the data-parallel step.
+    An algo or option whose step that would change raises
     ``NotImplementedError`` here, named."""
     dp, mp = _size(mesh, "dp"), _size(mesh, "mp")
-    if mp > 1:
-        raise NotImplementedError(
-            f"shard_state: training under mp={mp} is not ported (shard_params places "
-            "the GPT backbones for a forward)")
-    if dp == 1:
+    if dp == 1 and mp == 1:
         return algo
-    refused = _dp_refusals(algo)
+    if mp > 1 and mesh.device_type != algo.device.type:
+        raise ValueError(f"shard_state: a {mesh.device_type!r} mesh for an algo on "
+                         f"{algo.device.type!r} (its GPT shards would leave the algo's "
+                         "device): make_mesh(..., device=algo.device)")
+    refused = _refusals(algo)
     if refused:
         raise NotImplementedError(
-            f"shard_state: data parallelism (dp={dp}) is not ported for: "
-            + "; ".join(refused))
-    comm = AxisComm(mesh, "dp")
-    _broadcast_state(comm, algo)
-    algo.set_data_parallel(comm)
+            f"shard_state: (dp={dp}, mp={mp}) is not ported for: " + "; ".join(refused))
+    if mp > 1:
+        comm = AxisComm(mesh, "mp")
+        _broadcast_state(comm, algo)
+        before = dict(algo.nets.named_parameters())
+        shard_params(mesh, algo.nets)
+        new_of = {id(before[n]): p for n, p in algo.nets.named_parameters()}
+        for opt in algo.optimizers.values():
+            _replace_optimizer_params(opt, new_of)
+        algo.mp = comm
+    if dp > 1:
+        comm = AxisComm(mesh, "dp")
+        _broadcast_state(comm, algo)
+        algo.set_data_parallel(comm)
     return algo

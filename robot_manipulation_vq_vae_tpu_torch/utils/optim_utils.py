@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from robot_manipulation_vq_vae_tpu_torch.utils.tensor_parallel import is_sharded, local
+
 
 def lr_factor_from_optim_params(optim_params, num_training_steps=None):
     """The schedule as a factor of the initial rate: step k -> factor."""
@@ -84,18 +86,29 @@ def optimizer_from_optim_params(params, optim_params, num_training_steps=None):
     return optimizer, scheduler
 
 
-def global_norm(tensors):
+def global_norm(tensors, mp=None):
     """sqrt of the sum of squares over every element of @tensors (a 0-d
-    tensor; no host synchronization)."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t) for t in tensors])
-    )
+    tensor; no host synchronization). Under tensor parallelism (@mp, the
+    algo's mp axis) a DTensor counts each of its elements once: a replica's
+    norm as it is, a sharded one's squares summed over @mp, a collective
+    that every mp rank must call."""
+    norms = [torch.linalg.vector_norm(local(t)) for t in tensors]
+    sharded = [i for i, t in enumerate(tensors) if is_sharded(t)]
+    if sharded:
+        if mp is None:
+            raise ValueError("global_norm: sharded DTensors need their mp axis (@mp)")
+        sq = mp.all_reduce_(torch.stack([norms[i] for i in sharded]) ** 2)
+        for i, v in zip(sharded, sq.sqrt()):
+            norms[i] = v
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm_(grads, max_norm):
+def clip_by_global_norm_(grads, max_norm, mp=None):
     """Scale @grads in place by max_norm / norm when their global norm
-    reaches @max_norm (optax's ``clip_by_global_norm``)."""
-    norm = global_norm(grads)
+    reaches @max_norm (optax's ``clip_by_global_norm``); DTensors scale
+    their local shards (under @mp, ``global_norm``'s collective: every mp
+    rank calls it)."""
+    norm = global_norm(grads, mp)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
-        g.mul_(scale)
+        local(g).mul_(scale)

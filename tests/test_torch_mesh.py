@@ -11,7 +11,8 @@ unsharded port and the JAX package.
   forward within 1e-5 of the replicated one.
 * dp = 2 and dp = 4: test_parallel's LipVQ step; two steps of the tiny
   flagship (``__graft_entry__._tiny_config``, low-dim, and with rgb for
-  BatchNorm; dropout 0 and no crop randomizer, which the dp step refuses)
+  BatchNorm; dropout 0 and no crop randomizer, since JAX's draws differ:
+  the draws under dp are tests/test_torch_mesh_draws.py)
   and of ``icl_gmm_paper`` with LipVQ. Each equals the port's unsharded
   steps (within float32 reduction-order noise: losses 1e-5, weights,
   buffers and Adam moments 1e-5) and, the LipVQ and flagship steps, JAX's
@@ -24,9 +25,9 @@ unsharded port and the JAX package.
   uninitialized through a clustered batch: the k-means init and the
   dead-code picks on the all-gathered batch with the replicated generator,
   the replacement firing, against the unsharded port.
-* ``shard_state``'s refusals under dp > 1 (an uncovered algo, dropout, a
-  tokenizer other than LipVQ, mixed precision) and ``train_on_batch``'s of
-  a batch that is not a shard.
+* ``shard_state``'s refusals under dp > 1 (an uncovered algo, a tokenizer
+  other than LipVQ, mixed precision, packed trunks) and ``train_on_batch``'s
+  of a batch that is not a shard.
 """
 
 import numpy as np
@@ -349,7 +350,8 @@ def test_shard_state_refuses_what_it_does_not_cover(runs, world):
     _, ranks = runs
     got = ranks[world][0]["refusals"]
     assert got["bc"].startswith("NotImplementedError") and "BC" in got["bc"]
-    assert got["dropout"].startswith("NotImplementedError") and "dropout" in got["dropout"]
+    assert got["packed_rgb_encoders"].startswith("NotImplementedError")
+    assert "packed_rgb_encoders" in got["packed_rgb_encoders"]
     assert got["bin"].startswith("NotImplementedError") and "LipVQ" in got["bin"]
     assert got["mixed_precision"].startswith("NotImplementedError")
     assert "mixed_precision" in got["mixed_precision"]
