@@ -265,6 +265,28 @@ Phases, each of which fails the run when it fails:
      same unsharded steps, a B = 16 request under mp against unsharded
      serving, and the mp run's .pth loaded into an unsharded algo serving
      the mp run's actions within 1e-5.
+  23. the policy families at dp = 2: two spawned processes on the one card
+     over gloo, each cell of MESH23_CELLS with its shipped draws, a B = 16
+     request on the ranks' shards and 2 steps, against one process's
+     unsharded request and steps from the same start state and generator
+     state: 23a the flagship in bf16 and with packed trunks in bf16 (global
+     B = 64), 23b icl_gmm_paper (B = 64, the halves layout) with bin, LN-act,
+     the default encoder and FAST in fp32 and LipVQ in bf16, 23c
+     ICLMamba_GMM with LipVQ in bf16 and ICLMambaHVQVAE, 23d BC_RNN_GMM,
+     BC_VAE, BC_Transformer_GMM, the diffusion policy with DDIM requests
+     (fp32 and bf16) and ACT at phase 17's B = 100. Each rank launches
+     kernels 1, 3 and 4 as the unsharded run does, on half the rows; the
+     requests within 1e-3, the fp32 steps within tests/test_parallel.py's
+     bounds, the bf16 ones at fixed bounds (MESH23_BF16: metrics 1e-3
+     relative, the gradients 0.1 of their norm at the first step and the
+     last, each gradient tensor and Adam moment 0.5 of its own norm, at
+     most 1 % of the BatchNorm statistics beyond 1e-4, the weights at
+     test_parallel.py's bounds), with each rank's planted faults (its
+     gradient not averaged, half of the batch left out) read above the
+     gradients' bound and two witnesses reported (the unsharded step on
+     the ranks' shapes, and with the dp step's arithmetic too), the ranks
+     equal to the bit; each stem shape the ranks pooled held against the
+     plain pool; each cell's dp = 2 / unsharded ratio of its second step.
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of the path that was never launched fails the run. The
 kernels line gives each kernel's launches on every path that ran it.
@@ -4923,10 +4945,11 @@ def vq_rows_off(got, want):
     return out
 
 
-def check_dp_state(tag, got, want, when, vq_weights=False, phase="21c"):
+def check_dp_state(tag, got, want, when, vq_weights=False, phase="21c", exempt=()):
     """@phase's weights and buffers against the unsharded steps @when, at
     test_parallel.py's bounds: the policy's tensors atol 5e-4 / rtol 1e-2
-    (the HVQVAE's too with @vq_weights), the HVQVAE's EMA mass within 2e-3
+    (the HVQVAE's too with @vq_weights; not the names in @exempt, which the
+    caller holds), the HVQVAE's EMA mass within 2e-3
     of its total. Its codebook and EMA-sum rows are reported, not held: at
     the flagship's width (1,024 codes over 512 action steps) each step
     replaces the codes no row chose by batch rows, so a last-bit difference
@@ -4948,7 +4971,7 @@ def check_dp_state(tag, got, want, when, vq_weights=False, phase="21c"):
         if vq and leaf.startswith("cluster_size_"):
             check(abs(float(g.sum() - w.sum())) <= 2e-3 * abs(float(w.sum())),
                   f"{phase} {tag}: {k}'s total mass moved {when}")
-        elif not (vq and leaf.startswith(("codebook_", "embed_avg_"))):
+        elif not (vq and leaf.startswith(("codebook_", "embed_avg_"))) and k not in exempt:
             ok = bool(((g - w).abs() <= 5e-4 + 1e-2 * w.abs()).all())
             check(ok or (vq and not vq_weights),
                   f"{phase} {tag}: {k} beyond tolerance {when}")
@@ -5307,6 +5330,565 @@ def phase_mesh_draws(CB, dev, card):
         log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the policy families under dp = 2
+# ---------------------------------------------------------------------------
+
+MESH23_STEPS = 2        # steps a cell (the second timed for the ratio)
+MESH23_B, MESH23_REQ_B = 64, 16   # the ICL cells' global batch; the requests'
+PAPER_POOL = {"stem_pool_fwd": 6, "stem_pool_bwd": 6}
+BF16_PAPER_POOL = {"stem_pool_fwd_bf16": 6, "stem_pool_bwd_bf16": 6}
+BASE_POOL = {"stem_pool_fwd": 3, "stem_pool_bwd": 3}
+
+
+def _mesh23_flagship(dev, packed):
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = flagship_config(serving=False, mixed_precision=True,
+                          **({"packed_rgb_encoders": True} if packed else {}))
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory("icl", cfg, flagship_shapes(False), 12, device=dev)
+
+
+def _mesh23_paper_bf16(dev):
+    import robot_manipulation_vq_vae_tpu_torch.algo as Algo
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+
+    cfg = paper_config(pallas_pool=True, mixed_precision=True)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    return Algo.algo_factory("icl_gmm_paper", cfg, SHAPES, 12, device=dev)
+
+
+def _mesh23_baseline(name, configure=None, half=False):
+    def configure_all(cfg):
+        if configure is not None:
+            configure(cfg)
+        cfg.train.mixed_precision = half
+    return lambda dev: baseline_algo(name, dev, configure_all)
+
+
+# tag: (phase, make(dev), global B, window T, the step takes
+# process_batch_for_training's batch, request (kind, T), launches a step,
+# bf16). Every draw of the shipped configurations is on: the crops, the
+# dropouts (the paper's 0.1, the default encoder's), the VAE / diffusion /
+# ACT noise and the GMM samples, each at the global batch's shape.
+MESH23_CELLS = {
+    "flagship bf16": ("23a", lambda dev: _mesh23_flagship(dev, False), MESH23_B, 16, False,
+                      ("context", 16), {"stem_pool_fwd_bf16": 3, "stem_pool_bwd_bf16": 3},
+                      True),
+    "flagship packed bf16": ("23a", lambda dev: _mesh23_flagship(dev, True), MESH23_B, 16,
+                             False, ("context", 16), {}, True),
+    **{f"paper {m}": ("23b", lambda dev, m=m: modality_algo(m, dev), MESH23_B, 16, False,
+                      ("context", 16), PAPER_POOL, False)
+       for m in ("bin", "ln_act", "default", "fast")},
+    "paper LipVQ bf16": ("23b", _mesh23_paper_bf16, MESH23_B, 16, False, ("context", 16),
+                         {**BF16_PAPER_POOL, "lipvq_assign_bf16": 1}, True),
+    "ICLMamba_GMM LipVQ bf16": ("23c", lambda dev: mamba_algo(dev, mixed_precision=True),
+                                MESH23_B, MAMBA_T, False, ("context", MAMBA_T),
+                                {**BF16_PAPER_POOL, "lipvq_assign_bf16": 1}, True),
+    "ICLMambaHVQVAE": ("23c", lambda dev: mamba_algo(dev, gmm=False), MESH23_B, MAMBA_T,
+                       False, ("context", MAMBA_T), BASE_POOL, False),
+    "BC_RNN_GMM": ("23d", _mesh23_baseline("bc", bc_mode("rnn_gmm")), BASELINE_B, BC_T, True,
+                   ("rnn", 3), BASE_POOL, False),
+    "BC_VAE": ("23d", _mesh23_baseline("bc", bc_mode("vae")), BASELINE_B, 1, True,
+               ("obs", None), BASE_POOL, False),
+    "BC_Transformer_GMM": ("23d", _mesh23_baseline("bc", bc_mode("transformer_gmm")),
+                           BASELINE_B, BC_T, True, ("obs", BC_T), BASE_POOL, False),
+    "DiffusionPolicyUNet DDIM": ("23d", _mesh23_baseline("diffusion_policy", ddim_config),
+                                 BASELINE_B, DP_TP, True, ("obs", DP_TO), BASE_POOL, False),
+    "DiffusionPolicyUNet DDIM bf16": ("23d", _mesh23_baseline(
+        "diffusion_policy", ddim_config, half=True), BASELINE_B, DP_TP, True, ("obs", DP_TO),
+        {"stem_pool_fwd_bf16": 3, "stem_pool_bwd_bf16": 3}, True),
+    "ACT": ("23d", _mesh23_baseline("act"), BASELINE_B, ACT_CHUNK, True,
+            ("act", ACT_CHUNK + 1), BASE_POOL, False),
+}
+
+
+def mesh23_batches(tag, algo, dev):
+    """The cell's MESH23_STEPS training batches from a seed (the same on every
+    process), processed where its step takes them so."""
+    import torch
+
+    _, _, b, t, process, *_ = MESH23_CELLS[tag]
+    gen = torch.Generator(dev).manual_seed(53)
+    batches = [make_train_batch(gen, dev, b, t) for _ in range(MESH23_STEPS)]
+    return [algo.process_batch_for_training(x) for x in batches] if process else batches
+
+
+def mesh23_serve(algo, tag, mesh=None):
+    """The cell's B = 16 request (``MESH23_CELLS``' kind: a context batch,
+    observations [B, T, ...] or [B, ...], or a few stepwise calls after a
+    reset) on this rank's shards under a dp @mesh, the generator seeded and
+    cuDNN deterministic: the global batch's actions of every call,
+    [calls, 16, 12], on the host, and the launches of each call's kernels."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch
+
+    kind, t = MESH23_CELLS[tag][5]
+    rng = np.random.RandomState(54)
+    cut = (lambda d: d) if mesh is None else (lambda d: shard_batch(mesh, d))
+    if kind == "context":
+        obs, ctx = make_request(rng, MESH23_REQ_B, t)
+        calls = [lambda: algo.get_action(cut(obs), cut(ctx))]
+    elif kind == "obs":
+        obs = request_obs(rng, MESH23_REQ_B, t)
+        calls = [lambda: algo.get_action(cut(obs))]
+    else:
+        obs = [request_obs(rng, MESH23_REQ_B) for _ in range(t)]
+        calls = [lambda o=o: algo.get_action(cut(o)) for o in obs]
+        algo.reset()
+    with deterministic_steps():
+        algo.generator.manual_seed(9)
+        return torch.stack([call().float().cpu() for call in calls])
+
+
+def launched(CB):
+    """The kernels launched since the counts were reset, and how often."""
+    return {k: v for k, v in CB.LAUNCHES.items() if v}
+
+
+def mesh23_grads(algo):
+    """Every parameter's last gradient (the averaged, clipped one its
+    optimizer stepped) on the host."""
+    return {n: p.grad.detach().cpu().clone() for n, p in algo.nets.named_parameters()
+            if p.grad is not None}
+
+
+def all_moments(algo):
+    """Every optimizer's Adam moments on the host ({optimizer: host_moments})."""
+    return {name: host_moments(algo, name) for name in algo.optimizers}
+
+
+def capture_first_gradients(algo, store):
+    """Record the first step's gradients, every list that the step hands
+    ``_dp_mean``, flattened in call order on the host: this rank's own under
+    store["local"], the data-parallel mean under store["mean"] (the same
+    without dp), both before the clipping."""
+    import torch
+
+    inner = algo._dp_mean
+
+    def wrapped(grads):
+        if algo.global_step == 0:
+            store.setdefault("local", []).append(
+                torch.cat([g.detach().float().flatten() for g in grads]).cpu())
+        out = inner(grads)
+        if algo.global_step == 0:
+            store.setdefault("mean", []).append(
+                torch.cat([g.detach().float().flatten() for g in out]).cpu())
+        return out
+
+    algo._dp_mean = wrapped
+
+
+@contextlib.contextmanager
+def split_rows(parts=2):
+    """Every convolution and linear layer (``F.conv2d``, ``F.linear``) run as
+    @parts calls on equal parts of its input's rows, concatenated: the
+    ranks' shapes, and so their kernels' choices and sums, under the
+    unsharded step's semantics (BatchNorm's statistics, the draws and the
+    loss stay the whole batch's)."""
+    import torch
+    import torch.nn.functional as F
+
+    saved = {"conv2d": F.conv2d, "linear": F.linear}
+
+    def split(fn, min_dim):
+        def run(x, *args, **kwargs):
+            if x.dim() < min_dim or x.shape[0] < parts or x.shape[0] % parts:
+                return fn(x, *args, **kwargs)
+            return torch.cat([fn(c, *args, **kwargs) for c in x.chunk(parts)])
+        return run
+
+    F.conv2d, F.linear = split(saved["conv2d"], 4), split(saved["linear"], 2)
+    try:
+        yield
+    finally:
+        F.conv2d, F.linear = saved["conv2d"], saved["linear"]
+
+
+class OneRank:
+    """A data-parallel axis of one rank: ``parallel.AxisComm``'s calls, each
+    the identity. Modules given it run the data-parallel step's arithmetic
+    on the whole batch (BatchNorm through ``global_batch_norm``'s formula
+    rather than the native kernel's)."""
+
+    size, rank = 1, 0
+
+    def all_reduce_(self, t, op="sum"):
+        return t
+
+    def all_gather(self, t, dim=0):
+        return t
+
+    def broadcast_(self, t, src=0):
+        return t
+
+    def sum(self, t):
+        return t
+
+    def chunk(self, t, dim=0):
+        return t
+
+    def mean_(self, tensors):
+        return tensors
+
+
+def _vec_gap(a, b):
+    """||a - b|| / ||b|| of two flat gradient vectors."""
+    return float((a - b).norm() / b.norm())
+
+
+def mesh23_run(CB, tag, dev, mesh=None, work=None):
+    """One cell from its start state (the seed's weights; a HVQVAE's seeded
+    codebooks from @work): the request, then the steps (on @mesh's shards),
+    the stem pools' (shape, dtype) recorded. A bf16 cell also records its
+    first step's gradients before the clipping (``capture_first_gradients``).
+    Unsharded, it then takes that step twice more from the start state, the
+    witnesses: under ``split_rows`` (the ranks' shapes for every convolution
+    and linear layer), and so with its modules on a ``OneRank`` axis as
+    well (the dp step's arithmetic in one process); the three gradient
+    vectors go to @work, against which a rank reads its own. Returns what
+    phase 23 holds."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
+
+    make, half = MESH23_CELLS[tag][1], MESH23_CELLS[tag][7]
+    algo = make(dev)
+    path = os.path.join(work, f"{tag}_start.pt")
+    if "vqvae" in algo.nets:
+        if mesh is None:
+            seed_codebooks(algo, mesh23_batches(tag, algo, dev)[0])
+            torch.save(host_state(algo), path)
+        else:
+            algo.nets.load_state_dict(torch.load(path))
+    start = host_state(algo) if mesh is None and half else None
+    if mesh is not None:
+        shard_state(mesh, algo)
+    first = {}
+    if half:
+        capture_first_gradients(algo, first)
+    pools = set()
+    handles = [m.register_forward_pre_hook(lambda mod, args: pools.add(
+        (tuple(args[0].shape), str(args[0].dtype).split(".")[-1])))
+        for m in algo.nets.modules() if type(m).__name__ == "StemMaxPool"]
+    CB.reset_launch_counts()
+    res = {"serve": mesh23_serve(algo, tag, mesh), "serve_launches": launched(CB)}
+    CB.reset_launch_counts()
+    after_first = {}
+    res["metrics"], res["ms"] = dp_steps(algo, mesh23_batches(tag, algo, dev), mesh,
+                                         after_first if half else None)
+    res["launches"] = launched(CB)
+    for h in handles:
+        h.remove()
+    res.update(pools=pools, state=host_state(algo))
+    if half:   # the named parameters' first step (MESH23_SIGN_NOISE)
+        res["sign_first"] = {n: v for n, v in after_first.items()
+                             if n.endswith(MESH23_SIGN_NOISE)}
+        if start is not None:
+            res["sign_start"] = {n: start[n] for n in res["sign_first"]}
+        del after_first
+    # a bf16 cell is held by its gradients and every optimizer's moments too,
+    # an fp32 one by the policy's moments and its weights
+    if half:
+        name_of = {id(p): n for n, p in algo.nets.named_parameters()}
+        res.update(grads=mesh23_grads(algo), moments=all_moments(algo),
+                   moment_names={name: [name_of[id(p)] for g in opt.param_groups
+                                        for p in g["params"]]
+                                 for name, opt in algo.optimizers.items()})
+    else:
+        res["moments"] = host_moments(algo, "policy")
+    raw = os.path.join(work, f"{tag}_raw.pt")
+    if half and mesh is None:
+        vecs = {"ref": torch.cat(first["mean"])}
+        for witness, axis in (("halves", None), ("dp_arithmetic", OneRank())):
+            algo.nets.load_state_dict(start)
+            algo.global_step = 0
+            for m in algo.nets.modules():
+                if hasattr(type(m), "dp"):
+                    m.dp = axis
+            first.clear()
+            with split_rows():
+                dp_steps(algo, mesh23_batches(tag, algo, dev)[:1])
+            vecs[witness] = torch.cat(first["mean"])
+        torch.save(vecs, raw)
+        res["witness"] = {k: _vec_gap(v, vecs["ref"]) for k, v in vecs.items() if k != "ref"}
+        del vecs
+    elif half:
+        vecs = torch.load(raw)
+        own, mean = torch.cat(first["local"]), torch.cat(first["mean"])
+        res["first"] = {"dp": _vec_gap(mean, vecs["ref"]),
+                        "dp_vs_halves": _vec_gap(mean, vecs["halves"]),
+                        "dp_vs_dp_arithmetic": _vec_gap(mean, vecs["dp_arithmetic"]),
+                        "not_averaged": _vec_gap(own, vecs["ref"]),
+                        "half_left_out": _vec_gap(own / 2, vecs["ref"])}
+        del vecs
+    del algo
+    free_card()
+    return res
+
+
+def mesh23_rank(rank, world, port, work):
+    """One rank of phase 23: gloo over tcp on the one card, every cell at
+    dp = 2 from its start state; rank 0 keeps the states, rank 1 their
+    digests (equal to the bit to rank 0's)."""
+    import torch
+    import torch.distributed as dist
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    CB.build_kernels()   # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        mesh = make_mesh(device=dev)
+        for tag in MESH23_CELLS:
+            res = mesh23_run(CB, tag, dev, mesh, work)
+            res["digest"] = {k: hashlib.sha1(v.float().contiguous().numpy().tobytes()).hexdigest()
+                             for k, v in res["state"].items()}
+            if rank:
+                for k in ("state", "moments", "grads"):
+                    res.pop(k, None)
+            out[tag] = res
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def _grad_gap(a, b):
+    """||a - b|| / ||b|| over two runs' gradients, as one vector."""
+    import torch
+
+    want = torch.cat([g.flatten() for g in b.values()])
+    return float((torch.cat([a[n].flatten() for n in b]) - want).norm() / want.norm())
+
+
+def _stat_flips(got, want):
+    """How many BatchNorm statistic elements lie beyond 1e-4 of @want's,
+    and of how many."""
+    flips = n = 0
+    for k, v in want.items():
+        if k.endswith(("running_mean", "running_var")) and not k.startswith("vqvae."):
+            flips += int(((got[k] - v).abs() > 1e-4).sum())
+            n += v.numel()
+    return flips, n
+
+
+# phase 23's bf16 bounds, fixed: metrics relative; the gradients as one
+# vector relative to their norm (the first step's before the clipping and
+# the last step's after it), between the sound runs' largest reading (3.4 %
+# on the card, CP) and the planted faults' smallest (53 %): each rank's
+# planted faults (its gradient not averaged, half of the batch left out)
+# must read above it; each gradient tensor and each Adam moment relative to
+# its own norm; BatchNorm's statistics beyond 1e-4 as a share of them.
+MESH23_BF16 = {"metric": 1e-3, "vector": 0.1, "tensor": 0.5, "rounding_only": 1e-5,
+               "flips": 0.01}
+# tensors whose true gradient is 0, so that their bf16 gradient is rounding
+# alone: SpatialSoftmax's keypoint convolution bias (the softmax over each
+# plane is blind to a shift of its channel; on the card their gradients'
+# norms are 1e-7 to 9e-7 of the network's, CP). Held, and their moments,
+# within MESH23_BF16["rounding_only"] of the network's norm.
+MESH23_ROUNDING_ONLY = (".pool.nets.bias",)
+# parameters where an element may lie beyond test_parallel.py's bound by
+# Adam's first step, lr times its gradient's sign (0 for a zero gradient),
+# when that sign rounds apart: LipVQ's output layer (AdamW at lr 1e-3; CR:
+# one bias element stepped 0 at dp = 2 and 9.9e-4 unsharded). Such an
+# element must show it: its first step went different ways in the two runs.
+MESH23_SIGN_NOISE = ("action_network.decoder.2.weight", "action_network.decoder.2.bias")
+
+
+def _tensor_gaps(got, want, scale_of):
+    """[(||got - want|| / scale_of(name, want), name)] over @want's tensors,
+    largest first."""
+    return sorted(((float((got[n] - w).norm()) / max(scale_of(n, w), 1e-30), n)
+                   for n, w in want.items()), reverse=True)
+
+
+def check_bf16_dp(tag, got, ref, ranks, phase):
+    """A bf16 cell at MESH23_BF16's fixed bounds: metrics; the gradients as
+    one vector, at the first step (before the clipping, every list the step
+    averages) and the last (after it); each last gradient tensor and each
+    Adam moment of every optimizer against its own norm (MESH23_ROUNDING_ONLY
+    against the network's); BatchNorm's statistics; the weights and buffers
+    at test_parallel.py's bounds (``check_dp_state``; MESH23_SIGN_NOISE as
+    it says). Each rank's planted faults read above the vector bound. The
+    witnesses (the unsharded step on the ranks' shapes, and with the dp
+    step's arithmetic too) are reported beside the dp step's gap. Returns a
+    summary."""
+    import torch
+
+    tol = MESH23_BF16
+    worst_metric = 0.0
+    for step, (g, w) in enumerate(zip(got["metrics"], ref["metrics"])):
+        for k, v in w.items():
+            gap = abs(g[k] - v) / max(abs(v), 1e-30)
+            worst_metric = max(worst_metric, gap)
+            check(gap <= tol["metric"], f"{phase} {tag} step {step} {k}: {g[k]} vs {v}")
+    vec = _grad_gap(got["grads"], ref["grads"])
+    check(vec <= tol["vector"], f"{phase} {tag}: the last gradients differ by {vec} of their norm")
+    first = [res[tag]["first"] for res in ranks]
+    check(first[0]["dp"] <= tol["vector"],
+          f"{phase} {tag}: the first step's gradients differ by {first[0]['dp']} of their norm")
+    for r, f in enumerate(first):
+        check(min(f["not_averaged"], f["half_left_out"]) > tol["vector"],
+              f"{phase} {tag} rank {r}: a planted fault reads {f} within the bound")
+    net_norm = float(torch.cat([g.flatten() for g in ref["grads"].values()]).norm())
+
+    def bounded(gaps, what):
+        """@gaps [(gap / own norm, name)] within MESH23_BF16["tensor"], but
+        MESH23_ROUNDING_ONLY's (held against the network's norm apart)."""
+        for t, n in gaps:
+            if n.endswith(MESH23_ROUNDING_ONLY):
+                continue
+            check(t <= tol["tensor"], f"{phase} {tag}: {what} {n} {t} of its norm apart")
+
+    def own(name, w):
+        return float(w.norm())
+
+    tensors = _tensor_gaps(got["grads"], ref["grads"], own)
+    bounded(tensors, "gradient")
+    tensors = [(t, n) for t, n in tensors if not n.endswith(MESH23_ROUNDING_ONLY)]
+    for n, g in ref["grads"].items():
+        if n.endswith(MESH23_ROUNDING_ONLY):
+            gap = float((got["grads"][n] - g).norm())
+            check(gap <= tol["rounding_only"] * net_norm,
+                  f"{phase} {tag}: rounding-only gradient {n} {gap / net_norm} of the network's")
+    rounding = {n: (round(float(g.norm()) / net_norm, 9),
+                    round(float((got["grads"][n] - g).norm()) / max(float(g.norm()), 1e-30), 3))
+                for n, g in ref["grads"].items() if n.endswith(MESH23_ROUNDING_ONLY)}
+    moments = []
+    for name, want in ref["moments"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            whole = float(torch.cat([st[k].flatten() for st in want.values()]).norm())
+            named = {ref["moment_names"][name][i]: st[k] for i, st in want.items()}
+            mine = {ref["moment_names"][name][i]: st[k]
+                    for i, st in got["moments"][name].items()}
+            gaps = _tensor_gaps(mine, named, own)
+            bounded(gaps, f"{name} {k}")
+            moments += [(t, f"{name} {k} {n}") for t, n in gaps
+                        if not n.endswith(MESH23_ROUNDING_ONLY)]
+            for n, m in named.items():
+                if n.endswith(MESH23_ROUNDING_ONLY):
+                    gap = float((mine[n] - m).norm())
+                    check(gap <= tol["rounding_only"] * whole,
+                          f"{phase} {tag}: rounding-only {name} {k} {n} {gap / whole} of all")
+    moments.sort(reverse=True)
+    flips, n_stats = _stat_flips(got["state"], ref["state"])
+    check(flips <= tol["flips"] * n_stats, f"{phase} {tag}: {flips} of {n_stats} BatchNorm "
+          "statistics beyond 1e-4")
+    sign_noise = {}
+    for n, w0 in ref["sign_start"].items():
+        beyond = (got["state"][n] - ref["state"][n]).abs() > 5e-4 + 1e-2 * ref["state"][n].abs()
+        if bool(beyond.any()):
+            mine, theirs = got["sign_first"][n] - w0, ref["sign_first"][n] - w0
+            check(bool((torch.sign(mine) != torch.sign(theirs))[beyond].all()),
+                  f"{phase} {tag}: {n} moved beyond the bound without its first step "
+                  "going different ways")
+            sign_noise[n] = (int(beyond.sum()), float(mine[beyond].abs().max()),
+                             float(theirs[beyond].abs().max()))
+    faults = {k: ", ".join(f"{f[k]:.3g}" for f in first)
+              for k in ("not_averaged", "half_left_out")}
+    wit = ref["witness"]
+    return (f"metrics' largest relative gap {worst_metric:.3g}; first step's gradients "
+            f"{first[0]['dp']:.3g} of their norm from unsharded; witnesses: the ranks' shapes "
+            f"{wit['halves']:.3g} from unsharded and {first[0]['dp_vs_halves']:.3g} from dp, "
+            f"with the dp step's arithmetic {wit['dp_arithmetic']:.3g} from unsharded and "
+            f"{first[0]['dp_vs_dp_arithmetic']:.3g} from dp; planted faults (ranks 0, 1): a "
+            f"rank's gradient not averaged {faults['not_averaged']}, half of the batch left "
+            f"out {faults['half_left_out']}; last gradients {vec:.3g} of their norm, the "
+            f"largest tensor gaps {', '.join(f'{n} {t:.3g}' for t, n in tensors[:3])} of "
+            f"their norm; rounding-only tensors (norm / the network's, gap / own norm) "
+            f"{rounding}; Adam moments' largest gaps "
+            f"{', '.join(f'{n} {t:.3g}' for t, n in moments[:3])} of their norm; {flips} of "
+            f"{n_stats} BatchNorm statistics beyond 1e-4; Adam's first step different ways "
+            f"(elements, |step| dp, unsharded) {sign_noise}; "
+            + check_dp_state(tag, got["state"], ref["state"], "after the last step",
+                             vq_weights=True, phase=phase, exempt=tuple(sign_noise)))
+
+
+def phase_mesh_families(CB, S, dev, card):
+    """23: the policy families at dp = 2, two processes on the one card over
+    gloo, against one process's unsharded requests and steps from the same
+    start state and generator state (see MESH23_CELLS): each rank's launches
+    those of the unsharded run's requests and steps (the same launches on
+    half the rows), the request within 1e-3, the steps within
+    tests/test_parallel.py's bounds (fp32) or ``check_bf16_dp``'s fixed ones (bf16),
+    the ranks equal to the bit; each stem shape the ranks pooled held against
+    the plain pool; the dp = 2 / unsharded ratio of the second step."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    log(f"phase 23: the policy families at dp = 2 (bf16 and packed flagship, the paper's "
+        f"tokenizers, icl_mamba, the bc classes, the diffusion policy, ACT), two processes "
+        f"on the one card over gloo, {MESH23_STEPS} steps and a B={MESH23_REQ_B} request a "
+        f"cell ({card})")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh23_") as work:
+        refs = {tag: mesh23_run(CB, tag, dev, work=work) for tag in MESH23_CELLS}
+        log(f"  the unsharded runs took {time.perf_counter() - t0:.1f} s")
+        tmp.spawn(mesh23_rank, args=(2, free_port(), work), nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    pools = set()
+    for tag, (phase, *_, per_step, half) in MESH23_CELLS.items():
+        ref, got = refs[tag], ranks[0][tag]
+        check(ref["launches"] == {k: v * MESH23_STEPS for k, v in per_step.items()},
+              f"{phase} {tag}: unsharded steps launched {ref['launches']}")
+        for r, res in enumerate(ranks):
+            res = res[tag]
+            check(res["launches"] == ref["launches"],
+                  f"{phase} {tag} rank {r}: steps launched {res['launches']}, unsharded "
+                  f"{ref['launches']}")
+            check(res["serve_launches"] == ref["serve_launches"],
+                  f"{phase} {tag} rank {r}: the request launched {res['serve_launches']}, "
+                  f"unsharded {ref['serve_launches']}")
+            record_path(f"phase {phase} {tag} dp=2 rank {r} training", res["launches"])
+            record_path(f"phase {phase} {tag} dp=2 rank {r} serving", res["serve_launches"])
+            check(res["metrics"] == got["metrics"] and res["digest"] == got["digest"],
+                  f"{phase} {tag}: the ranks differ")
+            gap = float((res["serve"] - ref["serve"]).abs().max())
+            check(gap <= 1e-3, f"{phase} {tag} rank {r}: the request is {gap} from "
+                               "unsharded serving")
+            pools.update(res["pools"])
+        if half:
+            summary = check_bf16_dp(tag, got, ref, ranks, phase)
+        else:
+            check_dp_metrics(tag, got["metrics"], ref["metrics"], phase)
+            summary = check_dp_state(tag, got["state"], ref["state"], "after the last step",
+                                     vq_weights=True, phase=phase)
+            summary += f"; Adam moments max|diff| {check_moments(tag, got['moments'], ref['moments'], phase):.3g}"
+        gaps = [float((res[tag]["serve"] - ref["serve"]).abs().max()) for res in ranks]
+        log(f"  {phase} {tag}: {summary}; request max|diff| "
+            f"{', '.join(f'{g:.3g}' for g in gaps)} (ranks 0, 1; bound 1e-3); launches a rank "
+            f"{got['launches']} over {MESH23_STEPS} steps (unsharded {ref['launches']}), "
+            f"{got['serve_launches']} a request; ms a step (CUDA events) dp=2 rank 0 "
+            f"{', '.join(f'{t:.3f}' for t in got['ms'])}, unsharded "
+            f"{', '.join(f'{t:.3f}' for t in ref['ms'])}; dp=2 / unsharded "
+            f"{got['ms'][-1] / ref['ms'][-1]:.3f} ({card})")
+    # each stem shape the ranks pooled, held against the plain pool
+    gen = torch.Generator(dev).manual_seed(55)
+    for shape, dtype in sorted(pools):
+        x = relu_input(shape, gen, dev).to(getattr(torch, dtype))
+        out_k, idx_k = S.pool_fwd_cuda(x)
+        out_p, idx_p = S.pool_fwd_plain(x)
+        g = torch.randn(out_k.shape, generator=gen, device=dev).to(x.dtype)
+        same = (torch.equal(out_k, out_p) and torch.equal(idx_k, idx_p) and torch.equal(
+            S.pool_bwd_cuda(idx_k, g, shape[2:]), S.pool_bwd_plain(idx_p, g, shape[2:])))
+        check(same, f"23: kernels 3 / 4 differ from plain at the ranks' {shape} {dtype}")
+    log(f"  23: kernels 3 and 4 bit-equal to the plain pool at the ranks' "
+        f"{len(pools)} stem shapes {sorted(pools)}")
+    log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -5430,6 +6012,8 @@ def main():
     zoo_kernel = phase_zoo_and_mesh(CB, K, dev, card)
     free_card()
     phase_mesh_draws(CB, dev, card)
+    free_card()
+    phase_mesh_families(CB, S, dev, card)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]

@@ -16,7 +16,8 @@ Module names follow the JAX package's (``style{i}`` are the GPT's
 epsilon, 1e-6. ``get_action`` predicts a chunk when its queue is empty and
 pops one action a call; ``reset()`` (a rollout's ``start_episode``)
 empties the queue. The seam ``_noise_hook()`` returns a training step's
-latent draw [B, latent] (else ``self.generator`` draws it).
+latent draw [B, latent] (else ``self.generator`` draws it); under data
+parallelism the global batch's draw, of which each rank keeps its rows.
 ``train.mixed_precision`` raises.
 """
 
@@ -38,6 +39,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.transformers import (
 )
 from robot_manipulation_vq_vae_tpu_torch.utils import loss_utils as LossUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw, keep_rows
 
 
 @register_algo_factory_func("act")
@@ -95,6 +97,10 @@ class DETRVAE(nn.Module):
     docstring)."""
 
     JAX_PARAMS = ("cls_embed", "query_embed")
+    # the data-parallel axis (``parallel.AxisComm``): the latent's draw is
+    # taken at the global batch's shape and each rank keeps its rows, set
+    # by ``parallel.shard_state``
+    dp = None
 
     def __init__(self, obs_shapes, ac_dim, num_queries, hidden_dim=512,
                  dim_feedforward=3200, enc_layers=4, dec_layers=7, nheads=8,
@@ -154,8 +160,8 @@ class DETRVAE(nn.Module):
         obs_feat = self.obs_features(obs_dict, goal_dict, generator)
         mu, logvar = self.encode_style(obs_feat, actions)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                              dtype=mu.dtype)
+            eps = global_draw(lambda s: torch.randn(s, generator=generator, device=mu.device,
+                                                    dtype=mu.dtype), mu.shape, self.dp)
         z = mu + torch.exp(0.5 * logvar) * eps
         return {"a_hat": self.decode(obs_feat, z), "mu": mu, "logvar": logvar}
 
@@ -204,7 +210,8 @@ class ACT(PolicyAlgo):
         obs = dict(batch["obs"])
         keep = (torch.as_tensor(obs.pop("pad_mask")).to(self.device) != 0).to(self._dtype())
         obs, actions = self._device_batch({"obs": obs, "actions": batch["actions"]})
-        eps = None if self._noise_hook is None else self._draw(self._noise_hook())
+        eps = (None if self._noise_hook is None
+               else keep_rows(self._draw(self._noise_hook()), self.dp))
         out = self.nets["policy"].forward_train(
             obs, actions, goal_dict=self._obs(batch.get("goal_obs") or None), eps=eps,
             generator=self.generator)
@@ -231,8 +238,11 @@ class ACT(PolicyAlgo):
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
         """The next action [B, A] of the current chunk; a call that finds the
-        queue empty predicts a chunk from @obs_dict ([B, ...])."""
+        queue empty predicts a chunk from @obs_dict ([B, ...]). Under data
+        parallelism the queue holds this rank's rows, and every rank returns
+        the global batch's action."""
+        self._check_obs_request(obs_dict, goal_dict)
         if not self._ac_queue:
             chunk = self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict))
             self._ac_queue = list(chunk.unbind(1))
-        return self._ac_queue.pop(0)
+        return self._gather_rows(self._ac_queue.pop(0))

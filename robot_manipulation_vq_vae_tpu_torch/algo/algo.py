@@ -25,6 +25,7 @@ per query, then unnormalization and the runtime rot_6d conversion.
 
 import contextlib
 import copy
+import dataclasses
 import re
 from collections import OrderedDict
 
@@ -403,8 +404,8 @@ class Algo:
         return names
 
     def _rng_state(self):
-        """The state of the global generator (the dropouts of modules outside
-        ``base_nets``, such as the default action encoder's)."""
+        """The state of the global generator (kept with a resumable
+        checkpoint; the networks' draws take ``self.generator``)."""
         if self.device.type == "cuda":
             return torch.cuda.get_rng_state(self.device)
         return torch.get_rng_state()
@@ -420,9 +421,8 @@ class Algo:
         With @include_optimizer, also ``training_state``: each optimizer's and
         schedule's state dict, the step counter and the ``TRAINING_COUNTERS``,
         the algo's generator (crops, dropout, k-means, dead codes) and the
-        global generator (the dropouts of modules outside ``base_nets``), so
-        that a resumed run draws what the uninterrupted run would have
-        drawn. Under mp every tensor is written whole, in the unsharded
+        global generator, so that a resumed run draws what the uninterrupted
+        run would have drawn. Under mp every tensor is written whole, in the unsharded
         layout (every mp rank must call it)."""
         names = self._reference_names()
         out = OrderedDict((names[k], self._full(v).detach().cpu().clone())
@@ -517,17 +517,38 @@ class PolicyAlgo(Algo):
     def _policy_step(self, losses):
         """The backward of ``losses["action_loss"]`` into the policy's
         parameters (a parameter without gradient gets zeros, as optax steps
-        it), their global norm, clipping to ``train.max_grad_norm`` and one
-        step of the policy's optimizer. Returns the detached losses and
-        ``policy_grad_norms``."""
+        it), averaged over the data-parallel ranks, their global norm,
+        clipping to ``train.max_grad_norm`` and one step of the policy's
+        optimizer. Returns the detached losses and ``policy_grad_norms``."""
         params = list(self.nets["policy"].parameters())
-        grads = self._gradients(losses["action_loss"], params)
+        grads = self._dp_mean(self._gradients(losses["action_loss"], params))
         metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
         metrics["policy_grad_norms"] = OptimUtils.global_norm(grads, self.mp)
         if self.max_grad_norm is not None:
             OptimUtils.clip_by_global_norm_(grads, self.max_grad_norm, self.mp)
         self._step("policy", params, grads)
         return metrics
+
+    def _check_obs_request(self, obs_dict, goal_dict=None):
+        """Under data parallelism a request's observations (and goals) are
+        this rank's ``shard_batch`` rows."""
+        self._check_shard(obs_dict, what="obs")
+        if goal_dict is not None:
+            self._check_shard(goal_dict, what="goal_dict")
+
+    def _gather_dist(self, dist):
+        """The global batch's action distribution (a GMM, a diagonal
+        Gaussian, or their tanh wrapper) from this rank's rows; @dist
+        itself without data parallelism. Every rank then samples the global
+        batch from the generator they hold in the same state, as the
+        unsharded request does (``torch.multinomial``'s draw is not
+        separable by rows)."""
+        if self.dp is None:
+            return dist
+        if hasattr(dist, "base"):
+            return dataclasses.replace(dist, base=self._gather_dist(dist.base))
+        return dataclasses.replace(dist, **{f.name: self._gather_rows(getattr(dist, f.name))
+                                            for f in dataclasses.fields(dist)})
 
     def _policy_call(self, *args, **kwargs):
         """``self.nets["policy"](*args, **kwargs)`` in a training step. Under

@@ -38,6 +38,7 @@ from robot_manipulation_vq_vae_tpu_torch.algo.icl import (
 )
 from robot_manipulation_vq_vae_tpu_torch.models import policy_nets as PolicyNets
 from robot_manipulation_vq_vae_tpu_torch.models import vae_nets as VAENets
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import keep_rows
 
 
 @register_algo_factory_func("bc")
@@ -97,7 +98,9 @@ class BC_VAE(ICL):
     ``_noise_hook`` returns the training step's ``eps`` (see
     ``VAEActor.reparametrize``), and ``_prior_hook`` the prior draws of a
     ``get_action`` (``VAEActor.sample_prior``); otherwise both come from
-    ``self.generator``."""
+    ``self.generator``. Under data parallelism both are taken at the global
+    batch's shape (a hook's draws are the global batch's) and each rank
+    keeps its rows."""
 
     _noise_hook = None
     _prior_hook = None
@@ -128,7 +131,8 @@ class BC_VAE(ICL):
 
     def _losses(self, batch):
         obs, actions = self._device_batch(batch)
-        eps = None if self._noise_hook is None else self._draw(self._noise_hook())
+        eps = (None if self._noise_hook is None
+               else keep_rows(self._draw(self._noise_hook()), self.dp))
         out = self.nets["policy"].forward_train(
             actions, obs, goal_dict=self._obs(batch.get("goal_obs") or None),
             temperature=self._temperature(self._epoch), eps=eps,
@@ -147,14 +151,17 @@ class BC_VAE(ICL):
 
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
-        """The decoding of a prior sample: observations [B, ...] -> [B, A]."""
+        """The decoding of a prior sample: observations [B, ...] -> [B, A];
+        under data parallelism the global batch's, on every rank."""
+        self._check_obs_request(obs_dict, goal_dict)
         draws = None if self._prior_hook is None else self._prior_hook()
         if isinstance(draws, tuple):
-            draws = tuple(self._draw(d) for d in draws)
+            draws = tuple(keep_rows(self._draw(d), self.dp) for d in draws)
         elif draws is not None:
-            draws = self._draw(draws)
-        return self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict),
-                                   generator=self.generator, prior_draws=draws)
+            draws = keep_rows(self._draw(draws), self.dp)
+        return self._gather_rows(self.nets["policy"](
+            self._obs(obs_dict), goal_dict=self._obs(goal_dict), generator=self.generator,
+            prior_draws=draws))
 
 
 class ICLVAE(BC_VAE):
@@ -179,8 +186,9 @@ class BC_Transformer(ICLTransformer):
 
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
-        return self._select_output(self.nets["policy"](self._obs(obs_dict),
-                                                       goal_dict=self._obs(goal_dict)))
+        self._check_obs_request(obs_dict, goal_dict)
+        return self._gather_rows(self._select_output(self.nets["policy"](
+            self._obs(obs_dict), goal_dict=self._obs(goal_dict))))
 
 
 class BC_Transformer_GMM(BC_Transformer):
@@ -224,10 +232,12 @@ class BC_Transformer_GMM(BC_Transformer):
 
     @torch.inference_mode()
     def action_distribution(self, obs_dict, goal_dict=None):
-        """The policy's GMM over a request's window [B, T]."""
+        """The policy's GMM over a request's window [B, T] (this rank's rows
+        under data parallelism)."""
+        self._check_obs_request(obs_dict, goal_dict)
         return self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict))
 
     def get_action(self, obs_dict, goal_dict=None):
         with torch.inference_mode():
-            dist = self.action_distribution(obs_dict, goal_dict)
+            dist = self._gather_dist(self.action_distribution(obs_dict, goal_dict))
             return self._select_output(dist.sample(self.generator))

@@ -27,6 +27,15 @@ returns a training step's (timesteps [B], noise [B, Tp, A]);
 steps' noises [n, B, Tp, A] or None). Otherwise both come from
 ``self.generator``.
 
+Under data parallelism (``parallel.shard_state``) the gradients of both
+networks are averaged over the ranks before each one's clipping, so the EMA
+shadows stay equal on every rank; the training step's timesteps and noise
+and a request's initial noise and DDPM noises are taken at the global
+batch's shape (a hook's draws are the global batch's) and each rank keeps
+its rows; a request returns the global batch's actions on every rank. The
+GroupNorm trunks are per row; a BatchNorm trunk normalizes by the global
+batch (``base_nets.global_batch_norm``).
+
 ``train.mixed_precision`` runs the training step as the JAX step's bf16
 branch does (``algo/diffusion_policy.py``:167-213): the timesteps, the noise
 and ``add_noise`` stay fp32; the encoder and the UNet run on bf16 copies of
@@ -66,6 +75,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import ObservationGroup
 from robot_manipulation_vq_vae_tpu_torch.utils import mixed_precision as MixedPrecision
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw, keep_rows
 from robot_manipulation_vq_vae_tpu_torch.utils.optim_utils import (
     clip_by_global_norm_,
 )
@@ -183,12 +193,15 @@ class DiffusionPolicyUNet(PolicyAlgo):
         obs, actions = self._device_batch(batch)
         b = actions.shape[0]
         if self._noise_hook is not None:
-            t, noise = (self._draw(v) for v in self._noise_hook())
+            t, noise = (keep_rows(self._draw(v), self.dp) for v in self._noise_hook())
         else:
-            t = torch.randint(0, self.schedule.num_train_timesteps, (b,),
-                              generator=self.generator, device=self.device)
-            noise = torch.randn(actions.shape, generator=self.generator,
-                                device=self.device, dtype=actions.dtype)
+            gen, dev = self.generator, self.device
+            t = global_draw(lambda s: torch.randint(
+                0, self.schedule.num_train_timesteps, s, generator=gen, device=dev),
+                (b,), self.dp)
+            noise = global_draw(lambda s: torch.randn(s, generator=gen, device=dev,
+                                                      dtype=actions.dtype),
+                                actions.shape, self.dp)
         noisy = self.schedule.add_noise(actions, noise, t)
         generator = self.generator if self.nets.training else None
         half = self.mixed_precision
@@ -207,7 +220,8 @@ class DiffusionPolicyUNet(PolicyAlgo):
         params = {n: list(self.nets[n].parameters()) for n in nets}
         flat = [p for n in nets for p in params[n]]
         grads = torch.autograd.grad(losses["l2_loss"], flat, allow_unused=True)
-        grads = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)])
+        grads = iter(self._dp_mean([torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(flat, grads)]))
         for name in nets:
             g = [next(grads) for _ in params[name]]
             if self.max_grad_norm is not None:
@@ -234,11 +248,16 @@ class DiffusionPolicyUNet(PolicyAlgo):
         unet = self.nets["policy_ema" if self.ema_enabled else "policy"]
         shape = (cond.shape[0], self.Tp, self.ac_dim)
         draws = None if self._sample_hook is None else self._sample_hook()
+
+        def normal():
+            return global_draw(lambda s: torch.randn(s, generator=self.generator,
+                                                     device=self.device, dtype=cond.dtype),
+                               shape, self.dp)
+
         if draws is None:
-            x = torch.randn(shape, generator=self.generator, device=self.device,
-                            dtype=cond.dtype)
+            x = normal()
         else:
-            x = self._draw(draws[0])
+            x = keep_rows(self._draw(draws[0]), self.dp)
         sched = self.schedule
         stride = sched.num_train_timesteps // min(self.num_inference_steps,
                                                   sched.num_train_timesteps)
@@ -249,8 +268,8 @@ class DiffusionPolicyUNet(PolicyAlgo):
             if self.use_ddim:
                 x = sched.ddim_step(x, eps, t, t - stride)
                 continue
-            noise = (torch.randn(shape, generator=self.generator, device=self.device,
-                                 dtype=cond.dtype) if draws is None else self._draw(draws[1][i]))
+            noise = (normal() if draws is None
+                     else keep_rows(self._draw(draws[1][i]), self.dp))
             x = sched.ddpm_step(x, eps, t, t - stride, noise)
         return x
 
@@ -258,7 +277,9 @@ class DiffusionPolicyUNet(PolicyAlgo):
     def get_action(self, obs_dict, goal_dict=None):
         """The action of one request: observations [B, T >= To, ...] (the
         last To frames are encoded; fewer raise) -> [B, A], the denoised
-        sequence's step To - 1."""
+        sequence's step To - 1; under data parallelism the global batch's,
+        on every rank."""
+        self._check_obs_request(obs_dict, goal_dict)
         for k, v in obs_dict.items():
             frame = self.obs_shapes.get(k)
             if frame is not None and (v.ndim != len(frame) + 2 or v.shape[1] < self.To):
@@ -268,4 +289,4 @@ class DiffusionPolicyUNet(PolicyAlgo):
                     f"train.frame_stack >= {self.To})")
         obs = self._obs({k: v[:, -self.To:] for k, v in obs_dict.items()})
         cond = self._encode_cond(self.nets["obs_encoder"], obs)
-        return self._sample(cond)[:, self.To - 1]
+        return self._gather_rows(self._sample(cond)[:, self.To - 1])

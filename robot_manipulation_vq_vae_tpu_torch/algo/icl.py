@@ -43,7 +43,6 @@ policy. With ``train.mixed_precision`` its training step runs in bf16 as
 the JAX paper step does (see ``ICLTransformer_GMM``).
 """
 
-import dataclasses
 import os
 from collections import OrderedDict
 
@@ -181,8 +180,12 @@ class ICL(PolicyAlgo):
 
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
-        """The action of one request: observations [B, ...] -> [B, A]."""
-        return self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict))
+        """The action of one request: observations [B, ...] -> [B, A]. Under
+        data parallelism the request is this rank's shards, and every rank
+        returns the global batch's actions."""
+        self._check_obs_request(obs_dict, goal_dict)
+        return self._gather_rows(
+            self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict)))
 
 
 class ICLGaussian(ICL):
@@ -208,11 +211,13 @@ class ICLGaussian(ICL):
 
     @torch.inference_mode()
     def action_distribution(self, obs_dict, goal_dict=None):
-        """The policy's distribution over a request's actions [B, A]."""
+        """The policy's distribution over a request's actions [B, A] (under
+        data parallelism, over this rank's rows)."""
+        self._check_obs_request(obs_dict, goal_dict)
         return self.nets["policy"](self._obs(obs_dict), goal_dict=self._obs(goal_dict))
 
     def get_action(self, obs_dict, goal_dict=None):
-        return self.action_distribution(obs_dict, goal_dict).mean
+        return self._gather_rows(self.action_distribution(obs_dict, goal_dict).mean)
 
 
 class ICLGMM(ICLGaussian):
@@ -233,8 +238,11 @@ class ICLGMM(ICLGaussian):
         )
 
     def get_action(self, obs_dict, goal_dict=None):
+        """A sample of the GMM; under data parallelism the global batch's,
+        drawn on every rank (``_gather_dist``)."""
         with torch.inference_mode():
-            return self.action_distribution(obs_dict, goal_dict).sample(self.generator)
+            return self._gather_dist(
+                self.action_distribution(obs_dict, goal_dict)).sample(self.generator)
 
 
 class ICLRNN(ICL):
@@ -264,7 +272,8 @@ class ICLRNN(ICL):
         self.reset()
 
     def reset(self):
-        """Start a new episode: the next call starts from a zero state."""
+        """Start a new episode: the next call starts from a zero state.
+        Under data parallelism each rank carries its own rows' state."""
         self._rnn_hidden_state = None
         self._rnn_counter = 0
         self._open_loop_obs = None
@@ -280,7 +289,9 @@ class ICLRNN(ICL):
     @torch.inference_mode()
     def _rnn_step(self, obs_dict, goal_dict):
         """The policy's output at one step of an episode (actions [B, A], or
-        the GMM over them), carrying the hidden state."""
+        the GMM over them), carrying the hidden state (this rank's rows under
+        data parallelism)."""
+        self._check_obs_request(obs_dict, goal_dict)
         if self._rnn_hidden_state is None or self._rnn_counter % self._rnn_horizon == 0:
             self._rnn_hidden_state = None
             if self._rnn_is_open_loop:
@@ -296,7 +307,7 @@ class ICLRNN(ICL):
         return out
 
     def get_action(self, obs_dict, goal_dict=None):
-        return self._rnn_step(obs_dict, goal_dict)[:, 0]
+        return self._gather_rows(self._rnn_step(obs_dict, goal_dict)[:, 0])
 
 
 class ICLRNN_GMM(ICLRNN):
@@ -326,7 +337,8 @@ class ICLRNN_GMM(ICLRNN):
 
     def get_action(self, obs_dict, goal_dict=None):
         with torch.inference_mode():
-            return self.action_distribution(obs_dict, goal_dict).sample(self.generator)
+            return self._gather_dist(
+                self.action_distribution(obs_dict, goal_dict)).sample(self.generator)
 
 
 class ICLTransformer(ICL):
@@ -454,10 +466,8 @@ class ICLTransformer(ICL):
     def _check_request(self, obs_dict, context_batch, goal_dict):
         """Under data parallelism a request's observations, context (and
         goals) are this rank's ``shard_batch`` rows."""
-        self._check_shard(obs_dict, what="obs")
+        self._check_obs_request(obs_dict, goal_dict)
         self._check_shard(context_batch, what="context_batch")
-        if goal_dict is not None:
-            self._check_shard(goal_dict, what="goal_dict")
 
     def get_action(self, obs_dict, context_batch, goal_dict=None):
         """The policy's action for one request: [B, ac_dim]. The context
@@ -726,12 +736,3 @@ class ICLTransformer_GMM(ICLTransformer):
         dist, _ = self.action_distribution(obs_dict, context_batch, goal_dict)
         with torch.inference_mode():
             return self._select_output(self._gather_dist(dist).sample(self.generator))
-
-    def _gather_dist(self, dist):
-        """The global batch's GMM (or its tanh wrapper) from this rank's."""
-        if self.dp is None:
-            return dist
-        if hasattr(dist, "base"):
-            return dataclasses.replace(dist, base=self._gather_dist(dist.base))
-        return dataclasses.replace(dist, **{f: self._gather_rows(getattr(dist, f))
-                                            for f in ("means", "scales", "logits")})

@@ -103,13 +103,7 @@ def flax_batch_norm(x, running_mean, running_var, weight, bias, use_batch,
     with torch.no_grad():
         var, mean = torch.var_mean(x.float() if half else x, dim=(0, 2, 3),
                                    unbiased=False)
-        if half:
-            for running, stat in ((running_mean, mean), (running_var, var)):
-                running.copy_(running.bfloat16().float() * FLAX_BN_MOMENTUM_BF16
-                              + (1.0 - FLAX_BN_MOMENTUM) * stat)
-        else:
-            running_mean.lerp_(mean, 1.0 - FLAX_BN_MOMENTUM)
-            running_var.lerp_(var, 1.0 - FLAX_BN_MOMENTUM)
+    _move_running(running_mean, running_var, mean, var, half)
     return F.batch_norm(x, None, None, weight, bias, True, 0.0, eps)
 
 
@@ -159,22 +153,43 @@ class BatchNorm2d(nn.BatchNorm2d):
                                self.bias, use_batch, self.eps)
 
 
+def _move_running(running_mean, running_var, mean, var, half):
+    """Flax's running update towards the batch @mean / @var, in place: with
+    @half (mixed precision) from the bf16 copies of the statistics, as
+    ``BatchNorm2d`` describes."""
+    with torch.no_grad():
+        if half:
+            for running, stat in ((running_mean, mean), (running_var, var)):
+                running.copy_(running.bfloat16().float() * FLAX_BN_MOMENTUM_BF16
+                              + (1.0 - FLAX_BN_MOMENTUM) * stat)
+        else:
+            running_mean.lerp_(mean, 1.0 - FLAX_BN_MOMENTUM)
+            running_var.lerp_(var, 1.0 - FLAX_BN_MOMENTUM)
+
+
 def global_batch_norm(x, running_mean, running_var, weight, bias, eps, dp):
     """Training BatchNorm over the global batch of a data-parallel step: the
     mean and biased variance of the channels over every rank's equal shard,
     from an all-reduce of their sums and sums of squares (Flax's one-pass
     statistics, E[x^2] - E[x]^2, floored at 0), differentiable across the
     ranks; the running statistics move towards them as in
-    ``flax_batch_norm``."""
+    ``flax_batch_norm``. Under mixed precision (a bf16 @x or bf16 weights)
+    it follows ``flax_batch_norm``'s bf16 path: the sums in fp32, the
+    running update from the statistics' bf16 copies, the fp32 arithmetic
+    on the bf16-rounded weights and the output rounded once to @x's
+    type."""
+    half = torch.bfloat16 in (x.dtype, weight.dtype)
+    xf = x.float() if half else x
     n = x.numel() // x.shape[1] * dp.size
-    stats = dp.sum(torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))])) / n
+    stats = dp.sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])) / n
     mean, mean2 = stats.chunk(2)
     var = (mean2 - mean * mean).clamp_min(0.0)
-    with torch.no_grad():
-        running_mean.lerp_(mean, 1.0 - FLAX_BN_MOMENTUM)
-        running_var.lerp_(var, 1.0 - FLAX_BN_MOMENTUM)
+    _move_running(running_mean, running_var, mean, var, half)
+    if half:
+        weight, bias = weight.float(), bias.float()
     scale = torch.rsqrt(var + eps) * weight
-    return (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
+    y = (xf - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
+    return y.to(x.dtype)
 
 
 def set_frozen_batch_norm(module, frozen):
@@ -664,13 +679,16 @@ class Dropout(nn.Module):
     ``utils.draws.global_draw``), so that the ranks together draw the
     unsharded step's mask. @shape and @index draw the mask at @shape and
     apply its [@index] (the GPT's attention under mp: every head's mask,
-    this rank's heads applied)."""
+    this rank's heads applied). With @whole the input is the same whole
+    tensor on every rank (the default action encoder's global sequence), so
+    the mask is drawn at its own shape whatever ``dp``."""
 
     dp = None
 
-    def __init__(self, p=0.1):
+    def __init__(self, p=0.1, whole=False):
         super().__init__()
         self.p = float(p)
+        self.whole = whole
         self.generator = None
 
     def extra_repr(self):
@@ -683,11 +701,16 @@ class Dropout(nn.Module):
         device = x.device if gen is None else gen.device
         keep = global_draw(
             lambda s: torch.rand(s, generator=gen, device=device) < 1.0 - self.p,
-            x.shape if shape is None else shape, self.dp)
+            x.shape if shape is None else shape, None if self.whole else self.dp)
         if index is not None:
             keep = keep[index]
-        zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        return torch.where(keep.to(x.device), x / (1.0 - self.p), zero)
+        return _dropped(x, keep, self.p)
+
+
+def _dropped(x, keep, p):
+    """@x where @keep, scaled by 1 / (1 - @p); 0 elsewhere."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(keep.to(x.device), x / (1.0 - p), zero)
 
 
 class MLP(nn.Module):

@@ -36,7 +36,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from robot_manipulation_vq_vae_tpu_torch.models.base_nets import flax_batch_norm
+from robot_manipulation_vq_vae_tpu_torch.models.base_nets import (
+    flax_batch_norm,
+    global_batch_norm,
+)
 
 _RESNET18_PLAN = [(64, 1), (64, 1), (128, 2), (128, 1),
                   (256, 2), (256, 1), (512, 2), (512, 1)]
@@ -50,12 +53,18 @@ def packed_batch_norm(x, bns, training):
     """Flax BatchNorm over the G * C channels of @x with the G per-camera
     ``BatchNorm2d`` modules @bns: the statistics are concatenated, and the
     ones ``flax_batch_norm`` moved (training) or rounded (a bf16 @x) written
-    back to each camera."""
+    back to each camera. Under data parallelism (the cameras' ``dp``, set by
+    ``parallel.shard_state``) a training forward normalizes by the global
+    batch's statistics (``global_batch_norm``), as each camera's own
+    BatchNorm does."""
     mean = _cat(bn.running_mean for bn in bns)
     var = _cat(bn.running_var for bn in bns)
     use_batch = training and not bns[0].frozen
-    y = flax_batch_norm(x, mean, var, _cat(bn.weight for bn in bns),
-                        _cat(bn.bias for bn in bns), use_batch, bns[0].eps)
+    weight, bias = _cat(bn.weight for bn in bns), _cat(bn.bias for bn in bns)
+    if use_batch and bns[0].dp is not None:
+        y = global_batch_norm(x, mean, var, weight, bias, bns[0].eps, bns[0].dp)
+    else:
+        y = flax_batch_norm(x, mean, var, weight, bias, use_batch, bns[0].eps)
     if use_batch or x.dtype == torch.bfloat16:
         with torch.no_grad():
             for bn, m, v in zip(bns, mean.chunk(len(bns)), var.chunk(len(bns))):

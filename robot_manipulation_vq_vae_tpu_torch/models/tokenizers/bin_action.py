@@ -61,6 +61,9 @@ class AdaptiveBinActionEmbedding(nn.Module):
                                  "num_step": "num_step"}}
 
     NUM_BINS, EMBEDDING_DIM = 20, 64
+    # the data-parallel axis (``parallel.AxisComm``) whose global batch the
+    # running range covers, set by ``parallel.shard_state``
+    dp = None
 
     def __init__(self, action_dim, output_dim, num_step_stop=10000):
         super().__init__()
@@ -80,11 +83,18 @@ class AdaptiveBinActionEmbedding(nn.Module):
     @torch.no_grad()
     def _update_stats(self, actions):
         """Widen the running range to @actions' while num_step is below
-        num_step_stop (branch-free: no host sync on a card)."""
+        num_step_stop (branch-free: no host sync on a card). Under data
+        parallelism the range is the global batch's: the ranks' minima and
+        maxima all-reduced (exact in any order)."""
         enabled = self.num_step < self.num_step_stop
         lo, hi = self.running_min.to(actions.dtype), self.running_max.to(actions.dtype)
-        new_lo = torch.minimum(lo, actions.min(0).values)
-        new_hi = torch.maximum(hi, actions.max(0).values)
+        batch_lo, batch_hi = actions.min(0).values, actions.max(0).values
+        if self.dp is not None:
+            # fp32 on the wire: a bf16 value is exact there
+            batch_lo = self.dp.all_reduce_(batch_lo.float(), "min").to(actions.dtype)
+            batch_hi = self.dp.all_reduce_(batch_hi.float(), "max").to(actions.dtype)
+        new_lo = torch.minimum(lo, batch_lo)
+        new_hi = torch.maximum(hi, batch_hi)
         self.running_min.copy_(torch.where(enabled, new_lo, lo))
         self.running_max.copy_(torch.where(enabled, new_hi, hi))
         self.num_step.add_(enabled.to(self.num_step.dtype))

@@ -13,9 +13,18 @@ It keeps the JAX package's semantics where they differ from
   sequence of B*T tokens, as the reference feeds it to a
   ``batch_first=False`` encoder unbatched;
 * 8 heads where D is a multiple of 8, else one; LayerNorm epsilon 1e-6;
-  dropout fixed at 0.1 in each layer;
+  dropout fixed at 0.1 in each layer, its masks drawn from the algo's
+  generator (``base_nets.Dropout`` on the whole sequence);
 * under mixed precision every layer computes in bf16, and the power
   iteration runs on a bf16 copy of ``u``, whose result is stored back.
+
+Under data parallelism (``dp``, set by ``parallel.shard_state``) every rank
+all-gathers the flattened context actions (data: no gradient), runs the
+encoder on the global sequence and keeps its own rows. The ranks then draw
+the same dropout masks from the generator they hold in the same state and
+store the same ``u``, the unsharded step's; each rank's gradient reaches the
+weights through its own rows, so the mean over the ranks is the global
+batch's gradient.
 
 Checkpoint names (``...action_network.<name>``): ``sn{1,2,3}.weight``
 [out, in], ``.bias``, ``.u`` (the JAX ``spectral`` collection, a buffer);
@@ -29,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from robot_manipulation_vq_vae_tpu_torch.models.base_nets import Dropout
 from robot_manipulation_vq_vae_tpu_torch.models.transformers import LN_EPS
 
 
@@ -81,7 +91,7 @@ class TorchTransformerEncoderLayer(nn.Module):
         self.ff2 = nn.Linear(256, d_model)
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.drop_attn, self.drop_ff, self.drop_out = (nn.Dropout(0.1)
+        self.drop_attn, self.drop_ff, self.drop_out = (Dropout(0.1, whole=True)
                                                        for _ in range(3))
 
     def forward(self, x):
@@ -105,6 +115,10 @@ class DefaultActionEncoder(nn.Module):
     JAX_NAMES = {"sn1": "sn1", "sn2": "sn2", "sn3": "sn3", "out": "out",
                  **{f"enc{i}": f"layers.{i}" for i in range(4)}}
 
+    # the data-parallel axis (``parallel.AxisComm``) whose global sequence
+    # the encoder attends over, set by ``parallel.shard_state``
+    dp = None
+
     def __init__(self, action_dim, output_dim):
         super().__init__()
         self.sn1 = SNDense(action_dim, 64)
@@ -116,6 +130,14 @@ class DefaultActionEncoder(nn.Module):
         nn.init.zeros_(self.out.bias)
 
     def forward(self, actions_flat):
+        if self.dp is None:
+            return self._encode(actions_flat)
+        rows = actions_flat.shape[0]
+        # fp32 on the wire: a bf16 value is exact there
+        whole = self.dp.all_gather(actions_flat.detach().float()).to(actions_flat.dtype)
+        return self._encode(whole)[self.dp.rank * rows:(self.dp.rank + 1) * rows]
+
+    def _encode(self, actions_flat):
         h = F.gelu(self.sn2(F.gelu(self.sn1(actions_flat))))
         h = self.sn3(h)
         for layer in self.layers:

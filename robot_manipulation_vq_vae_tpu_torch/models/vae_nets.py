@@ -24,6 +24,7 @@ from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import ObservationGroupEncoder
 from robot_manipulation_vq_vae_tpu_torch.models.policy_nets import _groups, _inputs
 from robot_manipulation_vq_vae_tpu_torch.utils import loss_utils as LossUtils
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw, take_rows
 
 
 def vae_args_from_config(vae_config):
@@ -54,6 +55,10 @@ class VAEActor(nn.Module):
 
     JAX_NAMES = {"obs_encoder": "obs_encoder", "q_net": "q_net",
                  "decoder_net": "decoder_net"}
+    # the data-parallel axis (``parallel.AxisComm``): the draws are taken
+    # at the global batch's shape and each rank keeps its rows
+    # (``utils.draws.global_draw``), set by ``parallel.shard_state``
+    dp = None
 
     def __init__(self, obs_shapes, ac_dim, encoder_layer_dims=(300, 400),
                  decoder_layer_dims=(300, 400), latent_dim=14, latent_clip=None,
@@ -124,8 +129,9 @@ class VAEActor(nn.Module):
         if self.categorical:
             logits = params["logits"]
             if eps is None:
-                eps = torch.rand(logits.shape, generator=generator, device=logits.device,
-                                 dtype=logits.dtype)
+                eps = global_draw(lambda s: torch.rand(
+                    s, generator=generator, device=logits.device, dtype=logits.dtype),
+                    logits.shape, self.dp)
             g = -torch.log(-torch.log(eps + 1e-20) + 1e-20)
             y = torch.softmax((logits + g) / temperature, dim=-1)
             if self.gumbel_hard:
@@ -134,8 +140,9 @@ class VAEActor(nn.Module):
             return y.reshape(*y.shape[:-2], -1)
         mean = params["mean"]
         if eps is None:
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                              dtype=mean.dtype)
+            eps = global_draw(lambda s: torch.randn(
+                s, generator=generator, device=mean.device, dtype=mean.dtype),
+                mean.shape, self.dp)
         return self._clip(mean + torch.exp(0.5 * params["logvar"]) * eps)
 
     def decode(self, z, obs_feat):
@@ -198,23 +205,33 @@ class VAEActor(nn.Module):
         """z from the prior. @draws injects its raw draws, in the JAX
         package's order: the categorical prior's indices [B, latent]; N(0,
         I)'s standard normal [B, latent]; a learned prior's (component [B],
-        standard normal [B, latent])."""
+        standard normal [B, latent]). Under data parallelism the draws are
+        the global batch's and B this rank's rows (injected draws too: the
+        caller keeps its rows)."""
         b, dev, dtype = obs_feat.shape[0], obs_feat.device, obs_feat.dtype
+        def normal_draw():
+            return global_draw(lambda s: torch.randn(s, generator=generator, device=dev,
+                                                     dtype=dtype),
+                               (b, self.latent_dim), self.dp)
+
         if self.categorical:
-            idx = draws if draws is not None else torch.randint(
-                0, self.categorical_dim, (b, self.latent_dim), generator=generator,
-                device=dev)
+            idx = draws if draws is not None else global_draw(
+                lambda s: torch.randint(0, self.categorical_dim, s, generator=generator,
+                                        device=dev), (b, self.latent_dim), self.dp)
             return F.one_hot(idx.long(), self.categorical_dim).to(dtype).reshape(b, -1)
         prior = self._prior_params(obs_feat)
         if prior is None:
-            normal = draws if draws is not None else torch.randn(
-                (b, self.latent_dim), generator=generator, device=dev, dtype=dtype)
+            normal = draws if draws is not None else normal_draw()
             return self._clip(normal)
         means, logvars, logw = prior
         if draws is None:
-            mode = torch.multinomial(logw.exp(), 1, generator=generator)[:, 0]
-            normal = torch.randn((b, self.latent_dim), generator=generator, device=dev,
-                                 dtype=dtype)
+            # the mixture's component over the global batch's weights (the
+            # categorical draw is not separable by rows), this rank's rows kept
+            weights = logw.exp() if self.dp is None else self.dp.all_gather(logw.exp())
+            mode = torch.multinomial(weights, 1, generator=generator)[:, 0]
+            if self.dp is not None:
+                mode = take_rows(mode, self.dp.rank, self.dp.size, False)
+            normal = normal_draw()
         else:
             mode, normal = draws
         index = mode.long()[:, None, None].expand(b, 1, self.latent_dim)

@@ -9,4 +9,4 @@ from robot_manipulation_vq_vae_tpu_torch.parallel.mesh import (
     shard_state,
     tp_placements,
 )
-from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw, keep_rows

@@ -15,13 +15,18 @@ starts (``init_process_group`` with its address, world size and rank), and a
   towards them, and the flagship's hierarchical VQ-VAE all-reduces its EMA
   counts and sums and runs its k-means initialization and dead-code picks
   on the all-gathered batch with the generator that every rank holds in the
-  same state. Every other random draw of the step (dropout, the
+  same state. The bin tokenizer's running range is the global batch's (an
+  all-reduce of the ranks' minima and maxima), and the default action
+  encoder attends over the global sequence (every rank encodes the
+  all-gathered context actions and keeps its rows). Every other random draw of the step (dropout, the
   randomizers' crops, color jitter and noise, SpatialSoftmax's keypoint
   noise) is taken at the global batch's shape from that generator, and the
   rank keeps its rows (``utils.draws.global_draw``): the ranks together draw the
   unsharded step's one draw, as GSPMD does. ``get_action`` under dp takes
   ``shard_batch``'s shards and returns the global batch's actions on every
-  rank. ``shard_state`` refuses (``NotImplementedError``) every algo and
+  rank (a GMM's mixture gathered and sampled whole from the replicated
+  generator; a stepwise policy's state, an RNN's hidden state or ACT's
+  queue, holds the rank's rows). ``shard_state`` refuses (``NotImplementedError``) every algo and
   option whose step it does not make equal to the unsharded one.
 * ``mp``: the GPT backbone's tensor-parallel rules (``shard_params``):
   ``mlp_fc`` and ``qkv`` column-parallel (``Shard(0)`` of torch's [out, in]
@@ -54,10 +59,21 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from robot_manipulation_vq_vae_tpu_torch.algo.act import ACT
+from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
+    HierarchicalAlgo,
+    PlannerAlgo,
+    ValueAlgo,
+)
+from robot_manipulation_vq_vae_tpu_torch.algo.diffusion_policy import DiffusionPolicyUNet
+from robot_manipulation_vq_vae_tpu_torch.algo.gl import ValuePlanner
 from robot_manipulation_vq_vae_tpu_torch.algo.icl import (
+    ICL,
     ICLTransformer_GMM,
     ICLTransformerHVQVAE,
 )
+from robot_manipulation_vq_vae_tpu_torch.algo.mcr import _MCRWarmStartMixin
+from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import MCRPretrainer
 from robot_manipulation_vq_vae_tpu_torch.models.transformers import GEGLU, GPT_Backbone
 from robot_manipulation_vq_vae_tpu_torch.utils.draws import take_rows
 from robot_manipulation_vq_vae_tpu_torch.utils.tensor_parallel import (
@@ -129,6 +145,9 @@ def _size(mesh, axis):
 # ---------------------------------------------------------------------------
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
 class AxisComm:
     """Collectives over one axis of a mesh (its process group). Under
     ``gloo`` a CUDA tensor goes through pinned host memory."""
@@ -151,10 +170,11 @@ class AxisComm:
             return wire.to(torch.device("cuda", torch.cuda.current_device())), True
         return wire, wire is not t
 
-    def all_reduce_(self, t):
-        """Sum @t over the axis, in place; returns @t."""
+    def all_reduce_(self, t, op="sum"):
+        """Reduce @t over the axis in place by @op ("sum", "min" or "max");
+        returns @t."""
         wire, copied = self._wire(t)
-        dist.all_reduce(wire, group=self.group)
+        dist.all_reduce(wire, op=_OPS[op], group=self.group)
         return t.copy_(wire) if copied else t
 
     def all_gather(self, t, dim=0):
@@ -315,21 +335,43 @@ def _replace_optimizer_params(optimizer, new_of):
 # ---------------------------------------------------------------------------
 
 
-def _refusals(algo):
+# what the data-parallel step covers: the ICL family (the MLP, RNN,
+# transformer, HVQVAE and Mamba policies and the paper's every tokenizer),
+# the bc classes and ICLVAE (subclasses of ICL), the diffusion policy and ACT
+_COVERED = (ICL, DiffusionPolicyUNet, ACT)
+# checked first: the MCR classes subclass the bc ones
+_NOT_PORTED = (
+    (_MCRWarmStartMixin, "the MCR policies"),
+    (ValueAlgo, "offline RL (ValueAlgo's own train_on_batch)"),
+    ((PlannerAlgo, HierarchicalAlgo, ValuePlanner), "the hierarchical family"),
+    (MCRPretrainer, "mcr_pretrain's contrastive terms"),
+)
+
+
+def _refusals(algo, mp=1):
     """What this algo's step has that the sharded step does not make equal
     to the unsharded step: a list of reasons (empty when covered)."""
     name = type(algo).__name__
-    if type(algo) not in (ICLTransformerHVQVAE, ICLTransformer_GMM):
-        return [f"{name} (covered: ICLTransformerHVQVAE and icl_gmm_paper with LipVQ)"]
-    out = []
-    if type(algo) is ICLTransformer_GMM and not algo.vq_vae_enabled:
-        out.append(f"{name}'s action tokenizer other than LipVQ (the default encoder "
-                   "attends over the flattened batch; bin, LN-act and FAST are not "
-                   "covered)")
+    for classes, what in _NOT_PORTED:
+        if isinstance(algo, classes):
+            return [f"{name} ({what} is not ported under the mesh)"]
+    if not isinstance(algo, _COVERED):
+        return [f"{name} (covered: the ICL and bc families, the diffusion policy, ACT)"]
     train = algo.global_config.train
-    for opt in ("mixed_precision", "packed_rgb_encoders"):
-        if train.get(opt, False):
-            out.append(f"train.{opt}")
+    out = []
+    if mp > 1:
+        # the GPT's shards are held by tests for these two alone
+        if type(algo) not in (ICLTransformerHVQVAE, ICLTransformer_GMM):
+            return [f"{name} under mp={mp} (covered: ICLTransformerHVQVAE and "
+                    "icl_gmm_paper with LipVQ)"]
+        if type(algo) is ICLTransformer_GMM and not algo.vq_vae_enabled:
+            out.append(f"{name}'s action tokenizer other than LipVQ under mp={mp}")
+        for opt, why in (("mixed_precision", "half_call's bf16 copies of DTensor "
+                          "parameters"),
+                         ("packed_rgb_encoders", "the packed trunks beside the GPT's "
+                          "shards")):
+            if train.get(opt, False):
+                out.append(f"train.{opt} under mp={mp} ({why})")
     return out
 
 
@@ -365,7 +407,7 @@ def shard_state(mesh, algo):
         raise ValueError(f"shard_state: a {mesh.device_type!r} mesh for an algo on "
                          f"{algo.device.type!r} (its GPT shards would leave the algo's "
                          "device): make_mesh(..., device=algo.device)")
-    refused = _refusals(algo)
+    refused = _refusals(algo, mp)
     if refused:
         raise NotImplementedError(
             f"shard_state: (dp={dp}, mp={mp}) is not ported for: " + "; ".join(refused))

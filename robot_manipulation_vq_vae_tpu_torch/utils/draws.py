@@ -47,3 +47,17 @@ def global_draw(draw, shape, dp=None, layout="rows"):
         return draw(shape)
     full = draw((shape[0] * dp.size, *shape[1:]))
     return take_rows(full, dp.rank, dp.size, layout == "halves")
+
+
+def keep_rows(full, dp=None, layout="rows", dim=0):
+    """This rank's rows (by @layout, along @dim) of @full, a draw taken at
+    the global batch's shape elsewhere (a test's ``_noise_hook``,
+    ``_prior_hook`` or ``_sample_hook`` injects the unsharded step's draw);
+    @full itself without @dp or at dp = 1. The other draws of a
+    data-parallel step go through ``global_draw``: ``randint``, ``rand``,
+    ``randn`` and a categorical over the global rows all take a leading
+    axis that ``take_rows`` cuts."""
+    if dp is None or dp.size == 1:
+        return full
+    return take_rows(full.movedim(dim, 0), dp.rank, dp.size,
+                     layout == "halves").movedim(0, dim)

@@ -39,7 +39,6 @@ import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 
-import robot_manipulation_vq_vae_tpu.algo as JaxAlgo
 from robot_manipulation_vq_vae_tpu.config import config_factory as jax_config_factory
 from robot_manipulation_vq_vae_tpu.models.base_nets import set_pallas_pool
 from robot_manipulation_vq_vae_tpu.models.obs_core import random_crop_hwc
@@ -58,7 +57,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as PortOptim
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
-from torch_port_helpers import assert_mostly_close, perturbed_variables
+from torch_port_helpers import assert_mostly_close, jax_algo_jit_init, perturbed_variables
 
 B, T, A, LANG, IMG, STEPS, LR = 8, 4, 12, 16, 64, 3, 1e-4
 CAMS = ["agentview_image", "eye_in_hand_image"]
@@ -117,7 +116,7 @@ def run():
     jax_cfg = _configure(jax_config_factory("icl_gmm_paper"))
     JaxObsUtils.initialize_obs_utils_with_config(jax_cfg)
     try:
-        jax_algo = JaxAlgo.algo_factory("icl_gmm_paper", jax_cfg, OBS_KEY_SHAPES, A)
+        jax_algo = jax_algo_jit_init("icl_gmm_paper", jax_cfg, OBS_KEY_SHAPES, A)
         jax_algo.ensure_state(batches[0])
         variables = {"params": jax_algo.state.params["policy"],
                      **jax_algo.state.aux["policy"]}

@@ -47,7 +47,7 @@ from robot_manipulation_vq_vae_tpu_torch.config import config_factory
 from robot_manipulation_vq_vae_tpu_torch.models.base_nets import BatchNorm2d
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
-from torch_port_helpers import assert_mostly_close, perturbed_variables
+from torch_port_helpers import assert_mostly_close, jax_algo_jit_init, perturbed_variables
 
 B, T, A, LANG, IMG, STEPS, LR = 4, 4, 12, 16, 64, 3, 1e-4
 E, KZ, KQ = 32, 16, 8
@@ -149,7 +149,7 @@ def _pair(film, train=False, mixed_precision=False, x64=False, **modes):
     batch = _batch(rng, film)
     jax_cfg = _configure(jax_config_factory("icl"), film, train, mixed_precision, **modes)
     JaxObsUtils.initialize_obs_utils_with_config(jax_cfg)
-    jax_algo = JaxAlgo.algo_factory("icl", jax_cfg, _shapes(film), A)
+    jax_algo = jax_algo_jit_init("icl", jax_cfg, _shapes(film), A)
     assert type(jax_algo).__name__ == "ICLTransformerHVQVAE"
     jax_algo.ensure_state(batch)
     pol, pol_flat = perturbed_variables(

@@ -1295,3 +1295,41 @@ def test_mesh_dp1_under_nccl_equals_unsharded_steps(cuda_device):
                 assert launched["lipvq_assign"] == len(batches)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_dp2_bf16_flagship_step_on_two_gloo_ranks(cuda_device, tmp_path):
+    """Two gloo ranks on the card (staged through pinned memory) take the
+    tiny flagship's bf16 leg (rgb, BatchNorm over the global batch in bf16)
+    at dp = 2: kernels 3 and 4's bf16 instances launch on each rank, and
+    the step equals the unsharded step on the card within the bf16 bounds
+    of tests/test_torch_mesh_families.py (``check_half_leg``: metrics 1e-3
+    relative, each last gradient 1e-2 of its tensor's largest, weights and
+    Adam moments at test_parallel.py's 5e-4 + 1e-2 |v|, the moments also
+    per tensor, buffers 1e-4 with at most 1 % of BatchNorm's statistics
+    further apart; the HVQVAE's codebooks by their mass), the ranks to the
+    bit."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import torch_mesh_workers as W
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build
+
+    cuda_build.build_kernels()   # once, before the ranks load it
+    results = W.start_ranks(W.job_card_bf16, 2, tmp_path / "ranks")
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = W.run_family_leg("flagship_bf16", device=cuda_device)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        ranks = results()
+    for rank, res in enumerate(ranks):
+        assert res["launched"]["stem_pool_fwd_bf16"] > 0, rank
+        assert res["launched"]["stem_pool_bwd_bf16"] > 0, rank
+        assert res["losses"] == ranks[0]["losses"]
+        for k, v in res["nets"].items():
+            assert torch.equal(v, ranks[0]["nets"][k]), (rank, k)
+        readings = W.check_half_leg(res, ref, "flagship_bf16", f"rank {rank}",
+                                    vq_by_mass=True)
+        print(f"rank {rank}: {readings}")

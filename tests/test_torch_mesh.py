@@ -25,9 +25,10 @@ unsharded port and the JAX package.
   uninitialized through a clustered batch: the k-means init and the
   dead-code picks on the all-gathered batch with the replicated generator,
   the replacement firing, against the unsharded port.
-* ``shard_state``'s refusals under dp > 1 (an uncovered algo, a tokenizer
-  other than LipVQ, mixed precision, packed trunks) and ``train_on_batch``'s
-  of a batch that is not a shard.
+* ``shard_state``'s refusals (offline RL, the hierarchical family, MCR and
+  its pretraining under dp > 1; under mp > 1 the bf16 step and every algo
+  but the flagship and the paper with LipVQ) and
+  ``train_on_batch``'s of a batch that is not a shard.
 """
 
 import numpy as np
@@ -53,6 +54,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
     jax_variables,
 )
 import torch_mesh_workers as W
+from torch_port_helpers import set_jax_state
 
 WORLDS = (2, 4)
 
@@ -74,14 +76,7 @@ def _jax_leg(tag, leg, algo0):
     cfg = W.flagship_config(cfg, with_rgb) if cfg_name == "flagship" else W.paper_config(cfg)
     JaxObsUtils.initialize_obs_utils_with_config(cfg)
     algo = JaxAlgo.algo_factory(name, cfg, W.shapes(with_rgb), W.A)
-    first = batches[0] if halves else algo.process_batch_for_training(batches[0])
-    algo.ensure_state(first)
-    variables = {n: _jax_variables(algo0.nets[n]) for n in algo0.nets}
-    params = {n: v.pop("params") for n, v in variables.items()}
-    algo.state = algo.state.replace(
-        params=params, aux=variables,
-        opt_states={n: algo.optimizers[n].init(params[n]) for n in params
-                    if n in algo.optimizers})
+    set_jax_state(algo, {n: _jax_variables(algo0.nets[n]) for n in algo0.nets})
     losses = []
     for batch in batches:
         if not halves:
@@ -347,14 +342,21 @@ def test_dp_kmeans_init_and_replacement_match_unsharded(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_shard_state_refuses_what_it_does_not_cover(runs, world):
+    """Offline RL, the hierarchical family, the MCR policies and MCR
+    pretraining under dp, the bf16 step, a bc policy and the paper's bin
+    tokenizer under mp = 2, and a batch that is not a shard (the policy families, mixed precision and the packed trunks
+    under dp are tests/test_torch_mesh_families.py)."""
     _, ranks = runs
     got = ranks[world][0]["refusals"]
-    assert got["bc"].startswith("NotImplementedError") and "BC" in got["bc"]
-    assert got["packed_rgb_encoders"].startswith("NotImplementedError")
-    assert "packed_rgb_encoders" in got["packed_rgb_encoders"]
-    assert got["bin"].startswith("NotImplementedError") and "LipVQ" in got["bin"]
-    assert got["mixed_precision"].startswith("NotImplementedError")
-    assert "mixed_precision" in got["mixed_precision"]
+    for case, name in (("iql", "IQL"), ("gl", "GL"), ("mcr", "MCR"),
+                       ("mcr_pretrain", "MCRPretrainer")):
+        assert got[case].startswith("NotImplementedError") and name in got[case], got[case]
+    assert "offline RL" in got["iql"] and "hierarchical" in got["gl"]
+    assert "contrastive" in got["mcr_pretrain"]
+    for case, what in (("bc_mp", "BC under mp=2"), ("bin_mp", "other than LipVQ under mp=2")):
+        assert got[case].startswith("NotImplementedError") and what in got[case], got[case]
+    assert got["mixed_precision_mp"].startswith("NotImplementedError")
+    assert "mixed_precision under mp=2" in got["mixed_precision_mp"]
     assert got["unsharded_batch"].startswith("ValueError")
     assert "shard_batch" in got["unsharded_batch"]
 

@@ -33,6 +33,7 @@ from robot_manipulation_vq_vae_tpu.utils import obs_utils as JaxObsUtils
 from robot_manipulation_vq_vae_tpu_torch.models.base_nets import Dropout
 from robot_manipulation_vq_vae_tpu_torch.parallel import global_draw
 import torch_mesh_workers as W
+from torch_port_helpers import set_jax_state
 from test_torch_mesh import (
     _check_losses,
     _check_nets_against_port,
@@ -51,10 +52,7 @@ def _jax_serving(algo0):
     JaxObsUtils.initialize_obs_utils_with_config(cfg)
     algo = JaxAlgo.algo_factory("icl", cfg, W.shapes(True), W.A)
     try:
-        algo.ensure_state(algo.process_batch_for_training(W.make_batch(0, True)))
-        variables = {n: _jax_variables(algo0.nets[n]) for n in algo0.nets}
-        params = {n: v.pop("params") for n, v in variables.items()}
-        algo.state = algo.state.replace(params=params, aux=variables)
+        set_jax_state(algo, {n: _jax_variables(algo0.nets[n]) for n in algo0.nets})
         obs, ctx = W.request(True)
         return np.asarray(algo.get_action(obs, ctx))
     finally:

@@ -36,7 +36,6 @@ import torch
 
 import jax.numpy as jnp
 
-import robot_manipulation_vq_vae_tpu.algo as JaxAlgo
 from robot_manipulation_vq_vae_tpu.algo.algo import ICLRolloutPolicy as JaxICLRolloutPolicy
 from robot_manipulation_vq_vae_tpu.algo.algo import RolloutPolicy as JaxRolloutPolicy
 from robot_manipulation_vq_vae_tpu.config import config_factory as jax_config_factory
@@ -68,7 +67,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import train_utils as TrainUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 import torch_port_fake_env as Fake
 from test_torch_train_harness import A, CAMS, IMG, LOW_DIM, SHAPES, T, _batches, _configure
-from torch_port_helpers import perturbed_variables
+from torch_port_helpers import jax_algo_jit_init, perturbed_variables
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -507,7 +506,7 @@ def test_paper_policy_rollout_with_injected_noise(monkeypatch):
             cfg.train.frame_stack = T
     JaxObsUtils.initialize_obs_utils_with_config(jax_cfg)
     try:
-        jax_algo = JaxAlgo.algo_factory("icl_gmm_paper", jax_cfg, SHAPES, A)
+        jax_algo = jax_algo_jit_init("icl_gmm_paper", jax_cfg, SHAPES, A)
         jax_algo.ensure_state(_batches(1, 3, 2)[0])
         variables = {"params": jax_algo.state.params["policy"],
                      **jax_algo.state.aux["policy"]}

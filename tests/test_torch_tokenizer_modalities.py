@@ -316,7 +316,7 @@ def test_default_encoder_matches_jax(dtype, d, train):
                              deterministic=True, update_stats=train, mutable=["spectral"])
     port.train(train)
     for m in port.modules():
-        if isinstance(m, torch.nn.Dropout):
+        if isinstance(m, PortDefault.Dropout):
             m.p = 0.0
     assert_close(port(t(x, dtype)), y_j, dtype, "output")
     for i in (1, 2, 3):
@@ -344,7 +344,7 @@ def test_default_encoder_applies_dropout_0_1_in_training():
     torch.manual_seed(0)
     port = PortDefault.DefaultActionEncoder(A, 64)
     seen = []
-    drops = [m for m in port.modules() if isinstance(m, torch.nn.Dropout)]
+    drops = [m for m in port.modules() if isinstance(m, PortDefault.Dropout)]
     assert len(drops) == 12 and all(m.p == 0.1 for m in drops)
     for m in drops:
         m.register_forward_hook(lambda mod, inp, out: seen.append((inp[0], out)))

@@ -33,7 +33,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import robot_manipulation_vq_vae_tpu.algo as JaxAlgo
 from robot_manipulation_vq_vae_tpu.algo.algo import device_process_obs
 from robot_manipulation_vq_vae_tpu.config import config_factory as jax_config_factory
 from robot_manipulation_vq_vae_tpu.models.tokenizers import default_encoder as JaxDefault
@@ -43,13 +42,14 @@ from robot_manipulation_vq_vae_tpu.utils.ckpt_conversion import flatten_variable
 
 import robot_manipulation_vq_vae_tpu_torch.algo as PortAlgo
 from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+from robot_manipulation_vq_vae_tpu_torch.models.base_nets import Dropout
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers import fast as PortFast
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
 from chip_smoke import SmokeFastProcessor, smoke_clip_encode
-from torch_port_helpers import assert_mostly_close, perturbed_variables
+from torch_port_helpers import assert_mostly_close, jax_algo_jit_init, perturbed_variables
 
 B, T, A, STEPS, LR = 8, 4, 12, 3, 1e-4
 LOW_DIM = {"eef_pos": (3,), "eef_quat": (4,), "gripper_qpos": (2,)}
@@ -95,7 +95,7 @@ def port_algo(modality):
     if modality == "fast":
         algo.set_fast_tokenizer(stand_in(PortFast.FastHostEncoder))
     for m in algo.nets.modules():
-        if isinstance(m, torch.nn.Dropout):
+        if isinstance(m, Dropout) and m.whole:   # the default encoder's
             m.p = 0.0
     return algo
 
@@ -122,7 +122,7 @@ def run_modality(modality, monkeypatch):
 
     jax_cfg = configure(jax_config_factory("icl_gmm_paper"), modality)
     JaxObsUtils.initialize_obs_utils_with_config(jax_cfg)
-    jax_algo = JaxAlgo.algo_factory("icl_gmm_paper", jax_cfg, dict(LOW_DIM), A)
+    jax_algo = jax_algo_jit_init("icl_gmm_paper", jax_cfg, dict(LOW_DIM), A)
     if modality == "fast":
         jax_algo.set_fast_tokenizer(JaxFast.FastActionTokenizer(
             output_dim=0, seq_len=T,

@@ -257,11 +257,18 @@ def _refusal(fn):
     return None
 
 
-def refusals(mesh):
-    """What shard_state and train_on_batch refuse under dp > 1 (dropout,
-    keypoint noise and the randomizers are covered since the draws are
-    global)."""
+def refusals(mesh, mp_mesh):
+    """What shard_state and train_on_batch refuse: under dp > 1 offline RL,
+    the hierarchical family, the MCR policies and MCR pretraining, and a
+    batch that is not a shard; under @mp_mesh's mp > 1 the bf16 step, a bc
+    policy and the paper with a tokenizer other than LipVQ."""
+    from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import MCRPretrainer
     from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
+
+    def low_dim(c):
+        with c.values_unlocked():
+            _low_dim(c)
+        return c
 
     def flagship(**train):
         def cfg(c):
@@ -272,7 +279,6 @@ def refusals(mesh):
             return c
         return port_algo("icl", cfg, False)
 
-
     def bin_paper():
         def cfg(c):
             c = paper_config(c)
@@ -282,23 +288,20 @@ def refusals(mesh):
             return c
         return port_algo("icl_gmm_paper", cfg, False)
 
-    def bc():
-        def cfg(c):
-            with c.values_unlocked():
-                c.observation.modalities.obs.low_dim = list(OBS_KEYS)
-            return c
-        return port_algo("bc", cfg, False)
-
     def unsharded_batch():
         algo = shard_state(mesh, flagship())
         algo.train_on_batch(algo.process_batch_for_training(make_batch(0)), epoch=0)
 
     return {
-        "bc": _refusal(lambda: shard_state(mesh, bc())),
-        "bin": _refusal(lambda: shard_state(mesh, bin_paper())),
-        "mixed_precision": _refusal(lambda: shard_state(mesh, flagship(mixed_precision=True))),
-        "packed_rgb_encoders": _refusal(
-            lambda: shard_state(mesh, flagship(packed_rgb_encoders=True))),
+        "iql": _refusal(lambda: shard_state(mesh, port_algo("iql", low_dim, False))),
+        "gl": _refusal(lambda: shard_state(mesh, port_algo("gl", low_dim, False))),
+        "mcr": _refusal(lambda: shard_state(mesh, port_algo("mcr", low_dim, False))),
+        "mcr_pretrain": _refusal(lambda: shard_state(
+            mesh, MCRPretrainer(torch.nn.Linear(2, 2), device="cpu"))),
+        "bc_mp": _refusal(lambda: shard_state(mp_mesh, port_algo("bc", low_dim, False))),
+        "bin_mp": _refusal(lambda: shard_state(mp_mesh, bin_paper())),
+        "mixed_precision_mp": _refusal(
+            lambda: shard_state(mp_mesh, flagship(mixed_precision=True))),
         "unsharded_batch": _refusal(unsharded_batch),
     }
 
@@ -337,7 +340,7 @@ def job_all(rank, world, work):
         algo, _ = leg_algo(name, cfg_name, with_rgb, init_vq)
         shard_state(dp_mesh, algo)
         out[tag] = {"losses": steps(algo, batches, dp_mesh, halves), **algo_state(algo)}
-    out["refusals"] = refusals(dp_mesh)
+    out["refusals"] = refusals(dp_mesh, mesh)
     return out
 
 
@@ -543,6 +546,462 @@ def job_mp(rank, world, work):
         if world == 2:
             out["guards"] = kernel_guards(mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the policy families under dp (tests/test_torch_mesh_families.py)
+# ---------------------------------------------------------------------------
+
+# a second camera for the packed trunks (which need two)
+RGB2_KEYS = {**RGB_KEYS, "robot0_eye_in_hand_image": (32, 32, 3)}
+FAM_T, FAM_TP = 3, 8          # the MLP / RNN / ACT windows; the diffusion Tp
+# the diffusion policy's training draws and a DDPM request's draws, injected
+# at the global batch's shape by the hooks leg (2 inference steps)
+FAM_DDPM_STEPS = 2
+
+
+def _low_dim(cfg):
+    cfg.observation.modalities.obs.low_dim = list(OBS_KEYS)
+    cfg.observation.modalities.obs.rgb = []
+
+
+def _train_common(cfg, half):
+    """A clip limit below the gradient norms, the seed, @half (mixed
+    precision); the templates' own learning rates."""
+    cfg.train.max_grad_norm = 0.5
+    cfg.train.seed = 0
+    cfg.train.mixed_precision = half
+
+
+def icl_family_config(cfg, mode):
+    """@cfg (``icl`` or ``bc``) as the MLP, RNN, VAE or transformer policy
+    of @mode at a small size on the low-dim keys, dropout 0."""
+    with cfg.values_unlocked():
+        _low_dim(cfg)
+        a = cfg.algo
+        tx = a.transformer
+        tx.enabled = mode.startswith("transformer")
+        tx.ln_act_enabled = tx.vq_vae_enabled = False
+        tx.context_length, tx.embed_dim, tx.num_layers, tx.num_heads = H, 16, 1, 2
+        tx.emb_dropout = tx.attn_dropout = tx.block_output_dropout = 0.0
+        tx.supervise_all_steps, tx.pred_future_acs = True, False
+        a.gaussian.enabled = mode == "gaussian"
+        a.gmm.enabled = mode in ("gmm", "rnn_gmm", "transformer_gmm")
+        a.gmm.num_modes = 3
+        a.rnn.enabled = mode in ("rnn", "rnn_gmm")
+        a.rnn.horizon, a.rnn.hidden_dim, a.rnn.num_layers = FAM_T, 10, 2
+        a.actor_layer_dims = [] if mode.startswith("rnn") else [16, 16]
+        if "vae" in a:
+            a.vae.enabled = mode.startswith("vae")
+            a.vae.latent_dim = 4
+            a.vae.encoder_layer_dims = a.vae.decoder_layer_dims = [16]
+            a.vae.prior_layer_dims = [16]
+            if mode == "vae_gmm_prior":
+                for k, v in {"learn": True, "is_conditioned": True, "use_gmm": True,
+                             "gmm_num_modes": 3, "gmm_learn_weights": True}.items():
+                    a.vae.prior[k] = v
+            if mode == "vae_categorical":
+                for k, v in {"use_categorical": True, "categorical_dim": 3,
+                             "categorical_gumbel_softmax_hard": True}.items():
+                    a.vae.prior[k] = v
+        a.loss.l1_weight, a.loss.cos_weight = 0.5, 0.25
+        _train_common(cfg, False)
+        cfg.train.seq_length = FAM_T
+    return cfg
+
+
+def paper_modality_config(cfg, modality, half=False):
+    """``paper_config`` with @modality's tokenizer ("lipvq", "bin",
+    "ln_act", "fast" or "default"); the default encoder keeps its fixed
+    dropout 0.1, drawn from the algo's generator."""
+    cfg = paper_config(cfg)
+    with cfg.values_unlocked():
+        tc = cfg.algo.transformer
+        tc.vq_vae_enabled = modality == "lipvq"
+        for flag in ("bin", "ln_act", "fast"):
+            tc[f"{flag}_enabled"] = modality == flag
+        cfg.train.mixed_precision = half
+    return cfg
+
+
+def mamba_config(cfg, gmm, half=False):
+    """``icl_mamba`` at a small size: ICLMamba_GMM with LipVQ (@gmm), else
+    ICLMambaHVQVAE with a small HVQVAE (dropout 0)."""
+    with cfg.values_unlocked():
+        _low_dim(cfg)
+        mc = cfg.algo.mamba
+        mc.context_length, mc.embed_dim, mc.num_layers, mc.num_heads = H, 32, 1, 4
+        mc.emb_dropout = mc.attn_dropout = mc.block_output_dropout = 0.0
+        mc.vq_vae_enabled, mc.ln_act_enabled = True, False
+        mc.supervise_all_steps = True
+        cfg.algo.gmm.enabled = gmm
+        if not gmm:
+            mc.pred_future_acs = True
+            vq = mc.vqvae
+            vq.embed_dim, vq.num_subclusters, vq.num_clusters = E, KZ, KQ
+            vq.num_stages, vq.num_layers_per_stage, vq.dropout = 1, 2, 0.0
+        cfg.train.max_grad_norm = 1.0
+        cfg.train.seed = 0
+        cfg.train.mixed_precision = half
+    return cfg
+
+
+def diffusion_config(cfg, half=False, ddim=True):
+    with cfg.values_unlocked():
+        _low_dim(cfg)
+        a = cfg.algo
+        a.horizon.observation_horizon, a.horizon.prediction_horizon = 2, FAM_TP
+        a.unet.down_dims, a.unet.diffusion_step_embed_dim, a.unet.n_groups = [16, 32], 16, 4
+        a.ddpm.enabled, a.ddim.enabled = not ddim, ddim
+        a.ddpm.num_inference_timesteps = a.ddim.num_inference_timesteps = FAM_DDPM_STEPS
+        _train_common(cfg, half)
+        cfg.train.seq_length = FAM_TP
+    return cfg
+
+
+def act_config(cfg):
+    with cfg.values_unlocked():
+        _low_dim(cfg)
+        act = cfg.algo.act
+        act.hidden_dim, act.dim_feedforward, act.nheads = 32, 64, 2
+        act.enc_layers, act.dec_layers, act.latent_dim = 1, 1, 8
+        _train_common(cfg, False)
+        cfg.train.seq_length = FAM_T
+    return cfg
+
+
+def flagship_bf16_config(cfg, packed):
+    """The tiny flagship with rgb (``flagship_config``, draw-free) under
+    ``train.mixed_precision``; with @packed two cameras in the packed
+    trunks."""
+    cfg = flagship_config(cfg, True)
+    with cfg.values_unlocked():
+        cfg.train.mixed_precision = True
+        if packed:
+            cfg.observation.modalities.obs.rgb = list(RGB2_KEYS)
+            cfg.train.packed_rgb_encoders = True
+    return cfg
+
+
+def family_batch(seed, t, keys=None, bounded=False, b=B):
+    """B rows of a @t-step window over @keys (``OBS_KEYS``; images uint8,
+    ``lang_emb`` 768 floats); actions in [-1, 1] with @bounded."""
+    rng = np.random.RandomState(seed)
+    obs = {}
+    for k, shape in (keys or OBS_KEYS).items():
+        if len(shape) == 3:
+            obs[k] = rng.randint(0, 255, (b, t) + shape).astype(np.uint8)
+        else:
+            obs[k] = rng.randn(b, t, *shape).astype(np.float32)
+    actions = rng.randn(b, t, A).astype(np.float32)
+    if bounded:
+        actions = np.tanh(actions)
+    return {"obs": obs, "actions": actions}
+
+
+# tag: (algo name, configure, obs key shapes, window, halves, request kind,
+# dp worlds, bf16). A leg's steps take two batches of ``window`` steps; its
+# request is ``family_request``'s @kind. dp = 4 where the step couples rows
+# (BatchNorm, packed BatchNorm, bin's min / max, the default encoder).
+_RGB = {**OBS_KEYS, **RGB_KEYS, "lang_emb": (LANG,)}
+_RGB2 = {**OBS_KEYS, **RGB2_KEYS, "lang_emb": (LANG,)}
+FAMILY_LEGS = {
+    "flagship_bf16": ("icl", lambda c: flagship_bf16_config(c, False), _RGB, 2 * H - 1,
+                      False, "context", (2, 4), True),
+    "flagship_packed_bf16": ("icl", lambda c: flagship_bf16_config(c, True), _RGB2,
+                             2 * H - 1, False, "context", (2, 4), True),
+    "paper_lipvq_bf16": ("icl_gmm_paper", lambda c: paper_modality_config(c, "lipvq", True),
+                         OBS_KEYS, H, True, "context", (2,), True),
+    "paper_bin": ("icl_gmm_paper", lambda c: paper_modality_config(c, "bin"), OBS_KEYS, H,
+                  True, "context", (2, 4), False),
+    "paper_ln_act": ("icl_gmm_paper", lambda c: paper_modality_config(c, "ln_act"),
+                     OBS_KEYS, H, True, "context", (2,), False),
+    "paper_default": ("icl_gmm_paper", lambda c: paper_modality_config(c, "default"),
+                      OBS_KEYS, H, True, "context", (2, 4), False),
+    "paper_fast": ("icl_gmm_paper", lambda c: paper_modality_config(c, "fast"), OBS_KEYS,
+                   H, True, "context", (2,), False),
+    "mamba_gmm": ("icl_mamba", lambda c: mamba_config(c, True), OBS_KEYS, H, True,
+                  "context", (2,), False),
+    "mamba_gmm_bf16": ("icl_mamba", lambda c: mamba_config(c, True, True), OBS_KEYS, H,
+                       True, "context", (2,), True),
+    "mamba_hvqvae": ("icl_mamba", lambda c: mamba_config(c, False), OBS_KEYS, 2 * H - 1,
+                     False, "context", (2,), False),
+    "icl": ("icl", lambda c: icl_family_config(c, "plain"), OBS_KEYS, FAM_T, False, "obs",
+            (2,), False),
+    "icl_gaussian": ("icl", lambda c: icl_family_config(c, "gaussian"), OBS_KEYS, FAM_T,
+                     False, "obs", (2,), False),
+    "icl_gmm": ("icl", lambda c: icl_family_config(c, "gmm"), OBS_KEYS, FAM_T, False, "obs",
+                (2,), False),
+    "icl_rnn": ("icl", lambda c: icl_family_config(c, "rnn"), OBS_KEYS, FAM_T, False, "rnn",
+                (2,), False),
+    "icl_rnn_gmm": ("icl", lambda c: icl_family_config(c, "rnn_gmm"), OBS_KEYS, FAM_T,
+                    False, "rnn", (2,), False),
+    "bc_rnn_gmm": ("bc", lambda c: icl_family_config(c, "rnn_gmm"), OBS_KEYS, FAM_T, False,
+                   "rnn", (2,), False),
+    "bc_vae": ("bc", lambda c: icl_family_config(c, "vae"), OBS_KEYS, FAM_T, False, "obs",
+               (2,), False),
+    "bc_vae_gmm_prior": ("bc", lambda c: icl_family_config(c, "vae_gmm_prior"), OBS_KEYS,
+                         FAM_T, False, "obs", (2,), False),
+    "bc_vae_categorical": ("bc", lambda c: icl_family_config(c, "vae_categorical"),
+                           OBS_KEYS, FAM_T, False, "obs", (2,), False),
+    "bc_transformer": ("bc", lambda c: icl_family_config(c, "transformer"), OBS_KEYS, H,
+                       False, "window", (2,), False),
+    "bc_transformer_gmm": ("bc", lambda c: icl_family_config(c, "transformer_gmm"),
+                           OBS_KEYS, H, False, "window", (2,), False),
+    "diffusion": ("diffusion_policy", diffusion_config, OBS_KEYS, FAM_TP, False,
+                  "diffusion", (2,), False),
+    "diffusion_bf16": ("diffusion_policy", lambda c: diffusion_config(c, True), OBS_KEYS,
+                       FAM_TP, False, "diffusion", (2,), True),
+    "diffusion_ddpm_hooks": ("diffusion_policy", lambda c: diffusion_config(c, ddim=False),
+                             OBS_KEYS, FAM_TP, False, "diffusion", (2,), False),
+    "act": ("act", act_config, OBS_KEYS, FAM_T, False, "act", (2,), False),
+}
+
+
+def family_legs(world=None):
+    """``FAMILY_LEGS`` (those run at dp = @world, where given)."""
+    return {tag: leg for tag, leg in FAMILY_LEGS.items() if world is None or world in leg[6]}
+
+
+def family_algo(tag, device="cpu"):
+    """The leg's port algo from the seed; FAST on ``chip_smoke``'s
+    stand-ins; the hooks leg's draws injected (``family_hooks``)."""
+    from robot_manipulation_vq_vae_tpu_torch.algo import algo_factory
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils
+
+    name, configure, keys = FAMILY_LEGS[tag][:3]
+    cfg = configure(config_factory(name))
+    obs_utils.initialize_obs_utils_with_config(cfg)
+    algo = algo_factory(name, cfg, dict(keys), A, device=device)
+    if tag == "paper_fast":
+        from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.fast import FastHostEncoder
+        from chip_smoke import SmokeFastProcessor, smoke_clip_encode
+
+        algo.set_fast_tokenizer(FastHostEncoder.from_components(SmokeFastProcessor(),
+                                                                smoke_clip_encode))
+    if tag == "diffusion_ddpm_hooks":
+        family_hooks(algo)
+    if "vqvae" in algo.nets:
+        initialized_vq(algo)   # no k-means draw: JAX's oracle starts from it too
+    return algo
+
+
+def family_hooks(algo):
+    """The diffusion policy's training and request draws injected at the
+    global batch's shape: a step's (timesteps [B], noise [B, Tp, A]) and a
+    request's (initial noise [B, Tp, A], the DDPM noises [n, B, Tp, A]),
+    from a seeded numpy stream that every rank and the unsharded run share."""
+    rng = np.random.RandomState(11)
+    algo._noise_hook = lambda: (rng.randint(0, 100, (B,)),
+                                rng.randn(B, FAM_TP, A).astype(np.float32))
+    algo._sample_hook = lambda: (rng.randn(B, FAM_TP, A).astype(np.float32),
+                                 rng.randn(FAM_DDPM_STEPS, B, FAM_TP, A).astype(np.float32))
+
+
+def family_batches(tag):
+    keys, t = FAMILY_LEGS[tag][2], FAMILY_LEGS[tag][3]
+    return [family_batch(20 + i, t, keys, bounded=tag.startswith("diffusion"))
+            for i in range(2)]
+
+
+def family_request(algo, kind, keys, mesh=None):
+    """The request of @kind on @algo (this rank's shards under a dp @mesh):
+    "context" ``request``'s B rows with their context batch; "window" B
+    windows of H steps; "obs" B observations; "diffusion" B windows of 2
+    frames; "rnn" FAM_T stepwise calls after ``reset``; "act" FAM_T + 1
+    calls after ``reset`` (a chunk, then the next one predicted). Returns
+    the global batch's actions of every call, stacked [calls, B, A]."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch
+
+    def cut(d):
+        return d if mesh is None else shard_batch(mesh, d)
+
+    if kind == "context":
+        obs = family_batch(7, H, keys)["obs"]
+        ctx = family_batch(8, H, keys)
+        calls = [lambda: algo.get_action(cut(obs), cut({"obs": ctx["obs"],
+                                                           "actions": ctx["actions"]}))]
+    elif kind in ("window", "diffusion", "obs"):
+        obs = family_batch(7, H if kind == "window" else 2, keys)["obs"]
+        if kind == "obs":
+            obs = {k: v[:, 0] for k, v in obs.items()}
+        calls = [lambda: algo.get_action(cut(obs))]
+    else:
+        algo.reset()
+        n = FAM_T + 1 if kind == "act" else FAM_T
+        obs = family_batch(7, n, keys)["obs"]
+        calls = [lambda i=i: algo.get_action(cut({k: v[:, i] for k, v in obs.items()}))
+                 for i in range(n)]
+    return torch.stack([call().detach().cpu().clone() for call in calls])
+
+
+def family_state(algo, half):
+    """``algo_state`` and, for a bf16 leg, every parameter's last gradient
+    (the averaged, clipped one the optimizer stepped), the parameters'
+    names and each optimizer's in its state's order."""
+    out = algo_state(algo)
+    if half:
+        name_of = {id(p): n for n, p in algo.nets.named_parameters()}
+        out["grads"] = {n: p.grad.detach().cpu().clone()
+                        for n, p in algo.nets.named_parameters() if p.grad is not None}
+        out["params"] = list(name_of.values())
+        out["opt_params"] = {name: [name_of[id(p)] for g in opt.param_groups
+                                    for p in g["params"]]
+                             for name, opt in algo.optimizers.items()}
+    return out
+
+
+def run_family_leg(tag, mesh=None, device="cpu"):
+    """A leg's algo on @device (under @mesh when given), its two steps (on
+    @mesh's shards) and its request after them."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
+
+    _, _, keys, _, halves, kind, _, half = FAMILY_LEGS[tag]
+    algo = family_algo(tag, device)
+    if mesh is not None:
+        shard_state(mesh, algo)
+    losses = steps(algo, family_batches(tag), mesh, halves)
+    return {"losses": losses, **family_state(algo, half),
+            "action": family_request(algo, kind, keys, mesh)}
+
+
+# bf16 legs (``check_half_leg``): gradient tensors whose bf16 terms cancel
+# (a LayerNorm bias summed over every token, each rank's sum rounded before
+# the average), held at 1e-2 of the network's largest gradient instead of
+# their own (measured on the CPU: 1.5 % of its own largest, which is 0.31 of
+# the network's)
+HALF_CANCELLING = {"mamba_gmm_bf16": ("policy.net.embedding.embed_ln.bias",)}
+# parameters where an element whose gradient is bf16 noise may lie beyond
+# test_parallel.py's bound by Adam's step (lr a step, its sign rounded
+# apart); the check shows that gradient near zero: every Adam first moment
+# of such an element within 1e-2 of its tensor's largest (measured on the
+# CPU: 2 of LipVQ's 8,192 decoder weights 1.0e-3 apart at AdamW's lr 1e-3,
+# their first moments 1.3e-3 of the tensor's largest)
+_LIPVQ_OUT = ("policy.net.encoder.action_network.decoder.2.weight",
+              "policy.net.encoder.action_network.decoder.2.bias")
+HALF_SIGN_NOISE = {"paper_lipvq_bf16": _LIPVQ_OUT, "mamba_gmm_bf16": _LIPVQ_OUT}
+
+
+def _moments_by_name(state):
+    """{parameter name: [(exp_avg, exp_avg_sq) of each optimizer holding
+    it]} from a bf16 leg's ``family_state``."""
+    out = {}
+    for opt_name, names in state["opt_params"].items():
+        for i, st in state["opt"][opt_name]["state"].items():
+            if "exp_avg" in st:
+                out.setdefault(names[i], []).append((st["exp_avg"], st["exp_avg_sq"]))
+    return out
+
+
+def check_half_leg(res, ref, tag, msg, vq_by_mass=False):
+    """A bf16 leg @res against the unsharded @ref (``run_family_leg``'s):
+    metrics 1e-3 relative; each last
+    gradient within 1e-2 of its tensor's largest (``HALF_CANCELLING``: of the
+    network's), all of them as one vector within 1e-2 of their norm; every
+    Adam moment within test_parallel.py's 5e-4 + 1e-2 |v| and, per tensor,
+    the first within 1e-2 and the second within 2e-2 of its tensor's largest
+    (``HALF_CANCELLING``: of the network's); the weights within 5e-4 + 1e-2
+    |v| (``HALF_SIGN_NOISE``: beyond only where the moments show a gradient
+    near zero); buffers 1e-4, of BatchNorm's statistics at most 1 % further,
+    all within 5e-4 + 1e-2 |v|. With @vq_by_mass the HVQVAE's codebooks are
+    held by their EMA's total mass (which code a row chose may round apart).
+    Returns readings."""
+    for step, (g, w) in enumerate(zip(res["losses"], ref["losses"], strict=True)):
+        for k, v in w.items():
+            assert abs(g[k] - v) <= 1e-3 * abs(v), f"{msg} step {step} {k}: {g[k]} vs {v}"
+    cancelling = HALF_CANCELLING.get(tag, ())
+    assert set(res["grads"]) == set(ref["grads"]), msg
+    top = max(float(g.abs().max()) for g in ref["grads"].values())
+    worst = {}
+    for k, g in ref["grads"].items():
+        gap = float((res["grads"][k] - g).abs().max())
+        own = float(g.abs().max())
+        worst[k] = gap / max(own, 1e-30)
+        assert gap <= 1e-2 * (top if k in cancelling else own), \
+            f"{msg} grad {k}: {gap} ({own} its largest, {top} the network's)"
+    want = torch.cat([g.flatten() for g in ref["grads"].values()])
+    got = torch.cat([res["grads"][k].flatten() for k in ref["grads"]])
+    vec = float((got - want).norm() / want.norm())
+    assert vec <= 1e-2, f"{msg} gradients {vec} of their norm apart"
+    moments, got_moments = _moments_by_name(ref), _moments_by_name(res)
+    m_top = max(float(m.abs().max()) for ms in moments.values() for m, _ in ms)
+    v_top = max(float(v.abs().max()) for ms in moments.values() for _, v in ms)
+    for k, ms in moments.items():
+        for (m, v), (gm, gv) in zip(ms, got_moments[k], strict=True):
+            for name, a, b, rel, net_top in (("exp_avg", gm, m, 1e-2, m_top),
+                                             ("exp_avg_sq", gv, v, 2e-2, v_top)):
+                gap = (a - b).abs()
+                assert bool((gap <= 5e-4 + 1e-2 * b.abs()).all()), f"{msg} {k} {name}"
+                scale = net_top if k in cancelling else float(b.abs().max())
+                assert float(gap.max()) <= rel * scale, \
+                    f"{msg} {k} {name}: {float(gap.max())} ({scale})"
+    params = set(ref["params"])
+    stats, exempt = [], {}
+    for k, v in ref["nets"].items():
+        got_v = res["nets"][k]
+        if not v.is_floating_point():
+            assert torch.equal(got_v, v), f"{msg} {k}"
+        elif vq_by_mass and k.startswith("vqvae.") and k.rsplit(".", 1)[-1].startswith(
+                ("codebook_", "embed_avg_", "cluster_size_")):
+            if "cluster_size_" in k:
+                assert abs(float(got_v.sum() - v.sum())) <= 2e-3 * abs(float(v.sum())), k
+        elif k in params:
+            beyond = (got_v - v).abs() > 5e-4 + 1e-2 * v.abs()
+            if bool(beyond.any()):
+                assert k in HALF_SIGN_NOISE.get(tag, ()), f"{msg} {k} beyond 5e-4 + 1e-2 |v|"
+                for m, _ in moments[k]:
+                    near = float(m[beyond].abs().max()) / max(float(m.abs().max()), 1e-30)
+                    assert near <= 1e-2, f"{msg} {k}: a moved element's moment {near} of the max"
+                exempt[k] = (int(beyond.sum()), float((got_v - v).abs().max()))
+        elif k.endswith(("running_mean", "running_var")):
+            stats.append((got_v, v))
+        else:
+            assert float((got_v - v).abs().max()) <= 1e-4, f"{msg} {k}"
+    flips = n_stats = 0
+    for got_v, v in stats:
+        gap = (got_v - v).abs()
+        assert bool((gap <= 5e-4 + 1e-2 * v.abs()).all()), msg
+        flips += int((gap > 1e-4).sum())
+        n_stats += v.numel()
+    assert flips <= n_stats // 100, (msg, flips, n_stats)
+    return {"vector": vec, "worst_grad": max(worst.items(), key=lambda kv: kv[1]),
+            "stat_flips": (flips, n_stats), "sign_noise": exempt}
+
+
+def job_families(rank, world, work, unsharded=False):
+    """dp = @world: each leg of ``family_legs(world)``; with @unsharded
+    (one process, no mesh) every leg unsharded, the reference."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    if unsharded:
+        return {tag: run_family_leg(tag) for tag in FAMILY_LEGS}
+    mesh = make_mesh()
+    out = {}
+    for tag in family_legs(world):
+        res = run_family_leg(tag, mesh)
+        if rank:
+            res["digest"] = digest(res)
+            for k in ("nets", "opt", "grads"):
+                res.pop(k, None)
+        out[tag] = res
+        gc.collect()
+    return out
+
+
+def job_card_bf16(rank, world, work):
+    """The tiny flagship's bf16 leg at dp = @world on the card (gloo: the
+    ranks share it), with the kernels' launches of its steps and request
+    (the parent built the kernels: each rank loads them)."""
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    cuda_build.build_kernels()
+    before = dict(cuda_build.LAUNCHES)
+    res = run_family_leg("flagship_bf16", make_mesh(device="cuda"), device="cuda")
+    res["launched"] = {k: n - before[k] for k, n in cuda_build.LAUNCHES.items()}
+    return res
 
 
 # ---------------------------------------------------------------------------
