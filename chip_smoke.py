@@ -342,14 +342,16 @@ FLAGSHIP_POOL = (1024, 64, 58, 58)
 # policies' 100 x 10, icl_mamba's 32 x 10 a group, ICLMambaHVQVAE's 64 x
 # 10; phase 17: BC_Transformer_GMM's 100 x 10, the diffusion policy's 100 x
 # 2 on its GroupNorm trunks; phase 18e: the offline-RL steps' 100 and CQL's
-# actor's 1000), the requests' (an MLP or RNN policy's B = 1 and 16 frames,
+# actor's 1000; phase 24: each of two dp ranks' half, 50 and 500), the
+# requests' (an MLP or RNN policy's B = 1 and 16 frames,
 # the offline-RL policies' too,
 # the diffusion policy's 1 x 2 and 16 x 2, icl_mamba's 1 x 10 and 16 x 10 a
 # group, the paper's 16 x 16 at B = 16 and in the rollout), and a small odd
 # shape; all but the odd one are timed, the
 # first feeds the kernels line
 FAMILY_POOL_SHAPES = ((100, 64, 58, 58), (1000, 64, 58, 58), (320, 64, 58, 58),
-                      (640, 64, 58, 58), (200, 64, 58, 58))
+                      (640, 64, 58, 58), (200, 64, 58, 58), (50, 64, 58, 58),
+                      (500, 64, 58, 58))
 REQUEST_POOL_SHAPES = tuple((n, 64, 58, 58) for n in (1, 2, 10, 16, 32, 160, 256))
 POOL_SHAPES = ((512, 64, 58, 58), FLAGSHIP_POOL, *FAMILY_POOL_SHAPES,
                *REQUEST_POOL_SHAPES, (2, 64, 57, 59))
@@ -2979,25 +2981,28 @@ def phase_r3m_pool(S, dev, gen):
 # MCR pretraining's stem (phase 19f: train_mcr_representation.py's default
 # batch of 32 frame quintuples at 224 x 224)
 MCR_POOL = (32 * 5, 64, 112, 112)
+# a rank's half of it under phase 24's dp = 2
+MCR_RANK_POOL = (16 * 5, 64, 112, 112)
 
 
-def phase_mcr_pool(S, dev):
-    """Rows 3h / 4g: kernels 3 and 4 in fp32 at MCR_POOL, on ReLU'd inputs
-    (ties): maxima, offsets and dx bit-equal to the plain versions (kernel 3
-    through its band kernel, kernel 4 on whole planes of windows, both
-    asserted from their plans), each timed beside its bound, the plain
-    version and the library call (F.max_pool2d, its indices' backward), back
-    to back and by device time alone. Returns {kernel: row}."""
+def phase_mcr_pool(S, dev, shape=MCR_POOL):
+    """Rows 3h / 4g: kernels 3 and 4 in fp32 at @shape (MCR_POOL, or a dp
+    rank's MCR_RANK_POOL), on ReLU'd inputs (ties): maxima, offsets and dx
+    bit-equal to the plain versions (kernel 3 through its band kernel,
+    kernel 4 on whole planes of windows, both asserted from their plans),
+    each timed beside its bound, the plain version and the library call
+    (F.max_pool2d, its indices' backward), back to back and by device time
+    alone. Returns {kernel: row}."""
     import torch
     import torch.nn.functional as F
 
-    log(f"phase 6 (MCR stem): kernels 3 and 4 at {list(MCR_POOL)} fp32")
+    log(f"phase 6 (MCR stem): kernels 3 and 4 at {list(shape)} fp32")
     gen = torch.Generator(dev).manual_seed(31)
-    x = relu_input(MCR_POOL, gen, dev)
-    tag = "x".join(map(str, MCR_POOL))
-    hw = MCR_POOL[2:]
+    x = relu_input(shape, gen, dev)
+    tag = "x".join(map(str, shape))
+    hw = shape[2:]
     fwd_err = check_band_forward(S, x, f"kernels 3 and 4 at {tag}")
-    tile_h, tile_w, blocks, smem = S.pool_bwd_plan(MCR_POOL, x.dtype)
+    tile_h, tile_w, blocks, smem = S.pool_bwd_plan(shape, x.dtype)
     ho, wo = S.pooled_hw(*hw)
     check((tile_h, tile_w) == (ho, wo), f"kernel 4 took tiles of {tile_h} x {tile_w} "
           f"windows at {tag}, not whole planes of {ho} x {wo}")
@@ -5529,6 +5534,9 @@ class OneRank:
     def sum(self, t):
         return t
 
+    def gather(self, t):
+        return t
+
     def chunk(self, t, dim=0):
         return t
 
@@ -5889,6 +5897,418 @@ def phase_mesh_families(CB, S, dev, card):
     log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: offline RL, the hierarchical family, MCR and its pretraining
+# under dp = 2
+# ---------------------------------------------------------------------------
+
+MESH24_STEPS = 2        # steps a cell (the second timed for the ratio)
+MESH24_CALLS = 2        # a stepwise cell's request: calls after a reset
+# the pretraining cell: scripts/train_mcr_representation.py's defaults with
+# 19f's --size 50 (32 quintuples of 224 x 224 frames, lr 1e-4, seed 1)
+MESH24_PRETRAIN_B = 32
+
+
+def _mesh24_pretrainer(dev):
+    """19f's trainer as the script builds it (ResNet-50, the recorded-argmax
+    stem pool always on), its weights from the script's seed."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import (
+        MCRPretrainer,
+        MCRRepresentation,
+    )
+    from robot_manipulation_vq_vae_tpu_torch.models.base_nets import set_stem_pool
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        model = MCRRepresentation(size=50, action_dim=7, resize_to_224=True, state_dim=42)
+    set_stem_pool(model, True)
+    return MCRPretrainer(model, lr=1e-4, seed=1, device=dev)
+
+
+def _mesh24_rl(name, dev):
+    """18e's @name on the cameras; TD3-BC's critic-step counter at 1 (as
+    18e's kernel-against-plain step takes it), so that its actor moves at
+    the first step, which phase 24 holds."""
+    algo = rl_algo(name, dev, images=True)
+    if name == "td3_bc":
+        algo.critic_steps = 1
+    return algo
+
+
+def _mesh24_rl_batches(algo, dev):
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(56)
+    return [rl_batch(gen, dev, algo, RL_B, True) for _ in range(MESH24_STEPS)]
+
+
+def _mesh24_hier_batches(algo, dev):
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(57)
+    return [hier_batch(gen, dev, algo, True) for _ in range(MESH24_STEPS)]
+
+
+def _mesh24_mcr_batches(algo, dev):
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(58)
+    return [algo.process_batch_for_training(make_train_batch(gen, dev, HIER_B, 1))
+            for _ in range(MESH24_STEPS)]
+
+
+def _mesh24_pretrain_batches(algo, dev):
+    from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import synthetic_batches
+
+    return list(synthetic_batches(MESH24_PRETRAIN_B, 224, 7, state_dim=42, seed=59,
+                                  num_batches=MESH24_STEPS + 1))
+
+
+# tag: (phase of the cell's unsharded path, make(dev), batches(algo, dev),
+# request kind: "obs" a B = 16 get_action, "stepwise" MESH24_CALLS calls at
+# B = 16 after a reset, "eval" the trainer's evaluation step on a third
+# batch). Each rank pools half the unsharded rows: the steps' [50] (CQL's
+# tiled actor [500], the hierarchical actors' [500]), the requests' [8],
+# pretraining's [80, 64, 112, 112].
+MESH24_CELLS = {
+    **{cls: ("18e", lambda dev, n=name: _mesh24_rl(n, dev), _mesh24_rl_batches, "obs")
+       for name, cls, _ in RL_CELLS.values()},
+    "HBC": ("19d", lambda dev: hier_algo("hbc", dev, images=True), _mesh24_hier_batches,
+            "stepwise"),
+    "IRIS": ("19d", lambda dev: hier_algo("iris", dev, images=True), _mesh24_hier_batches,
+             "stepwise"),
+    "MCR_GMM": ("19e", mcr_algo, _mesh24_mcr_batches, "obs"),
+    "MCR pretraining": ("19f", _mesh24_pretrainer, _mesh24_pretrain_batches, "eval"),
+}
+# cells whose metrics after the first step read Adam's first-step flips
+# (below) past test_parallel.py's bounds: MCR pretraining's second-step TCN
+# loss lay 0.39 % from unsharded, its first step's 1.4e-6, and a witness (the
+# unsharded run on the ranks' shapes, ``split_rows``, with the dp step's
+# arithmetic, ``OneRank``) 0.16 % (run CX). Their first step is held; the
+# later steps and the evaluation are reported beside the witness's gap.
+MESH24_WITNESS = ("MCR pretraining",)
+# Adam's first step moves every element by lr times its gradient's sign,
+# whatever the gradient's size, so an element whose gradient is near zero
+# (SpatialSoftmax's keypoint biases, whose true gradient is 0; some trunk
+# weights) steps by the sign of its rounding noise, which may go either way
+# between the dp and the unsharded step: 2 lr apart, past
+# test_parallel.py's 5e-4 at TD3-BC's lr 3e-4 and CQL's and BCQ's 1e-3.
+# TD3-BC's actor reads the first critic as its step left it, so its
+# gradient carries that critic's flips too: elements at 1.13 and 1.69 % of
+# their tensor's largest first moment flipped (runs CU, CV). Phase 24 holds
+# the gradients themselves (the first step's Adam moments) at
+# test_parallel.py's bounds, and lets a weight element lie beyond its bound
+# after the first step only by up to those 2 lr; later steps read the flips,
+# so the weights after the last step are reported.
+
+
+def mesh24_state(algo):
+    """({part + name: tensor} of the networks of every algo @algo is made of
+    (``algos_of``; the pretrainer's model), {part + optimizer: Adam
+    moments by parameter index}, {part + optimizer: its parameters' names
+    in that order}, {part + optimizer: its largest learning rate}) on the
+    host."""
+    nets, moments, names, lrs = {}, {}, {}, {}
+    for i, a in enumerate(algos_of(algo)):
+        path = f"{i}."
+        module = getattr(a, "model", None) or a.nets
+        nets.update({path + k: v.detach().cpu().clone() for k, v in module.state_dict().items()})
+        name_of = {id(p): path + n for n, p in module.named_parameters()}
+        for name, opt in ({"model": a.optimizer} if hasattr(a, "model")
+                          else a.optimizers).items():
+            params = [p for g in opt.param_groups for p in g["params"]]
+            names[path + name] = [name_of[id(p)] for p in params]
+            moments[path + name] = {j: {k: v.detach().cpu().clone()
+                                        for k, v in opt.state[p].items()
+                                        if k in ("exp_avg", "exp_avg_sq")}
+                                    for j, p in enumerate(params) if p in opt.state}
+            lrs[path + name] = max(max(g["lr"], g.get("initial_lr", 0.0))
+                                   for g in opt.param_groups)
+    return nets, moments, names, lrs
+
+
+def mesh24_request(algo, tag, mesh=None):
+    """The cell's request after its steps, on this rank's shards under a dp
+    @mesh, the generators seeded: [calls, 16, 12] of the global batch's
+    actions on the host, or the evaluation step's metrics."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch
+
+    kind = MESH24_CELLS[tag][3]
+    cut = (lambda d: d) if mesh is None else (lambda d: shard_batch(mesh, d))
+    rng = np.random.RandomState(60)
+    with deterministic_steps():
+        if kind == "eval":
+            batch = MESH24_CELLS[tag][2](algo, None)[-1]
+            return algo.update(cut(batch), eval=True)
+        for a in algos_of(algo):
+            a.generator.manual_seed(9)
+        if kind == "obs":
+            return algo.get_action(cut(request_obs(rng, MESH23_REQ_B))).float().cpu()[None]
+        algo.reset()
+        obs = [request_obs(rng, MESH23_REQ_B) for _ in range(MESH24_CALLS)]
+        return torch.stack([algo.get_action(cut(o)).float().cpu() for o in obs])
+
+
+def mesh24_steps(algo, tag, dev, mesh=None):
+    """The cell's MESH24_STEPS steps (on @mesh's shards), cuDNN
+    deterministic: ([metrics], [ms a step by CUDA events], ``mesh24_state``
+    after the first step)."""
+    import torch
+
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch
+
+    batches = MESH24_CELLS[tag][2](algo, dev)[:MESH24_STEPS]
+    metrics, times = [], []
+    with deterministic_steps():
+        for epoch, batch in enumerate(batches):
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if hasattr(algo, "model"):
+                info = algo.update(batch)
+            else:
+                info = step_metrics(algo, algo.train_on_batch(batch, epoch=epoch))
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            metrics.append({k: float(v) for k, v in info.items()})
+            if epoch == 0:
+                first = mesh24_state(algo)
+    return metrics, times, first
+
+
+def mesh24_run(CB, tag, dev, mesh=None):
+    """One cell from the seed's weights: its steps (on @mesh's shards), then
+    its request, each one's launches and stem shapes recorded. Returns what
+    phase 24 holds."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
+
+    algo = MESH24_CELLS[tag][1](dev)
+    if mesh is not None:
+        shard_state(mesh, algo)
+    shapes, handles = stem_inputs(getattr(algo, "model", algo))
+    CB.reset_launch_counts()
+    res = {}
+    res["metrics"], res["ms"], first = mesh24_steps(algo, tag, dev, mesh)
+    res["first"], res["moments"], res["moment_names"], res["lrs"] = first
+    res["launches"], res["step_shapes"] = launched(CB), sorted(set(shapes))
+    shapes.clear()
+    CB.reset_launch_counts()
+    res["request"] = mesh24_request(algo, tag, mesh)
+    res["request_launches"], res["request_shapes"] = launched(CB), sorted(set(shapes))
+    for h in handles:
+        h.remove()
+    res["state"] = mesh24_state(algo)[0]
+    del algo
+    free_card()
+    if mesh is None and tag in MESH24_WITNESS:
+        # the same steps and request unsharded, every convolution and linear
+        # layer on the ranks' halves of its rows and the modules on a
+        # ``OneRank`` axis (BatchNorm through the dp step's formula): the dp
+        # step's rounding with the unsharded step's semantics
+        witness = MESH24_CELLS[tag][1](dev)
+        for m in witness.model.modules():
+            if hasattr(type(m), "dp"):
+                m.dp = OneRank()
+        with split_rows():
+            res["witness"], _, wfirst = mesh24_steps(witness, tag, dev)
+            res["witness_request"] = mesh24_request(witness, tag)
+        res["witness_moments"] = wfirst[1]
+        del witness
+        free_card()
+    return res
+
+
+def witness_gaps(got, ref, witness):
+    """The largest relative gaps from the unsharded run's metrics @ref of
+    @got's and of @witness's (lists of {metric: value})."""
+    gaps = [0.0, 0.0]
+    for g, w, x in zip(got, ref, witness):
+        for k, v in w.items():
+            for i, other in enumerate((g, x)):
+                gaps[i] = max(gaps[i], abs(other[k] - v) / max(abs(v), 1e-30))
+    return gaps
+
+
+def mesh24_rank(rank, world, port, work):
+    """One rank of phase 24: gloo over tcp on the one card, every cell at
+    dp = 2; rank 0 keeps the states, rank 1 their digests."""
+    import torch
+    import torch.distributed as dist
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    CB.build_kernels()   # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        mesh = make_mesh(device=dev)
+        for tag in MESH24_CELLS:
+            res = mesh24_run(CB, tag, dev, mesh)
+            res["digest"] = {k: hashlib.sha1(v.float().contiguous().numpy().tobytes()).hexdigest()
+                             for k, v in res["state"].items()}
+            if rank:
+                for k in ("state", "first", "moments"):
+                    res.pop(k)
+            out[tag] = res
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def moment_gaps(got, ref):
+    """{(optimizer, index, moment): ||got - ref|| / ||ref||} over two runs'
+    Adam moments (``mesh24_state``'s)."""
+    return {(name, i, k): float((got[name][i][k] - w).norm()) / max(float(w.norm()), 1e-30)
+            for name, st in ref.items() for i, m in st.items() for k, w in m.items()}
+
+
+def check_mesh24_state(tag, got, ref):
+    """A cell's Adam moments (every optimizer's), weights, buffers and
+    targets after its first step against the unsharded run's at
+    test_parallel.py's bounds (``check_moments``, ``check_dp_state``); a
+    weight element may lie beyond its bound by Adam's first step taken
+    either way, 2 lr (see the comment above). A ``MESH24_WITNESS`` cell's
+    moments are held per tensor: each within twice the witness's own gap
+    from the unsharded run's, relative to its norm (or 1e-4). The weights
+    after the last step: their largest gap, reported. Returns a summary."""
+    import torch
+
+    worst = 0.0
+    if "witness_moments" in ref:
+        dp_gap, own = moment_gaps(got["moments"], ref["moments"]), moment_gaps(
+            ref["witness_moments"], ref["moments"])
+        for key, gap in dp_gap.items():
+            check(gap <= max(1e-4, 2 * own[key]), f"24 {tag}: Adam moment {key} {gap:.3g} of "
+                  f"its norm from unsharded, the witness's {own[key]:.3g}")
+        top = sorted(dp_gap, key=dp_gap.get, reverse=True)[:3]
+        log(f"  24 {tag}: Adam moments after the first step, the largest gaps (of their "
+            f"norm, dp / witness): " + ", ".join(f"{k} {dp_gap[k]:.3g} / {own[k]:.3g}"
+                                                  for k in top))
+    else:
+        for name, want in ref["moments"].items():
+            worst = max(worst, check_moments(f"{tag} {name}", got["moments"][name], want,
+                                             "24"))
+    lr_of = {param: ref["lrs"][name] for name, names in ref["moment_names"].items()
+             for param in names}
+    flips = {}
+    for k, w in ref["first"].items():
+        gap = (got["first"][k] - w).abs() if w.is_floating_point() else None
+        if gap is None or not bool((gap > 5e-4 + 1e-2 * w.abs()).any()):
+            continue
+        check(k in lr_of, f"24 {tag}: {k} beyond test_parallel.py's bound, no optimizer's")
+        check(float(gap.max()) <= 2.02 * lr_of[k], f"24 {tag}: {k} {float(gap.max())} from "
+              f"unsharded after the first step, past Adam's 2 lr {2 * lr_of[k]:g}")
+        flips[k] = (int((gap > 5e-4 + 1e-2 * w.abs()).sum()), float(gap.max()))
+    summary = check_dp_state(tag, got["first"], ref["first"], "after the first step",
+                             phase="24", exempt=tuple(flips))
+    last = max((float((got["state"][k].float() - w.float()).abs().max())
+                for k, w in ref["state"].items() if w.numel()), default=0.0)
+    sizes = sum(int(torch.as_tensor(v).numel()) for k, v in ref["first"].items() if k in flips)
+    return (f"{summary}; Adam moments after the first step max|diff| {worst:.3g} over "
+            f"{len(ref['moments'])} optimizers; first steps taken either way (elements, "
+            f"max|diff|): {flips or 'none'} ({sum(n for n, _ in flips.values())} of {sizes}); "
+            f"after the last step, reported: weights max|diff| {last:.3g}")
+
+
+def phase_mesh_value(CB, S, dev, card):
+    """24: offline RL (18e's four on phase 8's cameras), HBC and IRIS (19d),
+    MCR_GMM (19e) and MCR pretraining (19f) at dp = 2, two processes on the
+    one card over gloo, against one process's unsharded steps and request
+    from the seed's weights: each rank's stem-pool launches those of the
+    unsharded run on half the rows (its stems at half the leading dim), the
+    metrics of every step, and the states and Adam moments after the first,
+    within test_parallel.py's bounds (``check_mesh24_state``), the request
+    within 1e-3, the ranks equal to the bit; each stem shape the ranks
+    pooled held against the plain pool; the dp = 2 / unsharded ratio of the
+    second step."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    log(f"phase 24: offline RL (IQL, TD3-BC, CQL, BCQ on cameras), HBC, IRIS, MCR_GMM and "
+        f"MCR pretraining at dp = 2, two processes on the one card over gloo, "
+        f"{MESH24_STEPS} steps and a request a cell ({card})")
+    t0 = time.perf_counter()
+    refs = {tag: mesh24_run(CB, tag, dev) for tag in MESH24_CELLS}
+    log(f"  the unsharded runs took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh24_") as work:
+        tmp.spawn(mesh24_rank, args=(2, free_port(), work), nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    pools = set()
+    for tag, (phase, *_) in MESH24_CELLS.items():
+        ref, got = refs[tag], ranks[0][tag]
+        for kernel in ("stem_pool_fwd", "stem_pool_bwd"):
+            check(ref["launches"].get(kernel, 0) > 0,
+                  f"24 {tag}: the unsharded steps launched {ref['launches']}")
+        for r, res in enumerate(ranks):
+            res = res[tag]
+            for what in ("launches", "request_launches"):
+                check(res[what] == ref[what], f"24 {tag} rank {r}: {what} {res[what]}, "
+                      f"unsharded {ref[what]}")
+            for what in ("step_shapes", "request_shapes"):
+                halves = sorted({(n // 2, *rest) for n, *rest in ref[what]})
+                check(res[what] == halves, f"24 {tag} rank {r}: {what} {res[what]}, "
+                      f"unsharded {ref[what]}")
+            record_path(f"phase 24 {tag} dp=2 rank {r} training", res["launches"])
+            record_path(f"phase 24 {tag} dp=2 rank {r} serving", res["request_launches"])
+            check(res["metrics"] == got["metrics"] and res["digest"] == got["digest"],
+                  f"24 {tag}: the ranks differ")
+            pools.update(res["step_shapes"] + res["request_shapes"])
+        if tag in MESH24_WITNESS:
+            check_dp_metrics(tag, got["metrics"][:1], ref["metrics"][:1], "24")
+            dp_gap, own = witness_gaps(got["metrics"][1:] + [got["request"]],
+                                       ref["metrics"][1:] + [ref["request"]],
+                                       ref["witness"][1:] + [ref["witness_request"]])
+            log(f"  24 {tag}: after the first step (and its evaluation), reported: the "
+                f"metrics' largest relative gap {dp_gap:.3g} from unsharded, the witness's "
+                f"{own:.3g}")
+        else:
+            check_dp_metrics(tag, got["metrics"], ref["metrics"], "24")
+        summary = check_mesh24_state(tag, got, ref)
+        if isinstance(ref["request"], dict):
+            check(all(r[tag]["request"] == got["request"] for r in ranks),
+                  f"24 {tag}: the ranks' evaluations differ")
+            gaps = [max(abs(r[tag]["request"][k] - v) for k, v in ref["request"].items())
+                    for r in ranks]
+        else:
+            gaps = [float((r[tag]["request"] - ref["request"]).abs().max()) for r in ranks]
+            for r, gap in enumerate(gaps):
+                check(gap <= 1e-3, f"24 {tag} rank {r}: the request is {gap} from unsharded")
+        log(f"  {phase} {tag}: {summary}; request max|diff| "
+            f"{', '.join(f'{g:.3g}' for g in gaps)} (ranks 0, 1; bound 1e-3); launches a rank "
+            f"{got['launches']} over {MESH24_STEPS} steps (unsharded {ref['launches']}), "
+            f"{got['request_launches']} a request; stems a rank {got['step_shapes']} "
+            f"(unsharded {ref['step_shapes']}); ms a step (CUDA events) dp=2 rank 0 "
+            f"{', '.join(f'{t:.3f}' for t in got['ms'])}, unsharded "
+            f"{', '.join(f'{t:.3f}' for t in ref['ms'])}; dp=2 / unsharded "
+            f"{got['ms'][-1] / ref['ms'][-1]:.3f} ({card})")
+    # each stem shape the ranks pooled, held against the plain pool
+    gen = torch.Generator(dev).manual_seed(61)
+    for shape in sorted(pools):
+        x = relu_input(shape, gen, dev)
+        out_k, idx_k = S.pool_fwd_cuda(x)
+        out_p, idx_p = S.pool_fwd_plain(x)
+        g = torch.randn(out_k.shape, generator=gen, device=dev)
+        same = (torch.equal(out_k, out_p) and torch.equal(idx_k, idx_p) and torch.equal(
+            S.pool_bwd_cuda(idx_k, g, shape[2:]), S.pool_bwd_plain(idx_p, g, shape[2:])))
+        check(same, f"24: kernels 3 / 4 differ from plain at the ranks' {shape}")
+    log(f"  24: kernels 3 and 4 bit-equal to the plain pool at the ranks' {len(pools)} stem "
+        f"shapes {sorted(pools)}")
+    log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
+
+
 def device_profile(tag, fn, share=()):
     """Device time by kernel for one call of @fn (torch.profiler): busy time,
     idle share of the wall time, the top kernels, and the share of the busy
@@ -5967,6 +6387,7 @@ def main():
     del tok_model, x
     pool = phase_stem_pool(S, dev)
     mcr_pool = phase_mcr_pool(S, dev)
+    mcr_rank_pool = phase_mcr_pool(S, dev, MCR_RANK_POOL)
     pool_bf16, bf16_step_pool = phase_stem_pool_bf16(S, dev)
     pool.update(pool_bf16)
     torch.cuda.empty_cache()
@@ -6014,6 +6435,8 @@ def main():
     phase_mesh_draws(CB, dev, card)
     free_card()
     phase_mesh_families(CB, S, dev, card)
+    free_card()
+    phase_mesh_value(CB, S, dev, card)
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
@@ -6065,6 +6488,10 @@ def main():
             continue
         row["mcr_stem"] = dict(mcr_pool[row["name"]], shape=list(MCR_POOL),
                                launches=PATH_LAUNCHES["phase 19f MCR pretraining"][row["name"]])
+        # a dp = 2 rank's half (phase 24), with its launches on rank 0's path
+        row["mcr_stem_dp2_rank"] = dict(
+            mcr_rank_pool[row["name"]], shape=list(MCR_RANK_POOL),
+            launches=PATH_LAUNCHES["phase 24 MCR pretraining dp=2 rank 0 training"][row["name"]])
     # each kernel's launches on every path that ran it
     for row in kernels:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in PATH_LAUNCHES.items()

@@ -42,6 +42,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import rotation_utils as RotUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import tensor_parallel as TP
 from robot_manipulation_vq_vae_tpu_torch.utils import tensor_utils as TensorUtils
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import keep_rows
 
 # algo_name -> factory func (algo_config -> (cls, kwargs))
 REGISTERED_ALGOS = {}
@@ -632,6 +633,12 @@ class ValueAlgo(Algo):
       one gradient step of a loss into its parameters.
     * Target networks copy the online ones at construction, take no
       gradient, and move by ``iql.polyak`` over the parameters.
+    * Under data parallelism (``parallel.shard_state``) the step takes this
+      rank's ``shard_batch`` rows, each network's gradient is averaged over
+      the ranks before its clipping (the global batch's gradient, which JAX
+      clips), the draws are taken at the global batch's shape and the
+      metrics returned are the global batch's. ``get_action`` takes the
+      ranks' shards and returns the global batch's actions on every rank.
     """
 
     # the networks the JAX step runs with train=True
@@ -669,7 +676,7 @@ class ValueAlgo(Algo):
         if validate or not gate:
             return
         params = self._opt_params[name]
-        grads = self._gradients(loss, params)
+        grads = self._dp_mean(self._gradients(loss, params))
         if self._max_norm[name] is not None:
             OptimUtils.clip_by_global_norm_(grads, self._max_norm[name])
         self._step(name, params, grads)
@@ -705,6 +712,7 @@ class ValueAlgo(Algo):
                 "dones": to_device(batch["dones"])}
 
     def train_on_batch(self, batch, epoch, validate=False):
+        self._check_shard(batch)
         was_training = self.nets.training
         try:
             self.nets.eval()
@@ -716,7 +724,8 @@ class ValueAlgo(Algo):
                                        validate)
             if not validate:
                 self.global_step += 1
-            return {"losses": OrderedDict((k, v.detach()) for k, v in losses.items())}
+            return {"losses": self._dp_losses(
+                OrderedDict((k, v.detach()) for k, v in losses.items()))}
         finally:
             self.nets.train(was_training)
 
@@ -743,6 +752,16 @@ class ValueAlgo(Algo):
         hook = getattr(self, name)
         return None if hook is None else to_device(hook())
 
+    def _local_rows(self, draws, dims=None):
+        """A test hook's draws (@draws: a tensor, or a tuple or dict of them)
+        at the global batch's shape: this rank's rows (along @dims[key] for a
+        dict's entries, else 0)."""
+        if isinstance(draws, dict):
+            return {k: self._local_rows(v, (dims or {}).get(k, 0)) for k, v in draws.items()}
+        if isinstance(draws, tuple):
+            return tuple(self._local_rows(v, dims) for v in draws)
+        return keep_rows(draws, self.dp, dim=dims or 0)
+
 
 class PlannerAlgo(Algo):
     """Base of the subgoal planners (``GL``, ``GL_VAE``): subgoal
@@ -750,13 +769,36 @@ class PlannerAlgo(Algo):
     ``get_subgoal_predictions`` and ``sample_subgoals``."""
 
 
+def shard_like(part, batch):
+    """@part (a dict of this rank's rows) as a shard cut as @batch, this
+    rank's ``parallel.shard_batch`` shard, was; @part itself where @batch
+    is not a shard."""
+    if getattr(batch, "layout", None) is None or part is None:
+        return part
+    return type(batch)(part, batch.layout, batch.dp)
+
+
+def sub_batch(batch, key):
+    """@batch[@key]: of a shard, a shard (a nested batch's parts are cut
+    with it)."""
+    return shard_like(batch[key], batch)
+
+
 class HierarchicalAlgo:
     """Base of the hierarchical algos (``hbc``, ``iris``): a planner and an
     actor, each an ``Algo`` with its own networks, optimizers and device;
     this class holds no networks of its own. ``nets`` is a view of both
-    (``planner.*``, ``actor.*``), for printing and counting."""
+    (``planner.*``, ``actor.*``), for printing and counting. Under data
+    parallelism (``set_data_parallel``) the planner and the actor share the
+    dp axis."""
 
     TAKES_CONTEXT = False
+    dp = None
+
+    def set_data_parallel(self, comm):
+        self.dp = comm
+        self.planner.set_data_parallel(comm)
+        self.actor.set_data_parallel(comm)
 
     @property
     def nets(self):

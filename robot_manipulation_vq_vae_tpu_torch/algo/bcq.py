@@ -38,7 +38,11 @@ sampler "backup" and "actor" are (component, standard normal) pairs), taken
 as the latents themselves, clipped to ``latent_clip``; ``_sample_hook``
 returns a request's prior draws (``VAEActor.sample_prior``'s) or, for the
 GMM, (component, standard normal). Otherwise they come from the algo's
-generator.
+generator. Under data parallelism every draw is the global batch's (a
+hook's too, and the candidates' [B * N, ...] row-major), of which the rank
+keeps its rows: the VAE's through its ``dp``, the GMM's sampled from the
+mixture gathered over the ranks; ``get_action`` takes the ranks' shards and
+returns the global batch's actions on every rank.
 """
 
 from collections import OrderedDict
@@ -211,7 +215,7 @@ class BCQ(PolicyAlgo, ValueAlgo):
         n = int(cfg.critic.num_action_samples)
         tau = float(cfg.target_tau)
         metrics = OrderedDict()
-        draws = self._hooked("_noise_hook") or {}
+        draws = self._local_rows(self._hooked("_noise_hook") or {})
         loss, sampler_metrics = self._sampler_loss(obs, acts, draws.get("enc"))
         metrics.update(sampler_metrics)
         self._update("action_sampler", loss, validate, gates["action_sampler"])
@@ -243,7 +247,8 @@ class BCQ(PolicyAlgo, ValueAlgo):
         """(candidates [B, N, A], the first critic's Q [B, N]) of a request."""
         obs = self._obs(obs_dict)
         n = int(self.algo_config.critic.num_action_samples_rollout)
-        cand = self._candidates(obs, n, draws=self._hooked("_sample_hook"))
+        draws = self._hooked("_sample_hook")
+        cand = self._candidates(obs, n, draws=None if draws is None else self._local_rows(draws))
         cand = self._perturbed("actor", obs, cand, n)
         critic = self.nets["critic"][0]
         q = critic.head(critic.features(obs).repeat_interleave(n, 0), cand)
@@ -253,9 +258,10 @@ class BCQ(PolicyAlgo, ValueAlgo):
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
         """The candidate of the highest Q (the first on a tie): [B, A]."""
+        self._check_obs_request(obs_dict, goal_dict)
         cand, q = self._scored_candidates(obs_dict)
         best = q.argmax(1)
-        return cand[torch.arange(cand.shape[0], device=cand.device), best]
+        return self._gather_rows(cand[torch.arange(cand.shape[0], device=cand.device), best])
 
     @torch.inference_mode()
     def get_state_value(self, obs_dict, goal_dict=None):
@@ -289,10 +295,15 @@ class BCQ_GMM(BCQ):
         return loss, OrderedDict([("action_sampler/loss", loss)])
 
     def _candidates(self, obs, n, z=None, draws=None):
-        """@z or @draws: the (component, standard normal) of the samples."""
-        mode, eps = z if z is not None else (draws if draws is not None else (None, None))
-        dist = tile(self.nets["action_sampler"](obs), n)
-        return dist.sample(self.generator, mode=mode, eps=eps)
+        """@z or @draws: the (component, standard normal) of the samples.
+        Drawn, under data parallelism, from the mixture gathered over the
+        ranks, whole, of which the rank keeps its rows (the component's
+        draw is not separable by rows)."""
+        dist = self.nets["action_sampler"](obs)
+        given = z if z is not None else draws
+        if given is not None:
+            return tile(dist, n).sample(self.generator, mode=given[0], eps=given[1])
+        return self._local_rows(tile(self._gather_dist(dist), n).sample(self.generator))
 
 
 class BCQ_Distributional(BCQ):

@@ -35,8 +35,11 @@ row alone, so each critic encodes s once and scores the tiled candidates on
 its features tiled (the JAX step encodes s tiled three times). The draws (the
 standard normals of ``actor``, ``backup``, ``curr``, ``next`` and the
 uniforms in [-1, 1] of ``rand``, [B * N, A], the JAX step's keys) may be
-injected through ``_noise_hook``, else they come from the algo's generator.
-``get_action`` is tanh of the actor's mean.
+injected through ``_noise_hook``, else they come from the algo's generator;
+under data parallelism either is the global batch's draw, of which the rank
+keeps its rows (``_draws``). The penalty's and the entropy weight's terms
+are means over the rank's rows, so that the ranks' equal shards average to
+the global batch's. ``get_action`` is tanh of the actor's mean.
 """
 
 import math
@@ -54,6 +57,7 @@ from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
 from robot_manipulation_vq_vae_tpu_torch.algo.iql import critic_ensemble, polyak, td_loss
 from robot_manipulation_vq_vae_tpu_torch.models import policy_nets as PolicyNets
 from robot_manipulation_vq_vae_tpu_torch.models import value_nets as ValueNets
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw
 
 
 @register_algo_factory_func("cql")
@@ -138,20 +142,26 @@ class CQL(PolicyAlgo, ValueAlgo):
         return n_step_returns(batch, int(cfg.n_step), float(cfg.discount))
 
     def _draws(self, b):
-        """The step's draws: {actor, backup, curr, next, rand}."""
+        """The step's draws: {actor, backup, curr, next, rand}, each with this
+        rank's rows of the global batch's draw under data parallelism:
+        ``backup`` [n_samples, B, A] along its axis 1; ``curr``, ``next`` and
+        ``rand`` [B n_rand, A] are batch-major (a row's candidates together,
+        as ``repeat_interleave`` tiles the observations), so along axis 0."""
         cfg, a = self.algo_config.critic, self.ac_dim
         n_rand, n_samples = int(cfg.num_random_actions), int(cfg.get("num_action_samples", 1))
         draws = self._hooked("_noise_hook")
         if draws is not None:
-            return draws
+            return self._local_rows(draws, {"backup": 1 if n_samples > 1 else 0})
         dtype, dev = self._dtype(), self.device
 
-        def normal(*shape):
-            return torch.randn(shape, generator=self.generator, device=dev, dtype=dtype)
+        def normal(*shape, dim=0):
+            return global_draw(lambda s: torch.randn(
+                s, generator=self.generator, device=dev, dtype=dtype), shape, self.dp, dim=dim)
 
-        backup = normal(n_samples, b, a) if n_samples > 1 else normal(b, a)
-        rand = torch.rand((b * n_rand, a), generator=self.generator, device=dev,
-                          dtype=dtype) * 2.0 - 1.0
+        backup = normal(n_samples, b, a, dim=1) if n_samples > 1 else normal(b, a)
+        rand = global_draw(lambda s: torch.rand(
+            s, generator=self.generator, device=dev, dtype=dtype), (b * n_rand, a),
+            self.dp) * 2.0 - 1.0
         return {"actor": normal(b, a), "backup": backup, "curr": normal(b * n_rand, a),
                 "next": normal(b * n_rand, a), "rand": rand}
 
@@ -257,8 +267,10 @@ class CQL(PolicyAlgo, ValueAlgo):
 
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
-        """tanh of the actor's mean: observations [B, ...] -> [B, A]."""
-        return torch.tanh(self.nets["actor"](self._obs(obs_dict)).mean)
+        """tanh of the actor's mean: observations [B, ...] -> [B, A] (under
+        data parallelism the global batch's, on every rank)."""
+        self._check_obs_request(obs_dict, goal_dict)
+        return self._gather_rows(torch.tanh(self.nets["actor"](self._obs(obs_dict)).mean))
 
     @torch.inference_mode()
     def get_state_action_value(self, obs_dict, actions, goal_dict=None):

@@ -29,6 +29,13 @@ Draws, for tests: ``GL_VAE._noise_hook`` returns a step's encoder draw (the
 standard normal [B, latent]), ``_prior_hook`` the prior draws of a
 prediction ([rows x samples, latent]); otherwise both come from the algo's
 generator.
+
+Under data parallelism (``parallel.shard_state``) a step takes this rank's
+``shard_batch`` rows, averages the gradient over the ranks before clipping
+it and returns the global batch's losses; the VAE's draws (and a hook's)
+are the global batch's, of which the rank keeps its rows (a prediction's
+samples are row-major, a row's together), and predictions are of this
+rank's rows.
 """
 
 from collections import OrderedDict
@@ -41,6 +48,7 @@ from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     PlannerAlgo,
     module_mode,
     register_algo_factory_func,
+    sub_batch,
 )
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as BaseNets
 from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import (
@@ -51,6 +59,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import (
 from robot_manipulation_vq_vae_tpu_torch.models.policy_nets import _groups, _inputs
 from robot_manipulation_vq_vae_tpu_torch.utils import loss_utils as LossUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as OptimUtils
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw, keep_rows
 
 
 @register_algo_factory_func("gl")
@@ -87,6 +96,10 @@ class SubgoalVAE(nn.Module):
 
     JAX_NAMES = {"cond_encoder": "cond_encoder", "q_net": "q_net", "dec_mlp": "dec_mlp",
                  "dec_heads": "dec_heads"}
+    # the data-parallel axis (``parallel.AxisComm``): the draws are taken at
+    # the global batch's shape and each rank keeps its rows
+    # (``utils.draws.global_draw``), set by ``parallel.shard_state``
+    dp = None
 
     def __init__(self, obs_shapes, subgoal_shapes, latent_dim=16,
                  encoder_layer_dims=(300, 400), decoder_layer_dims=(300, 400),
@@ -122,8 +135,8 @@ class SubgoalVAE(nn.Module):
                           for k in self.subgoal_keys], dim=-1)
         mu, logvar = self.q_net(torch.cat([cond, flat], dim=-1)).chunk(2, dim=-1)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                              dtype=mu.dtype)
+            eps = global_draw(lambda s: torch.randn(s, generator=generator, device=mu.device,
+                                                    dtype=mu.dtype), mu.shape, self.dp)
         z = mu + torch.exp(0.5 * logvar) * eps
         recons = self.decode(z, cond)
         recon_loss = sum(((recons[k] - subgoal_dict[k]) ** 2).mean()
@@ -136,9 +149,9 @@ class SubgoalVAE(nn.Module):
         num_samples, ...]}; @draws the standard normal [B x num_samples,
         latent], else drawn from @generator."""
         cond = self.condition(obs_dict, goal_dict).repeat_interleave(num_samples, 0)
-        z = draws if draws is not None else torch.randn(
-            (cond.shape[0], self.latent_dim), generator=generator, device=cond.device,
-            dtype=cond.dtype)
+        z = draws if draws is not None else global_draw(
+            lambda s: torch.randn(s, generator=generator, device=cond.device, dtype=cond.dtype),
+            (cond.shape[0], self.latent_dim), self.dp)
         return self.decode(z, cond)
 
 
@@ -212,16 +225,18 @@ class GL(PlannerAlgo):
     def train_on_batch(self, batch, epoch, validate=False):
         """One step of the goal network on ``goal_loss``, in inference mode
         (the JAX step's ``train=False``); with @validate the losses alone."""
+        self._check_shard(batch)
         with module_mode(self.nets, False), torch.set_grad_enabled(not validate):
             losses = self._losses(batch)
             if not validate:
                 params = list(self.nets["goal_network"].parameters())
-                grads = self._gradients(losses["goal_loss"], params)
+                grads = self._dp_mean(self._gradients(losses["goal_loss"], params))
                 if self.max_grad_norm is not None:
                     OptimUtils.clip_by_global_norm_(grads, self.max_grad_norm)
                 self._step("goal_network", params, grads)
                 self.global_step += 1
-        return {"losses": OrderedDict((k, v.detach()) for k, v in losses.items())}
+        return {"losses": self._dp_losses(
+            OrderedDict((k, v.detach()) for k, v in losses.items()))}
 
     def log_info(self, info):
         log = OrderedDict((k, float(v)) for k, v in info["losses"].items())
@@ -261,7 +276,8 @@ class GL_VAE(GL):
             goal_shapes=self.goal_shapes or None, encoder_kwargs=self._encoder_kwargs())
 
     def _losses(self, batch):
-        eps = None if self._noise_hook is None else self._draw(self._noise_hook())
+        eps = (None if self._noise_hook is None
+               else keep_rows(self._draw(self._noise_hook()), self.dp))
         out = self.nets["goal_network"].forward_train(
             self._obs(batch["subgoals"]), self._obs(batch["obs"]),
             self._obs(batch.get("goal_obs") or None), eps=eps, generator=self.generator)
@@ -274,7 +290,8 @@ class GL_VAE(GL):
     def sample_subgoals(self, obs_dict, goal_dict=None, num_samples=1):
         """@num_samples decoded prior samples a row: [B x num_samples, ...],
         row-major; each row's condition encoded once."""
-        draws = None if self._prior_hook is None else self._draw(self._prior_hook())
+        draws = (None if self._prior_hook is None
+                 else keep_rows(self._draw(self._prior_hook()), self.dp))
         with module_mode(self.nets, False):
             return self.nets["goal_network"].sample(
                 self._obs(obs_dict), self._obs(goal_dict), num_samples,
@@ -291,7 +308,11 @@ class ValuePlanner:
     the same of @obs_config): ``get_subgoal_predictions`` keeps, of
     ``num_samples`` planner samples a row, the one of the highest
     ``get_state_value`` (the first on a tie). The value network reads the
-    subgoal keys. Holds no networks of its own (``nets`` is a view)."""
+    subgoal keys. Holds no networks of its own (``nets`` is a view). Under
+    data parallelism the planner and the value algo share the dp axis, and
+    a prediction is of this rank's rows."""
+
+    dp = None
 
     def __init__(self, planner_algo_class, value_algo_class, algo_config, obs_config,
                  global_config, obs_key_shapes, ac_dim, device=None, use_kernels=True):
@@ -326,14 +347,21 @@ class ValuePlanner:
         return (f"{type(self).__name__} (\n  planner: {self.planner!r}\n"
                 f"  value_net: {self.value_net!r}\n)")
 
+    def set_data_parallel(self, comm):
+        """The planner and the value algo on the data-parallel axis @comm."""
+        self.dp = comm
+        self.planner.set_data_parallel(comm)
+        self.value_net.set_data_parallel(comm)
+
     def process_batch_for_training(self, batch):
         return {"planner": self.planner.process_batch_for_training(batch),
                 "value_net": self.value_net.process_batch_for_training(batch)}
 
     def train_on_batch(self, batch, epoch, validate=False):
-        return {"planner": self.planner.train_on_batch(batch["planner"], epoch, validate),
-                "value_net": self.value_net.train_on_batch(batch["value_net"], epoch,
-                                                           validate)}
+        return {"planner": self.planner.train_on_batch(sub_batch(batch, "planner"), epoch,
+                                                       validate),
+                "value_net": self.value_net.train_on_batch(sub_batch(batch, "value_net"),
+                                                           epoch, validate)}
 
     def log_info(self, info):
         log = OrderedDict()

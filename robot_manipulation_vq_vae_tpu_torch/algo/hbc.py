@@ -14,6 +14,12 @@ the planner's subgoal keys as its goals.
 * ``serialize`` / ``deserialize`` nest the planner's and actor's states
   under ``planner`` and ``actor``.
 
+Under data parallelism (``parallel.shard_state``) the planner and the
+actor share the dp axis: a step takes this rank's ``shard_batch`` rows of
+the nested batch, and ``get_action`` takes the rank's observation shard,
+refreshes the subgoal of its rows and returns the global batch's actions on
+every rank (the actor's).
+
 ``actor_use_random_subgoals`` and ``latent_subgoal.enabled``, which the JAX
 class reads nowhere, raise; so do observation statistics
 (``train.hdf5_normalize_obs``), which the JAX class's nested batch never
@@ -25,6 +31,8 @@ from collections import OrderedDict
 from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
     HierarchicalAlgo,
     register_algo_factory_func,
+    shard_like,
+    sub_batch,
 )
 from robot_manipulation_vq_vae_tpu_torch.algo.bc import BC_RNN
 from robot_manipulation_vq_vae_tpu_torch.algo.gl import GL, GL_VAE
@@ -107,12 +115,13 @@ class HBC(HierarchicalAlgo):
         return batch
 
     def train_on_batch(self, batch, epoch, validate=False):
-        info = OrderedDict(planner=self.planner.train_on_batch(batch["planner"], epoch,
+        planner_batch, actor_batch = sub_batch(batch, "planner"), sub_batch(batch, "actor")
+        info = OrderedDict(planner=self.planner.train_on_batch(planner_batch, epoch,
                                                                validate))
         if self._algo_mode == "cascade":
-            batch["actor"]["goal_obs"] = self.planner.get_subgoal_predictions(
-                batch["planner"]["obs"])
-        info["actor"] = self.actor.train_on_batch(batch["actor"], epoch, validate)
+            actor_batch["goal_obs"] = self.planner.get_subgoal_predictions(
+                planner_batch["obs"])
+        info["actor"] = self.actor.train_on_batch(actor_batch, epoch, validate)
         return info
 
     def log_info(self, info):
@@ -143,7 +152,9 @@ class HBC(HierarchicalAlgo):
             self._current_subgoal = self.get_subgoal_predictions(
                 self._planner_obs(obs_dict), goal_dict)
         self._subgoal_step_count += 1
-        return self.actor.get_action(obs_dict, goal_dict=self._current_subgoal)
+        # under data parallelism the subgoal of this rank's rows: a shard
+        return self.actor.get_action(obs_dict,
+                                     goal_dict=shard_like(self._current_subgoal, obs_dict))
 
     def get_subgoal_predictions(self, obs_dict, goal_dict=None):
         return self.planner.get_subgoal_predictions(obs_dict, goal_dict)

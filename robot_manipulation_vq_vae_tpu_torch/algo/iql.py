@@ -19,7 +19,10 @@ The critics, targets and V run in inference mode, the actor (Gaussian, with
 the actor's distribution in inference mode (its scale 1e-4 with
 ``low_noise_eval``); a test injects the draws through ``_sample_hook`` (the
 standard normal [B, A], or for the GMM (component [B], standard normal)),
-else they come from the algo's generator.
+else they come from the algo's generator. Under data parallelism the
+request's distribution is gathered from the ranks' shards and sampled whole
+from the generator every rank holds in the same state: every rank returns
+the global batch's actions, as the unsharded request draws them.
 """
 
 from collections import OrderedDict
@@ -174,8 +177,9 @@ class IQL(PolicyAlgo, ValueAlgo):
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
         """A sample of the actor's distribution: observations [B, ...] ->
-        [B, A]."""
-        dist = self.nets["actor"](self._obs(obs_dict))
+        [B, A] (see the module docstring)."""
+        self._check_obs_request(obs_dict, goal_dict)
+        dist = self._gather_dist(self.nets["actor"](self._obs(obs_dict)))
         return sample_actor(dist, self.generator, self._hooked("_sample_hook"))
 
     @torch.inference_mode()

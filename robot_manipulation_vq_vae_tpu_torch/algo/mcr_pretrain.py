@@ -17,6 +17,19 @@ step's ``jax.random.permutation`` draws. The exported trunk is the JAX
 package's pickle: the trunk's parameters as nested dicts of float32 numpy
 arrays under the Flax names, so that either package's export warm-starts
 either package's policy.
+
+Data parallelism (``parallel.shard_state``, ``set_data_parallel``), as
+JAX's GSPMD step over a sharded batch: each rank takes its
+``parallel.shard_batch`` rows; BatchNorm normalizes by the global batch;
+the negatives' permutations are drawn over the global batch from the
+generator every rank holds in the same state (a caller's ``neg_perms`` are
+the global ones), and each rank reads its rows' negatives from the
+all-gathered s0 and s2 embeddings through ``AxisComm.gather``, whose
+backward hands each rank the cotangent of its rows summed over the ranks;
+the rank's loss is the mean over its rows, and Adam steps on the gradient
+averaged over the ranks (a gradient that came back through the gather is
+counted once, on the rank whose rows it belongs to). The metrics are the
+global batch's.
 """
 
 import pickle
@@ -102,6 +115,11 @@ class MCRRepresentation(nn.Module):
     ``MCRRepresentation``). ``forward(batch, neg_perms)`` returns (the full
     loss, {metric: 0-d tensor})."""
 
+    # the data-parallel axis (``parallel.AxisComm``), set by
+    # ``MCRPretrainer.set_data_parallel``: the batch holds this rank's rows
+    # of the global batch that @neg_perms permute
+    dp = None
+
     def __init__(self, size=34, hidden_dim=1024, l2dist=True, tcn_weight=1.0,
                  align_state_weight=0.0, bc_weight=0.0, state_window=3, use_action=False,
                  action_dim=7, num_negatives=3, bc_feature_dim=50, bc_hidden_dim=512,
@@ -172,8 +190,14 @@ class MCRRepresentation(nn.Module):
 
         if self.tcn_weight > 0.0:
             sim_0_2, sim_1_2, sim_0_1 = self.sim(es2, es0), self.sim(es2, es1), self.sim(es1, es0)
-            neg0 = torch.stack([self.sim(es0, es0[p]) for p in neg_perms], dim=-1)
-            neg2 = torch.stack([self.sim(es2, es2[p]) for p in neg_perms], dim=-1)
+            all0, all2, perms = es0, es2, neg_perms
+            if self.dp is not None:
+                # this rank's rows of the global permutations, read from
+                # every rank's embeddings
+                all0, all2 = self.dp.gather(es0), self.dp.gather(es2)
+                perms = neg_perms[:, self.dp.rank * b:(self.dp.rank + 1) * b]
+            neg0 = torch.stack([self.sim(es0, all0[p]) for p in perms], dim=-1)
+            neg2 = torch.stack([self.sim(es2, all2[p]) for p in perms], dim=-1)
             smooth1 = -torch.log(EPS + torch.exp(sim_1_2) / (
                 EPS + torch.exp(sim_0_2) + torch.exp(sim_1_2) + torch.exp(neg2).sum(-1)))
             smooth2 = -torch.log(EPS + torch.exp(sim_0_1) / (
@@ -214,6 +238,8 @@ class MCRPretrainer:
     permutations from a generator seeded with @seed. The model's weights
     are the caller's (the script seeds their construction)."""
 
+    dp = None
+
     def __init__(self, model, lr=1e-4, seed=1, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -221,7 +247,19 @@ class MCRPretrainer:
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.step = 0
 
+    def set_data_parallel(self, comm):
+        """Run the data-parallel step over @comm (``parallel.shard_state``;
+        see the module docstring)."""
+        self.dp = comm
+        for m in self.model.modules():
+            if hasattr(type(m), "dp"):
+                m.dp = comm
+
     def _batch(self, batch):
+        if self.dp is not None and not (getattr(batch, "layout", None) == "rows"
+                                        and batch.dp == self.dp.size):
+            raise ValueError("MCRPretrainer under data parallelism takes this rank's "
+                             "shard_batch(mesh, batch)")
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
@@ -232,9 +270,11 @@ class MCRPretrainer:
     def update(self, batch, eval=False, neg_perms=None):
         """One training step (with @eval: the losses in inference mode, no
         update, the step counter unchanged); @neg_perms [num_negatives, B]
-        pins the negatives. Returns {metric: float}."""
+        pins the negatives (the global batch's B under data parallelism).
+        Returns {metric: float}."""
         batch = self._batch(batch)
-        perms = (self._neg_perms(batch["images"].shape[0]) if neg_perms is None
+        n = 1 if self.dp is None else self.dp.size
+        perms = (self._neg_perms(batch["images"].shape[0] * n) if neg_perms is None
                  else torch.as_tensor(neg_perms, device=self.device))
         if eval:
             self.model.eval()
@@ -245,9 +285,14 @@ class MCRPretrainer:
             loss, metrics = self.model(batch, perms)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if self.dp is not None:
+                self.dp.mean_([p.grad for p in self.model.parameters() if p.grad is not None])
             self.optimizer.step()
             self.step += 1
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        values = torch.stack([v.detach().to(torch.float64) for v in metrics.values()])
+        if self.dp is not None:
+            self.dp.mean_([values])
+        return {k: float(v) for k, v in zip(metrics, values)}
 
     def save_snapshot(self, path):
         """The step, the model's state, the optimizer's and the generator's,

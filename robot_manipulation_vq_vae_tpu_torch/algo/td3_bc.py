@@ -21,7 +21,10 @@ scaled by 1 / (1 - gamma^n)). One step:
 The actor runs in training mode, the critics and targets in inference
 mode. The smoothing noise's standard normal [B, A] may be injected through
 ``_noise_hook`` (the JAX step draws it from its key), else it comes from
-the algo's generator. ``get_action`` is the actor's action.
+the algo's generator. ``get_action`` is the actor's action. Under data
+parallelism the noise is drawn at the global batch's shape (a hook's too)
+and lambda's mean |Q| is the global batch's (the ranks' sums and counts
+all-reduced).
 """
 
 from collections import OrderedDict
@@ -37,6 +40,7 @@ from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
 from robot_manipulation_vq_vae_tpu_torch.algo.iql import critic_ensemble, polyak, td_loss
 from robot_manipulation_vq_vae_tpu_torch.models import policy_nets as PolicyNets
 from robot_manipulation_vq_vae_tpu_torch.models import value_nets as ValueNets
+from robot_manipulation_vq_vae_tpu_torch.utils.draws import global_draw
 
 
 @register_algo_factory_func("td3_bc")
@@ -89,8 +93,11 @@ class TD3_BC(PolicyAlgo, ValueAlgo):
         cfg = self.algo_config.actor
         normal = self._hooked("_noise_hook")
         if normal is None:
-            normal = torch.randn(like.shape, generator=self.generator, device=like.device,
-                                 dtype=like.dtype)
+            normal = global_draw(lambda s: torch.randn(
+                s, generator=self.generator, device=like.device, dtype=like.dtype), like.shape,
+                self.dp)
+        else:
+            normal = self._local_rows(normal)
         return (float(cfg.noise_std) * normal).clamp(-float(cfg.noise_clip),
                                                      float(cfg.noise_clip))
 
@@ -117,7 +124,11 @@ class TD3_BC(PolicyAlgo, ValueAlgo):
         with torch.no_grad():
             feats = critics[0].features(obs)
         q_pi = critics[0].head(feats, pi)
-        lam = float(cfg.alpha) / q_pi.abs().mean().detach()
+        # lambda's mean |Q| over the global batch: the ranks' sums and counts
+        q_abs = torch.stack([q_pi.abs().sum(), q_pi.new_tensor(q_pi.numel())]).detach()
+        if self.dp is not None:
+            self.dp.all_reduce_(q_abs)
+        lam = float(cfg.alpha) / (q_abs[0] / q_abs[1])
         metrics["actor/loss"] = -lam * q_pi.mean() + ((pi - acts) ** 2).mean()
 
         counter = self.critic_steps + int(gates["critic"] and not validate)
@@ -133,7 +144,8 @@ class TD3_BC(PolicyAlgo, ValueAlgo):
 
     @torch.inference_mode()
     def get_action(self, obs_dict, goal_dict=None):
-        return self.nets["actor"](self._obs(obs_dict))
+        self._check_obs_request(obs_dict, goal_dict)
+        return self._gather_rows(self.nets["actor"](self._obs(obs_dict)))
 
     @torch.inference_mode()
     def get_state_action_value(self, obs_dict, actions, goal_dict=None):

@@ -26,8 +26,14 @@ starts (``init_process_group`` with its address, world size and rank), and a
   ``shard_batch``'s shards and returns the global batch's actions on every
   rank (a GMM's mixture gathered and sampled whole from the replicated
   generator; a stepwise policy's state, an RNN's hidden state or ACT's
-  queue, holds the rank's rows). ``shard_state`` refuses (``NotImplementedError``) every algo and
-  option whose step it does not make equal to the unsharded one.
+  queue, holds the rank's rows). An offline-RL algo averages each
+  network's gradient over ``dp`` before clipping it (each critic of an
+  ensemble with its own optimizer), takes TD3-BC's lambda from the global
+  batch's mean |Q| and its candidates' draws at the global batch's shape; a
+  hierarchical algo's planner and actor share the axis; MCR pretraining
+  reads its negatives from the all-gathered embeddings (``AxisComm.gather``,
+  differentiable). ``shard_state`` refuses (``NotImplementedError``) every
+  algo and option whose step it does not make equal to the unsharded one.
 * ``mp``: the GPT backbone's tensor-parallel rules (``shard_params``):
   ``mlp_fc`` and ``qkv`` column-parallel (``Shard(0)`` of torch's [out, in]
   weight), ``mlp_proj`` and the attention ``output`` row-parallel
@@ -72,7 +78,6 @@ from robot_manipulation_vq_vae_tpu_torch.algo.icl import (
     ICLTransformer_GMM,
     ICLTransformerHVQVAE,
 )
-from robot_manipulation_vq_vae_tpu_torch.algo.mcr import _MCRWarmStartMixin
 from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import MCRPretrainer
 from robot_manipulation_vq_vae_tpu_torch.models.transformers import GEGLU, GPT_Backbone
 from robot_manipulation_vq_vae_tpu_torch.utils.draws import take_rows
@@ -196,6 +201,13 @@ class AxisComm:
         cotangents over the axis (every rank's loss reads the sum)."""
         return _AllReduceSum.apply(t, self)
 
+    def gather(self, t):
+        """The ranks' @t concatenated along dim 0 in rank order,
+        differentiable: its backward gives each rank its own rows of the
+        cotangent summed over the axis (every rank's loss may read every
+        rank's rows)."""
+        return _AllGather.apply(t, self)
+
     def chunk(self, t, dim=0):
         """This rank's equal part of @t along @dim."""
         if t.shape[dim] % self.size:
@@ -224,6 +236,18 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.comm.all_reduce_(g.clone()), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return comm.all_gather(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        return comm.chunk(comm.all_reduce_(g.contiguous().clone())).contiguous(), None
 
 
 # ---------------------------------------------------------------------------
@@ -337,58 +361,75 @@ def _replace_optimizer_params(optimizer, new_of):
 
 # what the data-parallel step covers: the ICL family (the MLP, RNN,
 # transformer, HVQVAE and Mamba policies and the paper's every tokenizer),
-# the bc classes and ICLVAE (subclasses of ICL), the diffusion policy and ACT
-_COVERED = (ICL, DiffusionPolicyUNet, ACT)
-# checked first: the MCR classes subclass the bc ones
-_NOT_PORTED = (
-    (_MCRWarmStartMixin, "the MCR policies"),
-    (ValueAlgo, "offline RL (ValueAlgo's own train_on_batch)"),
-    ((PlannerAlgo, HierarchicalAlgo, ValuePlanner), "the hierarchical family"),
-    (MCRPretrainer, "mcr_pretrain's contrastive terms"),
-)
+# the bc classes, ICLVAE and the MCR policies (subclasses of ICL), the
+# diffusion policy, ACT, offline RL, the subgoal planners, the hierarchical
+# algos and MCR's representation pretraining
+_COVERED = (ICL, DiffusionPolicyUNet, ACT, ValueAlgo, PlannerAlgo, HierarchicalAlgo,
+            ValuePlanner, MCRPretrainer)
 
 
 def _refusals(algo, mp=1):
     """What this algo's step has that the sharded step does not make equal
     to the unsharded step: a list of reasons (empty when covered)."""
     name = type(algo).__name__
-    for classes, what in _NOT_PORTED:
-        if isinstance(algo, classes):
-            return [f"{name} ({what} is not ported under the mesh)"]
     if not isinstance(algo, _COVERED):
-        return [f"{name} (covered: the ICL and bc families, the diffusion policy, ACT)"]
-    train = algo.global_config.train
+        return [f"{name} (covered: the ICL, bc and MCR families, the diffusion policy, "
+                "ACT, offline RL, the hierarchical family and MCR pretraining)"]
+    if mp == 1:
+        return []
+    # the GPT's shards are held by tests for these two alone
+    if type(algo) not in (ICLTransformerHVQVAE, ICLTransformer_GMM):
+        return [f"{name} under mp={mp} (covered: ICLTransformerHVQVAE and "
+                "icl_gmm_paper with LipVQ)"]
     out = []
-    if mp > 1:
-        # the GPT's shards are held by tests for these two alone
-        if type(algo) not in (ICLTransformerHVQVAE, ICLTransformer_GMM):
-            return [f"{name} under mp={mp} (covered: ICLTransformerHVQVAE and "
-                    "icl_gmm_paper with LipVQ)"]
-        if type(algo) is ICLTransformer_GMM and not algo.vq_vae_enabled:
-            out.append(f"{name}'s action tokenizer other than LipVQ under mp={mp}")
-        for opt, why in (("mixed_precision", "half_call's bf16 copies of DTensor "
-                          "parameters"),
-                         ("packed_rgb_encoders", "the packed trunks beside the GPT's "
-                          "shards")):
-            if train.get(opt, False):
-                out.append(f"train.{opt} under mp={mp} ({why})")
+    if type(algo) is ICLTransformer_GMM and not algo.vq_vae_enabled:
+        out.append(f"{name}'s action tokenizer other than LipVQ under mp={mp}")
+    train = algo.global_config.train
+    for opt, why in (("mixed_precision", "half_call's bf16 copies of DTensor parameters"),
+                     ("packed_rgb_encoders", "the packed trunks beside the GPT's shards")):
+        if train.get(opt, False):
+            out.append(f"train.{opt} under mp={mp} ({why})")
     return out
 
 
-def _broadcast_state(comm, algo):
-    """Every rank of @comm's axis starts from its rank 0's weights, buffers,
-    optimizer state and generator (a DTensor: its local shard)."""
-    for t in algo.nets.state_dict().values():
+def _components(algo):
+    """The algos that hold @algo's state: itself, or a hierarchical algo's
+    planner and actor (a value planner's planner and value algo), each with
+    its own networks, optimizers and generator."""
+    if isinstance(algo, HierarchicalAlgo):
+        return _components(algo.planner) + _components(algo.actor)
+    if isinstance(algo, ValuePlanner):
+        return _components(algo.planner) + _components(algo.value_net)
+    return [algo]
+
+
+def _broadcast(comm, module, optimizers, generator):
+    """Every rank of @comm's axis takes its rank 0's weights and buffers of
+    @module, state of @optimizers and @generator's state (a DTensor: its
+    local shard)."""
+    for t in module.state_dict().values():
         comm.broadcast_(local(t))
-    for opt in algo.optimizers.values():
+    for opt in optimizers:
         for state in opt.state.values():
             for v in state.values():
                 if isinstance(v, torch.Tensor):
                     comm.broadcast_(local(v))
-    algo.generator.set_state(comm.broadcast_(algo.generator.get_state()))
-    for m in algo.nets.modules():
-        if hasattr(m, "_initialized") and hasattr(m, "codebooks_initialized"):
-            m._initialized = bool(m.codebooks_initialized)
+    generator.set_state(comm.broadcast_(generator.get_state()))
+
+
+def _broadcast_state(comm, algo):
+    """Every rank of @comm's axis starts from its rank 0's weights, buffers,
+    optimizer state and generator of every component of @algo (the
+    networks of an offline-RL algo's ensemble and their targets, each with
+    its optimizer; a hierarchical algo's planner and actor)."""
+    if isinstance(algo, MCRPretrainer):
+        _broadcast(comm, algo.model, [algo.optimizer], algo.generator)
+        return
+    for part in _components(algo):
+        _broadcast(comm, part.nets, part.optimizers.values(), part.generator)
+        for m in part.nets.modules():
+            if hasattr(m, "_initialized") and hasattr(m, "codebooks_initialized"):
+                m._initialized = bool(m.codebooks_initialized)
 
 
 def shard_state(mesh, algo):

@@ -32,11 +32,11 @@ def take_rows(x, rank, n, halves):
     return x[kept]
 
 
-def global_draw(draw, shape, dp=None, layout="rows"):
-    """@draw(global shape) for a tensor of local @shape whose leading axis is
+def global_draw(draw, shape, dp=None, layout="rows", dim=0):
+    """@draw(global shape) for a tensor of local @shape whose axis @dim is
     this rank's shard of the global batch under @dp (an axis with ``size``
     and ``rank``, ``parallel.AxisComm``): the draw at the global shape
-    (leading axis times dp.size) from a generator every rank holds in the
+    (that axis times dp.size) from a generator every rank holds in the
     same state, of which this rank keeps its rows by @layout ("rows" or
     "halves", as ``parallel.shard_batch`` cut them). A tensor folded from
     [B, T] to [B T] is batch-major, so "rows" holds for it too. Without
@@ -45,8 +45,8 @@ def global_draw(draw, shape, dp=None, layout="rows"):
     shape = tuple(shape)
     if dp is None or dp.size == 1:
         return draw(shape)
-    full = draw((shape[0] * dp.size, *shape[1:]))
-    return take_rows(full, dp.rank, dp.size, layout == "halves")
+    full = draw(shape[:dim] + (shape[dim] * dp.size,) + shape[dim + 1:])
+    return keep_rows(full, dp, layout, dim)
 
 
 def keep_rows(full, dp=None, layout="rows", dim=0):

@@ -44,6 +44,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_bc import train_and_reload
 from torch_port_helpers import PinnedJaxRandom, perturbed_variables, random_init
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, O, A, T = 8, 5, 3, 4
 HIDDEN, HEADS, FF, LATENT = 32, 2, 64, 8

@@ -65,6 +65,7 @@ from torch_port_helpers import (
     random_init,
     write_demo_file,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, O, A, T = 16, 5, 3, 4
 LAYERS = (8, 8)

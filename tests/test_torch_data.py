@@ -40,6 +40,7 @@ from robot_manipulation_vq_vae_tpu_torch.data.prefetch import DevicePrefetcher
 from robot_manipulation_vq_vae_tpu_torch.utils import lang_utils as PortLang
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from torch_port_helpers import assert_trees_equal, write_demo_file
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 SPEC = {"obs": {"low_dim": ["eef_pos"], "rgb": ["cam_image"]}}
 

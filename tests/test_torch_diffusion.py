@@ -48,6 +48,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_varia
 from test_torch_bc import train_and_reload
 from test_torch_diffusion_nets import jax_embedding_forward
 from torch_port_helpers import perturbed_variables, random_init
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, O, A, TO, TP = 6, 5, 3, 2, 8
 DOWN, DSED, GROUPS = (16, 32), 16, 4

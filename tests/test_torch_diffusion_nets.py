@@ -34,6 +34,7 @@ from robot_manipulation_vq_vae_tpu.models import diffusion_nets as JaxDiff
 from robot_manipulation_vq_vae_tpu_torch.models import diffusion_nets as PortDiff
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import perturbed_variables, random_init, torch_unet_to_flax
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, A, TP = 6, 3, 8
 DSED, GROUPS = 16, 4

@@ -33,6 +33,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import env_utils as EnvUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as ObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import rotation_utils as Rot
 import torch_port_fake_env as Fake
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

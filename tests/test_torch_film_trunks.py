@@ -13,6 +13,7 @@ from robot_manipulation_vq_vae_tpu.models import base_nets as JaxBaseNets
 
 from robot_manipulation_vq_vae_tpu_torch.models import base_nets as PortBaseNets
 from test_torch_vision_cores import LANG, check_trunk
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TRUNKS = {
     "resnet34_film": (JaxBaseNets.ResNet34ConvFiLM,

@@ -69,6 +69,7 @@ from torch_port_helpers import (
     set_jax_state,
     write_demo_file,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 OBS = {"robot0_eef_pos": (3,), "object": (4,)}
 B, A, SH, LATENT = 8, 3, 3, 4

@@ -42,6 +42,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.hvqvae import (
 from robot_manipulation_vq_vae_tpu_torch.ops import quantize as Q
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, A, E, KZ, KQ, STAGES, LAYERS = 4, 8, 12, 32, 16, 8, 2, 2
 SIZES = dict(action_dim=A, embed_dim=E, num_subclusters=KZ, num_clusters=KQ,

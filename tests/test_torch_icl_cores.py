@@ -55,6 +55,7 @@ from torch_port_helpers import (
     perturbed_variables,
     port_draws,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, A, LANG, IMG, CROP, STEPS, LR = 4, 3, 12, 16, 40, 36, 3, 1e-4
 CAM = "agentview_image"

@@ -60,6 +60,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_varia
 import test_torch_icl_gmm_train as Paper
 import torch_icl_modality_harness as H
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 METRICS = ("log_probs", "action_loss", "policy_grad_norms", "vq_vae_loss")
 STEPS = 3

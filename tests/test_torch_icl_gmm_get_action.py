@@ -30,6 +30,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, A, LANG = 2, 4, 12, 16
 CAMS = ["agentview_image", "eye_in_hand_image"]

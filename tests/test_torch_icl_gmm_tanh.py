@@ -23,6 +23,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_icl_gmm_get_action import A, B, OBS_KEY_SHAPES, T, _configure, _obs
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_tanh_wrapped_icl_gmm_matches_jax():

@@ -48,6 +48,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.base_nets import BatchNorm2d
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import assert_mostly_close, jax_algo_jit_init, perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, A, LANG, IMG, STEPS, LR = 4, 4, 12, 16, 64, 3, 1e-4
 E, KZ, KQ = 32, 16, 8

@@ -29,6 +29,7 @@ from torch_port_helpers import (
     jax_algo_jit_init,
     perturbed_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 A, LR = 12, 1e-4
 

@@ -63,6 +63,7 @@ from torch_port_helpers import (
     jax_algo_jit_init,
     perturbed_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, A, LR = 8, 4, 12, 1e-4
 LOW_DIM = {"eef_pos": (3,), "eef_quat": (4,), "gripper_qpos": (2,)}

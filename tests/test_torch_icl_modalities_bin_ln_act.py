@@ -14,6 +14,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.tokenizers import (
     LipVQVAE,
     LNActEncoder,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", params=["bin", "ln_act"])

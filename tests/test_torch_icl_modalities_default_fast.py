@@ -6,6 +6,7 @@ says how and to what tolerance)."""
 import pytest
 
 import torch_icl_modality_harness as H
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", params=["default", "fast"])

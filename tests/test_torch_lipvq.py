@@ -33,6 +33,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
 from torch_port_helpers import assert_margin, perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 FEATURE, LATENT, CODES = 12, 24, 64
 

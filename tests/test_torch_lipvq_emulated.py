@@ -26,6 +26,7 @@ from robot_manipulation_vq_vae_tpu.ops import quantize as Q
 from robot_manipulation_vq_vae_tpu_torch.models.tokenizers.lipvq import LipVQVAE
 from robot_manipulation_vq_vae_tpu_torch.ops import lipvq_kernel as K
 from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import CSRC_DIR, KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 EMULATION = Path(__file__).resolve().parent / "cuda_host_emulation.h"
 

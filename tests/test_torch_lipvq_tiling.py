@@ -20,6 +20,7 @@ from robot_manipulation_vq_vae_tpu.ops import quantize as Q
 from robot_manipulation_vq_vae_tpu.ops.pallas.lipvq_kernel import l2_nearest_pallas
 
 from robot_manipulation_vq_vae_tpu_torch.ops import lipvq_kernel as K
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _thread_codes(k0, width, tx):

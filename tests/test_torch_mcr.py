@@ -50,6 +50,7 @@ from torch_port_helpers import (
     random_init,
     set_jax_state,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 O, A = 5, 3
 SWITCHES = ("gmm", "rnn", "transformer")

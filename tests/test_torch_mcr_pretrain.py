@@ -51,6 +51,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.pretrained_nets import resize_bi
 from robot_manipulation_vq_vae_tpu_torch.scripts import train_mcr_representation as PortCLI
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import float64_tree, perturbed_variables, random_init
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, IMG, A = 4, 32, 7
 STATE_DIM = 14 * 3

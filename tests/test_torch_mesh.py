@@ -25,9 +25,9 @@ unsharded port and the JAX package.
   uninitialized through a clustered batch: the k-means init and the
   dead-code picks on the all-gathered batch with the replicated generator,
   the replacement firing, against the unsharded port.
-* ``shard_state``'s refusals (offline RL, the hierarchical family, MCR and
-  its pretraining under dp > 1; under mp > 1 the bf16 step and every algo
-  but the flagship and the paper with LipVQ) and
+* ``shard_state``'s refusals (under mp > 1 the bf16 step and every algo
+  but the flagship and the paper with LipVQ: offline RL, the hierarchical
+  family, MCR and its pretraining among them, which dp > 1 takes) and
   ``train_on_batch``'s of a batch that is not a shard.
 """
 
@@ -55,6 +55,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
 )
 import torch_mesh_workers as W
 from torch_port_helpers import set_jax_state
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 WORLDS = (2, 4)
 
@@ -342,17 +343,19 @@ def test_dp_kmeans_init_and_replacement_match_unsharded(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_shard_state_refuses_what_it_does_not_cover(runs, world):
-    """Offline RL, the hierarchical family, the MCR policies and MCR
-    pretraining under dp, the bf16 step, a bc policy and the paper's bin
-    tokenizer under mp = 2, and a batch that is not a shard (the policy families, mixed precision and the packed trunks
-    under dp are tests/test_torch_mesh_families.py)."""
+    """Under mp = 2 offline RL, the hierarchical family, the MCR policies
+    and MCR pretraining (each taken under dp: tests/test_torch_mesh_value.py
+    and tests/test_torch_mesh_mcr.py), the bf16 step, a bc policy and the
+    paper's bin tokenizer; and a batch that is not a shard (the policy
+    families, mixed precision and the packed trunks under dp are
+    tests/test_torch_mesh_families.py)."""
     _, ranks = runs
     got = ranks[world][0]["refusals"]
-    for case, name in (("iql", "IQL"), ("gl", "GL"), ("mcr", "MCR"),
+    for case, name in (("iql", "IQL"), ("gl", "GL_VAE"), ("mcr", "MCR_GMM"),
                        ("mcr_pretrain", "MCRPretrainer")):
-        assert got[case].startswith("NotImplementedError") and name in got[case], got[case]
-    assert "offline RL" in got["iql"] and "hierarchical" in got["gl"]
-    assert "contrastive" in got["mcr_pretrain"]
+        assert got[case].startswith("NotImplementedError"), got[case]
+        assert f"{name} under mp=2" in got[case], got[case]
+        assert got[f"{case}_dp"] is None, got[f"{case}_dp"]
     for case, what in (("bc_mp", "BC under mp=2"), ("bin_mp", "other than LipVQ under mp=2")):
         assert got[case].startswith("NotImplementedError") and what in got[case], got[case]
     assert got["mixed_precision_mp"].startswith("NotImplementedError")

@@ -41,6 +41,7 @@ from test_torch_mesh import (
     _close,
     _jax_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 WORLDS = (2, 4)
 

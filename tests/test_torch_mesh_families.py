@@ -79,6 +79,7 @@ from test_torch_mesh import (
     _close,
     _jax_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 WORLDS = (2, 4)
 ORACLE = "flagship_bf16"

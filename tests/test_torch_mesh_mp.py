@@ -39,6 +39,7 @@ from test_torch_mesh import (
     _close,
     _jax_leg,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 MESHES = ((1, 2), (2, 2), (1, 4))
 

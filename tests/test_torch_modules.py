@@ -30,6 +30,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
     load_jax_variables,
 )
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 IMG, LANG = (96, 96, 3), 16
 CORE_KW = dict(

@@ -50,6 +50,7 @@ from torch_offline_rl_harness import (
     run_pair,
     tune,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TEMPLATES = os.path.join(os.path.dirname(__file__), "..", "robot_manipulation_vq_vae_tpu",
                          "exps", "templates")

@@ -34,6 +34,7 @@ from torch_offline_rl_harness import (
     run_pair,
     set_key,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", params=["bcq", "bcq_windows", "bcq_gmm",

@@ -23,6 +23,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_offline_rl_harness import A, O, carry_weights, port_module, raw_batch, tune
 from torch_port_helpers import random_init
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_image_iql_step_matches_jax():

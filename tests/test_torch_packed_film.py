@@ -52,6 +52,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import train_utils as TrainUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 import test_torch_icl_hvqvae as Flagship
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 CAMS = ["agentview_image", "eye_in_hand_image", "wrist_image"]
 B, IMG, LANG, G = 2, 64, 16, 3

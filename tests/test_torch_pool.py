@@ -29,6 +29,7 @@ from robot_manipulation_vq_vae_tpu.ops.pallas.pool_kernel import (
 
 from robot_manipulation_vq_vae_tpu_torch.ops import pool as P
 from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import LAUNCHES
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

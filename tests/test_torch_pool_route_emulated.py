@@ -32,6 +32,7 @@ from robot_manipulation_vq_vae_tpu.ops.pallas.pool_kernel import (
 
 from robot_manipulation_vq_vae_tpu_torch.ops import pool as P
 from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import CSRC_DIR, KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 EMULATION = Path(__file__).resolve().parent / "cuda_host_emulation.h"
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}

@@ -36,6 +36,7 @@ from robot_manipulation_vq_vae_tpu_torch.models import base_nets as PortBaseNets
 from robot_manipulation_vq_vae_tpu_torch.models import obs_core as PortObsCore
 from robot_manipulation_vq_vae_tpu_torch.models import pretrained_nets as PortPretrained
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _nchw(a):

@@ -44,6 +44,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.obs_nets import ObservationEncod
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import PinnedJaxRandom, perturbed_variables, port_draws
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _pixels():

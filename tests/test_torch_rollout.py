@@ -68,6 +68,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_varia
 import torch_port_fake_env as Fake
 from test_torch_train_harness import A, CAMS, IMG, LOW_DIM, SHAPES, T, _batches, _configure
 from torch_port_helpers import jax_algo_jit_init, perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

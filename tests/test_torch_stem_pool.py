@@ -23,6 +23,7 @@ from robot_manipulation_vq_vae_tpu_torch.ops import stem_pool as S
 from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import LAUNCHES
 from robot_manipulation_vq_vae_tpu_torch.ops.lipvq_kernel import l2_nearest
 from torch_port_helpers import assert_margin
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rand(shape, seed):

@@ -29,6 +29,7 @@ from robot_manipulation_vq_vae_tpu.ops import pool_argmax as oracle
 
 from robot_manipulation_vq_vae_tpu_torch.ops import stem_pool as S
 from robot_manipulation_vq_vae_tpu_torch.ops.cuda_build import CSRC_DIR, KERNELS
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 EMULATION = Path(__file__).resolve().parent / "cuda_host_emulation.h"
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}

@@ -40,6 +40,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import (
 )
 from chip_smoke import SmokeFastProcessor, smoke_clip_encode
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 A, OUT, N, NB = 12, 20, 32, 20
 DTYPES = [np.float32, np.float64]

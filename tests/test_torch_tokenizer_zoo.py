@@ -41,6 +41,7 @@ from robot_manipulation_vq_vae_tpu.utils.ckpt_conversion import flatten_variable
 import robot_manipulation_vq_vae_tpu_torch.models.tokenizers as Zoo
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import _entries, load_jax_variables
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 F_DIM, LATENT, K, N, LR, STEPS = 6, 16, 8, 48, 1e-3, 3
 Z_DIM, Q_DIM, KZ, KQ, HIDDEN = 10, 6, 12, 8, 32

@@ -55,6 +55,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import lang_utils as PortLang
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils import train_utils as TrainUtils
 from torch_port_helpers import assert_trees_equal
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, A, IMG, CROP = 4, 3, 12, 32, 28
 CAMS = ["agentview_image"]

@@ -42,6 +42,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import optim_utils as PortOptim
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 import test_torch_icl_hvqvae as Flagship
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 3e-4
 

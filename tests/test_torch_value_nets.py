@@ -39,6 +39,7 @@ from robot_manipulation_vq_vae_tpu_torch.utils import loss_utils as PortLossUtil
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, O, A = 16, 5, 3
 LAYERS = (8, 8)

@@ -45,6 +45,7 @@ from robot_manipulation_vq_vae_tpu_torch.models import obs_core as PortObsCore
 from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils as PortObsUtils
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from torch_port_helpers import perturbed_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B, IMG, LANG, TOL = 2, 40, 8, 1e-9
 

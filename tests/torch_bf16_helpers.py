@@ -4,7 +4,6 @@ against the JAX module applied to bf16 casts of the same (perturbed)
 variables and inputs, as the JAX package's bf16 steps apply it."""
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -12,21 +11,12 @@ import jax.numpy as jnp
 
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import load_jax_variables
 from robot_manipulation_vq_vae_tpu_torch.utils.mixed_precision import half_call
+# torch on one thread in each bf16 test module (imported by each of them)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import perturbed_variables
 
 # the tolerance of a bf16 output: its largest |value| times this
 REL = 2e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """torch on one thread for a module's tests (imported by each bf16 test
-    module): beside XLA's threads and the suite's other workers, a thread
-    per core made these small bf16 steps slower, not faster."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def half_tree(tree):

@@ -258,10 +258,11 @@ def _refusal(fn):
 
 
 def refusals(mesh, mp_mesh):
-    """What shard_state and train_on_batch refuse: under dp > 1 offline RL,
-    the hierarchical family, the MCR policies and MCR pretraining, and a
-    batch that is not a shard; under @mp_mesh's mp > 1 the bf16 step, a bc
-    policy and the paper with a tokenizer other than LipVQ."""
+    """What shard_state and train_on_batch refuse: a batch that is not a
+    shard; under @mp_mesh's mp > 1 the bf16 step, a bc policy, the paper
+    with a tokenizer other than LipVQ, offline RL, the hierarchical family,
+    the MCR policies and MCR pretraining (the last four taken under dp > 1,
+    ``<case>_dp``: None)."""
     from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import MCRPretrainer
     from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
 
@@ -292,12 +293,17 @@ def refusals(mesh, mp_mesh):
         algo = shard_state(mesh, flagship())
         algo.train_on_batch(algo.process_batch_for_training(make_batch(0)), epoch=0)
 
+    families = {
+        "iql": lambda: port_algo("iql", low_dim, False),
+        "gl": lambda: port_algo("gl", low_dim, False),
+        "mcr": lambda: port_algo("mcr", low_dim, False),
+        "mcr_pretrain": lambda: MCRPretrainer(torch.nn.Linear(2, 2), device="cpu"),
+    }
     return {
-        "iql": _refusal(lambda: shard_state(mesh, port_algo("iql", low_dim, False))),
-        "gl": _refusal(lambda: shard_state(mesh, port_algo("gl", low_dim, False))),
-        "mcr": _refusal(lambda: shard_state(mesh, port_algo("mcr", low_dim, False))),
-        "mcr_pretrain": _refusal(lambda: shard_state(
-            mesh, MCRPretrainer(torch.nn.Linear(2, 2), device="cpu"))),
+        **{case: _refusal(lambda make=make: shard_state(mp_mesh, make()))
+           for case, make in families.items()},
+        **{f"{case}_dp": _refusal(lambda make=make: shard_state(mesh, make()))
+           for case, make in families.items()},
         "bc_mp": _refusal(lambda: shard_state(mp_mesh, port_algo("bc", low_dim, False))),
         "bin_mp": _refusal(lambda: shard_state(mp_mesh, bin_paper())),
         "mixed_precision_mp": _refusal(
@@ -1002,6 +1008,468 @@ def job_card_bf16(rank, world, work):
     res = run_family_leg("flagship_bf16", make_mesh(device="cuda"), device="cuda")
     res["launched"] = {k: n - before[k] for k, n in cuda_build.LAUNCHES.items()}
     return res
+
+
+# ---------------------------------------------------------------------------
+# offline RL, the hierarchical family, the MCR policies and MCR pretraining
+# under dp (tests/test_torch_mesh_value.py, tests/test_torch_mesh_mcr.py)
+# ---------------------------------------------------------------------------
+
+FLAT = {"flat": (5,)}             # the offline-RL legs' observation, A = 3
+VA, VT = 3, 2                     # their action width and window (n-step 2)
+# one camera for the image legs: ResNet-18's last map 2 x 2 after the crop
+CAM = {"agentview_image": (40, 40, 3)}
+VCROP = 36
+HIER_OBS = {"robot0_eef_pos": (3,), "object": (4,)}
+HIER_SH, HIER_INTERVAL, HIER_CALLS = 3, 2, 3   # subgoal horizon; refreshes at 0, 2
+
+
+def _set(node, dotted, value):
+    *path, leaf = dotted.split(".")
+    for p in path:
+        node = node[p]
+    node[leaf] = value
+
+
+def _camera(obs, keys):
+    """@obs (an observation section) on @keys' low-dim keys and ``CAM``
+    through a ResNet-18 core behind a random crop, pooled by its spatial
+    mean (SpatialSoftmax is blind to a shift of a channel, so that the last
+    BatchNorm bias's true gradient is 0 and its reduction noise, stepped by
+    Adam as lr times its sign, would move it by 1e-3)."""
+    obs.modalities.obs.low_dim = [k for k, s in keys.items() if len(s) == 1]
+    obs.modalities.obs.rgb = list(CAM)
+    obs.encoder.rgb.core_class = "VisualCore"
+    obs.encoder.rgb.core_kwargs = {
+        "feature_dimension": 16, "backbone_class": "ResNet18Conv",
+        "backbone_kwargs": {"pretrained": False, "input_coord_conv": False},
+        "pool_class": "SpatialMeanPool", "pool_kwargs": {}}
+    obs.encoder.rgb.obs_randomizer_class = "CropRandomizer"
+    obs.encoder.rgb.obs_randomizer_kwargs = {"crop_height": VCROP, "crop_width": VCROP,
+                                             "num_crops": 1, "pos_enc": False}
+
+
+def value_config(cfg, edits=(), images=False):
+    """@cfg (``iql``, ``td3_bc``, ``cql`` or ``bcq``) at small widths on
+    ``FLAT`` (with @images, beside ``CAM``), lr 1e-3 (with @images the
+    template's 1e-4: at 1e-3 Adam's second step turns the reduction noise
+    of a trunk's near-zero gradient into 2e-5 of weight) with L2 and a clip
+    limit, the BCQ sampler small; @edits ((dotted key under algo, value),
+    ...)."""
+    with cfg.values_unlocked():
+        if images:
+            _camera(cfg.observation, {**FLAT, **CAM})
+        else:
+            cfg.observation.modalities.obs.low_dim = list(FLAT)
+            cfg.observation.modalities.obs.rgb = []
+        algo = cfg.algo
+        algo.critic.layer_dims = algo.actor.layer_dims = [8, 8]
+        for name in algo.optim_params:
+            p = algo.optim_params[name]
+            p.learning_rate.initial = 1e-4 if images else 1e-3
+            p.learning_rate.scheduler_type = None
+            p.regularization.L2 = 1e-2
+        cfg.train.max_grad_norm = 1.0
+        cfg.train.seed = 0
+        cfg.train.pallas_pool = images
+        if "action_sampler" in algo:
+            vae = algo.action_sampler.vae
+            vae.latent_dim = 4
+            vae.encoder_layer_dims = vae.decoder_layer_dims = vae.prior_layer_dims = [8]
+            vae.kl_weight = 0.5
+            algo.action_sampler.actor_layer_dims = [8, 8]
+            algo.critic.num_action_samples, algo.critic.num_action_samples_rollout = 3, 5
+        for key, value in edits:
+            _set(algo, key, value)
+    return cfg
+
+
+def _hier_planner(node):
+    node.ae.planner_layer_dims = [16]
+    node.vae.encoder_layer_dims = node.vae.decoder_layer_dims = [16]
+    node.vae.latent_dim, node.vae.kl_weight = 4, 0.5
+    node.subgoal_horizon = HIER_SH
+    node.optim_params.goal_network.learning_rate.initial = 1e-3
+    node.optim_params.goal_network.regularization.L2 = 1e-2
+
+
+def hier_config(cfg, vae=True, mode="separate"):
+    """@cfg (``gl``, ``hbc`` or ``iris``) at small widths on ``HIER_OBS``:
+    the planner's subgoals ``HIER_SH`` steps on, the actor a 2-layer LSTM of
+    8, subgoals refreshed every ``HIER_INTERVAL`` calls, IRIS's value a BCQ
+    scoring 3 subgoals a row."""
+    keys = list(HIER_OBS)
+    with cfg.values_unlocked():
+        cfg.train.max_grad_norm = 1.0
+        cfg.train.seed = 0
+        cfg.train.seq_length = HIER_SH
+        if cfg.algo_name == "gl":
+            cfg.observation.modalities.obs.low_dim = keys
+            cfg.observation.modalities.subgoal.low_dim = keys
+            _hier_planner(cfg.algo)
+            cfg.algo.vae.enabled = vae
+            return cfg
+        cfg.algo.mode = mode
+        cfg.algo.subgoal_update_interval = HIER_INTERVAL
+        actor = cfg.algo.actor
+        actor.actor_layer_dims = []
+        actor.rnn.hidden_dim, actor.rnn.num_layers, actor.rnn.horizon = 8, 2, HIER_SH
+        actor.optim_params.policy.learning_rate.initial = 1e-3
+        cfg.observation.actor.modalities.obs.low_dim = keys
+        if cfg.algo_name == "hbc":
+            planner, planner_obs = cfg.algo.planner, cfg.observation.planner
+        else:
+            vp = cfg.algo.value_planner
+            planner, planner_obs = vp.planner, cfg.observation.value_planner.planner
+            vp.num_samples = 3
+            value = vp.value
+            value.critic.layer_dims = [16]
+            value.critic.num_action_samples, value.critic.num_action_samples_rollout = 2, 3
+            svae = value.action_sampler.vae
+            svae.latent_dim = 4
+            svae.encoder_layer_dims = svae.decoder_layer_dims = svae.prior_layer_dims = [16]
+            cfg.observation.value_planner.value.modalities.obs.low_dim = keys
+        _hier_planner(planner)
+        planner.vae.enabled = vae
+        planner_obs.modalities.obs.low_dim = keys
+        planner_obs.modalities.subgoal.low_dim = keys
+    return cfg
+
+
+def mcr_config(cfg, images=True):
+    """``mcr`` (MCR_GMM, 3 modes) at small widths on ``FLAT`` (with @images
+    beside ``CAM``)."""
+    with cfg.values_unlocked():
+        if images:
+            _camera(cfg.observation, {**FLAT, **CAM})
+        else:
+            cfg.observation.modalities.obs.low_dim = list(FLAT)
+            cfg.observation.modalities.obs.rgb = []
+        cfg.algo.actor_layer_dims = [16, 16]
+        cfg.algo.gmm.num_modes = 3
+        cfg.train.max_grad_norm = 0.5
+        cfg.train.seed = 0
+        cfg.train.pallas_pool = images
+    return cfg
+
+
+# tag: (algo name, configure, obs key shapes, request kind, worlds). Every leg
+# takes two steps on ``value_batches`` and a request after them; kinds:
+# "obs" get_action on B observations, "subgoal" a planner's predictions of
+# the rank's rows, "stepwise" HIER_CALLS get_action calls after a reset.
+_IMG = {**FLAT, **CAM}
+_TD3_BC = [("n_step", 2), ("infinite_horizon", True), ("critic.ensemble.weight", 0.75)]
+VALUE_LEGS = {
+    "iql": ("iql", lambda c: value_config(c, [("adv.clip_adv_value", 0.5)]), FLAT, "obs",
+            (2, 4)),
+    "iql_gmm": ("iql", lambda c: value_config(c, [("actor.net.type", "gmm"),
+                                                  ("actor.net.gmm.num_modes", 3)]),
+                FLAT, "obs", (2,)),
+    "td3_bc": ("td3_bc", lambda c: value_config(c, _TD3_BC), FLAT, "obs", (2, 4)),
+    # the JAX oracle's leg: its smoothing noise injected (``job_value``'s)
+    "td3_bc_jax": ("td3_bc", lambda c: value_config(c, _TD3_BC), FLAT, "obs", (2,)),
+    "cql": ("cql", lambda c: value_config(c, [("n_step", 2), ("critic.num_random_actions", 4),
+                                              ("critic.deterministic_backup", False)]),
+            FLAT, "obs", (2,)),
+    "cql_samples": ("cql", lambda c: value_config(c, [
+        ("critic.num_random_actions", 4), ("critic.num_action_samples", 3),
+        ("critic.target_q_gap", 1.0)]), FLAT, "obs", (2, 4)),
+    "bcq": ("bcq", lambda c: value_config(c, [("n_step", 2), ("actor.enabled", True)]),
+            FLAT, "obs", (2, 4)),
+    "bcq_gmm": ("bcq", lambda c: value_config(c, [("action_sampler.gmm.enabled", True),
+                                                  ("action_sampler.gmm.num_modes", 3)]),
+                FLAT, "obs", (2,)),
+    "bcq_distributional": ("bcq", lambda c: value_config(c, [
+        ("actor.enabled", True), ("critic.distributional.enabled", True),
+        ("critic.distributional.num_atoms", 11), ("critic.value_bounds", [-4.0, 4.0])]),
+        FLAT, "obs", (2,)),
+    "iql_rgb": ("iql", lambda c: value_config(c, images=True), _IMG, "obs", (2, 4)),
+    "gl": ("gl", lambda c: hier_config(c, vae=False), HIER_OBS, "subgoal", (2,)),
+    "gl_vae": ("gl", hier_config, HIER_OBS, "subgoal", (2, 4)),
+    "hbc": ("hbc", hier_config, HIER_OBS, "stepwise", (2, 4)),
+    "hbc_cascade": ("hbc", lambda c: hier_config(c, mode="cascade"), HIER_OBS, "stepwise",
+                    (2,)),
+    "hbc_gl": ("hbc", lambda c: hier_config(c, vae=False), HIER_OBS, "stepwise", (2,)),
+    "iris": ("iris", hier_config, HIER_OBS, "stepwise", (2, 4)),
+}
+
+
+def value_algo(tag, device="cpu", legs=None):
+    from robot_manipulation_vq_vae_tpu_torch.algo import algo_factory
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils
+
+    name, configure, keys = (legs or VALUE_LEGS)[tag][:3]
+    cfg = configure(config_factory(name))
+    obs_utils.initialize_obs_utils_with_config(cfg)
+    return algo_factory(name, cfg, dict(keys), VA, device=device)
+
+
+def value_batch(seed, keys, t):
+    """B windows of @t steps of (s, a, r, s', done) over @keys (images
+    uint8), actions in [-0.9, 0.9], a quarter of the steps done."""
+    rng = np.random.RandomState(seed)
+
+    def obs():
+        return {k: (rng.randint(0, 255, (B, t) + s).astype(np.uint8) if len(s) == 3
+                    else rng.randn(B, t, *s).astype(np.float32)) for k, s in keys.items()}
+
+    return {"obs": obs(), "next_obs": obs(),
+            "actions": rng.uniform(-0.9, 0.9, (B, t, VA)).astype(np.float32),
+            "rewards": rng.rand(B, t).astype(np.float32),
+            "dones": (rng.rand(B, t) < 0.25).astype(np.float32)}
+
+
+def value_batches(tag, legs=None):
+    """The leg's two processed batches (epochs 0 and 1)."""
+    keys = (legs or VALUE_LEGS)[tag][2]
+    t = HIER_SH if keys is HIER_OBS else VT
+    return [value_batch(30 + i, keys, t) for i in range(2)]
+
+
+def hier_states(algo):
+    """``algo_state`` of each algo under a hierarchical or value-planner
+    @algo, by its path (``planner``, ``actor``, ``planner.value_net``)."""
+    parts = {"": algo}
+    out = {}
+    while parts:
+        path, a = parts.popitem()
+        subs = {n: getattr(a, n) for n in ("planner", "actor", "value_net") if hasattr(a, n)}
+        if subs:
+            parts.update({f"{path}{n}.": v for n, v in subs.items()})
+        else:
+            out[path] = algo_state(a)
+    return out
+
+
+def flat_losses(info):
+    """A nested ``train_on_batch`` info's losses as {path: float}."""
+    out = {}
+    for k, v in info.items():
+        if k == "losses":
+            out.update({n: float(x) for n, x in v.items()})
+        elif isinstance(v, dict):
+            out.update({f"{k}/{n}": x for n, x in flat_losses(v).items()})
+    return out
+
+
+def value_request(algo, kind, keys, mesh=None):
+    """The leg's request after its steps (on this rank's shards under
+    @mesh): stacked [calls, B, ...] of the global batch's actions, or a
+    planner's subgoal predictions of the rank's rows {key: [rows, ...]}."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch
+
+    rng = np.random.RandomState(7)
+    cut = (lambda d: d) if mesh is None else (lambda d: shard_batch(mesh, d))
+
+    def obs():
+        return {k: (rng.randint(0, 255, (B,) + s).astype(np.uint8) if len(s) == 3
+                    else rng.randn(B, *s).astype(np.float32)) for k, s in keys.items()}
+
+    if kind == "subgoal":
+        sub = algo.get_subgoal_predictions(cut(obs()))
+        return {k: v.detach().cpu().clone() for k, v in sub.items()}
+    if kind == "obs":
+        return algo.get_action(cut(obs())).detach().cpu().clone()[None]
+    if kind == "window":
+        window = {k: np.stack([v] * VT, 1) for k, v in obs().items()}
+        return algo.get_action(cut(window)).detach().cpu().clone()[None]
+    algo.reset()
+    calls = [obs() for _ in range(HIER_CALLS)]
+    return torch.stack([algo.get_action(cut(o)).detach().cpu().clone() for o in calls])
+
+
+def run_value_leg(tag, mesh=None, device="cpu", legs=None, noise=None, start=None):
+    """A leg's algo (under @mesh), its two steps (on @mesh's shards) and its
+    request; @noise: the steps' ``_noise_hook`` draws, the global batch's;
+    @start: a file of its parts' state dicts ({``hier_states`` path: state
+    dict}) to start from."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch, shard_state
+
+    legs = legs or VALUE_LEGS
+    keys, kind = legs[tag][2], legs[tag][3]
+    algo = value_algo(tag, device, legs)
+    if start is not None:
+        parts = {"planner.": algo.planner, "actor.": algo.actor} if hasattr(
+            algo, "planner") else {"": algo}
+        for path, sd in torch.load(start).items():
+            parts[path].nets.load_state_dict(sd)
+    if noise is not None:
+        draws = iter(noise)
+        algo._noise_hook = lambda: next(draws)
+    if mesh is not None:
+        shard_state(mesh, algo)
+    losses = []
+    for epoch, batch in enumerate(value_batches(tag, legs)):
+        batch = algo.process_batch_for_training(batch)
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
+        losses.append(flat_losses(algo.train_on_batch(batch, epoch=epoch)))
+    return {"losses": losses, "states": hier_states(algo),
+            "request": value_request(algo, kind, keys, mesh)}
+
+
+def refusals_under_mp(mesh, tags, make):
+    """shard_state under @mesh (mp > 1) of each of @tags' algos (``make``):
+    {tag: (class name, the error)}."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
+
+    out = {}
+    for tag in tags:
+        algo = make(tag)
+        out[tag] = (type(algo).__name__, _refusal(lambda: shard_state(mesh, algo)))
+    return out
+
+
+def _without_whole_states(res):
+    """@res with each state as its ``digest`` (the ranks after the first)."""
+    res["digests"] = {p: digest(st) for p, st in res.pop("states").items()}
+    return res
+
+
+def job_value(rank, world, work, td3_bc_noise, starts, unsharded=False):
+    """dp = @world: each ``VALUE_LEGS`` leg run at that world (``td3_bc_jax``
+    with @td3_bc_noise, JAX's draws; a leg in @starts from that file's
+    weights); with @unsharded (one process, no mesh) every leg, the
+    reference. World 2 also gives what shard_state says under mp = 2 for
+    each leg's class."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    def run(tag, mesh=None):
+        return run_value_leg(tag, mesh, noise=td3_bc_noise if tag == "td3_bc_jax" else None,
+                             start=starts.get(tag))
+
+    if unsharded:
+        return {tag: run(tag) for tag in VALUE_LEGS}
+    mesh = make_mesh()
+    out = {}
+    for tag, leg in VALUE_LEGS.items():
+        if world in leg[4]:
+            res = run(tag, mesh)
+            out[tag] = _without_whole_states(res) if rank else res
+    if world == 2:
+        out["mp_refusals"] = refusals_under_mp(make_mesh(mp=2, device="cpu"), VALUE_LEGS,
+                                               value_algo)
+    return out
+
+
+# the MCR policies: MCR_GMM on the camera, warm-started from a pretrained
+# ResNet-18 trunk (``RMVQ_MCR_CKPT``), and the transformer GMM on ``FLAT``
+def _mcr_transformer(cfg):
+    cfg = mcr_config(cfg, images=False)
+    with cfg.values_unlocked():
+        tx = cfg.algo.transformer
+        tx.enabled, tx.context_length, tx.embed_dim, tx.num_layers, tx.num_heads = (
+            True, VT, 16, 1, 2)
+        tx.emb_dropout = tx.attn_dropout = tx.block_output_dropout = 0.0
+        cfg.train.seq_length = VT
+    return cfg
+
+
+MCR_LEGS = {
+    "mcr_gmm_rgb": ("mcr", mcr_config, _IMG, "obs", (2, 4)),
+    "mcr_transformer_gmm": ("mcr", _mcr_transformer, FLAT, "window", (2,)),
+}
+# the six MCR classes: (gmm, rnn, transformer) of each
+MCR_CLASSES = {"MCR": (False, False, False), "MCR_GMM": (True, False, False),
+               "MCR_RNN": (False, True, False), "MCR_RNN_GMM": (True, True, False),
+               "MCR_Transformer": (False, False, True),
+               "MCR_Transformer_GMM": (True, False, True)}
+
+
+def mcr_class_algo(cls):
+    """The ``mcr`` algo routed to @cls at small widths on ``FLAT``."""
+    from robot_manipulation_vq_vae_tpu_torch.algo import algo_factory
+    from robot_manipulation_vq_vae_tpu_torch.config import config_factory
+    from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils
+
+    gmm, rnn, transformer = MCR_CLASSES[cls]
+    cfg = _mcr_transformer(config_factory("mcr"))
+    with cfg.values_unlocked():
+        cfg.algo.gmm.enabled = gmm
+        cfg.algo.rnn.enabled, cfg.algo.rnn.hidden_dim, cfg.algo.rnn.horizon = rnn, 8, VT
+        cfg.algo.transformer.enabled = transformer
+    obs_utils.initialize_obs_utils_with_config(cfg)
+    return algo_factory("mcr", cfg, dict(FLAT), VA, device="cpu")
+
+
+# MCR pretraining: ResNet-18 on 32 x 32 frames, all three losses, B quintuples
+PRETRAIN = dict(size=18, hidden_dim=16, tcn_weight=1.0, align_state_weight=0.25,
+                bc_weight=0.5, action_dim=VA, resize_to_224=False, state_dim=42)
+PRETRAIN_IMG, PRETRAIN_LR = 32, 1e-4
+
+
+def pretrainer(device="cpu", double=False):
+    """The trainer from the seed's weights; in float64 with @double."""
+    from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import (
+        MCRPretrainer,
+        MCRRepresentation,
+    )
+
+    torch.manual_seed(0)
+    model = MCRRepresentation(**PRETRAIN)
+    return MCRPretrainer(model.double() if double else model, lr=PRETRAIN_LR, device=device)
+
+
+def pretrain_batches():
+    from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import synthetic_batches
+
+    return list(synthetic_batches(B, PRETRAIN_IMG, VA, 42, num_batches=3, seed=3))
+
+
+def run_pretrain(mesh=None, perms=None, double=False):
+    """Two steps and an evaluation step of ``pretrainer`` (on @mesh's
+    shards): the negatives from its generator, or @perms (each call's, of
+    the global batch). Returns its metrics and its state."""
+    from robot_manipulation_vq_vae_tpu_torch.algo.algo import _to_cpu
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch, shard_state
+
+    tr = pretrainer(double=double)
+    if mesh is not None:
+        shard_state(mesh, tr)
+    metrics = []
+    for i, batch in enumerate(pretrain_batches()):
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
+        metrics.append(tr.update(batch, eval=i == 2,
+                                 neg_perms=None if perms is None else perms[i]))
+    return {"losses": metrics,
+            "states": {"": {"nets": {k: v.detach().cpu().clone()
+                                     for k, v in tr.model.state_dict().items()},
+                            "opt": {"model": _to_cpu(tr.optimizer.state_dict())}}}}
+
+
+def job_mcr(rank, world, work, trunk, perms, unsharded=False):
+    """dp = @world: each ``MCR_LEGS`` leg at that world (warm-started from
+    @trunk), shard_state of each of the six MCR classes, and MCR pretraining
+    in float64 (a float32 run's Adam steps turn the reduction noise of
+    near-zero gradients into 1e-5 of weight) and, at world 2, with the JAX
+    oracle's negatives @perms; with @unsharded every leg and the
+    pretraining unsharded. World 2 also gives what shard_state
+    says under mp = 2."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh, shard_state
+
+    os.environ["RMVQ_MCR_CKPT"] = trunk
+    if unsharded:
+        out = {tag: run_value_leg(tag, legs=MCR_LEGS) for tag in MCR_LEGS}
+        out["pretrain"] = run_pretrain(double=True)
+        return out
+    mesh = make_mesh()
+    out = {tag: run_value_leg(tag, mesh, legs=MCR_LEGS) for tag, leg in MCR_LEGS.items()
+           if world in leg[4]}
+    out["classes"] = {cls: (type(a).__name__, _refusal(lambda: shard_state(mesh, a)))
+                      for cls, a in ((c, mcr_class_algo(c)) for c in MCR_CLASSES)}
+    out["pretrain"] = run_pretrain(mesh, double=True)
+    if world == 2:
+        out["pretrain_pinned"] = run_pretrain(mesh, perms, double=True)
+        mp_mesh = make_mesh(mp=2, device="cpu")
+        out["mp_refusals"] = refusals_under_mp(mp_mesh, MCR_CLASSES, mcr_class_algo)
+        out["mp_refusals"]["pretrain"] = ("MCRPretrainer",
+                                          _refusal(lambda: shard_state(mp_mesh, pretrainer())))
+    if rank:
+        out = {k: _without_whole_states(v) if isinstance(v, dict) and "states" in v else v
+               for k, v in out.items()}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,40 @@
 the same seeded numpy inputs and weights go through the JAX package and the
 port, with the JAX weights carried across by ``load_jax_variables``."""
 
+import contextlib
+
 import numpy as np
+import pytest
+import torch
 
 from robot_manipulation_vq_vae_tpu.utils.ckpt_conversion import (
     flatten_variables,
     unflatten_npz,
 )
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """torch's intra-op threads set to @n inside the block, as they were
+    after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests (imported by each port test
+    module). The suite runs 6 workers on the machine's cores beside XLA's
+    threads: with a thread per core in every worker, each torch op's
+    threads wait on one another's time slices, and the port's modules ran
+    3-8 x slower than on one thread (tests/test_torch_icl_gmm_bf16.py's
+    fixture: 470 s under the suite's load, 57 s alone)."""
+    with torch_threads(1):
+        yield
 
 
 def perturbed_variables(variables, seed, kernel_scale=1.0, scale_under=""):
