@@ -374,8 +374,16 @@ ROLLOUT_LANG = "put the cup in the cabinet"
 DEVICE = "cuda"
 
 
+# where log() writes: stdout, or a list that a rank of phases 23 / 24 hands
+# its parent, which prints each cell's lines in order (``mesh_cells_rank``)
+LOG_SINK = None
+
+
 def log(msg):
-    print(msg, flush=True)
+    if LOG_SINK is None:
+        print(msg, flush=True)
+    else:
+        LOG_SINK.append(msg)
 
 
 def check(ok, msg):
@@ -404,13 +412,20 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=20, warmup=3, repeats=5):
+def cuda_ms(fn, iters=20, warmup=3, repeats=5, budget_ms=60.0):
     """Device time of @fn (CUDA events): the mean over @iters back-to-back
-    calls, repeated @repeats times. Returns (median, min, max) in ms."""
+    calls (fewer for a slow @fn: as many as the warm-up's pace fits in
+    @budget_ms, at least 3), repeated @repeats times. Returns (median, min,
+    max) in ms."""
     import torch
 
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    pace = (time.perf_counter() - t) * 1e3 / max(warmup, 1)
+    iters = max(min(3, iters), min(iters, int(budget_ms / max(pace, 1e-6))))
     means = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -5549,23 +5564,24 @@ def _vec_gap(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def mesh23_run(CB, tag, dev, mesh=None, work=None):
-    """One cell from its start state (the seed's weights; a HVQVAE's seeded
-    codebooks from @work): the request, then the steps (on @mesh's shards),
+def mesh23_run(CB, tag, dev, mesh=None, work=None, algo=None):
+    """One cell from its start state (the seed's weights, @algo when given;
+    a HVQVAE's seeded codebooks, which the unsharded run writes to @work
+    and the ranks read): the request, then the steps (on @mesh's shards),
     the stem pools' (shape, dtype) recorded. A bf16 cell also records its
-    first step's gradients before the clipping (``capture_first_gradients``).
-    Unsharded, it then takes that step twice more from the start state, the
-    witnesses: under ``split_rows`` (the ranks' shapes for every convolution
-    and linear layer), and so with its modules on a ``OneRank`` axis as
-    well (the dp step's arithmetic in one process); the three gradient
-    vectors go to @work, against which a rank reads its own. Returns what
-    phase 23 holds."""
+    first step's gradients before the clipping (``capture_first_gradients``):
+    a rank its own and the averaged one as vectors; the unsharded run takes
+    that step twice more from the start state, the witnesses: under
+    ``split_rows`` (the ranks' shapes for every convolution and linear
+    layer), and so with its modules on a ``OneRank`` axis as well (the dp
+    step's arithmetic in one process), and keeps the three vectors. Returns
+    what phase 23 holds."""
     import torch
 
     from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
 
     make, half = MESH23_CELLS[tag][1], MESH23_CELLS[tag][7]
-    algo = make(dev)
+    algo = make(dev) if algo is None else algo
     path = os.path.join(work, f"{tag}_start.pt")
     if "vqvae" in algo.nets:
         if mesh is None:
@@ -5609,7 +5625,6 @@ def mesh23_run(CB, tag, dev, mesh=None, work=None):
                                  for name, opt in algo.optimizers.items()})
     else:
         res["moments"] = host_moments(algo, "policy")
-    raw = os.path.join(work, f"{tag}_raw.pt")
     if half and mesh is None:
         vecs = {"ref": torch.cat(first["mean"])}
         for witness, axis in (("halves", None), ("dp_arithmetic", OneRank())):
@@ -5622,54 +5637,96 @@ def mesh23_run(CB, tag, dev, mesh=None, work=None):
             with split_rows():
                 dp_steps(algo, mesh23_batches(tag, algo, dev)[:1])
             vecs[witness] = torch.cat(first["mean"])
-        torch.save(vecs, raw)
+        res["vecs"] = vecs
         res["witness"] = {k: _vec_gap(v, vecs["ref"]) for k, v in vecs.items() if k != "ref"}
-        del vecs
     elif half:
-        vecs = torch.load(raw)
-        own, mean = torch.cat(first["local"]), torch.cat(first["mean"])
-        res["first"] = {"dp": _vec_gap(mean, vecs["ref"]),
-                        "dp_vs_halves": _vec_gap(mean, vecs["halves"]),
-                        "dp_vs_dp_arithmetic": _vec_gap(mean, vecs["dp_arithmetic"]),
-                        "not_averaged": _vec_gap(own, vecs["ref"]),
-                        "half_left_out": _vec_gap(own / 2, vecs["ref"])}
-        del vecs
+        res["own"], res["mean"] = torch.cat(first["local"]), torch.cat(first["mean"])
     del algo
     free_card()
     return res
 
 
-def mesh23_rank(rank, world, port, work):
-    """One rank of phase 23: gloo over tcp on the one card, every cell at
-    dp = 2 from its start state; rank 0 keeps the states, rank 1 their
-    digests (equal to the bit to rank 0's)."""
+def mesh23_first(res, vecs, rank):
+    """A bf16 cell's first-step gradient gaps on this rank: the averaged
+    vector against the unsharded step's (rank 0 also against the two
+    witnesses), and the planted faults (this rank's own gradient, not
+    averaged, and half of it) against the unsharded step's. @vecs: the
+    unsharded run's vectors on rank 0; its reference vector is broadcast."""
     import torch
     import torch.distributed as dist
 
-    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
-    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+    own, mean = res.pop("own"), res.pop("mean")
+    want = vecs["ref"] if rank == 0 else torch.empty_like(mean)
+    dist.broadcast(want, 0)
+    res["first"] = {"dp": _vec_gap(mean, want), "not_averaged": _vec_gap(own, want),
+                    "half_left_out": _vec_gap(own / 2, want)}
+    if rank == 0:
+        res["first"].update(dp_vs_halves=_vec_gap(mean, vecs["halves"]),
+                            dp_vs_dp_arithmetic=_vec_gap(mean, vecs["dp_arithmetic"]))
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
-    torch.cuda.set_device(dev)
-    CB.build_kernels()   # loads the libraries the parent built
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
-    out = {}
-    try:
-        mesh = make_mesh(device=dev)
-        for tag in MESH23_CELLS:
-            res = mesh23_run(CB, tag, dev, mesh, work)
-            res["digest"] = {k: hashlib.sha1(v.float().contiguous().numpy().tobytes()).hexdigest()
-                             for k, v in res["state"].items()}
-            if rank:
-                for k in ("state", "moments", "grads"):
-                    res.pop(k, None)
-            out[tag] = res
-    finally:
-        dist.destroy_process_group()
-    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+def unsharded_copy(algo):
+    """A deep copy of @algo as built (no step taken, no mesh): the same
+    seed's weights, buffers, optimizers and generator state without a
+    second build, its cuDNN RNNs' weights compacted again (a copy's are
+    not one chunk)."""
+    import torch
+
+    twin = copy.deepcopy(algo)
+    for a in algos_of(twin):
+        for m in (getattr(a, "model", None) or a.nets).modules():
+            if isinstance(m, torch.nn.RNNBase):
+                m.flatten_parameters()
+    return twin
+
+
+def state_digest(state):
+    """{name: sha1 of the tensor's float32 bytes} of a state dict: two
+    ranks' states equal to the bit have equal digests."""
+    return {k: hashlib.sha1(v.detach().float().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def gather_ranks(res, keep):
+    """Every rank's @res with only the @keep keys (small: metrics, launches,
+    digests, requests), gathered over the default group in rank order;
+    rank 0 gets its own @res whole."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, {k: res[k] for k in keep if k in res})
+    out[dist.get_rank()] = res
+    return out
+
+
+def mesh23_cell(CB, tag, dev, mesh, work, rank, card):
+    """One cell of phase 23 on this rank: rank 0 first takes the unsharded
+    run from a deep copy of the algo it built (the same seed's weights,
+    with no second build), then both ranks the dp = 2 run, whose states
+    rank 0 holds against the unsharded run's (``check_mesh23_cell``) with
+    the other rank's small results gathered. Returns, on rank 0, what the
+    parent records: each rank's launches and the stem shapes pooled."""
+    import torch.distributed as dist
+
+    algo = MESH23_CELLS[tag][1](dev)
+    ref = vecs = None
+    if rank == 0:
+        ref = mesh23_run(CB, tag, dev, work=work, algo=unsharded_copy(algo))
+        vecs = ref.pop("vecs", None)
+    dist.barrier()   # the cell's start state is on disk
+    res = mesh23_run(CB, tag, dev, mesh, work, algo=algo)
+    del algo
+    if "own" in res:
+        mesh23_first(res, vecs, rank)
+    res["digest"] = state_digest(res["state"])
+    ranks = gather_ranks(res, ("launches", "serve_launches", "metrics", "digest", "serve",
+                               "pools", "first"))
+    if rank:
+        return None
+    check_mesh23_cell(tag, ref, ranks, card)
+    return {"launches": [r["launches"] for r in ranks],
+            "serve_launches": [r["serve_launches"] for r in ranks],
+            "pools": set().union(*(r["pools"] for r in ranks))}
 
 
 def _grad_gap(a, b):
@@ -5743,7 +5800,7 @@ def check_bf16_dp(tag, got, ref, ranks, phase):
             check(gap <= tol["metric"], f"{phase} {tag} step {step} {k}: {g[k]} vs {v}")
     vec = _grad_gap(got["grads"], ref["grads"])
     check(vec <= tol["vector"], f"{phase} {tag}: the last gradients differ by {vec} of their norm")
-    first = [res[tag]["first"] for res in ranks]
+    first = [res["first"] for res in ranks]
     check(first[0]["dp"] <= tol["vector"],
           f"{phase} {tag}: the first step's gradients differ by {first[0]['dp']} of their norm")
     for r, f in enumerate(first):
@@ -5823,67 +5880,136 @@ def check_bf16_dp(tag, got, ref, ranks, phase):
                              vq_weights=True, phase=phase, exempt=tuple(sign_noise)))
 
 
-def phase_mesh_families(CB, S, dev, card):
-    """23: the policy families at dp = 2, two processes on the one card over
-    gloo, against one process's unsharded requests and steps from the same
-    start state and generator state (see MESH23_CELLS): each rank's launches
-    those of the unsharded run's requests and steps (the same launches on
-    half the rows), the request within 1e-3, the steps within
-    tests/test_parallel.py's bounds (fp32) or ``check_bf16_dp``'s fixed ones (bf16),
-    the ranks equal to the bit; each stem shape the ranks pooled held against
-    the plain pool; the dp = 2 / unsharded ratio of the second step."""
-    import torch
-    import torch.multiprocessing as tmp
+def check_mesh23_cell(tag, ref, ranks, card):
+    """A phase 23 cell on rank 0: each rank's launches those of the
+    unsharded run's requests and steps (the same launches on half the rows),
+    the request within 1e-3, the steps within tests/test_parallel.py's
+    bounds (fp32) or ``check_bf16_dp``'s fixed ones (bf16), the ranks equal
+    to the bit, the dp = 2 / unsharded ratio of the second step. @ranks:
+    rank 0's results whole, the other's small ones (``gather_ranks``)."""
+    phase, *_, per_step, half = MESH23_CELLS[tag]
+    got = ranks[0]
+    check(ref["launches"] == {k: v * MESH23_STEPS for k, v in per_step.items()},
+          f"{phase} {tag}: unsharded steps launched {ref['launches']}")
+    for r, res in enumerate(ranks):
+        check(res["launches"] == ref["launches"],
+              f"{phase} {tag} rank {r}: steps launched {res['launches']}, unsharded "
+              f"{ref['launches']}")
+        check(res["serve_launches"] == ref["serve_launches"],
+              f"{phase} {tag} rank {r}: the request launched {res['serve_launches']}, "
+              f"unsharded {ref['serve_launches']}")
+        check(res["metrics"] == got["metrics"] and res["digest"] == got["digest"],
+              f"{phase} {tag}: the ranks differ")
+        gap = float((res["serve"] - ref["serve"]).abs().max())
+        check(gap <= 1e-3, f"{phase} {tag} rank {r}: the request is {gap} from "
+                           "unsharded serving")
+    if half:
+        summary = check_bf16_dp(tag, got, ref, ranks, phase)
+    else:
+        check_dp_metrics(tag, got["metrics"], ref["metrics"], phase)
+        summary = check_dp_state(tag, got["state"], ref["state"], "after the last step",
+                                 vq_weights=True, phase=phase)
+        summary += f"; Adam moments max|diff| {check_moments(tag, got['moments'], ref['moments'], phase):.3g}"
+    gaps = [float((res["serve"] - ref["serve"]).abs().max()) for res in ranks]
+    log(f"  {phase} {tag}: {summary}; request max|diff| "
+        f"{', '.join(f'{g:.3g}' for g in gaps)} (ranks 0, 1; bound 1e-3); launches a rank "
+        f"{got['launches']} over {MESH23_STEPS} steps (unsharded {ref['launches']}), "
+        f"{got['serve_launches']} a request; ms a step (CUDA events) dp=2 rank 0 "
+        f"{', '.join(f'{t:.3f}' for t in got['ms'])}, unsharded "
+        f"{', '.join(f'{t:.3f}' for t in ref['ms'])}; dp=2 / unsharded "
+        f"{got['ms'][-1] / ref['ms'][-1]:.3f} ({card})")
 
-    log(f"phase 23: the policy families at dp = 2 (bf16 and packed flagship, the paper's "
-        f"tokenizers, icl_mamba, the bc classes, the diffusion policy, ACT), two processes "
-        f"on the one card over gloo, {MESH23_STEPS} steps and a B={MESH23_REQ_B} request a "
-        f"cell ({card})")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh23_") as work:
-        refs = {tag: mesh23_run(CB, tag, dev, work=work) for tag in MESH23_CELLS}
-        log(f"  the unsharded runs took {time.perf_counter() - t0:.1f} s")
-        tmp.spawn(mesh23_rank, args=(2, free_port(), work), nprocs=2, join=True)
-        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-                 for r in range(2)]
-    pools = set()
-    for tag, (phase, *_, per_step, half) in MESH23_CELLS.items():
-        ref, got = refs[tag], ranks[0][tag]
-        check(ref["launches"] == {k: v * MESH23_STEPS for k, v in per_step.items()},
-              f"{phase} {tag}: unsharded steps launched {ref['launches']}")
-        for r, res in enumerate(ranks):
-            res = res[tag]
-            check(res["launches"] == ref["launches"],
-                  f"{phase} {tag} rank {r}: steps launched {res['launches']}, unsharded "
-                  f"{ref['launches']}")
-            check(res["serve_launches"] == ref["serve_launches"],
-                  f"{phase} {tag} rank {r}: the request launched {res['serve_launches']}, "
-                  f"unsharded {ref['serve_launches']}")
-            record_path(f"phase {phase} {tag} dp=2 rank {r} training", res["launches"])
-            record_path(f"phase {phase} {tag} dp=2 rank {r} serving", res["serve_launches"])
-            check(res["metrics"] == got["metrics"] and res["digest"] == got["digest"],
-                  f"{phase} {tag}: the ranks differ")
-            gap = float((res["serve"] - ref["serve"]).abs().max())
-            check(gap <= 1e-3, f"{phase} {tag} rank {r}: the request is {gap} from "
-                               "unsharded serving")
-            pools.update(res["pools"])
-        if half:
-            summary = check_bf16_dp(tag, got, ref, ranks, phase)
-        else:
-            check_dp_metrics(tag, got["metrics"], ref["metrics"], phase)
-            summary = check_dp_state(tag, got["state"], ref["state"], "after the last step",
-                                     vq_weights=True, phase=phase)
-            summary += f"; Adam moments max|diff| {check_moments(tag, got['moments'], ref['moments'], phase):.3g}"
-        gaps = [float((res[tag]["serve"] - ref["serve"]).abs().max()) for res in ranks]
-        log(f"  {phase} {tag}: {summary}; request max|diff| "
-            f"{', '.join(f'{g:.3g}' for g in gaps)} (ranks 0, 1; bound 1e-3); launches a rank "
-            f"{got['launches']} over {MESH23_STEPS} steps (unsharded {ref['launches']}), "
-            f"{got['serve_launches']} a request; ms a step (CUDA events) dp=2 rank 0 "
-            f"{', '.join(f'{t:.3f}' for t in got['ms'])}, unsharded "
-            f"{', '.join(f'{t:.3f}' for t in ref['ms'])}; dp=2 / unsharded "
-            f"{got['ms'][-1] / ref['ms'][-1]:.3f} ({card})")
-    # each stem shape the ranks pooled, held against the plain pool
-    gen = torch.Generator(dev).manual_seed(55)
+
+# phases 23 and 24 run on MESH_PAIRS pairs of gloo ranks at once, each pair
+# on its own cells; a cell's seconds on a pair running alone (on an NVIDIA
+# H100 80GB HBM3 at 700 W) spread the cells over the pairs, longest first.
+# Two pairs: a rank 0's unsharded run at the global batch peaks near 22 GiB
+# (the fp32 paper at B = 64, HBC / IRIS at B = 100), a dp rank near half
+# that, so that two pairs stay well inside the card's 80 GB and three might
+# not
+MESH_PAIRS = 2
+MESH_CELL_S = {
+    ("23", "flagship bf16"): 19.6, ("23", "flagship packed bf16"): 14.5,
+    ("23", "paper bin"): 8.8, ("23", "paper ln_act"): 8.6, ("23", "paper default"): 9.9,
+    ("23", "paper fast"): 8.1, ("23", "paper LipVQ bf16"): 15.7,
+    ("23", "ICLMamba_GMM LipVQ bf16"): 15.0, ("23", "ICLMambaHVQVAE"): 9.4,
+    ("23", "BC_RNN_GMM"): 7.4, ("23", "BC_VAE"): 5.0, ("23", "BC_Transformer_GMM"): 8.5,
+    ("23", "DiffusionPolicyUNet DDIM"): 12.1, ("23", "DiffusionPolicyUNet DDIM bf16"): 27.0,
+    ("23", "ACT"): 8.4, ("24", "IQL"): 16.1, ("24", "TD3_BC"): 19.4, ("24", "CQL"): 19.9,
+    ("24", "BCQ"): 15.2, ("24", "HBC"): 9.2, ("24", "IRIS"): 10.5, ("24", "MCR_GMM"): 8.6,
+    ("24", "MCR pretraining"): 11.7,
+}
+
+
+def mesh_plan(pairs=MESH_PAIRS):
+    """Phases 23's and 24's cells [(phase, tag)] for each of @pairs pairs of
+    ranks: longest first, each to the pair with the least work so far."""
+    cells = [("23", t) for t in MESH23_CELLS] + [("24", t) for t in MESH24_CELLS]
+    plan, load = [[] for _ in range(pairs)], [0.0] * pairs
+    for cell in sorted(cells, key=lambda c: -MESH_CELL_S.get(c, 10.0)):
+        i = load.index(min(load))
+        plan[i].append(cell)
+        load[i] += MESH_CELL_S.get(cell, 10.0)
+    return plan
+
+
+def mesh_cells_rank(index, ports, work, card, plan):
+    """Process @index of phases 23 and 24: rank index % 2 of pair index // 2,
+    a gloo group of two over tcp at its port of @ports, on the one card;
+    every cell of the pair's part of @plan at dp = 2 (``mesh23_cell``,
+    ``mesh24_cell``). Rank 0 holds each against the unsharded run it takes
+    itself; it writes, to @work/pair<i>_rank0.pt, each cell's log lines and
+    what the parent records (each rank's launches, the stem shapes pooled),
+    and each rank its cells' seconds and peak reserved device memory; a
+    failed check's lines are printed before it raises. @card: the card's
+    name and power limit, for the log."""
+    global LOG_SINK
+    import torch
+    import torch.distributed as dist
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    pair, rank = divmod(index, 2)
+    torch.set_num_threads(2)   # the pairs share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    CB.build_kernels()   # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{ports[pair]}",
+                            world_size=2, rank=rank)
+    out = {}
+    try:
+        mesh = make_mesh(device=dev)
+        for phase, tag in plan[pair]:
+            LOG_SINK = [] if rank == 0 else None
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            try:
+                if phase == "23":
+                    res = mesh23_cell(CB, tag, dev, mesh, work, rank, card)
+                else:
+                    res = mesh24_cell(CB, tag, dev, mesh, rank, card)
+            except BaseException:
+                for line in LOG_SINK or ():
+                    print(line, flush=True)
+                raise
+            out[(phase, tag)] = dict(res or {}, lines=LOG_SINK,
+                                     seconds=time.perf_counter() - t,
+                                     peak_gib=torch.cuda.max_memory_reserved(dev) / 2**30)
+    finally:
+        LOG_SINK = None
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"pair{pair}_rank{rank}.pt"))
+
+
+def check_rank_pools(S, dev, phase, pools, seed):
+    """Kernels 3 and 4 bit-equal to the plain pool at each stem (shape,
+    dtype) in @pools that @phase's ranks pooled."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
     for shape, dtype in sorted(pools):
         x = relu_input(shape, gen, dev).to(getattr(torch, dtype))
         out_k, idx_k = S.pool_fwd_cuda(x)
@@ -5891,10 +6017,83 @@ def phase_mesh_families(CB, S, dev, card):
         g = torch.randn(out_k.shape, generator=gen, device=dev).to(x.dtype)
         same = (torch.equal(out_k, out_p) and torch.equal(idx_k, idx_p) and torch.equal(
             S.pool_bwd_cuda(idx_k, g, shape[2:]), S.pool_bwd_plain(idx_p, g, shape[2:])))
-        check(same, f"23: kernels 3 / 4 differ from plain at the ranks' {shape} {dtype}")
-    log(f"  23: kernels 3 and 4 bit-equal to the plain pool at the ranks' "
+        check(same, f"{phase}: kernels 3 / 4 differ from plain at the ranks' {shape} {dtype}")
+    log(f"  {phase}: kernels 3 and 4 bit-equal to the plain pool at the ranks' "
         f"{len(pools)} stem shapes {sorted(pools)}")
-    log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_mesh_cells(CB, S, dev, card):
+    """23 and 24: the policy families (``MESH23_CELLS``), offline RL, the
+    hierarchical family, MCR and its pretraining (``MESH24_CELLS``) at
+    dp = 2, each cell on a pair of processes on the one card over gloo,
+    MESH_PAIRS pairs at once (``mesh_plan``); rank 0 of a pair takes each
+    cell's unsharded run itself and holds the ranks against it
+    (``mesh23_cell``, ``mesh24_cell``), so that no state leaves its
+    process. Here: each cell's lines in order, each rank's launches
+    recorded by path, and each stem shape the ranks pooled held against the
+    plain pool."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    plan = mesh_plan()
+    ports = []
+    while len(ports) < len(plan):
+        port = free_port()
+        if port not in ports:
+            ports.append(port)
+    log(f"phases 23 and 24 at dp = 2: {sum(map(len, plan))} cells on {len(plan)} pairs of "
+        f"processes at once, each pair on the one card over gloo, each cell's unsharded run "
+        f"on its pair's rank 0 from a deep copy of the algo it built; the dp = 2 step times "
+        f"are taken beside the other pairs' ({card})")
+    t0 = time.perf_counter()
+    # the ranks' allocator grows its segments rather than caching blocks of
+    # every size, so that what a pair reserves stays near what it holds
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as work:
+            tmp.spawn(mesh_cells_rank, args=(ports, work, card, plan), nprocs=2 * len(plan),
+                      join=True)
+            cells, peaks = {}, {}
+            for i in range(len(plan)):
+                cells.update(torch.load(os.path.join(work, f"pair{i}_rank0.pt"),
+                                        weights_only=False))
+                peaks.update(torch.load(os.path.join(work, f"pair{i}_rank1.pt"),
+                                        weights_only=False))
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    log(f"  the pairs took {time.perf_counter() - t0:.1f} s; by pair, each cell's seconds "
+        f"and its ranks' peak reserved device memory (GiB, ranks 0 / 1): " + "; ".join(
+            ", ".join(f"{tag} {cells[(ph, tag)]['seconds']:.1f} s "
+                      f"{cells[(ph, tag)]['peak_gib']:.1f} / {peaks[(ph, tag)]['peak_gib']:.1f}"
+                      for ph, tag in cell_list)
+            for cell_list in plan))
+    log(f"phase 23: the policy families at dp = 2 (bf16 and packed flagship, the paper's "
+        f"tokenizers, icl_mamba, the bc classes, the diffusion policy, ACT), "
+        f"{MESH23_STEPS} steps and a B={MESH23_REQ_B} request a cell ({card})")
+    for tag, (phase, *_) in MESH23_CELLS.items():
+        res = cells[("23", tag)]
+        for line in res["lines"]:
+            log(line)
+        for r in range(2):
+            record_path(f"phase {phase} {tag} dp=2 rank {r} training", res["launches"][r])
+            record_path(f"phase {phase} {tag} dp=2 rank {r} serving", res["serve_launches"][r])
+    check_rank_pools(S, dev, "23", set().union(*(cells[("23", t)]["pools"]
+                                                 for t in MESH23_CELLS)), 55)
+    log_mesh24_header(card)
+    for tag in MESH24_CELLS:
+        res = cells[("24", tag)]
+        for line in res["lines"]:
+            log(line)
+        for r in range(2):
+            record_path(f"phase 24 {tag} dp=2 rank {r} training", res["launches"][r])
+            record_path(f"phase 24 {tag} dp=2 rank {r} serving", res["request_launches"][r])
+    check_rank_pools(S, dev, "24", {(tuple(s), "float32") for t in MESH24_CELLS
+                                    for s in cells[("24", t)]["shapes"]}, 61)
+    log(f"  phases 23 and 24 took {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -6008,19 +6207,19 @@ def mesh24_state(algo):
     """({part + name: tensor} of the networks of every algo @algo is made of
     (``algos_of``; the pretrainer's model), {part + optimizer: Adam
     moments by parameter index}, {part + optimizer: its parameters' names
-    in that order}, {part + optimizer: its largest learning rate}) on the
-    host."""
+    in that order}, {part + optimizer: its largest learning rate}), copies
+    on the algo's device."""
     nets, moments, names, lrs = {}, {}, {}, {}
     for i, a in enumerate(algos_of(algo)):
         path = f"{i}."
         module = getattr(a, "model", None) or a.nets
-        nets.update({path + k: v.detach().cpu().clone() for k, v in module.state_dict().items()})
+        nets.update({path + k: v.detach().clone() for k, v in module.state_dict().items()})
         name_of = {id(p): path + n for n, p in module.named_parameters()}
         for name, opt in ({"model": a.optimizer} if hasattr(a, "model")
                           else a.optimizers).items():
             params = [p for g in opt.param_groups for p in g["params"]]
             names[path + name] = [name_of[id(p)] for p in params]
-            moments[path + name] = {j: {k: v.detach().cpu().clone()
+            moments[path + name] = {j: {k: v.detach().clone()
                                         for k, v in opt.state[p].items()
                                         if k in ("exp_avg", "exp_avg_sq")}
                                     for j, p in enumerate(params) if p in opt.state}
@@ -6082,13 +6281,13 @@ def mesh24_steps(algo, tag, dev, mesh=None):
     return metrics, times, first
 
 
-def mesh24_run(CB, tag, dev, mesh=None):
-    """One cell from the seed's weights: its steps (on @mesh's shards), then
-    its request, each one's launches and stem shapes recorded. Returns what
-    phase 24 holds."""
+def mesh24_run(CB, tag, dev, mesh=None, algo=None):
+    """One cell from the seed's weights (@algo when given): its steps (on
+    @mesh's shards), then its request, each one's launches and stem shapes
+    recorded. Returns what phase 24 holds."""
     from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
 
-    algo = MESH24_CELLS[tag][1](dev)
+    algo = MESH24_CELLS[tag][1](dev) if algo is None else algo
     if mesh is not None:
         shard_state(mesh, algo)
     shapes, handles = stem_inputs(getattr(algo, "model", algo))
@@ -6135,36 +6334,28 @@ def witness_gaps(got, ref, witness):
     return gaps
 
 
-def mesh24_rank(rank, world, port, work):
-    """One rank of phase 24: gloo over tcp on the one card, every cell at
-    dp = 2; rank 0 keeps the states, rank 1 their digests."""
-    import torch
-    import torch.distributed as dist
-
-    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build as CB
-    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
-    torch.cuda.set_device(dev)
-    CB.build_kernels()   # loads the libraries the parent built
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
-    out = {}
-    try:
-        mesh = make_mesh(device=dev)
-        for tag in MESH24_CELLS:
-            res = mesh24_run(CB, tag, dev, mesh)
-            res["digest"] = {k: hashlib.sha1(v.float().contiguous().numpy().tobytes()).hexdigest()
-                             for k, v in res["state"].items()}
-            if rank:
-                for k in ("state", "first", "moments"):
-                    res.pop(k)
-            out[tag] = res
-    finally:
-        dist.destroy_process_group()
-    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+def mesh24_cell(CB, tag, dev, mesh, rank, card):
+    """One cell of phase 24 on this rank: the dp = 2 run of the algo it
+    built, then, on rank 0, the unsharded run from a deep copy of that algo
+    taken before the mesh (the same seed's weights, with no second build),
+    against which rank 0 holds the ranks (``check_mesh24_cell``) with the
+    other rank's small results gathered. Returns, on rank 0, what the parent
+    records: each rank's launches and the stem shapes pooled."""
+    algo = MESH24_CELLS[tag][1](dev)
+    twin = unsharded_copy(algo) if rank == 0 else None
+    res = mesh24_run(CB, tag, dev, mesh, algo=algo)
+    del algo
+    res["digest"] = state_digest(res["state"])
+    ranks = gather_ranks(res, ("launches", "request_launches", "step_shapes",
+                               "request_shapes", "metrics", "digest", "request"))
+    if rank:
+        return None
+    ref = mesh24_run(CB, tag, dev, algo=twin)
+    del twin
+    check_mesh24_cell(tag, ref, ranks, card)
+    return {"launches": [r["launches"] for r in ranks],
+            "request_launches": [r["request_launches"] for r in ranks],
+            "shapes": sorted({s for r in ranks for s in r["step_shapes"] + r["request_shapes"]})}
 
 
 def moment_gaps(got, ref):
@@ -6222,91 +6413,63 @@ def check_mesh24_state(tag, got, ref):
             f"after the last step, reported: weights max|diff| {last:.3g}")
 
 
-def phase_mesh_value(CB, S, dev, card):
-    """24: offline RL (18e's four on phase 8's cameras), HBC and IRIS (19d),
-    MCR_GMM (19e) and MCR pretraining (19f) at dp = 2, two processes on the
-    one card over gloo, against one process's unsharded steps and request
-    from the seed's weights: each rank's stem-pool launches those of the
-    unsharded run on half the rows (its stems at half the leading dim), the
-    metrics of every step, and the states and Adam moments after the first,
-    within test_parallel.py's bounds (``check_mesh24_state``), the request
-    within 1e-3, the ranks equal to the bit; each stem shape the ranks
-    pooled held against the plain pool; the dp = 2 / unsharded ratio of the
-    second step."""
-    import torch
-    import torch.multiprocessing as tmp
-
+def log_mesh24_header(card):
     log(f"phase 24: offline RL (IQL, TD3-BC, CQL, BCQ on cameras), HBC, IRIS, MCR_GMM and "
-        f"MCR pretraining at dp = 2, two processes on the one card over gloo, "
-        f"{MESH24_STEPS} steps and a request a cell ({card})")
-    t0 = time.perf_counter()
-    refs = {tag: mesh24_run(CB, tag, dev) for tag in MESH24_CELLS}
-    log(f"  the unsharded runs took {time.perf_counter() - t0:.1f} s")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh24_") as work:
-        tmp.spawn(mesh24_rank, args=(2, free_port(), work), nprocs=2, join=True)
-        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-                 for r in range(2)]
-    pools = set()
-    for tag, (phase, *_) in MESH24_CELLS.items():
-        ref, got = refs[tag], ranks[0][tag]
-        for kernel in ("stem_pool_fwd", "stem_pool_bwd"):
-            check(ref["launches"].get(kernel, 0) > 0,
-                  f"24 {tag}: the unsharded steps launched {ref['launches']}")
-        for r, res in enumerate(ranks):
-            res = res[tag]
-            for what in ("launches", "request_launches"):
-                check(res[what] == ref[what], f"24 {tag} rank {r}: {what} {res[what]}, "
-                      f"unsharded {ref[what]}")
-            for what in ("step_shapes", "request_shapes"):
-                halves = sorted({(n // 2, *rest) for n, *rest in ref[what]})
-                check(res[what] == halves, f"24 {tag} rank {r}: {what} {res[what]}, "
-                      f"unsharded {ref[what]}")
-            record_path(f"phase 24 {tag} dp=2 rank {r} training", res["launches"])
-            record_path(f"phase 24 {tag} dp=2 rank {r} serving", res["request_launches"])
-            check(res["metrics"] == got["metrics"] and res["digest"] == got["digest"],
-                  f"24 {tag}: the ranks differ")
-            pools.update(res["step_shapes"] + res["request_shapes"])
-        if tag in MESH24_WITNESS:
-            check_dp_metrics(tag, got["metrics"][:1], ref["metrics"][:1], "24")
-            dp_gap, own = witness_gaps(got["metrics"][1:] + [got["request"]],
-                                       ref["metrics"][1:] + [ref["request"]],
-                                       ref["witness"][1:] + [ref["witness_request"]])
-            log(f"  24 {tag}: after the first step (and its evaluation), reported: the "
-                f"metrics' largest relative gap {dp_gap:.3g} from unsharded, the witness's "
-                f"{own:.3g}")
-        else:
-            check_dp_metrics(tag, got["metrics"], ref["metrics"], "24")
-        summary = check_mesh24_state(tag, got, ref)
-        if isinstance(ref["request"], dict):
-            check(all(r[tag]["request"] == got["request"] for r in ranks),
-                  f"24 {tag}: the ranks' evaluations differ")
-            gaps = [max(abs(r[tag]["request"][k] - v) for k, v in ref["request"].items())
-                    for r in ranks]
-        else:
-            gaps = [float((r[tag]["request"] - ref["request"]).abs().max()) for r in ranks]
-            for r, gap in enumerate(gaps):
-                check(gap <= 1e-3, f"24 {tag} rank {r}: the request is {gap} from unsharded")
-        log(f"  {phase} {tag}: {summary}; request max|diff| "
-            f"{', '.join(f'{g:.3g}' for g in gaps)} (ranks 0, 1; bound 1e-3); launches a rank "
-            f"{got['launches']} over {MESH24_STEPS} steps (unsharded {ref['launches']}), "
-            f"{got['request_launches']} a request; stems a rank {got['step_shapes']} "
-            f"(unsharded {ref['step_shapes']}); ms a step (CUDA events) dp=2 rank 0 "
-            f"{', '.join(f'{t:.3f}' for t in got['ms'])}, unsharded "
-            f"{', '.join(f'{t:.3f}' for t in ref['ms'])}; dp=2 / unsharded "
-            f"{got['ms'][-1] / ref['ms'][-1]:.3f} ({card})")
-    # each stem shape the ranks pooled, held against the plain pool
-    gen = torch.Generator(dev).manual_seed(61)
-    for shape in sorted(pools):
-        x = relu_input(shape, gen, dev)
-        out_k, idx_k = S.pool_fwd_cuda(x)
-        out_p, idx_p = S.pool_fwd_plain(x)
-        g = torch.randn(out_k.shape, generator=gen, device=dev)
-        same = (torch.equal(out_k, out_p) and torch.equal(idx_k, idx_p) and torch.equal(
-            S.pool_bwd_cuda(idx_k, g, shape[2:]), S.pool_bwd_plain(idx_p, g, shape[2:])))
-        check(same, f"24: kernels 3 / 4 differ from plain at the ranks' {shape}")
-    log(f"  24: kernels 3 and 4 bit-equal to the plain pool at the ranks' {len(pools)} stem "
-        f"shapes {sorted(pools)}")
-    log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
+        f"MCR pretraining at dp = 2, {MESH24_STEPS} steps and a request a cell ({card})")
+
+
+def check_mesh24_cell(tag, ref, ranks, card):
+    """A phase 24 cell on rank 0, against the unsharded run's steps and
+    request from the seed's weights: each rank's stem-pool launches those of
+    the unsharded run on half the rows (its stems at half the leading dim),
+    the metrics of every step, and the states and Adam moments after the
+    first, within test_parallel.py's bounds (``check_mesh24_state``), the
+    request within 1e-3, the ranks equal to the bit; the dp = 2 / unsharded
+    ratio of the second step. @ranks: rank 0's results whole, the other's
+    small ones (``gather_ranks``)."""
+    phase = MESH24_CELLS[tag][0]
+    got = ranks[0]
+    for kernel in ("stem_pool_fwd", "stem_pool_bwd"):
+        check(ref["launches"].get(kernel, 0) > 0,
+              f"24 {tag}: the unsharded steps launched {ref['launches']}")
+    for r, res in enumerate(ranks):
+        for what in ("launches", "request_launches"):
+            check(res[what] == ref[what], f"24 {tag} rank {r}: {what} {res[what]}, "
+                  f"unsharded {ref[what]}")
+        for what in ("step_shapes", "request_shapes"):
+            halves = sorted({(n // 2, *rest) for n, *rest in ref[what]})
+            check(res[what] == halves, f"24 {tag} rank {r}: {what} {res[what]}, "
+                  f"unsharded {ref[what]}")
+        check(res["metrics"] == got["metrics"] and res["digest"] == got["digest"],
+              f"24 {tag}: the ranks differ")
+    if tag in MESH24_WITNESS:
+        check_dp_metrics(tag, got["metrics"][:1], ref["metrics"][:1], "24")
+        dp_gap, own = witness_gaps(got["metrics"][1:] + [got["request"]],
+                                   ref["metrics"][1:] + [ref["request"]],
+                                   ref["witness"][1:] + [ref["witness_request"]])
+        log(f"  24 {tag}: after the first step (and its evaluation), reported: the "
+            f"metrics' largest relative gap {dp_gap:.3g} from unsharded, the witness's "
+            f"{own:.3g}")
+    else:
+        check_dp_metrics(tag, got["metrics"], ref["metrics"], "24")
+    summary = check_mesh24_state(tag, got, ref)
+    if isinstance(ref["request"], dict):
+        check(all(r["request"] == got["request"] for r in ranks),
+              f"24 {tag}: the ranks' evaluations differ")
+        gaps = [max(abs(r["request"][k] - v) for k, v in ref["request"].items())
+                for r in ranks]
+    else:
+        gaps = [float((r["request"] - ref["request"]).abs().max()) for r in ranks]
+        for r, gap in enumerate(gaps):
+            check(gap <= 1e-3, f"24 {tag} rank {r}: the request is {gap} from unsharded")
+    log(f"  {phase} {tag}: {summary}; request max|diff| "
+        f"{', '.join(f'{g:.3g}' for g in gaps)} (ranks 0, 1; bound 1e-3); launches a rank "
+        f"{got['launches']} over {MESH24_STEPS} steps (unsharded {ref['launches']}), "
+        f"{got['request_launches']} a request; stems a rank {got['step_shapes']} "
+        f"(unsharded {ref['step_shapes']}); ms a step (CUDA events) dp=2 rank 0 "
+        f"{', '.join(f'{t:.3f}' for t in got['ms'])}, unsharded "
+        f"{', '.join(f'{t:.3f}' for t in ref['ms'])}; dp=2 / unsharded "
+        f"{got['ms'][-1] / ref['ms'][-1]:.3f} ({card})")
 
 
 def device_profile(tag, fn, share=()):
@@ -6341,6 +6504,9 @@ def device_profile(tag, fn, share=()):
     return busy
 
 
+T_START = time.perf_counter()   # the script's start, for main's marks
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -6368,6 +6534,15 @@ def main():
     log("TF32 off for matmul and cuDNN: the fp32 comparisons and times are full fp32")
 
     card = nvidia_smi()
+    t_last = [T_START]
+
+    def mark(what):
+        """Log the seconds since the previous mark (the script's start) and
+        since the start."""
+        now = time.perf_counter()
+        log(f"  [{what}: {now - t_last[0]:.1f} s; {now - T_START:.1f} s since the start]")
+        t_last[0] = now
+
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     seconds = CB.build_kernels()
@@ -6379,64 +6554,83 @@ def main():
 
     assign = phase_assign(K, dev)
     phase_assign_backward(K, dev)
+    mark("phases 1-3b")
     tok_model = tokenizer_model(dev)
     x = torch.randn(TOKENIZER_CHUNKS, 12, generator=torch.Generator(dev).manual_seed(7),
                     device=dev)
     roundtrip = phase_roundtrip(K, dev, tok_model, x)
     tok_counts = phase_tokenizer_path(CB, tok_model, x)
     del tok_model, x
+    mark("phases 4-5")
     pool = phase_stem_pool(S, dev)
     mcr_pool = phase_mcr_pool(S, dev)
     mcr_rank_pool = phase_mcr_pool(S, dev, MCR_RANK_POOL)
     pool_bf16, bf16_step_pool = phase_stem_pool_bf16(S, dev)
     pool.update(pool_bf16)
+    mark("phases 6-6b")
     torch.cuda.empty_cache()
     route, route_counts = phase_pool_route(CB, P, dev)
+    mark("phase 6c")
     torch.cuda.empty_cache()
     pol_counts, paper_request_ms = phase_policy_path(CB, dev, args.profile)
+    mark("phase 7")
     torch.cuda.empty_cache()
     train_counts, paper_step_ms = phase_training_path(CB, dev, args.profile)
+    mark("phase 8")
     torch.cuda.empty_cache()
     phase_flagship_serving(CB, dev, args.profile)
+    mark("phase 9")
     torch.cuda.empty_cache()
     flagship = {mp: phase_flagship_training(CB, dev, mp, args.profile)
                 for mp in (False, True)}
+    mark("phase 10")
     torch.cuda.empty_cache()
     epoch_counts, trained, ckpt = phase_epoch(CB, dev, flagship[True][1])
+    mark("phase 11")
     torch.cuda.empty_cache()
     phase_rollout_paper(CB, dev, paper_request_ms[BATCHES[-1]], args.profile)
     torch.cuda.empty_cache()
     phase_rollout_checkpoint(CB, dev, trained, ckpt)
+    mark("phase 12")
     del trained, ckpt
     torch.cuda.empty_cache()
     phase_modalities(CB, dev, paper_step_ms, paper_request_ms, args.profile)
+    mark("phase 13")
     torch.cuda.empty_cache()
     assign_bf16 = phase_assign_bf16(K, dev)
     bf16_counts, _ = phase_paper_bf16(CB, dev, paper_step_ms)
     phase_flagship_packed(CB, dev, flagship[True][1])
     phase_flagship_modes(CB, dev, flagship[True][1])
+    mark("phase 14")
     free_card()
     mamba_steps = phase_family(CB, dev, card, paper_step_ms, args.profile)
+    mark("phase 15")
     free_card()
     row_3g, film_steps = phase_cores(CB, S, dev, card, paper_step_ms, args.profile)
+    mark("phase 16")
     free_card()
     baselines = phase_baselines(CB, dev, card, args.profile)
+    mark("phase 17")
     free_card()
     phase_offline_rl(CB, dev, card, args.profile)
+    mark("phase 18")
     free_card()
     phase_hierarchical(CB, dev, card, args.profile)
+    mark("phase 19")
     free_card()
     phase_bf16(CB, dev, card, {"15c": mamba_steps["ICLMamba_GMM LipVQ"], "16": film_steps,
                                "17c": baselines["DiffusionPolicyUNet (DDPM)"][0]},
                args.profile)
+    mark("phase 20")
     free_card()
     zoo_kernel = phase_zoo_and_mesh(CB, K, dev, card)
+    mark("phase 21")
     free_card()
     phase_mesh_draws(CB, dev, card)
+    mark("phase 22")
     free_card()
-    phase_mesh_families(CB, S, dev, card)
-    free_card()
-    phase_mesh_value(CB, S, dev, card)
+    phase_mesh_cells(CB, S, dev, card)
+    mark("phases 23-24")
 
     # the assign kernel's row: the B = 16 request's shape, N = 16 x 16 rows
     main_assign = assign[(ASSIGN_DS[0], BATCHES[-1] * 16)]
