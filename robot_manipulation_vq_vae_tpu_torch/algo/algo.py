@@ -306,11 +306,16 @@ class Algo:
         dp in rank order); @t itself without data parallelism."""
         return t if self.dp is None else self.dp.all_gather(t)
 
-    def _dp_mean(self, grads):
-        """@grads (a list of tensors) averaged over the data-parallel ranks
-        in place: with equal shards, the gradient of the global mean loss."""
+    def _sync_grads(self, grads):
+        """@grads (a list of tensors) in place as every rank steps with
+        them: averaged over the data-parallel ranks (with equal shards, the
+        gradient of the global mean loss), and under tensor parallelism a
+        replicated parameter's taken from mp rank 0 (``parallel.mesh``: the
+        replicas' backwards may part by a few ulps on a card)."""
         if self.dp is not None:
             self.dp.mean_(grads)
+        if self.mp is not None:
+            TP.sync_replicated_(grads, self.mp)
         return grads
 
     def _dp_losses(self, losses):
@@ -522,7 +527,7 @@ class PolicyAlgo(Algo):
         clipping to ``train.max_grad_norm`` and one step of the policy's
         optimizer. Returns the detached losses and ``policy_grad_norms``."""
         params = list(self.nets["policy"].parameters())
-        grads = self._dp_mean(self._gradients(losses["action_loss"], params))
+        grads = self._sync_grads(self._gradients(losses["action_loss"], params))
         metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
         metrics["policy_grad_norms"] = OptimUtils.global_norm(grads, self.mp)
         if self.max_grad_norm is not None:
@@ -676,9 +681,9 @@ class ValueAlgo(Algo):
         if validate or not gate:
             return
         params = self._opt_params[name]
-        grads = self._dp_mean(self._gradients(loss, params))
+        grads = self._sync_grads(self._gradients(loss, params))
         if self._max_norm[name] is not None:
-            OptimUtils.clip_by_global_norm_(grads, self._max_norm[name])
+            OptimUtils.clip_by_global_norm_(grads, self._max_norm[name], self.mp)
         self._step(name, params, grads)
 
     @staticmethod

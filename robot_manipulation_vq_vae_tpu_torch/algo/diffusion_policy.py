@@ -220,12 +220,12 @@ class DiffusionPolicyUNet(PolicyAlgo):
         params = {n: list(self.nets[n].parameters()) for n in nets}
         flat = [p for n in nets for p in params[n]]
         grads = torch.autograd.grad(losses["l2_loss"], flat, allow_unused=True)
-        grads = iter(self._dp_mean([torch.zeros_like(p) if g is None else g
+        grads = iter(self._sync_grads([torch.zeros_like(p) if g is None else g
                                     for p, g in zip(flat, grads)]))
         for name in nets:
             g = [next(grads) for _ in params[name]]
             if self.max_grad_norm is not None:
-                clip_by_global_norm_(g, self.max_grad_norm)
+                clip_by_global_norm_(g, self.max_grad_norm, self.mp)
             self._step(name, params[name], g)
         if self.ema_enabled:
             k = self.global_step

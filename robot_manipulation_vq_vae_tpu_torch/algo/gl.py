@@ -230,9 +230,9 @@ class GL(PlannerAlgo):
             losses = self._losses(batch)
             if not validate:
                 params = list(self.nets["goal_network"].parameters())
-                grads = self._dp_mean(self._gradients(losses["goal_loss"], params))
+                grads = self._sync_grads(self._gradients(losses["goal_loss"], params))
                 if self.max_grad_norm is not None:
-                    OptimUtils.clip_by_global_norm_(grads, self.max_grad_norm)
+                    OptimUtils.clip_by_global_norm_(grads, self.max_grad_norm, self.mp)
                 self._step("goal_network", params, grads)
                 self.global_step += 1
         return {"losses": self._dp_losses(

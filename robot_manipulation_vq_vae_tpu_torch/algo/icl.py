@@ -448,7 +448,7 @@ class ICLTransformer(ICL):
         params = {n: list(self.nets[n].parameters()) for n in nets}
         flat = [p for n in nets for p in params[n]]
         grads = torch.autograd.grad(combined, flat, allow_unused=True)
-        grads = iter(self._dp_mean([torch.zeros_like(p) if g is None else g
+        grads = iter(self._sync_grads([torch.zeros_like(p) if g is None else g
                                     for p, g in zip(flat, grads)]))
         grads = {n: [next(grads) for _ in params[n]] for n in nets}
         metrics = OrderedDict((k, v.detach()) for k, v in losses.items())
@@ -671,14 +671,14 @@ class ICLTransformer_GMM(ICLTransformer):
         action_loss = -lp.mean()
         if self.vq_vae_enabled:
             lipvq = list(self._lipvq().parameters())
-            vq_grads = self._dp_mean(list(torch.autograd.grad(vq_loss, lipvq,
+            vq_grads = self._sync_grads(list(torch.autograd.grad(vq_loss, lipvq,
                                                               retain_graph=True)))
         params = list(self.nets["policy"].parameters())
         grads = torch.autograd.grad(action_loss, params, allow_unused=True)
         # the NLL gives LipVQ no gradient (the context tokens are the
         # detached codes); the policy optimizer still steps those parameters
         # with zeros, as optax does, which matters once L2 > 0
-        grads = self._dp_mean([torch.zeros_like(p) if g is None else g
+        grads = self._sync_grads([torch.zeros_like(p) if g is None else g
                                for p, g in zip(params, grads)])
         metrics = OrderedDict(
             log_probs=-action_loss.detach(), action_loss=action_loss.detach(),

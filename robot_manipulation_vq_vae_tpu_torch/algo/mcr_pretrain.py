@@ -49,6 +49,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.pretrained_nets import (
     IMAGENET_STD,
     resize_bilinear,
 )
+from robot_manipulation_vq_vae_tpu_torch.utils import tensor_parallel as TP
 from robot_manipulation_vq_vae_tpu_torch.utils.jax_weights import jax_tree, jax_variables
 
 EPS = 1e-8
@@ -239,6 +240,9 @@ class MCRPretrainer:
     are the caller's (the script seeds their construction)."""
 
     dp = None
+    # the tensor-parallel axis (``parallel.shard_state``): the model holds
+    # no split weight, so it is replicated over it
+    mp = None
 
     def __init__(self, model, lr=1e-4, seed=1, device=None):
         self.device = resolve_device(device)
@@ -285,8 +289,11 @@ class MCRPretrainer:
             loss, metrics = self.model(batch, perms)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
             if self.dp is not None:
-                self.dp.mean_([p.grad for p in self.model.parameters() if p.grad is not None])
+                self.dp.mean_(grads)
+            if self.mp is not None:   # replicated over mp (see Algo._sync_grads)
+                TP.sync_replicated_(grads, self.mp)
             self.optimizer.step()
             self.step += 1
         values = torch.stack([v.detach().to(torch.float64) for v in metrics.values()])

@@ -29,6 +29,7 @@ from robot_manipulation_vq_vae_tpu_torch.models.base_nets import (
     ResNet34Conv,
     ResNet50Conv,
 )
+from robot_manipulation_vq_vae_tpu_torch.utils import tensor_parallel as TP
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -124,6 +125,10 @@ def load_r3m_state_dict(core, state_dict):
 
 
 class _ViTAttention(nn.Module):
+    # the tensor-parallel axis (``parallel.shard_params``): the qkv weight is
+    # sharded over it as JAX's ``_param_spec`` shards it, and gathered here
+    mp = None
+
     def __init__(self, dim, num_heads):
         super().__init__()
         self.num_heads = num_heads
@@ -133,7 +138,8 @@ class _ViTAttention(nn.Module):
     def forward(self, x):
         b, n, d = x.shape
         hd = d // self.num_heads
-        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        qkv = F.linear(x, TP.gathered(self.qkv.weight, self.mp, 0), self.qkv.bias)
+        q, k, v = qkv.reshape(b, n, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
         att = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1)
         return self.proj((att @ v).transpose(1, 2).reshape(b, n, d))
 

@@ -8,11 +8,12 @@ are ``base_nets.Dropout`` (Flax's semantics, drawn from the algo's
 generator). Parameters keep the reference torch key names
 (``nets.transformer.{i}.nets.*``, ``nets.output_ln``).
 
-Under tensor parallelism (``parallel.shard_params``, JAX's GPT rules) the
-blocks are given their ``mp`` axis and compute on their parameters' local
-shards through ``utils.tensor_parallel``: each rank attends with its own
-heads and holds its part of the MLP's hidden units; without it the same
-forwards compute every head and unit.
+Under tensor parallelism (``parallel.shard_params``, JAX's ``_param_spec``)
+the blocks are given their ``mp`` axis and compute on their parameters'
+local shards through ``utils.tensor_parallel``: each rank attends with its
+own heads (with every head where mp does not divide them) and holds its
+part of the MLP's hidden units (GEGLU's too); without it the same forwards
+compute every head and unit.
 """
 
 import math
@@ -52,21 +53,14 @@ class GEGLU(nn.Module):
         return a * F.gelu(b)
 
 
-class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm`` on its parameters' local tensors (replicated
-    DTensors under tensor parallelism)."""
-
-    def forward(self, x):
-        return F.layer_norm(x, self.normalized_shape, TP.local(self.weight),
-                            TP.local(self.bias), self.eps)
-
-
 class SelfAttention(nn.Module):
     """Multi-head self-attention with an optional causal (tril) mask. Under
     tensor parallelism (``mp``) this rank's heads: their q, k and v from the
     gathered qkv weight (its ``Shard(0)`` rows do not follow the heads), the
     attention dropout's mask drawn for every head and cut to them, and the
-    row-parallel output projection summed over mp."""
+    row-parallel output projection summed over mp. Where mp does not divide
+    the heads, every rank attends with every head on the gathered qkv and
+    output weights."""
 
     JAX_NAMES = {"qkv": "nets.qkv", "output": "nets.output"}
     # the tensor-parallel axis (``parallel.shard_params``)
@@ -89,9 +83,11 @@ class SelfAttention(nn.Module):
     def forward(self, x):
         b, t, d = x.shape
         nh, dh = self.num_heads, d // self.num_heads
-        heads = TP.heads(nh, self.mp)
+        # the axis the heads are split over: mp where it divides them
+        split = self.mp if self.mp is not None and nh % self.mp.size == 0 else None
+        heads = TP.heads(nh, split)
         n = heads.stop - heads.start
-        q, k, v = self._qkv(x, heads, dh).chunk(3, dim=-1)
+        q, k, v = self._qkv(x, heads, dh, split).chunk(3, dim=-1)
         q, k, v = (a.reshape(b, t, n, dh).transpose(1, 2) for a in (q, k, v))
         # the JAX products ask for fp32 results (preferred_element_type): a
         # bf16 q and k (mixed precision) are multiplied in fp32
@@ -102,16 +98,25 @@ class SelfAttention(nn.Module):
         att = self.nets["attn_dropout"](torch.softmax(att, dim=-1), (b, nh, t, t),
                                         (slice(None), heads))
         y = (att @ v).transpose(1, 2).reshape(b, t, n * dh)
-        return self.nets["output_dropout"](TP.row_parallel(self.nets["output"], y, self.mp))
+        out = self.nets["output"]
+        if self.mp is not None and split is None:
+            y = F.linear(y, TP.gathered(out.weight, self.mp, 1), out.bias)
+        else:
+            y = TP.row_parallel(out, y, split)
+        return self.nets["output_dropout"](y)
 
-    def _qkv(self, x, heads, dh):
-        """q, k and v of @heads, concatenated."""
+    def _qkv(self, x, heads, dh, split):
+        """q, k and v of @heads, concatenated (@split: the axis the heads
+        are split over, or None)."""
         if self.mp is None:
             return self.nets["qkv"](x)
-        d = x.shape[-1]
         w = TP.gathered(self.nets["qkv"].weight, self.mp, 0)
-        w = w.reshape(3, d, d)[:, heads.start * dh:heads.stop * dh].reshape(-1, d)
-        return F.linear(TP.sum_cotangent(x, self.mp), w)
+        if split is None:
+            return F.linear(x, w)
+        d = x.shape[-1]
+        w = TP.sum_cotangent(w, split).reshape(3, d, d)
+        w = w[:, heads.start * dh:heads.stop * dh].reshape(-1, d)
+        return F.linear(TP.sum_cotangent(x, split), w)
 
 
 class SelfAttentionBlock(nn.Module):
@@ -131,15 +136,15 @@ class SelfAttentionBlock(nn.Module):
         super().__init__()
         if activation not in ("gelu", "geglu"):
             raise NotImplementedError(f"activation {activation} is not ported")
-        geglu = activation == "geglu"
+        self.geglu = activation == "geglu"
         self.nets = nn.ModuleDict({
             "attention": SelfAttention(embed_dim, num_heads, causal,
                                        attn_dropout, output_dropout),
-            "ln1": LayerNorm(embed_dim, eps=LN_EPS),
-            "ln2": LayerNorm(embed_dim, eps=LN_EPS),
+            "ln1": nn.LayerNorm(embed_dim, eps=LN_EPS),
+            "ln2": nn.LayerNorm(embed_dim, eps=LN_EPS),
             "mlp": nn.Sequential(
-                nn.Linear(embed_dim, (8 if geglu else 4) * embed_dim),
-                GEGLU() if geglu else nn.GELU(),
+                nn.Linear(embed_dim, (8 if self.geglu else 4) * embed_dim),
+                GEGLU() if self.geglu else nn.GELU(),
                 nn.Linear(4 * embed_dim, embed_dim),
                 Dropout(output_dropout),
             ),
@@ -148,8 +153,29 @@ class SelfAttentionBlock(nn.Module):
     def forward(self, x):
         x = x + self.nets["attention"](self.nets["ln1"](x))
         fc, act, proj, drop = self.nets["mlp"]
-        h = act(TP.column_parallel(fc, self.nets["ln2"](x), self.mp))
-        return x + drop(TP.row_parallel(proj, h, self.mp))
+        h = self.nets["ln2"](x)
+        if self.geglu and self.mp is not None:
+            h = F.linear(TP.sum_cotangent(h, self.mp), *self._geglu_rows(fc))
+        else:
+            h = TP.column_parallel(fc, h, self.mp)
+        return x + drop(TP.row_parallel(proj, act(h), self.mp))
+
+    def _geglu_rows(self, fc):
+        """GEGLU under mp: the ``mlp_fc`` weight and bias rows of this rank's
+        hidden units, its part of the value half and of the gate half. JAX's
+        contiguous ``Shard(0)`` of the [2 n, d] weight gives rank 0 value
+        rows alone and the last rank gate rows alone, so the weight is
+        gathered and each rank takes its rows of both halves (their
+        gradient summed over mp); ``mlp_proj`` stays row-parallel over the
+        same hidden units."""
+        n = fc.out_features // 2
+        m, r = n // self.mp.size, self.mp.rank
+        rows = torch.cat([torch.arange(r * m, (r + 1) * m),
+                          torch.arange(n + r * m, n + (r + 1) * m)])
+        rows = rows.to(TP.local(fc.weight).device)
+        w = TP.sum_cotangent(TP.gathered(fc.weight, self.mp, 0), self.mp)
+        b = TP.sum_cotangent(fc.bias, self.mp)
+        return w[rows], b[rows]
 
 
 class GPT_Backbone(nn.Module):
@@ -166,7 +192,7 @@ class GPT_Backbone(nn.Module):
                                    block_output_dropout, activation)
                 for _ in range(num_layers)
             ]),
-            "output_ln": LayerNorm(embed_dim, eps=LN_EPS),
+            "output_ln": nn.LayerNorm(embed_dim, eps=LN_EPS),
         })
 
     def jax_names(self):

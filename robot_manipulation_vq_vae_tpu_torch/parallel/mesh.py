@@ -1,4 +1,4 @@
-"""Device mesh, data parallelism and the GPT's tensor parallelism
+"""Device mesh, data parallelism and tensor parallelism
 (counterpart of the JAX package's ``parallel/mesh.py``), in PyTorch's idiom:
 one process a card, a ``torch.distributed`` process group that the caller
 starts (``init_process_group`` with its address, world size and rank), and a
@@ -33,24 +33,38 @@ starts (``init_process_group`` with its address, world size and rank), and a
   hierarchical algo's planner and actor share the axis; MCR pretraining
   reads its negatives from the all-gathered embeddings (``AxisComm.gather``,
   differentiable). ``shard_state`` refuses (``NotImplementedError``) every
-  algo and option whose step it does not make equal to the unsharded one.
-* ``mp``: the GPT backbone's tensor-parallel rules (``shard_params``):
+  algo whose step it does not make equal to the unsharded one.
+* ``mp``: JAX's tensor-parallel rules (``_param_spec``) over the whole
+  module tree (``TP_RULES``, ``shard_params``): every attention block's
   ``mlp_fc`` and ``qkv`` column-parallel (``Shard(0)`` of torch's [out, in]
-  weight), ``mlp_proj`` and the attention ``output`` row-parallel
-  (``Shard(1)``), everything else ``Replicate()``. The parameters become
+  weight), its ``mlp_proj`` and attention ``output`` row-parallel
+  (``Shard(1)``), wherever the block sits (the GPTs, ACT's style encoder),
+  and the ViT's ``qkv`` (MVP) column-parallel; everything else
+  replicated, so that every algo and option runs under mp (the networks
+  without such weights replicated over mp). The split weights become
   DTensors of those placements over the mp axis, which record the layout
-  and hold this rank's shard; the blocks are given the mp axis and their
-  own forwards compute on the local shards (``utils.tensor_parallel``),
+  and hold this rank's shard (every other parameter stays a plain
+  tensor); the modules are given the mp axis and
+  their own forwards compute on the local shards (``utils.tensor_parallel``),
   every collective ``AxisComm``'s in an explicit autograd function, never
   DTensor's own (on gloo ranks that share a card, DTensor's collectives on
-  CUDA shards kill the rank).
-  Each rank attends with its own heads: it all-gathers the qkv weight (its
-  ``Shard(0)`` rows do not follow the heads) and reduces that gradient;
-  the row-parallel outputs are all-reduced. The gradients come back in
+  CUDA shards kill the rank). Each rank attends with its own heads: it
+  all-gathers the qkv weight (its ``Shard(0)`` rows do not follow the heads)
+  and reduces that gradient; the row-parallel outputs are all-reduced.
+  Where mp does not divide the heads, and in the ViT, the weights are
+  gathered and every rank computes every head; GEGLU gathers ``mlp_fc``
+  (see ``SelfAttentionBlock._geglu_rows``). The gradients come back in
   their parameters' placements, so the optimizers step the local shards
   with no collective. The trunks, the tokenizers and the kernels stay on
   plain replicated tensors; ``Algo.serialize`` gathers full tensors in the
-  reference layout and ``deserialize`` places them again.
+  reference layout and ``deserialize`` places them again. Under mixed
+  precision the bf16 copies are the local shards cast, in their placements.
+  Every mp rank computes the replicated modules itself: the forwards
+  alike (the same weights, inputs and draws), but on a card the backward's
+  non-deterministic kernels (cuDNN's, ``index_add_``) part the ranks'
+  gradients by a few ulps, so each replicated parameter steps with mp
+  rank 0's gradient on every mp rank (``Algo._sync_grads``) and the
+  replicas stay equal to the bit.
 
 The collectives run on the process group's backend: ``nccl`` on cards,
 ``gloo`` on the CPU. A CUDA tensor under ``gloo`` (two ranks that share one
@@ -73,13 +87,13 @@ from robot_manipulation_vq_vae_tpu_torch.algo.algo import (
 )
 from robot_manipulation_vq_vae_tpu_torch.algo.diffusion_policy import DiffusionPolicyUNet
 from robot_manipulation_vq_vae_tpu_torch.algo.gl import ValuePlanner
-from robot_manipulation_vq_vae_tpu_torch.algo.icl import (
-    ICL,
-    ICLTransformer_GMM,
-    ICLTransformerHVQVAE,
-)
+from robot_manipulation_vq_vae_tpu_torch.algo.icl import ICL
 from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import MCRPretrainer
-from robot_manipulation_vq_vae_tpu_torch.models.transformers import GEGLU, GPT_Backbone
+from robot_manipulation_vq_vae_tpu_torch.models.pretrained_nets import ViTBlock
+from robot_manipulation_vq_vae_tpu_torch.models.transformers import (
+    SelfAttention,
+    SelfAttentionBlock,
+)
 from robot_manipulation_vq_vae_tpu_torch.utils.draws import take_rows
 from robot_manipulation_vq_vae_tpu_torch.utils.tensor_parallel import (
     local,
@@ -217,11 +231,22 @@ class AxisComm:
     def mean_(self, tensors):
         """Average @tensors over the axis in place, as one flat buffer (a
         DTensor: its local shard)."""
+        return self._flat_(tensors, lambda flat: self.all_reduce_(flat).div_(self.size))
+
+    def broadcast_many_(self, tensors, src=0):
+        """@tensors from the axis' rank @src, in place, as one flat
+        buffer."""
+        return self._flat_(tensors, lambda flat: self.broadcast_(flat, src))
+
+    @staticmethod
+    def _flat_(tensors, collective):
+        """@collective on @tensors' local tensors concatenated, copied
+        back in place; returns them."""
         tensors = [local(t) for t in tensors]
         if not tensors:
             return tensors
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        self.all_reduce_(flat).div_(self.size)
+        collective(flat)
         for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(part.view_as(t))
         return tensors
@@ -288,59 +313,70 @@ def shard_batch(mesh, batch, halves=False):
 
 
 # ---------------------------------------------------------------------------
-# the GPT's tensor-parallel rules
+# the tensor-parallel rules (JAX's ``_param_spec``)
 # ---------------------------------------------------------------------------
 
 
-def _backbones(module):
-    return [m for m in module.modules() if isinstance(m, GPT_Backbone)]
+# JAX's ``_param_spec`` in torch's [out, in] layout, by the module that holds
+# the weight: a JAX spec P(None, "mp") of a kernel [in, out] is column-parallel,
+# ``Shard(0)`` of torch's weight; P("mp", None) is row-parallel, ``Shard(1)``.
+# Every other parameter is replicated, a plain tensor.
+TP_RULES = (
+    (SelfAttentionBlock, {"nets.mlp.0.weight": Shard(0),     # mlp_fc
+                          "nets.mlp.2.weight": Shard(1)}),   # mlp_proj
+    (SelfAttention, {"nets.qkv.weight": Shard(0),            # qkv
+                     "nets.output.weight": Shard(1)}),       # attention/output
+    (ViTBlock, {"attn.qkv.weight": Shard(0)}),               # qkv
+)
 
-
-def tp_placements(backbone):
-    """{parameter name under @backbone: placement} of JAX's
-    ``_param_spec`` in torch's [out, in] layout."""
+def tp_placements(module):
+    """{parameter name under @module: placement} of ``TP_RULES`` over its
+    whole tree."""
     rules = {}
-    for i, block in enumerate(backbone.nets["transformer"]):
-        pre = f"nets.transformer.{i}.nets."
-        rules[pre + "mlp.0.weight"] = Shard(0)                    # mlp_fc
-        rules[pre + "mlp.2.weight"] = Shard(1)                    # mlp_proj
-        rules[pre + "attention.nets.qkv.weight"] = Shard(0)
-        rules[pre + "attention.nets.output.weight"] = Shard(1)
-    return {name: rules.get(name, Replicate()) for name, _ in backbone.named_parameters()}
+    for name, m in module.named_modules():
+        for cls, weights in TP_RULES:
+            if isinstance(m, cls):
+                rules.update({f"{name}.{w}" if name else w: pl for w, pl in weights.items()})
+    return {name: rules.get(name, Replicate()) for name, _ in module.named_parameters()}
+
+
+def _check_divisible(module, mp):
+    """Raise ``ValueError`` for a split weight of @module whose dim @mp does
+    not divide (JAX cannot place it either)."""
+    params = dict(module.named_parameters())
+    for name, pl in tp_placements(module).items():
+        if pl.is_shard() and params[name].shape[pl.dim] % mp:
+            raise ValueError(f"shard_params: {name} {tuple(params[name].shape)} is not "
+                             f"divisible by mp={mp} along dim {pl.dim}")
 
 
 def shard_params(mesh, module):
-    """Place every GPT backbone's parameters under @module by the
-    tensor-parallel rules (``tp_placements``) over mp, in place, and give
-    its blocks and their attention the mp axis (``mp``), so that their own
-    forwards compute on the local shards; returns @module. With mp = 1 the
-    parameters stay plain replicated tensors. Optimizers that hold the
-    replaced parameters must be given the new ones (``shard_state`` does)."""
+    """Place @module's parameters by the tensor-parallel rules
+    (``tp_placements``) over mp, in place, and give the modules that compute
+    on them the mp axis (``mp``); returns @module. A split weight becomes a
+    DTensor holding this rank's shard; the rest stay plain (replicated)
+    tensors. With mp = 1
+    nothing changes. A dim that mp does not divide raises ``ValueError``
+    before anything is placed. Optimizers that hold the replaced parameters
+    must be given the new ones (``shard_state`` does)."""
     if _size(mesh, "mp") == 1:
         return module
     mp_mesh = mesh["mp"]
     comm = AxisComm(mesh, "mp")
-    backbones = _backbones(module)
-    for backbone in backbones:
-        if any(isinstance(m, GEGLU) for m in backbone.modules()):
-            raise NotImplementedError("shard_params: the GEGLU MLP under mp (its two "
-                                      "halves do not follow mlp_fc's Shard(0) rows)")
-        for block in backbone.nets["transformer"]:
-            if block.nets["attention"].num_heads % comm.size:
-                raise NotImplementedError(
-                    f"shard_params: {block.nets['attention'].num_heads} heads under "
-                    f"mp={comm.size} (each rank attends with whole heads)")
-    for backbone in backbones:
-        placements = tp_placements(backbone)
-        for name, param in list(backbone.named_parameters()):
-            owner, _, leaf = name.rpartition(".")
-            sub = backbone.get_submodule(owner) if owner else backbone
-            pl = placements[name]
-            part = comm.chunk(param.detach(), pl.dim) if pl.is_shard() else param.detach()
-            dt = DTensor.from_local(part.contiguous(), mp_mesh, [pl], run_check=False)
-            setattr(sub, leaf, torch.nn.Parameter(dt, requires_grad=param.requires_grad))
-        for block in backbone.nets["transformer"]:
-            block.mp = block.nets["attention"].mp = comm
+    _check_divisible(module, comm.size)
+    params = dict(module.named_parameters())
+    for name, pl in tp_placements(module).items():
+        if not pl.is_shard():
+            continue
+        param = params[name]
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        part = comm.chunk(param.detach(), pl.dim)
+        dt = DTensor.from_local(part.contiguous(), mp_mesh, [pl], run_check=False)
+        setattr(sub, leaf, torch.nn.Parameter(dt, requires_grad=param.requires_grad))
+    for m in module.modules():
+        if hasattr(type(m), "mp"):
+            m.mp = comm
     return module
 
 
@@ -359,37 +395,13 @@ def _replace_optimizer_params(optimizer, new_of):
 # ---------------------------------------------------------------------------
 
 
-# what the data-parallel step covers: the ICL family (the MLP, RNN,
-# transformer, HVQVAE and Mamba policies and the paper's every tokenizer),
-# the bc classes, ICLVAE and the MCR policies (subclasses of ICL), the
-# diffusion policy, ACT, offline RL, the subgoal planners, the hierarchical
-# algos and MCR's representation pretraining
+# what the sharded step covers: the ICL family (the MLP, RNN, transformer,
+# HVQVAE and Mamba policies and the paper's every tokenizer), the bc classes,
+# ICLVAE and the MCR policies (subclasses of ICL), the diffusion policy, ACT,
+# offline RL, the subgoal planners, the hierarchical algos and MCR's
+# representation pretraining, each with every option, at any (dp, mp)
 _COVERED = (ICL, DiffusionPolicyUNet, ACT, ValueAlgo, PlannerAlgo, HierarchicalAlgo,
             ValuePlanner, MCRPretrainer)
-
-
-def _refusals(algo, mp=1):
-    """What this algo's step has that the sharded step does not make equal
-    to the unsharded step: a list of reasons (empty when covered)."""
-    name = type(algo).__name__
-    if not isinstance(algo, _COVERED):
-        return [f"{name} (covered: the ICL, bc and MCR families, the diffusion policy, "
-                "ACT, offline RL, the hierarchical family and MCR pretraining)"]
-    if mp == 1:
-        return []
-    # the GPT's shards are held by tests for these two alone
-    if type(algo) not in (ICLTransformerHVQVAE, ICLTransformer_GMM):
-        return [f"{name} under mp={mp} (covered: ICLTransformerHVQVAE and "
-                "icl_gmm_paper with LipVQ)"]
-    out = []
-    if type(algo) is ICLTransformer_GMM and not algo.vq_vae_enabled:
-        out.append(f"{name}'s action tokenizer other than LipVQ under mp={mp}")
-    train = algo.global_config.train
-    for opt, why in (("mixed_precision", "half_call's bf16 copies of DTensor parameters"),
-                     ("packed_rgb_encoders", "the packed trunks beside the GPT's shards")):
-        if train.get(opt, False):
-            out.append(f"train.{opt} under mp={mp} ({why})")
-    return out
 
 
 def _components(algo):
@@ -422,44 +434,67 @@ def _broadcast_state(comm, algo):
     optimizer state and generator of every component of @algo (the
     networks of an offline-RL algo's ensemble and their targets, each with
     its optimizer; a hierarchical algo's planner and actor)."""
-    if isinstance(algo, MCRPretrainer):
-        _broadcast(comm, algo.model, [algo.optimizer], algo.generator)
-        return
     for part in _components(algo):
-        _broadcast(comm, part.nets, part.optimizers.values(), part.generator)
-        for m in part.nets.modules():
+        module, optimizers = _networks(part)
+        _broadcast(comm, module, optimizers, part.generator)
+        for m in module.modules():
             if hasattr(m, "_initialized") and hasattr(m, "codebooks_initialized"):
                 m._initialized = bool(m.codebooks_initialized)
+
+
+def _networks(part):
+    """(module, optimizers) of a component: an algo's networks and
+    optimizers, MCR pretraining's model and optimizer."""
+    if isinstance(part, MCRPretrainer):
+        return part.model, [part.optimizer]
+    return part.nets, list(part.optimizers.values())
+
+
+def _shard_component(mesh, comm, part):
+    """@part's parameters placed over mp (``shard_params``), its optimizers
+    given the new ones, and the mp axis."""
+    module, optimizers = _networks(part)
+    part.mp = comm
+    before = dict(module.named_parameters())
+    shard_params(mesh, module)
+    new_of = {id(before[n]): p for n, p in module.named_parameters() if p is not before[n]}
+    for opt in optimizers:
+        _replace_optimizer_params(opt, new_of)
 
 
 def shard_state(mesh, algo):
     """Put @algo under @mesh, in place; returns @algo. Every rank takes its
     axes' rank 0's weights, buffers, optimizer state and generator state,
-    which stands in for JAX's replicated ``rng``. Under mp > 1 the GPT
-    backbones' parameters are placed by ``shard_params`` and the optimizers
-    step their shards; under dp > 1 ``train_on_batch`` and ``get_action``
-    then take only ``shard_batch``'s shards and run the data-parallel step.
-    An algo or option whose step that would change raises
-    ``NotImplementedError`` here, named."""
+    which stands in for JAX's replicated ``rng``. Under mp > 1 each
+    component's parameters are placed by ``shard_params`` (JAX's
+    ``_param_spec``: the attention blocks' and the ViT's split weights;
+    everything else replicated) and the optimizers step their shards; the
+    mp ranks of a dp shard take the same draws from the same generator
+    state, so they step identically. Under dp > 1 ``train_on_batch`` and
+    ``get_action`` then take only ``shard_batch``'s shards and run the
+    data-parallel step. An algo whose step that would change raises
+    ``NotImplementedError`` here, named; a weight dim that mp does not
+    divide, ``ValueError``."""
     dp, mp = _size(mesh, "dp"), _size(mesh, "mp")
     if dp == 1 and mp == 1:
         return algo
     if mp > 1 and mesh.device_type != algo.device.type:
         raise ValueError(f"shard_state: a {mesh.device_type!r} mesh for an algo on "
-                         f"{algo.device.type!r} (its GPT shards would leave the algo's "
+                         f"{algo.device.type!r} (its shards would leave the algo's "
                          "device): make_mesh(..., device=algo.device)")
-    refused = _refusals(algo, mp)
-    if refused:
+    if not isinstance(algo, _COVERED):
         raise NotImplementedError(
-            f"shard_state: (dp={dp}, mp={mp}) is not ported for: " + "; ".join(refused))
+            f"shard_state: (dp={dp}, mp={mp}) is not ported for: {type(algo).__name__} "
+            "(covered: the ICL, bc and MCR families, the diffusion policy, ACT, offline RL, "
+            "the hierarchical family and MCR pretraining)")
     if mp > 1:
         comm = AxisComm(mesh, "mp")
+        parts = _components(algo)
+        for part in parts:   # before anything moves
+            _check_divisible(_networks(part)[0], mp)
         _broadcast_state(comm, algo)
-        before = dict(algo.nets.named_parameters())
-        shard_params(mesh, algo.nets)
-        new_of = {id(before[n]): p for n, p in algo.nets.named_parameters()}
-        for opt in algo.optimizers.values():
-            _replace_optimizer_params(opt, new_of)
+        for part in parts:
+            _shard_component(mesh, comm, part)
         algo.mp = comm
     if dp > 1:
         comm = AxisComm(mesh, "dp")

@@ -7,11 +7,12 @@ convolution computes in the promoted type of its input and its (bf16)
 parameters, so a layer whose input is fp32 computes in fp32. ``half_call``
 does the same: it calls a module on bf16 copies of its parameters (through
 ``torch.func.functional_call``, so the gradients reach the fp32 parameters,
-rounded to bf16 by the casts as JAX's are) and of its floating inputs, under
-``JaxPromotion``, which gives the ops that torch does not promote (linear,
-the matrix products, convolution, LayerNorm) their operands in the promoted
-type (and GroupNorm and the transposed 1-D convolution, the diffusion
-UNet's). Elementwise ops, ``cat`` and ``stack`` promote in torch already.
+rounded to bf16 by the casts as JAX's are; a tensor-parallel DTensor
+parameter's local shard is cast, its placement kept) and of its floating
+inputs, under ``JaxPromotion``, which gives the ops that torch does not
+promote (linear, the matrix products, convolution, LayerNorm) their operands
+in the promoted type (and GroupNorm and the transposed 1-D convolution, the
+diffusion UNet's). Elementwise ops, ``cat`` and ``stack`` promote in torch already.
 
 The modules keep their buffers fp32; where the JAX step would carry a bf16
 copy of one (BatchNorm's statistics, the bin tokenizer's running range, the
@@ -23,6 +24,7 @@ LipVQ latent layer), the port's layer lifts its operands with
 """
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.overrides import TorchFunctionMode
 
 HALF = torch.bfloat16
@@ -81,11 +83,21 @@ class JaxPromotion(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+def _half(p):
+    """A bf16 copy of parameter @p through which the gradient reaches it; a
+    DTensor's (tensor parallelism) is its local shard cast, in @p's
+    placement."""
+    if isinstance(p, DTensor):
+        return DTensor.from_local(p.to_local().to(HALF), p.device_mesh, p.placements,
+                                  run_check=False)
+    return p.to(HALF)
+
+
 def half_call(module, args=(), kwargs=None, cast_inputs=True):
     """``module(*args, **kwargs)`` on bf16 copies of @module's parameters and
     (with @cast_inputs) of the floating tensors among the arguments, under
     ``JaxPromotion``."""
-    params = {name: p.to(HALF) for name, p in module.named_parameters()}
+    params = {name: _half(p) for name, p in module.named_parameters()}
     args, kwargs = tuple(args), kwargs or {}
     if cast_inputs:
         args, kwargs = _map_floating(lambda t: t.to(HALF), (args, kwargs))

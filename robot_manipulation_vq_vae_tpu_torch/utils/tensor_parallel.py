@@ -1,9 +1,10 @@
 """The GPT's tensor parallelism on local shards (JAX's ``_param_spec`` rules,
 placed by ``parallel.shard_params``): the layers' own forwards call these
 helpers with their ``mp`` axis (a ``parallel.AxisComm``, or None), and with
-None each helper is the plain layer. Under mp a parameter is a DTensor that
-records its placement and holds this rank's shard; the layers compute on
-that shard (``local``) and every collective is the axis' own, explicit in
+None each helper is the plain layer. Under mp a split parameter is a
+DTensor that records its placement and holds this rank's shard (the
+replicated ones stay plain tensors); the layers compute on that shard
+(``local``) and every collective is the axis' own, explicit in
 the autograd functions below (DTensor's collectives are not used: on gloo
 ranks that share a card they do not run). Also the conversions between
 shards and whole tensors that checkpoints and optimizer state need."""
@@ -51,8 +52,10 @@ class _SumBackward(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """The full tensor of the mp ranks' shards along @dim; the backward sums
-    the ranks' cotangents and keeps this rank's part."""
+    """The full tensor of the mp ranks' shards along @dim; the backward
+    keeps this rank's part of the cotangent, which every rank holds whole
+    where each computes the same whole product (``sum_cotangent`` first
+    where a rank uses a part of it)."""
 
     @staticmethod
     def forward(ctx, t, comm, dim):
@@ -61,7 +64,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm.chunk(ctx.comm.all_reduce_(g.clone()), ctx.dim), None, None
+        return ctx.comm.chunk(g, ctx.dim).contiguous(), None, None
 
 
 class _Chunk(torch.autograd.Function):
@@ -88,15 +91,17 @@ def heads(num_heads, mp):
 
 
 def gathered(param, mp, dim):
-    """@param whole: under @mp its shards gathered along @dim (the gradient
-    summed over mp and cut back to this rank's shard)."""
+    """@param whole: under @mp its shards gathered along @dim, the
+    gradient cut back to this rank's shard (a rank that uses only a part of
+    the whole weight passes it through ``sum_cotangent``)."""
     return param if mp is None else _Gather.apply(local(param), mp, dim)
 
 
 def sum_cotangent(x, mp):
-    """@x, a replicated activation entering a column-parallel product: under
-    @mp its cotangent is summed over the ranks (each holds its features'
-    part)."""
+    """@x, a replicated tensor of which each rank uses a part (an
+    activation entering a column-parallel product, a gathered weight of
+    which it takes its rows): under @mp its cotangent is summed over the
+    ranks."""
     return x if mp is None else _SumBackward.apply(x, mp)
 
 
@@ -105,7 +110,7 @@ def column_parallel(linear, x, mp):
     @mp this rank's output features, the replicated bias cut to them."""
     if mp is None:
         return linear(x)
-    bias = None if linear.bias is None else _Chunk.apply(local(linear.bias), mp, 0)
+    bias = None if linear.bias is None else _Chunk.apply(linear.bias, mp, 0)
     return torch.nn.functional.linear(sum_cotangent(x, mp), local(linear.weight), bias)
 
 
@@ -116,16 +121,26 @@ def row_parallel(linear, x, mp):
     if mp is None:
         return linear(x)
     out = _SumForward.apply(torch.nn.functional.linear(x, local(linear.weight)), mp)
-    return out if linear.bias is None else out + local(linear.bias)
+    return out if linear.bias is None else out + linear.bias
+
+
+def sync_replicated_(grads, mp):
+    """The gradients among @grads of replicated parameters (all but the
+    sharded DTensors) in place as mp rank 0 holds them, in one broadcast
+    over @mp: every mp rank computes the replicated modules itself, and a
+    card's non-deterministic backward kernels (cuDNN's, ``index_add_``)
+    give the ranks gradients a few ulps apart, which would step the
+    replicas apart. Every mp rank must call it."""
+    mp.broadcast_many_([g for g in grads if not is_sharded(g)])
+    return grads
 
 
 def full_tensor(t, comm):
-    """The full tensor of @t: a DTensor's shards gathered over @comm (its mp
-    axis), a replicated or plain tensor as it is."""
+    """The full tensor of @t: a sharded DTensor's shards gathered over
+    @comm (its mp axis), a plain tensor as it is."""
     if not isinstance(t, DTensor):
         return t
-    pl = t.placements[0]
-    return comm.all_gather(t.to_local(), pl.dim) if pl.is_shard() else t.to_local()
+    return comm.all_gather(t.to_local(), t.placements[0].dim)
 
 
 def place_like(full, like):
@@ -134,11 +149,8 @@ def place_like(full, like):
     if (isinstance(full, DTensor) or not isinstance(like, DTensor)
             or tuple(full.shape) != tuple(like.shape)):
         return full
-    pl = like.placements[0]
-    part = full
-    if pl.is_shard():
-        n, r = like.device_mesh.size(), like.device_mesh.get_local_rank()
-        part = full.chunk(n, pl.dim)[r]
+    n, r = like.device_mesh.size(), like.device_mesh.get_local_rank()
+    part = full.chunk(n, like.placements[0].dim)[r]
     return DTensor.from_local(part.to(like.device, like.dtype).contiguous(),
                               like.device_mesh, like.placements, run_check=False)
 

@@ -1333,3 +1333,52 @@ def test_mesh_dp2_bf16_flagship_step_on_two_gloo_ranks(cuda_device, tmp_path):
         readings = W.check_half_leg(res, ref, "flagship_bf16", f"rank {rank}",
                                     vq_by_mass=True)
         print(f"rank {rank}: {readings}")
+
+
+@pytest.mark.cuda
+def test_mesh_mp2_bc_transformer_step_on_two_gloo_ranks(cuda_device, tmp_path):
+    """Two gloo ranks on the card take ``BC_Transformer_GMM`` on a camera
+    at (dp, mp) = (1, 2), its GPT split as JAX's ``_param_spec`` splits it:
+    kernels 3 and 4 launch on each rank as on the unsharded run, and the
+    two steps, the request and the checkpoint's reload equal the unsharded
+    run's on the card within tests/test_parallel.py's tolerances (losses
+    rtol 1e-4 / atol 1e-5; weights, buffers and Adam moments atol 5e-4 /
+    rtol 1e-2; actions 1e-3), the ranks to the bit. cuDNN runs its
+    default algorithms, so each rank's replicated trunk takes gradients a
+    few ulps apart from the other's: the port's step keeps the replicas
+    equal itself."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import torch_mesh_workers as W
+
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build
+
+    cuda_build.build_kernels()   # once, before the ranks load it
+    results = W.start_ranks(W.job_card_mp, 2, tmp_path / "ranks")
+    before = dict(cuda_build.LAUNCHES)
+    try:
+        ref = W.run_mp_family_leg("bc_transformer_gmm_rgb", device=cuda_device)
+    finally:
+        ranks = results()
+    launched = {k: n - before[k] for k, n in cuda_build.LAUNCHES.items()}
+    assert launched["stem_pool_fwd"] > 0 and launched["stem_pool_bwd"] > 0, launched
+    for rank, res in enumerate(ranks):
+        assert res["launched"] == launched, (rank, res["launched"], launched)
+        assert res["losses"] == ranks[0]["losses"], rank
+        for k, v in res["nets"].items():
+            assert torch.equal(v, ranks[0]["nets"][k]), (rank, k)
+        for step, (g, w) in enumerate(zip(res["losses"], ref["losses"], strict=True)):
+            for k, v in w.items():
+                assert abs(g[k] - v) <= 1e-5 + 1e-4 * abs(v), (rank, step, k, g[k], v)
+        for k, v in ref["nets"].items():
+            if v.is_floating_point():
+                torch.testing.assert_close(res["nets"][k], v, rtol=1e-2, atol=5e-4)
+        for name, sd in ref["opt"].items():
+            for i, st in sd["state"].items():
+                for k, v in st.items():
+                    torch.testing.assert_close(res["opt"][name]["state"][i][k], v,
+                                               rtol=1e-2, atol=5e-4)
+        torch.testing.assert_close(res["action"], ref["action"], rtol=1e-3, atol=1e-3)
+        assert torch.equal(res["reloaded"], res["action"]), rank
+

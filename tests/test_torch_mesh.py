@@ -25,10 +25,11 @@ unsharded port and the JAX package.
   uninitialized through a clustered batch: the k-means init and the
   dead-code picks on the all-gathered batch with the replicated generator,
   the replacement firing, against the unsharded port.
-* ``shard_state``'s refusals (under mp > 1 the bf16 step and every algo
-  but the flagship and the paper with LipVQ: offline RL, the hierarchical
-  family, MCR and its pretraining among them, which dp > 1 takes) and
-  ``train_on_batch``'s of a batch that is not a shard.
+* what ``shard_state`` takes under mp = 2 (the bf16 step, a bc policy,
+  the bin tokenizer, offline RL, the hierarchical family, MCR and its
+  pretraining, which dp > 1 takes too) and refuses (an object of no
+  covered class, a weight dim that mp does not divide), and
+  ``train_on_batch``'s refusal of a batch that is not a shard.
 """
 
 import numpy as np
@@ -343,23 +344,25 @@ def test_dp_kmeans_init_and_replacement_match_unsharded(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_shard_state_refuses_what_it_does_not_cover(runs, world):
-    """Under mp = 2 offline RL, the hierarchical family, the MCR policies
-    and MCR pretraining (each taken under dp: tests/test_torch_mesh_value.py
-    and tests/test_torch_mesh_mcr.py), the bf16 step, a bc policy and the
-    paper's bin tokenizer; and a batch that is not a shard (the policy
-    families, mixed precision and the packed trunks under dp are
-    tests/test_torch_mesh_families.py)."""
+    """Under mp = 2 shard_state takes offline RL, the hierarchical family,
+    the MCR policies and MCR pretraining (each under dp too: their steps
+    are tests/test_torch_mesh_value.py's and tests/test_torch_mesh_mcr.py's),
+    the bf16 step, a bc policy and the paper's bin tokenizer (their steps
+    under mp: tests/test_torch_mesh_mp_*.py). It refuses what JAX's
+    ``shard_state`` cannot run either: an object of no covered class, and a
+    GPT whose qkv rows mp does not divide; and train_on_batch refuses a
+    batch that is not a shard."""
     _, ranks = runs
     got = ranks[world][0]["refusals"]
-    for case, name in (("iql", "IQL"), ("gl", "GL_VAE"), ("mcr", "MCR_GMM"),
-                       ("mcr_pretrain", "MCRPretrainer")):
-        assert got[case].startswith("NotImplementedError"), got[case]
-        assert f"{name} under mp=2" in got[case], got[case]
+    for case in ("iql", "gl", "mcr", "mcr_pretrain"):
+        assert got[case] is None, (case, got[case])
         assert got[f"{case}_dp"] is None, got[f"{case}_dp"]
-    for case, what in (("bc_mp", "BC under mp=2"), ("bin_mp", "other than LipVQ under mp=2")):
-        assert got[case].startswith("NotImplementedError") and what in got[case], got[case]
-    assert got["mixed_precision_mp"].startswith("NotImplementedError")
-    assert "mixed_precision under mp=2" in got["mixed_precision_mp"]
+    for case in ("bc_mp", "bin_mp", "mixed_precision_mp"):
+        assert got[case] is None, (case, got[case])
+    assert got["not_covered"].startswith("NotImplementedError")
+    assert "SimpleNamespace (covered:" in got["not_covered"]
+    assert got["undivisible_mp"].startswith("ValueError")
+    assert "qkv.weight (45, 15) is not divisible by mp=2" in got["undivisible_mp"]
     assert got["unsharded_batch"].startswith("ValueError")
     assert "shard_batch" in got["unsharded_batch"]
 

@@ -30,7 +30,8 @@ port's float64 dp = 2 steps with the same negatives (JAX's own ``jax.random.perm
 of each call, pinned through ``neg_perms``) at tests/test_parallel.py's
 tolerances (metrics rtol 1e-4 / atol 1e-5; parameters, BatchNorm statistics
 and Adam moments atol 5e-4 / rtol 1e-2). Under mp = 2 ``shard_state``
-refuses each MCR class and the pretrainer by name.
+takes each MCR class and the pretrainer, their steps equal to the
+unsharded runs'.
 """
 
 import copy
@@ -180,8 +181,21 @@ def test_dp2_pretraining_matches_jax_sharded_step(runs):
 
 
 def test_mp_refuses_the_mcr_classes_and_pretraining_by_name(runs):
-    got = runs[1][2][0]["mp_refusals"]
+    """Under (dp, mp) = (1, 2) shard_state takes the six MCR classes
+    (``MCR_Transformer`` and ``MCR_Transformer_GMM`` with their GPT split)
+    and the pretrainer; each class's two steps and request, and the
+    pretraining's steps and evaluation, equal the unsharded run's."""
+    ref, ranks = runs[0], runs[1][2]
+    got = ranks[0]["mp"]
     assert set(got) == {*W.MCR_CLASSES, "pretrain"}
-    for tag, (cls, err) in got.items():
-        assert err is not None and err.startswith("NotImplementedError"), (tag, err)
-        assert f"{cls} under mp=2" in err, (tag, err)
+    for tag, res in got.items():
+        want = ref["pretrain"] if tag == "pretrain" else ref["classes_steps"][tag]
+        msg = f"{tag} (dp, mp) = (1, 2)"
+        check_losses(res["losses"], want["losses"], msg)
+        check_states(res["states"], want["states"], msg)
+        if tag != "pretrain":
+            for rank, r in enumerate(ranks):
+                _close(r["mp"][tag]["request"], want["request"], 1e-5, 1e-5,
+                       f"{msg} rank {rank} request")
+        assert ranks[1]["mp"][tag]["digests"] == {
+            p: W.digest(s) for p, s in res["states"].items()}, f"{msg} ranks agree"

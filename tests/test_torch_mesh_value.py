@@ -34,7 +34,8 @@ steps at dp = 2 over two of the 8 CPU devices, from JAX's random variables
 batch's shape) and of low-dim HBC (a GL planner, draw-free), against the
 port's dp = 2 steps at tests/test_parallel.py's tolerances (losses rtol
 1e-4 / atol 1e-5, parameters and Adam moments atol 5e-4 / rtol 1e-2).
-Under mp = 2 ``shard_state`` refuses each of these classes by name.
+Under (dp, mp) = (1, 2) ``shard_state`` takes each of these legs, and its
+steps and request equal the unsharded run's.
 """
 
 import copy
@@ -272,10 +273,19 @@ def test_td3_bc_lambda_is_the_global_batchs(runs):
 
 
 def test_mp_refuses_each_family_by_name(runs):
-    """Under mp = 2 shard_state raises NotImplementedError naming the
-    class, for every leg's algo."""
-    got = runs[1][2][0]["mp_refusals"]
-    assert set(got) == set(W.VALUE_LEGS)
-    for tag, (cls, err) in got.items():
-        assert err is not None and err.startswith("NotImplementedError"), (tag, err)
-        assert f"{cls} under mp=2" in err, (tag, err)
+    """Under (dp, mp) = (1, 2) shard_state takes every leg's algo (JAX's
+    ``_param_spec`` splits none of its weights: each is replicated over
+    mp), and its two steps and request equal the unsharded run's; both
+    ranks the same, to the bit."""
+    ref, ranks = runs[0], runs[1][2]
+    assert set(ranks[0]["mp"]) == set(W.VALUE_LEGS)
+    for tag in W.VALUE_LEGS:
+        res = ranks[0]["mp"][tag]
+        msg = f"{tag} (dp, mp) = (1, 2)"
+        check_losses(res["losses"], ref[tag]["losses"], msg)
+        check_states(res["states"], ref[tag]["states"], msg)
+        for rank, r in enumerate(ranks):
+            check_request(r["mp"][tag]["request"], ref[tag]["request"], 1, 0,
+                          f"{msg} rank {rank} request")
+        assert ranks[1]["mp"][tag]["digests"] == {
+            p: W.digest(s) for p, s in res["states"].items()}, f"{msg} ranks agree"

@@ -12,6 +12,7 @@ from their weights."""
 import gc
 import hashlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -258,11 +259,15 @@ def _refusal(fn):
 
 
 def refusals(mesh, mp_mesh):
-    """What shard_state and train_on_batch refuse: a batch that is not a
-    shard; under @mp_mesh's mp > 1 the bf16 step, a bc policy, the paper
-    with a tokenizer other than LipVQ, offline RL, the hierarchical family,
-    the MCR policies and MCR pretraining (the last four taken under dp > 1,
-    ``<case>_dp``: None)."""
+    """What shard_state and train_on_batch say (None: admitted; else the
+    error): under @mp_mesh's mp > 1 the bf16 step, a bc policy, the paper
+    with the bin tokenizer, offline RL, the hierarchical family, the MCR
+    policies and MCR pretraining (the last four under dp > 1 too,
+    ``<case>_dp``), all admitted; and refused: a batch that is not a shard,
+    an object of no covered class, and a GPT whose qkv rows mp does not
+    divide."""
+    from types import SimpleNamespace
+
     from robot_manipulation_vq_vae_tpu_torch.algo.mcr_pretrain import MCRPretrainer
     from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
 
@@ -293,6 +298,14 @@ def refusals(mesh, mp_mesh):
         algo = shard_state(mesh, flagship())
         algo.train_on_batch(algo.process_batch_for_training(make_batch(0)), epoch=0)
 
+    def odd_gpt():   # qkv [45, 15]: 45 rows, mp = 2
+        def cfg(c):
+            c = icl_family_config(c, "transformer_gmm")
+            with c.values_unlocked():
+                c.algo.transformer.embed_dim, c.algo.transformer.num_heads = 15, 3
+            return c
+        return port_algo("bc", cfg, False)
+
     families = {
         "iql": lambda: port_algo("iql", low_dim, False),
         "gl": lambda: port_algo("gl", low_dim, False),
@@ -309,6 +322,9 @@ def refusals(mesh, mp_mesh):
         "mixed_precision_mp": _refusal(
             lambda: shard_state(mp_mesh, flagship(mixed_precision=True))),
         "unsharded_batch": _refusal(unsharded_batch),
+        "not_covered": _refusal(lambda: shard_state(
+            mp_mesh, SimpleNamespace(device=torch.device("cpu")))),
+        "undivisible_mp": _refusal(lambda: shard_state(mp_mesh, odd_gpt())),
     }
 
 
@@ -332,11 +348,13 @@ def job_all(rank, world, work):
         model = shard_params(mesh, gpt_backbone())
         with torch.no_grad():
             gpt_out = model(gpt_input())
-        out["gpt"] = {
+        out["gpt"] = {   # a replicated parameter is a plain tensor
             "placements": {n: [(type(pl).__name__, getattr(pl, "dim", None))
-                                for pl in p.placements]
+                                for pl in p.placements] if hasattr(p, "placements")
+                           else [("Replicate", None)]
                            for n, p in model.named_parameters()},
-            "local": {n: tuple(p.to_local().shape) for n, p in model.named_parameters()},
+            "local": {n: tuple((p.to_local() if hasattr(p, "to_local") else p).shape)
+                      for n, p in model.named_parameters()},
             "out": gpt_out}
     dp_mesh = make_mesh()
     comm = AxisComm(dp_mesh)
@@ -769,14 +787,14 @@ def family_legs(world=None):
     return {tag: leg for tag, leg in FAMILY_LEGS.items() if world is None or world in leg[6]}
 
 
-def family_algo(tag, device="cpu"):
+def family_algo(tag, device="cpu", legs=None):
     """The leg's port algo from the seed; FAST on ``chip_smoke``'s
     stand-ins; the hooks leg's draws injected (``family_hooks``)."""
     from robot_manipulation_vq_vae_tpu_torch.algo import algo_factory
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
     from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils
 
-    name, configure, keys = FAMILY_LEGS[tag][:3]
+    name, configure, keys = (legs or FAMILY_LEGS)[tag][:3]
     cfg = configure(config_factory(name))
     obs_utils.initialize_obs_utils_with_config(cfg)
     algo = algo_factory(name, cfg, dict(keys), A, device=device)
@@ -788,6 +806,8 @@ def family_algo(tag, device="cpu"):
                                                                 smoke_clip_encode))
     if tag == "diffusion_ddpm_hooks":
         family_hooks(algo)
+    if tag == "act_pinned":
+        algo._noise_hook = act_noise
     if "vqvae" in algo.nets:
         initialized_vq(algo)   # no k-means draw: JAX's oracle starts from it too
     return algo
@@ -805,8 +825,8 @@ def family_hooks(algo):
                                  rng.randn(FAM_DDPM_STEPS, B, FAM_TP, A).astype(np.float32))
 
 
-def family_batches(tag):
-    keys, t = FAMILY_LEGS[tag][2], FAMILY_LEGS[tag][3]
+def family_batches(tag, legs=None):
+    keys, t = (legs or FAMILY_LEGS)[tag][2:4]
     return [family_batch(20 + i, t, keys, bounded=tag.startswith("diffusion"))
             for i in range(2)]
 
@@ -849,7 +869,7 @@ def family_state(algo, half):
     out = algo_state(algo)
     if half:
         name_of = {id(p): n for n, p in algo.nets.named_parameters()}
-        out["grads"] = {n: p.grad.detach().cpu().clone()
+        out["grads"] = {n: algo._full(p.grad).detach().cpu().clone()
                         for n, p in algo.nets.named_parameters() if p.grad is not None}
         out["params"] = list(name_of.values())
         out["opt_params"] = {name: [name_of[id(p)] for g in opt.param_groups
@@ -993,6 +1013,24 @@ def job_families(rank, world, work, unsharded=False):
         out[tag] = res
         gc.collect()
     return out
+
+
+def job_card_mp(rank, world, work):
+    """``BC_Transformer_GMM`` on a camera at (dp, mp) = (1, 2) on the card
+    (gloo: the ranks share it), with the kernels' launches of its steps
+    and request. cuDNN runs its default algorithms: each mp rank computes
+    the replicated trunk itself, and the ranks must agree to the bit all
+    the same."""
+    from robot_manipulation_vq_vae_tpu_torch.ops import cuda_build
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    cuda_build.build_kernels()
+    before = dict(cuda_build.LAUNCHES)
+    res = run_mp_family_leg("bc_transformer_gmm_rgb", make_mesh(mp=2, device="cuda"),
+                            device="cuda")
+    res["launched"] = {k: n - before[k] for k, n in cuda_build.LAUNCHES.items()}
+    return res
 
 
 def job_card_bf16(rank, world, work):
@@ -1309,18 +1347,6 @@ def run_value_leg(tag, mesh=None, device="cpu", legs=None, noise=None, start=Non
             "request": value_request(algo, kind, keys, mesh)}
 
 
-def refusals_under_mp(mesh, tags, make):
-    """shard_state under @mesh (mp > 1) of each of @tags' algos (``make``):
-    {tag: (class name, the error)}."""
-    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
-
-    out = {}
-    for tag in tags:
-        algo = make(tag)
-        out[tag] = (type(algo).__name__, _refusal(lambda: shard_state(mesh, algo)))
-    return out
-
-
 def _without_whole_states(res):
     """@res with each state as its ``digest`` (the ranks after the first)."""
     res["digests"] = {p: digest(st) for p, st in res.pop("states").items()}
@@ -1331,8 +1357,7 @@ def job_value(rank, world, work, td3_bc_noise, starts, unsharded=False):
     """dp = @world: each ``VALUE_LEGS`` leg run at that world (``td3_bc_jax``
     with @td3_bc_noise, JAX's draws; a leg in @starts from that file's
     weights); with @unsharded (one process, no mesh) every leg, the
-    reference. World 2 also gives what shard_state says under mp = 2 for
-    each leg's class."""
+    reference. World 2 also runs every leg at (dp, mp) = (1, 2)."""
     from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
 
     def run(tag, mesh=None):
@@ -1348,8 +1373,10 @@ def job_value(rank, world, work, td3_bc_noise, starts, unsharded=False):
             res = run(tag, mesh)
             out[tag] = _without_whole_states(res) if rank else res
     if world == 2:
-        out["mp_refusals"] = refusals_under_mp(make_mesh(mp=2, device="cpu"), VALUE_LEGS,
-                                               value_algo)
+        mp_mesh = make_mesh(mp=2, device="cpu")
+        out["mp"] = {tag: run(tag, mp_mesh) for tag in VALUE_LEGS}
+        if rank:
+            out["mp"] = {t: _without_whole_states(r) for t, r in out["mp"].items()}
     return out
 
 
@@ -1377,18 +1404,24 @@ MCR_CLASSES = {"MCR": (False, False, False), "MCR_GMM": (True, False, False),
                "MCR_Transformer_GMM": (True, False, True)}
 
 
+def mcr_class_config(cfg, cls):
+    """@cfg (``mcr``) routed to @cls at small widths on ``FLAT``."""
+    gmm, rnn, transformer = MCR_CLASSES[cls]
+    cfg = _mcr_transformer(cfg)
+    with cfg.values_unlocked():
+        cfg.algo.gmm.enabled = gmm
+        cfg.algo.rnn.enabled, cfg.algo.rnn.hidden_dim, cfg.algo.rnn.horizon = rnn, 8, VT
+        cfg.algo.transformer.enabled = transformer
+    return cfg
+
+
 def mcr_class_algo(cls):
     """The ``mcr`` algo routed to @cls at small widths on ``FLAT``."""
     from robot_manipulation_vq_vae_tpu_torch.algo import algo_factory
     from robot_manipulation_vq_vae_tpu_torch.config import config_factory
     from robot_manipulation_vq_vae_tpu_torch.utils import obs_utils
 
-    gmm, rnn, transformer = MCR_CLASSES[cls]
-    cfg = _mcr_transformer(config_factory("mcr"))
-    with cfg.values_unlocked():
-        cfg.algo.gmm.enabled = gmm
-        cfg.algo.rnn.enabled, cfg.algo.rnn.hidden_dim, cfg.algo.rnn.horizon = rnn, 8, VT
-        cfg.algo.transformer.enabled = transformer
+    cfg = mcr_class_config(config_factory("mcr"), cls)
     obs_utils.initialize_obs_utils_with_config(cfg)
     return algo_factory("mcr", cfg, dict(FLAT), VA, device="cpu")
 
@@ -1445,14 +1478,16 @@ def job_mcr(rank, world, work, trunk, perms, unsharded=False):
     in float64 (a float32 run's Adam steps turn the reduction noise of
     near-zero gradients into 1e-5 of weight) and, at world 2, with the JAX
     oracle's negatives @perms; with @unsharded every leg and the
-    pretraining unsharded. World 2 also gives what shard_state
-    says under mp = 2."""
+    pretraining unsharded (and the six classes' steps). World 2 also runs
+    the six classes and the pretraining at (dp, mp) = (1, 2)."""
     from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh, shard_state
 
     os.environ["RMVQ_MCR_CKPT"] = trunk
     if unsharded:
         out = {tag: run_value_leg(tag, legs=MCR_LEGS) for tag in MCR_LEGS}
         out["pretrain"] = run_pretrain(double=True)
+        out["classes_steps"] = {cls: run_value_leg(cls, legs=MCR_CLASS_LEGS)
+                                for cls in MCR_CLASSES}
         return out
     mesh = make_mesh()
     out = {tag: run_value_leg(tag, mesh, legs=MCR_LEGS) for tag, leg in MCR_LEGS.items()
@@ -1463,12 +1498,276 @@ def job_mcr(rank, world, work, trunk, perms, unsharded=False):
     if world == 2:
         out["pretrain_pinned"] = run_pretrain(mesh, perms, double=True)
         mp_mesh = make_mesh(mp=2, device="cpu")
-        out["mp_refusals"] = refusals_under_mp(mp_mesh, MCR_CLASSES, mcr_class_algo)
-        out["mp_refusals"]["pretrain"] = ("MCRPretrainer",
-                                          _refusal(lambda: shard_state(mp_mesh, pretrainer())))
+        out["mp"] = {cls: run_value_leg(cls, mp_mesh, legs=MCR_CLASS_LEGS)
+                     for cls in MCR_CLASSES}
+        out["mp"]["pretrain"] = run_pretrain(mp_mesh, double=True)
+        if rank:
+            out["mp"] = {t: _without_whole_states(r) for t, r in out["mp"].items()}
     if rank:
         out = {k: _without_whole_states(v) if isinstance(v, dict) and "states" in v else v
                for k, v in out.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# every family under mp (tests/test_torch_mesh_mp_families.py,
+# tests/test_torch_mesh_mp_value.py)
+# ---------------------------------------------------------------------------
+
+# the (dp, mp) meshes of a world's ranks
+MP_MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+
+
+def gpt_variant_config(cfg, activation="gelu", heads=2, width=16):
+    """``BC_Transformer_GMM`` (``icl_family_config``) with the GPT's MLP
+    @activation and @heads heads of @width."""
+    cfg = icl_family_config(cfg, "transformer_gmm")
+    with cfg.values_unlocked():
+        tx = cfg.algo.transformer
+        tx.activation, tx.num_heads, tx.embed_dim = activation, heads, width
+    return cfg
+
+
+def bc_transformer_rgb_config(cfg):
+    """``BC_Transformer_GMM`` (``icl_family_config``) beside ``CAM``'s
+    camera (``_camera``: a ResNet-18 behind a crop) on the stem-pool
+    kernels."""
+    cfg = icl_family_config(cfg, "transformer_gmm")
+    with cfg.values_unlocked():
+        _camera(cfg.observation, {**OBS_KEYS, **CAM})
+        cfg.train.pallas_pool = True
+    return cfg
+
+
+# legs beside ``FAMILY_LEGS``, in its format: the GPT options of the
+# placement rules, GEGLU (mlp_fc [8 d, d] split contiguously) and 6 heads
+# that mp = 4 does not divide; ACT with its latent draw pinned
+# (``act_noise``), as JAX's oracle step takes it; and BC_Transformer_GMM on
+# a camera (the card's mp leg)
+EXTRA_LEGS = {
+    "bc_transformer_gmm_geglu": ("bc", lambda c: gpt_variant_config(c, "geglu"), OBS_KEYS, H,
+                                 False, "window", (), False),
+    "bc_transformer_gmm_6heads": ("bc", lambda c: gpt_variant_config(c, heads=6, width=24),
+                                  OBS_KEYS, H, False, "window", (), False),
+    "act_pinned": ("act", act_config, OBS_KEYS, FAM_T, False, "act", (), False),
+    "bc_transformer_gmm_rgb": ("bc", bc_transformer_rgb_config, {**OBS_KEYS, **CAM}, H,
+                               False, "window", (), False),
+}
+ACT_SEED, ACT_LATENT = 3, 8
+
+
+def act_noise():
+    """ACT's training latent draw [B, latent] of every step: the first
+    normal draw of ``PinnedJaxRandom(ACT_SEED)``, the constant of JAX's
+    traced step."""
+    return np.random.RandomState(ACT_SEED).randn(B, ACT_LATENT)
+# MCR's classes on ``FLAT`` as ``VALUE_LEGS``' legs
+MCR_CLASS_LEGS = {
+    cls: ("mcr", lambda c, cls=cls: mcr_class_config(c, cls), FLAT,
+          "window" if MCR_CLASSES[cls][2] else "stepwise" if MCR_CLASSES[cls][1] else "obs",
+          ())
+    for cls in MCR_CLASSES}
+# the legs of each file: {tag: its legs' table}; "pretrain" is MCR
+# pretraining (``run_pretrain``)
+MP_LEGS = {
+    "families": {**{t: FAMILY_LEGS for t in (
+        "paper_lipvq_bf16", "paper_bin", "paper_ln_act", "paper_default", "paper_fast",
+        "bc_transformer", "bc_transformer_gmm", "act")},
+        **{t: EXTRA_LEGS for t in ("bc_transformer_gmm_geglu", "bc_transformer_gmm_6heads",
+                                   "act_pinned")},
+        "MCR_Transformer": MCR_CLASS_LEGS},
+    "bf16": {t: FAMILY_LEGS for t in ("flagship_bf16", "flagship_packed_bf16")},
+    "value": {**{t: FAMILY_LEGS for t in ("icl", "icl_rnn_gmm", "bc_vae", "mamba_gmm",
+                                          "diffusion")},
+              **{t: VALUE_LEGS for t in ("iql", "td3_bc", "cql", "bcq", "gl_vae", "hbc",
+                                         "iris")},
+              "MCR_GMM": MCR_CLASS_LEGS, "pretrain": None},
+}
+
+
+def placements(module):
+    """{parameter name: (placement, dim)} of @module's parameters: a
+    DTensor's, and ("Replicate", None) for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    def one(p):
+        if not isinstance(p, DTensor):
+            return ("Replicate", None)
+        return (type(p.placements[0]).__name__, getattr(p.placements[0], "dim", None))
+
+    return {n: one(p) for n, p in module.named_parameters()}
+
+
+def vit():
+    """A tiny MVP ViT (``VisionTransformer``, 2 blocks of width 32, 2 heads,
+    8 x 8 patches of a 16 x 16 image) from the seed, and its input."""
+    from robot_manipulation_vq_vae_tpu_torch.models.pretrained_nets import VisionTransformer
+
+    torch.manual_seed(0)
+    model = VisionTransformer(embed_dim=32, depth=2, num_heads=2, patch_size=8, img_size=16)
+    x = torch.from_numpy(np.random.RandomState(2).randn(3, 3, 16, 16).astype(np.float32))
+    return model, x
+
+
+def vit_step(mesh=None):
+    """The tiny ViT's output and its parameters' gradients (whole) of the
+    output's sum of squares, under @mesh's mp (``shard_params``) where
+    given, and its placements."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import AxisComm, shard_params
+    from robot_manipulation_vq_vae_tpu_torch.utils.tensor_parallel import full_tensor
+
+    model, x = vit()
+    comm = None
+    if mesh is not None:
+        shard_params(mesh, model)
+        comm = AxisComm(mesh, "mp")
+    out = model(x)
+    grads = torch.autograd.grad(out.square().sum(), list(model.parameters()))
+    names = [n for n, _ in model.named_parameters()]
+    return {"out": out.detach(), "placements": placements(model),
+            "grads": {n: (g if comm is None else full_tensor(g, comm)).detach().clone()
+                      for n, g in zip(names, grads)}}
+
+
+def _family_table(tag):
+    return EXTRA_LEGS if tag in EXTRA_LEGS else FAMILY_LEGS
+
+
+def parted_replicas(mesh):
+    """``BC_Transformer_GMM``'s two steps under @mesh with each mp rank's
+    replicated gradients moved by its own amount (mp rank r: + r 1e-3), as
+    a card's non-deterministic kernels part them: the ``digest`` of the
+    state, which every rank must hold alike."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
+    from robot_manipulation_vq_vae_tpu_torch.utils.tensor_parallel import is_sharded
+
+    tag = "bc_transformer_gmm"
+    legs = _family_table(tag)
+    algo = shard_state(mesh, family_algo(tag, "cpu", legs))
+    shift = mesh.get_local_rank("mp") * 1e-3
+    for p in algo.nets.parameters():
+        if p.requires_grad and not is_sharded(p):
+            p.register_hook(lambda g: g + shift)
+    steps(algo, family_batches(tag, legs), mesh, legs[tag][4])
+    return digest(algo_state(algo))
+
+
+def run_mp_family_leg(tag, mesh=None, device="cpu"):
+    """A ``FAMILY_LEGS`` or ``EXTRA_LEGS`` leg on @device under @mesh (None:
+    unsharded): two steps on the dp shards, ``serialize`` with the
+    optimizers (whole tensors; the generator's state before the request),
+    the request, and a fresh algo under @mesh from that checkpoint serving
+    it again."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_state
+
+    legs = _family_table(tag)
+    _, _, keys, _, halves, kind, _, half = legs[tag]
+
+    def build():
+        algo = family_algo(tag, device, legs)
+        return algo if mesh is None else shard_state(mesh, algo)
+
+    algo = build()
+    out = {"losses": steps(algo, family_batches(tag, legs), mesh, halves),
+           **family_state(algo, half), "placements": placements(algo.nets)}
+    out["serialized"] = algo.serialize(include_optimizer=True)
+    out["action"] = family_request(algo, kind, keys, mesh)
+    again = build()
+    again.deserialize(out["serialized"])
+    out["reloaded"] = family_request(again, kind, keys, mesh)
+    return out
+
+
+def run_mp_value_leg(tag, legs, mesh=None):
+    """A ``VALUE_LEGS``-style leg under @mesh as ``run_mp_family_leg``."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import shard_batch, shard_state
+
+    keys, kind = legs[tag][2], legs[tag][3]
+
+    def build():
+        algo = value_algo(tag, legs=legs)
+        return algo if mesh is None else shard_state(mesh, algo)
+
+    algo = build()
+    losses = []
+    for epoch, batch in enumerate(value_batches(tag, legs)):
+        batch = algo.process_batch_for_training(batch)
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
+        losses.append(flat_losses(algo.train_on_batch(batch, epoch=epoch)))
+    out = {"losses": losses, "states": hier_states(algo), "placements": placements(algo.nets),
+           "serialized": algo.serialize(include_optimizer=True)}
+    out["request"] = value_request(algo, kind, keys, mesh)
+    again = build()
+    again.deserialize(out["serialized"])
+    out["reloaded"] = value_request(again, kind, keys, mesh)
+    return out
+
+
+_UNSHARDED = {}
+
+
+def serve_checkpoint(tag, table, serialized):
+    """An unsharded algo of @table's leg @tag (built once, then reloaded)
+    from what ``serialize`` wrote (under mp: whole tensors), serving the
+    leg's request."""
+    legs = table[tag]
+    family = legs in (FAMILY_LEGS, EXTRA_LEGS)
+    if tag not in _UNSHARDED:
+        _UNSHARDED[tag] = family_algo(tag, legs=legs) if family else value_algo(tag, legs=legs)
+    algo = _UNSHARDED[tag]
+    algo.deserialize(serialized)
+    if family:
+        return family_request(algo, legs[tag][5], legs[tag][2])
+    return value_request(algo, legs[tag][3], legs[tag][2])
+
+
+def leg_digest(res):
+    """The ``digest`` of a leg's state: of each part's, by path, where it
+    has parts (``hier_states``)."""
+    if "states" in res:
+        return {p: digest(st) for p, st in res["states"].items()}
+    return digest(res)
+
+
+def run_mp_leg(tag, table, mesh=None):
+    """One leg of @table (``MP_LEGS``' entry) under @mesh (None: unsharded)."""
+    if tag == "pretrain":
+        return run_pretrain(mesh, double=True)
+    if table[tag] in (FAMILY_LEGS, EXTRA_LEGS):
+        return run_mp_family_leg(tag, mesh)
+    return run_mp_value_leg(tag, table[tag], mesh)
+
+
+def job_mp_families(rank, world, work, which, unsharded=False, tags=None):
+    """Every leg of ``MP_LEGS[@which]`` (@tags of it, where given) at each
+    mesh of ``MP_MESHES[@world]`` ({(dp, mp, tag): result}); with @unsharded
+    (one process, no mesh) every leg unsharded, the reference ({tag:
+    result}). Rank 0 keeps the states; the others their digests."""
+    from robot_manipulation_vq_vae_tpu_torch.parallel import make_mesh
+
+    table = {t: v for t, v in MP_LEGS[which].items() if tags is None or t in tags}
+    if unsharded:
+        out = {tag: run_mp_leg(tag, table) for tag in table}
+        if which == "families":
+            out["vit"] = vit_step()
+        return out
+    out = {}
+    for dp, mp in MP_MESHES[world]:
+        mesh = make_mesh(mp=mp, device="cpu")
+        if which == "families":
+            out[(dp, mp, "vit")] = vit_step(mesh)
+            out[(dp, mp, "parted_replicas")] = parted_replicas(mesh)
+        for tag in table:
+            t0 = time.perf_counter()
+            res = run_mp_leg(tag, table, mesh)
+            res["seconds"] = time.perf_counter() - t0
+            if rank:
+                res = {"digest": leg_digest(res), **{
+                    k: v for k, v in res.items()
+                    if k not in ("nets", "opt", "grads", "states", "serialized")}}
+            out[(dp, mp, tag)] = res
+            gc.collect()
     return out
 
 
